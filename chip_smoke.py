@@ -9,7 +9,9 @@ Phases (each one raises on a failed check; nothing is caught):
 2. The paper's problem at the repo's ``allpairs_160k`` cell: n = 160,000
    random vectors, d = 256, k = 100, sqeuclidean, through
    ``knn_allpairs(impl="fused")``; held against the plain version on the
-   card for every row, against float64 brute force on sampled rows.
+   card for every row (values slot by slot, ids tie-aware: an id that
+   differs must be a near-tie whose own distance, recomputed, is the value
+   it is reported at), against float64 brute force on sampled rows.
 3. The paper's two phases: rows 0..8191 against all 160,000 through the
    ``pairwise_distance`` kernel, then ``stream_topk``; held against phase 2's
    result and each kernel against its plain version.  Then the per-tile
@@ -18,7 +20,9 @@ Phases (each one raises on a failed check; nothing is caught):
    ``neg_dot``, k = 10, batches 8..1024 (the two-tower serving defaults):
    8,192 queries through ``QueryEngine``, ragged flushes, then churn (upsert,
    delete 1% of main, compact), each step held against brute force; then a
-   steady window of 100 batches of 1024 queries.
+   steady window of 100 batches of 1024 queries.  A batch of 1024 there
+   splits the database axis, so the fused kernel's partial sets and the
+   merge kernel are each timed and held against their plain versions.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is ``{"kernels": [...]}``: per
@@ -78,18 +82,6 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def topk_agreement(torch, v, i, pv, pi, *, rtol, atol):
-    """Values close position by position; returns (max |dv|, id agreement)."""
-    fin = torch.isfinite(pv)
-    check(torch.equal(fin, torch.isfinite(v)), "+inf slots differ")
-    check(torch.equal(i < 0, ~fin), "+inf slots must carry id -1")
-    diff = (v - pv).abs()[fin]
-    err = float(diff.max()) if diff.numel() else 0.0
-    lim = atol + rtol * pv.abs()[fin]
-    check(bool((diff <= lim).all()), f"values disagree: max |dv| = {err}")
-    return err, float((i == pi).float().mean())
-
-
 def exact_ids_check(torch, x, rows, ids, vals, k, exclude_self):
     """Float64 brute force on the card for a few rows: the ids are the true
     k nearest up to near-ties at the k-th distance, and each reported value
@@ -119,22 +111,25 @@ def main() -> int:
     from repro_torch.data.synthetic import random_vectors
     from repro_torch.kernels import _backend as B
     from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import merge_partials as MP
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_distance as PD
     from repro_torch.kernels import stream_topk as ST
+    from repro_torch.kernels.ref import check_topk, operand_distance
     from repro_torch.serving.engine import EngineConfig, QueryEngine
     from repro_torch.serving.index import RetrievalIndex
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     say("card", {"nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-    sms = B.sm_count(dev)
-    modules = {"fused_knn": FK, "pairwise_distance": PD, "stream_topk": ST}
+    modules = {"fused_knn": FK, "merge_partials": MP, "pairwise_distance": PD,
+               "stream_topk": ST}
     launches = {name: 0 for name in modules}
 
     def run_path(label, fn):
@@ -186,17 +181,19 @@ def main() -> int:
                                 n_real=n, exclude_self=True)
     torch.cuda.synchronize()
     fused_plain_ms = (time.perf_counter() - t0) * 1e3
-    fused_err, fused_agree = topk_agreement(torch, res.distances, res.indices, pv[:, :k],
-                                            pi[:, :k], rtol=1e-5, atol=2e-3)
+    dist = operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity")
+    fused_cmp = check_topk(res.distances, res.indices, pv[:, :k], pi[:, :k], n=n,
+                           rtol=1e-5, atol=2e-3, dist=dist)
+    fused_err = fused_cmp["max_abs_err"]
     del pv, pi
     sample = torch.from_numpy(np.sort(np.random.default_rng(0).choice(n, 16, replace=False)))
     exact_ids_check(torch, x, sample, res.indices, res.distances, k, True)
-    bm, splits, _ = FK.plan(n, n, K, sms)
+    bm, splits, _ = FK.plan(n, n, K, dev)
     ctas = -(-n // bm) * splits
     fused_bound, fused_by = bound_ms(2.0 * n * n * d, 2 * n * d * 4 + 2 * n * 4 + n * K * 8)
     say("allpairs_160k", {"median_ms": statistics.median(fused_times), "runs_ms": fused_times,
-                          "plain_ms": fused_plain_ms, "max_abs_err": fused_err,
-                          "id_agreement": fused_agree, "bm": bm, "splits": splits,
+                          "plain_ms": fused_plain_ms, "vs_plain": fused_cmp, "bm": bm,
+                          "splits": splits, "ctas_per_sm": FK.kernel_shape(dev, bm, K)[0],
                           "ctas": ctas, "bound_ms": fused_bound})
 
     # 3. The paper's two phases on rows 0..8191, and the symmetric per-tile path.
@@ -210,9 +207,8 @@ def main() -> int:
 
     (dm, (tv, ti)), counts = run_path("two_phase_8192x160k", two_phase)
     check(counts["pairwise_distance"] == 1 and counts["stream_topk"] == 1, f"launches {counts}")
-    err2, agree2 = topk_agreement(torch, tv, ti, res.distances[:m2], res.indices[:m2],
-                                  rtol=1e-5, atol=2e-3)
-    say("two_phase_vs_fused", {"max_abs_err": err2, "id_agreement": agree2})
+    say("two_phase_vs_fused", check_topk(tv, ti, res.distances[:m2], res.indices[:m2], n=n,
+                                         rtol=1e-5, atol=2e-3, dist=dist))
     fq, gq, hxq, hyq, _ = ops._mxu_operands(xq, x, "sqeuclidean")
     pd_args = (fq, gq, hxq, hyq)
     pd_ms = time_ms(torch, lambda: PD.pairwise_distance(*pd_args, alpha=alpha, finalize="identity"))
@@ -245,10 +241,10 @@ def main() -> int:
                            lambda: knn_allpairs(x3, k, impl="kernel", symmetric=True))
     check(counts["pairwise_distance"] > 0, f"launches {counts}")
     ref3 = knn_allpairs(x3, k, impl="fused")
-    err3, agree3 = topk_agreement(torch, sym.distances, sym.indices, ref3.distances,
-                                  ref3.indices, rtol=1e-5, atol=2e-3)
-    say("symmetric_kernel_vs_fused_32k", {"max_abs_err": err3, "id_agreement": agree3})
-    del x, xq, x3, res, fx, gy, hx, hy, fq, gq, hxq, hyq, pd_args
+    say("symmetric_kernel_vs_fused_32k", check_topk(
+        sym.distances, sym.indices, ref3.distances, ref3.indices, n=n3, rtol=1e-5, atol=2e-3,
+        dist=dist))
+    del x, xq, x3, res, fx, gy, hx, hy, fq, gq, hxq, hyq, pd_args, dist
     torch.cuda.empty_cache()
 
     # 4. Flat serving at query_1m with the two-tower serving defaults.
@@ -262,15 +258,22 @@ def main() -> int:
     def brute_check(step, q):
         vecs, ids = index._live_rows()
         vt = torch.from_numpy(vecs).to(dev)
+        ids_t = torch.from_numpy(ids).to(dev).long()
         qt = torch.from_numpy(q).to(dev)
         bv, bi = ST.sorted_prefix(-(qt @ vt.T), 16)
-        want_ids = torch.from_numpy(ids).to(dev).long()[bi[:, :k4].long()]
+        want_ids = ids_t[bi[:, :k4].long()]
+        pos = torch.full((int(ids_t.max()) + 1,), -1, dtype=torch.long, device=dev)
+        pos[ids_t] = torch.arange(len(ids_t), device=dev)
+
+        def dist(rows, ext):  # an external id's distance, from the live rows
+            p = pos[ext]
+            check(bool((p >= 0).all()), f"{step}: a served id is not live")
+            return -(qt[rows] * vt[p]).sum(1)
+
         got = engine.search(q)
-        err, agree = topk_agreement(torch, got.distances, got.ids.long(), bv[:, :k4], want_ids,
-                                    rtol=1e-5, atol=1e-3)
-        check(agree >= 0.99, f"{step}: ids agree on only {agree}")
-        say(f"serving_check_{step}", {"max_abs_err": err, "id_agreement": agree,
-                                      "live": len(index)})
+        cmp = check_topk(got.distances, got.ids.long(), bv[:, :k4], want_ids, n=len(pos),
+                         rtol=1e-5, atol=1e-3, dist=dist)
+        say(f"serving_check_{step}", {**cmp, "live": len(index)})
 
     def serve():
         out = engine.search(queries[:8192])
@@ -311,16 +314,38 @@ def main() -> int:
     vecs_t = index._device_state()["main"][0]
     qb = torch.from_numpy(queries[:1024]).to(dev)
     sf = ops._mxu_operands(qb, vecs_t, "neg_dot")
-    bm4, splits4, _ = FK.plan(1024, vecs_t.shape[0], 16, sms)
-    serve_ms = time_ms(torch, lambda: FK.fused_knn(*sf[:4], k4, distance_finalize="identity",
-                                                  alpha=-1.0, n_real=vecs_t.shape[0]))
-    serve_plain_ms = time_ms(torch, lambda: FK.fused_knn_plain(
-        *sf[:4], k4, alpha=-1.0, finalize="identity", n_real=vecs_t.shape[0]), reps=1)
     nn = vecs_t.shape[0]
-    say("serving_batch_1024", {"kernel_ms": serve_ms, "plain_ms": serve_plain_ms,
+    kw = dict(distance_finalize="identity", alpha=-1.0, n_real=nn)
+    bm4, splits4, _ = FK.plan(1024, nn, 16, dev)
+    outs = {}
+    serve_ms = time_ms(torch, lambda: outs.__setitem__("kernel", FK.fused_knn(*sf[:4], k4, **kw)))
+    serve_plain_ms = time_ms(torch, lambda: outs.__setitem__("plain", FK.fused_knn_plain(
+        *sf[:4], k4, alpha=-1.0, finalize="identity", n_real=nn)), reps=1)
+    serve_cmp = check_topk(outs["kernel"][0][:, :k4], outs["kernel"][1][:, :k4],
+                           outs["plain"][0][:, :k4], outs["plain"][1][:, :k4], n=nn, rtol=1e-5,
+                           atol=1e-3, dist=operand_distance(*sf[:4], alpha=-1.0,
+                                                            finalize="identity"))
+    partials_ms = time_ms(torch, lambda: outs.__setitem__("partials",
+                                                          FK.fused_knn_partials(*sf[:4], k4, **kw)))
+    part_v, part_i = outs["partials"]
+    check(part_v.shape[0] == splits4 > 1, f"serving batch: {part_v.shape[0]} splits")
+    mg_ms = time_ms(torch, lambda: outs.__setitem__("merge", MP.merge_partials(part_v, part_i)))
+    mg_plain_ms = time_ms(torch, lambda: outs.__setitem__(
+        "merge_plain", MP.merge_partials_plain(part_v, part_i)))
+    (mv, mi), (mpv, mpi) = outs["merge"], outs["merge_plain"]
+    check(torch.equal(mi, mpi), "merge kernel vs plain: ids")
+    mg_err = float((mv - mpv).abs().nan_to_num(0.0).max())
+    check(mg_err == 0.0 and torch.equal(mv.isinf(), mpv.isinf()), "merge kernel vs plain: values")
+    check(torch.equal(mi, outs["kernel"][1]), "merge kernel vs the fused call's result")
+    mg_bound, mg_by = bound_ms(0.0, part_v.numel() * 8 + mv.numel() * 8)
+    say("serving_batch_1024", {"kernel_ms": serve_ms, "partials_ms": partials_ms,
+                               "merge_ms": mg_ms, "plain_ms": serve_plain_ms,
+                               "merge_plain_ms": mg_plain_ms, "vs_plain": serve_cmp,
                                "bm": bm4, "splits": splits4, "ctas": -(-1024 // bm4) * splits4,
+                               "ctas_per_sm": FK.kernel_shape(dev, bm4, 16)[0],
                                "bound_ms": bound_ms(2.0 * 1024 * nn * d,
-                                                    (1024 + nn) * d * 4 + 1024 * 16 * 8)[0]})
+                                                    (1024 + nn) * d * 4 + 1024 * 16 * 8)[0],
+                               "merge_bound_ms": mg_bound})
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     kernels = [
@@ -330,6 +355,12 @@ def main() -> int:
          "max_abs_err": fused_err, "ms": statistics.median(fused_times),
          "plain_ms": fused_plain_ms, "bound_ms": fused_bound, "bound_by": fused_by,
          "library_ms": None, "shape": "allpairs 160000 x 160000, d 256, k 100"},
+        {"name": "merge_partials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/merge_partials.cu",
+         "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["merge_partials"],
+         "max_abs_err": mg_err, "ms": mg_ms, "plain_ms": mg_plain_ms, "bound_ms": mg_bound,
+         "bound_by": mg_by, "library_ms": None,
+         "shape": f"{splits4} splits x 1024 x 16 (serving batch, k 10)"},
         {"name": "pairwise_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_distance.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:85",
@@ -342,6 +373,7 @@ def main() -> int:
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
          "bound_by": st_by, "library_ms": st_lib_ms, "shape": "8192 x 160000, k 100"},
     ]
+    say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

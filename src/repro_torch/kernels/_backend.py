@@ -11,8 +11,9 @@ at once, and waits for them; a failed build raises.  Outputs go to
 ``build/repro_torch/`` at the root of the checkout.
 
 Every C entry point takes its pointers and its stream as ``void*`` and
-returns ``cudaGetLastError()`` after its launches; ``launch`` raises on a
-non-zero code.  This module imports nothing of the package.
+returns a CUDA error code (``cudaGetLastError()`` after a launch); ``call``
+and ``launch`` raise on a non-zero code.  This module imports nothing of
+the package.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn")
+KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "merge_partials")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -163,19 +164,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
-    """Call C entry point ``entry`` of library ``name`` on ``device``'s
-    current stream (its last argument); raise if it reports a CUDA error."""
+def call(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` of library ``name`` with ``device``
+    current; raise if it reports a CUDA error."""
     lib = load(name)
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        err = fn(*args, stream)
+        err = fn(*args)
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
+
+
+def launch(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
+    """``call``, with ``device``'s current stream as the last argument."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    call(name, entry, argtypes, device, *args, stream)
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:

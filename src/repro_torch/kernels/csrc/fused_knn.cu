@@ -18,12 +18,13 @@
 // Occupancy: with few query tiles (a serving batch of 1024 queries is 8
 // tiles of 128 against 132 SMs) the database axis is split across CTAs
 // (grid.y = splits, each a contiguous range of tiles); every split writes a
-// partial [m, K] set and merge_partials_kernel merges them, lower splits
+// partial [m, K] set, which merge_partials.cu then merges, lower splits
 // winning ties through the (value, column) order.
 //
 // Shared memory per CTA: the GEMM slices, the [BM, 128] tile and the
 // [BM, K] value and index buffers.  BM = 128 for K <= 128 (210 KB at
-// K = 128); K = 256 needs BM = 64.  The caller picks BM and the split.
+// K = 128); K = 256 needs BM = 64.  The caller picks BM and the split, from
+// what fused_knn_occupancy reports of this compiled kernel.
 #include "gemm.cuh"
 #include "select.cuh"
 
@@ -132,16 +133,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Allow the kernel its dynamic shared memory; returns the bytes, or 0 if
+// they exceed the SM's.
+template <int BM>
+size_t prepare_fused(int K) {
+  const size_t smem = fused_smem_bytes<BM>(K);
+  if (smem > 232448) return 0;
+  if (cudaFuncSetAttribute(fused_knn_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  return smem;
+}
+
 template <int BM>
 int launch_fused(const float* fx, const float* gy, const float* hx, const float* hy,
                  float* vals, int* idx, int m, int n, int d, int K, int n_real,
                  int exclude_self, int skip, float alpha, int fin, int splits,
                  int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = fused_smem_bytes<BM>(K);
-  if (smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_knn_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = prepare_fused<BM>(K);
+  if (smem == 0) return cudaErrorInvalidValue;
   const dim3 grid((m + BM - 1) / BM, splits);
   fused_knn_kernel<BM><<<grid, kThreads, smem, stream>>>(
       fx, gy, hx, hy, vals, idx, m, n, d, K, n_real, exclude_self, skip, alpha, fin,
@@ -149,15 +159,40 @@ int launch_fused(const float* fx, const float* gy, const float* hx, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM>
+int occupancy(int K, int* out) {
+  const size_t smem = prepare_fused<BM>(K);
+  if (smem == 0) return cudaErrorInvalidValue;
+  int ctas = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, fused_knn_kernel<BM>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = ctas;
+  out[1] = kBN;
+  out[2] = static_cast<int>(smem);
+  return 0;
+}
+
 }  // namespace repro
 
-// out_v/out_i: [m, K].  With splits > 1, part_v/part_i [splits, m, K] take
-// the partial sets and a second kernel merges them into out_v/out_i.
+// The launch parameters of this compiled kernel at BM query rows and width
+// K: out[0] = CTAs resident per SM (registers and shared memory both
+// counted), out[1] = database columns per tile, out[2] = dynamic shared
+// memory per CTA in bytes.
+extern "C" int fused_knn_occupancy(int bm, int K, int* out) {
+  if (K <= 0 || K > repro::kMaxK || (K & (K - 1)) != 0) return cudaErrorInvalidValue;
+  if (bm == 128 && K <= 128) return repro::occupancy<128>(K, out);
+  if (bm == 64) return repro::occupancy<64>(K, out);
+  return cudaErrorInvalidValue;
+}
+
+// out_v/out_i: [splits, m, K]; split s holds the partial set of database
+// tiles [s * tiles_per_split, (s + 1) * tiles_per_split).
 extern "C" int fused_knn_f32(const float* fx, const float* gy, const float* hx,
-                             const float* hy, float* out_v, int* out_i, float* part_v,
-                             int* part_i, int m, int n, int d, int K, int n_real,
-                             int exclude_self, int threshold_skip, float alpha, int fin,
-                             int bm, int splits, int tiles_per_split, void* stream_ptr) {
+                             const float* hy, float* out_v, int* out_i, int m, int n, int d,
+                             int K, int n_real, int exclude_self, int threshold_skip,
+                             float alpha, int fin, int bm, int splits, int tiles_per_split,
+                             void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_tiles = (n + repro::kBN - 1) / repro::kBN;
   if (m <= 0 || n <= 0 || d <= 0 || d % 4 != 0 || K <= 0 || K > repro::kMaxK ||
@@ -165,22 +200,13 @@ extern "C" int fused_knn_f32(const float* fx, const float* gy, const float* hx,
       tiles_per_split < 1 || (splits - 1) * tiles_per_split >= n_tiles ||
       splits * tiles_per_split < n_tiles || splits > 65535)
     return cudaErrorInvalidValue;
-  float* vals = splits > 1 ? part_v : out_v;
-  int* idx = splits > 1 ? part_i : out_i;
-  int err;
-  if (bm == 128 && K <= 128) {
-    err = repro::launch_fused<128>(fx, gy, hx, hy, vals, idx, m, n, d, K, n_real, exclude_self,
-                                   threshold_skip, alpha, fin, splits, tiles_per_split, stream);
-  } else if (bm == 64) {
-    err = repro::launch_fused<64>(fx, gy, hx, hy, vals, idx, m, n, d, K, n_real, exclude_self,
-                                  threshold_skip, alpha, fin, splits, tiles_per_split, stream);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  if (err != 0 || splits == 1) return err;
-  constexpr int kMergeWarps = 8;
-  repro::merge_partials_kernel<kMergeWarps>
-      <<<(m + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, stream>>>(
-          part_v, part_i, out_v, out_i, m, splits, K);
-  return static_cast<int>(cudaGetLastError());
+  if (bm == 128 && K <= 128)
+    return repro::launch_fused<128>(fx, gy, hx, hy, out_v, out_i, m, n, d, K, n_real,
+                                    exclude_self, threshold_skip, alpha, fin, splits,
+                                    tiles_per_split, stream);
+  if (bm == 64)
+    return repro::launch_fused<64>(fx, gy, hx, hy, out_v, out_i, m, n, d, K, n_real,
+                                   exclude_self, threshold_skip, alpha, fin, splits,
+                                   tiles_per_split, stream);
+  return cudaErrorInvalidValue;
 }

@@ -100,44 +100,4 @@ __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
   }
 }
 
-// Merge S partial top-K lists per row, [S, m, K] each ascending, into
-// [m, K].  One warp per row; a list is read until its first batch of 32 in
-// which nothing beats the K-th entry, since the rest of it is larger still.
-template <int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
-    merge_partials_kernel(const float* __restrict__ pv, const int* __restrict__ pi,
-                          float* __restrict__ ov, int* __restrict__ oi, int m,
-                          int S, int K) {
-  __shared__ float sv[WARPS][kMaxK];
-  __shared__ int si[WARPS][kMaxK];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= m) return;
-  float* rv = sv[warp];
-  int* ri = si[warp];
-  for (int j = lane; j < K; j += 32) {
-    rv[j] = pv[static_cast<size_t>(row) * K + j];
-    ri[j] = pi[static_cast<size_t>(row) * K + j];
-  }
-  __syncwarp();
-  float kv = rv[K - 1];
-  int ki = ri[K - 1];
-  for (int s = 1; s < S; ++s) {
-    const size_t base = (static_cast<size_t>(s) * m + row) * K;
-    for (int j0 = 0; j0 < K; j0 += 32) {
-      const int j = j0 + lane;
-      const bool valid = j < K;
-      const float v = valid ? pv[base + j] : CUDART_INF_F;
-      const int c = valid ? pi[base + j] : -1;
-      const bool want = valid && lex_less(v, c, kv, ki);
-      if (__ballot_sync(kFullMask, want) == 0) break;
-      warp_offer(rv, ri, K, v, c, valid, true, kv, ki, lane);
-    }
-  }
-  for (int j = lane; j < K; j += 32) {
-    ov[static_cast<size_t>(row) * K + j] = rv[j];
-    oi[static_cast<size_t>(row) * K + j] = ri[j];
-  }
-}
-
 }  // namespace repro

@@ -8,7 +8,8 @@ imports torch and the port only, so it runs where JAX is absent:
 Tolerances: the kernels sum the d products in another order than the plain
 matmul, so fp32 values agree to rounding (rtol 1e-5 plus an atol of 1e-5
 times the size of the operands' products); ids agree except where two
-distances are that close.
+distances are that close, and there the differing id's own distance,
+recomputed from the operands, must be the value it is reported at.
 """
 import numpy as np
 import pytest
@@ -17,9 +18,11 @@ import torch
 from repro_torch.core import topk as T
 from repro_torch.core.distances import finalize_kind, get_distance
 from repro_torch.kernels import fused_knn as FK
+from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
 from repro_torch.kernels import stream_topk as ST
+from repro_torch.kernels.ref import check_topk, operand_distance
 
 pytestmark = pytest.mark.gpu
 
@@ -51,19 +54,11 @@ def _operands(name, x, y, dev):
         get_distance(name).matmul_form.alpha]
 
 
-def _assert_topk_close(v, i, pv, pi, tol):
-    """Values agree position-wise; ids agree except between near-equal values."""
-    v, i, pv, pi = (t.cpu().numpy() for t in (v, i, pv, pi))
-    np.testing.assert_allclose(v, pv, rtol=1e-5, atol=tol)
-    for r in range(v.shape[0]):
-        fin = np.isfinite(pv[r])
-        assert len(set(i[r][fin])) == fin.sum()
-        diff = i[r] != pi[r]
-        if diff.any():
-            # a swapped id must sit within tol of the value at its slot
-            kth = pv[r][fin].max() if fin.any() else np.inf
-            assert np.all(np.abs(v[r][diff] - kth) <= 4 * tol + 1e-5 * abs(kth)), r
-    assert np.all((i < 0) == ~np.isfinite(v))
+def _assert_topk_close(v, i, pv, pi, tol, fx, gy, hx, hy, alpha, fin="identity"):
+    """Values agree slot by slot; ids agree except between near-equal values,
+    where the differing id's own distance is the value at its slot."""
+    check_topk(v, i, pv, pi, n=gy.shape[0], rtol=1e-5, atol=tol,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize=fin))
 
 
 @pytest.mark.parametrize("name", ["sqeuclidean", "euclidean", "neg_dot", "kl", "hellinger"])
@@ -119,7 +114,7 @@ def test_fused_kernel_matches_plain(cuda, name, mnk):
     assert FK.LAUNCHES == before + 1
     pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, k, alpha=alpha, finalize=fin, n_real=n)
     scale = float(fx.abs().max() * gy.abs().max()) * 64
-    _assert_topk_close(v, i, pv, pi, 1e-5 * scale + 1e-6)
+    _assert_topk_close(v, i, pv, pi, 1e-5 * scale + 1e-6, fx, gy, hx, hy, alpha, fin)
 
 
 @pytest.mark.parametrize("skip", [True, False])
@@ -134,7 +129,7 @@ def test_fused_masks_exclude_self_and_ties(cuda, skip):
                         n_real=290, exclude_self=True, threshold_skip=skip)
     pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 16, alpha=alpha, finalize="identity",
                                 n_real=290, exclude_self=True)
-    _assert_topk_close(v, i, pv, pi, 1e-3)
+    _assert_topk_close(v, i, pv, pi, 1e-3, fx, gy, hx, hy, alpha)
     ii = i.cpu().numpy()
     assert not (ii == np.arange(300)[:, None]).any()
     assert (ii < 290).all() and (ii[ii >= 0] % 3 != 0).all()
@@ -145,13 +140,36 @@ def test_fused_split_path_equals_one_pass(cuda):
     the same sets as the unsplit scan of the plain version."""
     x, y = _data("neg_dot", 3, 50_000, 128, 6)
     fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
-    bm, splits, _ = FK.plan(3, 50_000, 16, torch.cuda.get_device_properties(0).multi_processor_count)
+    bm, splits, _ = FK.plan(3, 50_000, 16, cuda)
     assert splits > 1
+    before = MP.LAUNCHES
     v, i = FK.fused_knn(fx, gy, hx, hy, 10, distance_finalize="identity", alpha=alpha,
                         n_real=50_000)
+    torch.cuda.synchronize()
+    assert MP.LAUNCHES == before + 1
     pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 10, alpha=alpha, finalize="identity",
                                 n_real=50_000)
-    _assert_topk_close(v, i, pv, pi, 1e-4)
+    _assert_topk_close(v, i, pv, pi, 1e-4, fx, gy, hx, hy, alpha)
+
+
+@pytest.mark.parametrize("S,m,K", [(2, 5, 16), (33, 1024, 16), (7, 300, 128), (3, 40, 256)])
+def test_merge_kernel_matches_plain_exactly(cuda, S, m, K):
+    """Partial sets with many exact ties and empty slots: the kernel keeps
+    (value, column) order, lower splits first, as the plain version does."""
+    g = torch.Generator().manual_seed(S * m + K)
+    v = torch.randint(0, 50, (S, m, K), generator=g).float()
+    v[:, :, K // 2 :] = torch.where(torch.rand((S, m, K - K // 2), generator=g) < 0.3,
+                                    T.POS_INF, v[:, :, K // 2 :])
+    v = torch.sort(v, dim=2).values
+    cols = torch.sort(torch.randperm(10 * K, generator=g)[:K]).values
+    i = (torch.arange(S)[:, None, None] * 10 * K + cols).expand(S, m, K).int()
+    i = torch.where(torch.isinf(v), -1, i).contiguous()
+    pv, pi = MP.merge_partials_plain(v, i)
+    before = MP.LAUNCHES
+    gv, gi = MP.merge_partials(v.to(cuda), i.to(cuda))
+    torch.cuda.synchronize()
+    assert MP.LAUNCHES == before + 1
+    assert torch.equal(gv.cpu(), pv) and torch.equal(gi.cpu(), pi)
 
 
 def test_fused_equals_two_phase_kernels(cuda):
@@ -159,7 +177,8 @@ def test_fused_equals_two_phase_kernels(cuda):
     x, y = x.to(cuda), y.to(cuda)
     fused = ops.fused_knn(x, y, 20)
     v2, i2 = ops.stream_topk(ops.pairwise_distance(x, y), 20)
-    _assert_topk_close(fused.distances, fused.indices, v2, i2, 1e-3)
+    _assert_topk_close(fused.distances, fused.indices, v2, i2, 1e-3,
+                       *ops._mxu_operands(x, y, "sqeuclidean"))
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

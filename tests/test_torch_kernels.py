@@ -18,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import topk as RT
 from repro.kernels import ops as rops
 from repro_torch.core import topk as T
 from repro_torch.core.distances import REGISTRY, get_distance
 from repro_torch.kernels import fused_knn as FK
+from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
 from repro_torch.kernels import ref
@@ -193,18 +195,25 @@ def test_unported_operands_raise():
 
 
 def test_split_plan_covers_every_tile():
-    for m, n, K, sms in [(1024, 1 << 20, 16, 132), (8, 1 << 20, 16, 132),
-                         (160_000, 160_000, 128, 132), (5, 300, 256, 132), (100, 129, 8, 4)]:
-        bm, splits, tps = FK.plan(m, n, K, sms)
-        n_tiles = -(-n // 128)
+    """Every database tile falls in exactly one split, and a split grid
+    never holds more CTAs than the card keeps resident (one wave)."""
+    for m, n, K, resident in [(1024, 1 << 20, 16, 132), (8, 1 << 20, 16, 264),
+                              (160_000, 160_000, 128, 132), (5, 300, 256, 132),
+                              (100, 129, 8, 4)]:
+        bm = FK.block_rows(m, K)
+        splits, tps = FK.split_plan(m, n, bm, 128, resident)
+        n_tiles, row_tiles = -(-n // 128), -(-m // bm)
         assert bm in (64, 128) and (K <= 128 or bm == 64)
         assert (splits - 1) * tps < n_tiles <= splits * tps
-    assert FK.plan(1024, 1 << 20, 16, 132)[1] > 1  # serving batch: split
-    assert FK.plan(160_000, 160_000, 128, 132)[1] == 1  # all-pairs: enough rows
+        assert splits == 1 or splits * row_tiles <= resident
+    assert FK.split_plan(1024, 1 << 20, 128, 128, 132) == (16, 512)  # serving batch: split
+    assert FK.split_plan(160_000, 160_000, 128, 128, 132)[0] == 1  # all-pairs: enough rows
 
 
 @pytest.mark.parametrize("module,entry", [(PD, "pairwise_distance_f32"),
-                                          (ST, "stream_topk_f32"), (FK, "fused_knn_f32")])
+                                          (ST, "stream_topk_f32"), (FK, "fused_knn_f32"),
+                                          (MP, "merge_partials_f32"),
+                                          (FK, "fused_knn_occupancy")])
 def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     """The C entry point's parameter list and the wrapper's argtypes agree:
     a pointer or the stream is void*, an int is int, alpha is float."""
@@ -218,7 +227,8 @@ def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     import ctypes
 
     want = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
-    assert [want[k] for k in kinds] == module.C_ARGTYPES
+    argtypes = FK.OCCUPANCY_ARGTYPES if entry == "fused_knn_occupancy" else module.C_ARGTYPES
+    assert [want[k] for k in kinds] == argtypes
     assert "repro_error_string" in (CSRC / "common.cuh").read_text()
 
 
@@ -227,3 +237,104 @@ def test_k_above_the_buffer_is_refused_by_every_wrapper():
     x, y = _t(*_data("sqeuclidean", 4, 300, 8, 3))
     with pytest.raises(ValueError):
         ops.fused_knn(x, y, 257)
+
+
+def _partials(S, m, K, seed, ties):
+    """[S, m, K] ascending partial sets over disjoint column ranges, split s
+    below split s + 1, with +inf/-1 empty slots."""
+    g = np.random.default_rng(seed)
+    v = (g.integers(0, 20, (S, m, K)) if ties else g.standard_normal((S, m, K))).astype(np.float32)
+    v[:, :, K // 2 :][g.random((S, m, K - K // 2)) < 0.25] = np.inf
+    v.sort(axis=2)
+    i = np.empty((S, m, K), np.int32)
+    for s_ in range(S):
+        for r in range(m):
+            i[s_, r] = s_ * 10 * K + np.sort(g.choice(10 * K, K, replace=False))
+    i[np.isinf(v)] = -1
+    return v, i
+
+
+@pytest.mark.parametrize("S,m,K", [(2, 4, 8), (5, 9, 16), (33, 3, 16)])
+def test_merge_partials_matches_reference_merge(S, m, K):
+    """The merge kernel's plain version against the JAX package's bitonic
+    tree merge of stacked partial sets: equal where no values tie."""
+    v, i = _partials(S, m, K, S + m, ties=False)
+    rv, ri = RT.merge_many_sorted(jnp.asarray(v), jnp.asarray(i), K)
+    pv, pi = MP.merge_partials(torch.from_numpy(v), torch.from_numpy(i))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    fin = np.isfinite(pv.numpy())
+    np.testing.assert_array_equal(pi.numpy()[fin], np.asarray(ri)[fin])
+    assert (pi.numpy()[~fin] == -1).all()
+
+
+def test_merge_partials_ties_go_to_the_lower_column():
+    """With ties, the merge gives the K smallest by (value, column): the
+    contract of one unsplit pass over the same columns."""
+    v, i = _partials(6, 5, 16, 1, ties=True)
+    pv, pi = MP.merge_partials(torch.from_numpy(v), torch.from_numpy(i))
+    for r in range(5):
+        cand = sorted((float(a), int(b)) for a, b in zip(v[:, r].ravel(), i[:, r].ravel())
+                      if np.isfinite(a))[:16]
+        got = [(float(a), int(b)) for a, b in zip(pv[r].numpy(), pi[r].numpy()) if b >= 0]
+        assert got == cand
+    rv, _ = RT.merge_many_sorted(jnp.asarray(v), jnp.asarray(i), 16)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+
+
+def test_split_fused_then_merge_equals_one_pass():
+    """Fused top-K over column ranges, merged, equals one pass over all."""
+    fx, gy, hx, hy, alpha = ops._mxu_operands(*_t(*_data("neg_dot", 7, 600, 16, 2)), "neg_dot")
+    whole_v, whole_i = FK.fused_knn(fx, gy, hx, hy, 10, distance_finalize="identity",
+                                    alpha=alpha, n_real=600)
+    parts = []
+    for c0 in range(0, 600, 128):
+        pv, pi = FK.fused_knn_partials(fx, gy[c0 : c0 + 128].contiguous(), hx,
+                                       hy[:, c0 : c0 + 128].contiguous(), 10,
+                                       distance_finalize="identity", alpha=alpha,
+                                       n_real=min(128, 600 - c0))
+        assert pv.shape == (1, 7, 16)
+        parts.append((pv[0], torch.where(pi[0] >= 0, pi[0] + c0, pi[0])))
+    mv, mi = MP.merge_partials(torch.stack([p[0] for p in parts]).contiguous(),
+                               torch.stack([p[1] for p in parts]).contiguous())
+    assert torch.equal(mv, whole_v) and torch.equal(mi, whole_i)
+
+
+def test_check_topk_holds_ids_not_only_values():
+    """The result check used on the card: swapped exact ties and a tie cut
+    at the k-th place pass; right values under wrong ids fail."""
+    fx, gy, hx, hy, alpha = ops._mxu_operands(*_t(*_data("sqeuclidean", 6, 50, 8, 3)),
+                                              "sqeuclidean")
+    hy = hy.clone()
+
+    def plain():
+        return FK.fused_knn_plain(fx, gy, hx, hy, 8, alpha=alpha, finalize="identity",
+                                  n_real=50)
+
+    def twin(src):  # a column outside row 0's set becomes a copy of column src
+        t = max(set(range(50)) - set(plain()[1][0].tolist()))
+        gy[t], hy[0, t] = gy[src], hy[0, src]
+        return t
+
+    first = int(plain()[1][0, 0])
+    twins = {first, twin(first)}
+    last = int(plain()[1][0, 7])
+    pair = {last, twin(last)}
+    twins |= pair
+    pv, pi = plain()
+    kw = dict(n=50, rtol=1e-5, atol=1e-4,
+              dist=ref.operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))
+    assert ref.check_topk(pv, pi, pv, pi, **kw)["id_agreement"] == 1.0
+    swapped = pi.clone()
+    swapped[0, :2] = swapped[0, :2].flip(0)  # the first column and its twin
+    assert ref.check_topk(pv, swapped, pv, pi, **kw)["swapped"] == 2
+    cut = pi.clone()
+    cut[0, 7] = (pair - {int(pi[0, 7])}).pop()
+    assert ref.check_topk(pv, cut, pv, pi, **kw)["cut_ties"] == 1
+    wrong = pi.clone()
+    wrong[1, [0, 7]] = wrong[1, [7, 0]]  # distinct distances, ids swapped
+    with pytest.raises(AssertionError):
+        ref.check_topk(pv, wrong, pv, pi, **kw)
+    outsider = pi.clone()
+    outsider[2, 0] = min(set(range(50)) - set(pi[2].tolist()) - twins)
+    with pytest.raises(AssertionError):
+        ref.check_topk(pv, outsider, pv, pi, **kw)
