@@ -20,9 +20,29 @@ Phases (each one raises on a failed check; nothing is caught):
    ``neg_dot``, k = 10, batches 8..1024 (the two-tower serving defaults):
    8,192 queries through ``QueryEngine``, ragged flushes, then churn (upsert,
    delete 1% of main, compact), each step held against brute force; then a
-   steady window of 100 batches of 1024 queries.  A batch of 1024 there
+   steady window of 50 batches of 1024 queries.  A batch of 1024 there
    splits the database axis, so the fused kernel's partial sets and the
    merge kernel are each timed and held against their plain versions.
+5. Two-stage quantized serving at the same shape: ``random_vectors(seed=0)``
+   rows, ``RetrievalIndex(scan_dtype=...)`` for int8 and for bf16 (overfetch
+   4): 8,192 queries, churn (the replica must be kept at a delete and rebuilt
+   at compact), a steady window of 50 batches; recall@10 against brute force
+   (floor 0.9).  A float32 replica through ``two_stage_query`` must equal
+   brute force.  At a batch of 1024 the fp32, bf16 and int8 fused scans, the
+   merge and the rescore kernel are timed and held against their plain
+   versions.
+6. IVF serving at the same width: ``clustered_vectors(1,048,576 + 8,192,
+   256, n_clusters=4096, seed=0)``, the last 8,192 rows held out as queries;
+   ``ivf_cells=4096, nprobe=8``, float32 then int8.  Build time (k-means on
+   the card, then the packing), cell sizes, and per query tile the union
+   width and the share of cells it scans, at batches of 1024 and 8.  The
+   fused kernel held against its plain version at the path's own shapes:
+   the probe shortlist (k 8 over the centroids) and a k-means assignment
+   pass (k 1).  Full-probe IVF must equal brute force before and after
+   churn; recall@10 at nprobe = 8, served and on 256 queries through the
+   kernel path and the plain path, at least 0.9; a steady window of 50
+   batches; the ``ivf_scan`` kernel held against its plain version at both
+   batch sizes, its bound counted from the rows of the cells it scans.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is ``{"kernels": [...]}``: per
@@ -49,6 +69,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_HBM = 3.35e12  # H100 SXM HBM3, bytes/s
+QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
+IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
 REPORT: dict = {}
 
 
@@ -100,6 +122,401 @@ def exact_ids_check(torch, x, rows, ids, vals, k, exclude_self):
         check(len(set(got.tolist())) == k, f"row {r}: duplicate ids")
 
 
+def brute_topk(torch, q, vecs, K, chunk=256):
+    """Exact top-K of -q.v (neg_dot) by (value, row), a chunk of queries at a time."""
+    from repro_torch.kernels.stream_topk import sorted_prefix
+
+    outs = [sorted_prefix(-(q[r : r + chunk] @ vecs.T), K) for r in range(0, len(q), chunk)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def recall_at(torch, got_ids, want_ids) -> float:
+    """Share of the true k nearest ids that the result holds, over all rows."""
+    hits = (got_ids.long()[:, :, None] == want_ids.long()[:, None, :]).any(1).sum()
+    return float(hits) / want_ids.numel()
+
+
+def true_ids(torch, q, vecs, k, chunk=1024):
+    """The k largest dot products' row ids (the neg_dot k nearest)."""
+    return torch.cat([torch.topk(q[r : r + chunk] @ vecs.T, k, dim=1).indices
+                      for r in range(0, len(q), chunk)])
+
+
+def neg_dot_distance(qt, vt):
+    return lambda rows, cols: -(qt[rows] * vt[cols]).sum(1)
+
+
+def time_plain(torch, fn):
+    """Host-clock ms of one call of a plain version (too slow to repeat)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_two_stage(torch, dev, run_path):
+    """Phase 5: the two-stage quantized tier at the query_1m shape."""
+    from repro_torch.core.distances import quantize_rows
+    from repro_torch.core.topk import next_pow2
+    from repro_torch.core.knn import scan_width, two_stage_query
+    from repro_torch.data.synthetic import random_vectors
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import merge_partials as MP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rescore as RS
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.index import RetrievalIndex
+
+    n, d, k = QUERY_ROWS, 256, 10
+    db = random_vectors(n, d, seed=0)
+    queries = random_vectors(8192 + 3 * 1024, d, seed=5)
+    db_t = torch.from_numpy(db).to(dev)
+    q_t = torch.from_numpy(queries[:8192]).to(dev)
+    truth = true_ids(torch, q_t, db_t, k)
+    qb = q_t[:1024]
+
+    # The reference's exactness hatch: a float32 replica is exact.
+    ev, ei = brute_topk(torch, qb, db_t, 16)
+    res = two_stage_query(qb, db_t, quantize_rows(db_t, "float32", distance="neg_dot"), k,
+                          distance="neg_dot", impl="fused")
+    say("two_stage_float32_vs_brute", check_topk(
+        res.distances, res.indices.long(), ev[:, :k], ei[:, :k].long(), n=n, rtol=1e-5,
+        atol=1e-3, dist=neg_dot_distance(qb, db_t)))
+    del res, ev, ei
+
+    k_scan = scan_width(n, k, 4)
+    out = {"k_scan": k_scan}
+    fx32, gy32, _, hx32, hy32, _ = ops._scan_operands(qb, db_t, "neg_dot")
+    kw32 = dict(distance_finalize="identity", alpha=-1.0, n_real=n)
+    out["float32"] = {
+        "partials_ms": time_ms(torch, lambda: FK.fused_knn_partials(fx32, gy32, hx32, hy32,
+                                                                    k_scan, **kw32)),
+        "bound_ms": bound_ms(2.0 * 1024 * n * d, 1024 * d * 4 + n * d * 4 + n * 4)[0]}
+    del fx32, gy32, hx32, hy32
+    for sd in ("int8", "bfloat16"):
+        index = RetrievalIndex.build(np.arange(n), db, distance="neg_dot", impl="fused",
+                                     device=dev, scan_dtype=sd, overfetch=4)
+        engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+
+        def serve():
+            got = engine.search(queries[:8192])
+            rec = recall_at(torch, got.ids, truth)
+            replica = index._dev["main_q"]
+            rng = np.random.default_rng(6)
+            new_ids = np.concatenate([np.arange(0, n, n // 2048)[:2048],
+                                      np.arange(n, n + 2048)])
+            index.upsert(new_ids, random_vectors(4096, d, seed=7))
+            engine.search(queries[8192:9216])
+            index.delete(rng.choice(n, n // 100, replace=False))
+            engine.search(queries[9216:10240])
+            check(index._dev["main_q"] is replica, f"{sd}: a delete requantized the replica")
+            index.compact()
+            got2 = engine.search(queries[10240:11264])
+            check(index._dev["main_q"] is not replica, f"{sd}: compact kept the old replica")
+            vecs, ids = index._live_rows()
+            vt = torch.from_numpy(vecs).to(dev)
+            q2 = torch.from_numpy(queries[10240:11264]).to(dev)
+            ids_t = torch.from_numpy(ids).to(dev)
+            rec2 = recall_at(torch, got2.ids, ids_t[true_ids(torch, q2, vt, k)])
+            steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+            for b in range(51):  # the first batch is tagged cold
+                steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024])
+            return rec, rec2, engine.meter.summary(), steady.meter
+
+        (rec, rec2, meter, steady), counts = run_path(f"serving_two_stage_{sd}", serve)
+        for name in ("fused_knn", "rescore_topk", "merge_partials"):
+            check(counts[name] > 0, f"two-stage {sd}: {name} never launched: {counts}")
+        check(rec >= 0.9 and rec2 >= 0.9, f"two-stage {sd}: recall@10 {rec}, {rec2} < 0.9")
+        say(f"two_stage_{sd}_serving", {"recall_at_10": rec, "recall_at_10_after_churn": rec2,
+                                        "meter": meter, "steady": steady.summary(),
+                                        "steady_p90_ms": steady.latency_ms(90)})
+
+        # The kernels at a batch of 1024, against their plain versions.
+        vecs_t, main_q = index._dev["main_vecs"], index._dev["main_q"]
+        nn = vecs_t.shape[0]
+        fx, gy, gs, hx, hy, alpha = ops._scan_operands(qb, main_q, "neg_dot")
+        kw = dict(distance_finalize="identity", alpha=alpha, n_real=nn, gy_scale=gs)
+        parts = {}
+        part_ms = time_ms(torch, lambda: parts.__setitem__(
+            "p", FK.fused_knn_partials(fx, gy, hx, hy, k_scan, **kw)))
+        part_v, part_i = parts["p"]
+        v, i = MP.merge_partials(part_v, part_i)
+        plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+            fx, gy, hx, hy, k_scan, alpha=alpha, finalize="identity", n_real=nn, gy_scale=gs))
+        cmp = check_topk(v[:, :k_scan], i[:, :k_scan], pv[:, :k_scan], pi[:, :k_scan], n=nn,
+                         rtol=1e-5, atol=1e-3,
+                         dist=operand_distance(fx, gy, hx, hy, alpha=alpha,
+                                               finalize="identity", gy_scale=gs))
+        mv, mi = MP.merge_partials_plain(part_v, part_i)
+        check(torch.equal(mi, i) and torch.equal(mv, v), f"{sd}: merge kernel vs plain")
+        bm, splits, _ = FK.plan(1024, nn, next_pow2(k_scan), dev, gy.dtype, gs is not None)
+        epilogue = nn * 4 * (1 if gs is None else 2)  # hy, and the int8 scales
+        out[sd] = {"partials_ms": part_ms, "plain_ms": plain_ms, "vs_plain": cmp,
+                   "splits": splits, "bm": bm,
+                   "bound_ms": bound_ms(2.0 * 1024 * nn * d,
+                                        1024 * d * 4 + nn * d * gy.element_size() + epilogue
+                                        + part_v.numel() * 8)[0]}
+        # The rescore kernel on the scan's candidates (main-segment rows).
+        rfx, rcand, rhx, rhy, _ = ops.rescore_operands(qb, vecs_t, i[:, :k_scan], k,
+                                                       distance="neg_dot")
+        res_out = {}
+        rs_ms = time_ms(torch, lambda: res_out.__setitem__(
+            "k", RS.rescore_topk(rfx, rcand, rhx, rhy, k, alpha=-1.0, finalize="identity")))
+        rs_plain_ms, (rpv, rpp) = time_plain(torch, lambda: RS.rescore_topk_plain(
+            rfx, rcand, rhx, rhy, k, alpha=-1.0, finalize="identity"))
+        rv, rp = res_out["k"]
+        rs_cmp = check_topk(rv, rp, rpv, rpp, n=rcand.shape[1], rtol=1e-5, atol=1e-3,
+                            dist=lambda r, c: -(rfx[r] * rcand[r, c]).sum(1) + rhx[r, 0]
+                            + rhy[r, c])
+        out[sd]["rescore"] = {
+            "ms": rs_ms, "plain_ms": rs_plain_ms, "vs_plain": rs_cmp,
+            "shape": list(rcand.shape),
+            "bound_ms": bound_ms(2.0 * rcand.numel(), rcand.numel() * 4 + rfx.numel() * 4
+                                 + rhx.numel() * 4 + rhy.numel() * 4 + 1024 * 16 * 8)}
+        del index, engine, fx, gy, gs, hx, hy, parts, part_v, part_i, pv, pi, rcand
+        torch.cuda.empty_cache()
+    say("two_stage_batch_1024", out)
+    return out
+
+
+def union_widths(torch, probes, ncells):
+    """Per query tile: the distinct cells of its probe list, and their share."""
+    fresh = 1 + (probes[:, 1:] != probes[:, :-1]).sum(1)
+    return [{"distinct_cells": int(w), "share_of_cells": int(w) / ncells} for w in fresh]
+
+
+def phase_ivf(torch, dev, run_path):
+    """Phase 6: the IVF tier at the query_1m width, on clustered rows."""
+    from repro_torch.core.distances import gy_rows
+    from repro_torch.core.ivf import pack_cells, packed_live, probe_cells, train_centroids
+    from repro_torch.core.knn import ivf_query, scan_width
+    from repro_torch.core.topk import next_pow2
+    from repro_torch.data.synthetic import clustered_vectors
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import ivf_scan as IVS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.index import RetrievalIndex
+
+    n, d, k, ncells, nprobe = QUERY_ROWS, 256, 10, IVF_CELLS, 8
+    x = clustered_vectors(n + 8192, d, n_clusters=4096, seed=0)
+    db, queries = x[:n], x[n:]
+    db_t = torch.from_numpy(db).to(dev)
+    q_t = torch.from_numpy(queries).to(dev)
+    truth = true_ids(torch, q_t, db_t, k)
+
+    # The cells of the float32 index, built by hand so that k-means and the
+    # packing (the permutation on the host, the row scatter on the card) are
+    # timed apart; seeded as the index seeds its own (the main epoch, 1).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cent, assign = train_centroids(db_t, ncells, distance="neg_dot",
+                                   generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cells = pack_cells(db_t, cent, assign)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = cells.counts
+    say("ivf_build", {"kmeans_on_card_s": t1 - t0, "packing_s": t2 - t1,
+                      "ncells": ncells, "cell_cap": cells.cell_cap,
+                      "largest_cell": int(counts.max()), "smallest_cell": int(counts.min()),
+                      "empty_cells": int((counts == 0).sum()),
+                      "packed_slots": cells.packed.shape[0],
+                      "packed_over_corpus": cells.packed.shape[0] / n,
+                      "packed_bytes_fp32": cells.packed.numel() * 4,
+                      "packed_bytes_int8": cells.packed.numel()})
+    widths = {}
+    for m in (1024, 8):
+        cq = probe_cells(q_t[:m], cells.centroids, nprobe, distance="neg_dot")
+        operands = ops.ivf_scan_operands(q_t[:m], cells.packed, cq, 64,
+                                         cell_cap=cells.cell_cap, distance="neg_dot")
+        probes, tile_m = operands[0], operands[7]
+        del operands  # it holds the packed rows, which a compact must be able to free
+        widths[m] = {"tile_m": tile_m, "W": probes.shape[1],
+                     "tiles": union_widths(torch, probes, ncells)}
+    say("ivf_union_per_tile", widths)
+
+    # The fused kernel at the shapes the IVF path gives it, against its plain
+    # version: the probe shortlist (K 8 over the centroids, a batch of 1024)
+    # and one k-means assignment pass (K 1: every row against the centroids).
+    fused_ivf = {}
+    for label, (xq, yc, kk, dname) in {
+            "probe_shortlist": (q_t[:1024], cells.centroids, nprobe, "neg_dot"),
+            "kmeans_assign": (gy_rows(db_t, "neg_dot"), cent, 1, "sqeuclidean")}.items():
+        fx, gy, hx, hy, alpha = ops._mxu_operands(xq, yc, dname)
+        kw = dict(distance_finalize="identity", alpha=alpha, n_real=gy.shape[0])
+        outs = {}
+        ms = time_ms(torch, lambda: outs.__setitem__("k", FK.fused_knn(fx, gy, hx, hy, kk, **kw)))
+        plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+            fx, gy, hx, hy, kk, alpha=alpha, finalize="identity", n_real=gy.shape[0]))
+        v, i = outs["k"]
+        cmp = check_topk(v[:, :kk], i[:, :kk], pv[:, :kk], pi[:, :kk], n=gy.shape[0],
+                         rtol=1e-5, atol=1e-3,
+                         dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))
+        m_, n_ = fx.shape[0], gy.shape[0]
+        bnd = bound_ms(2.0 * m_ * n_ * d, (m_ + n_) * d * 4 + (m_ + n_) * 4
+                       + m_ * next_pow2(kk) * 8)
+        fused_ivf[label] = {"ms": ms, "plain_ms": plain_ms, "vs_plain": cmp, "bound_ms": bnd[0],
+                            "bound_by": bnd[1], "shape": f"{m_} x {n_}, d {d}, k {kk}"}
+        del fx, gy, hx, hy, outs, v, i, pv, pi
+    say("ivf_fused_knn_vs_plain", fused_ivf)
+    del cent, assign
+
+    empty = (np.zeros((0, d), np.float32), np.zeros(0, np.int32), np.zeros(0, bool), 0)
+    out = {}
+    for sd in ("float32", "int8"):
+        if sd == "float32":
+            index = RetrievalIndex.from_arrays(
+                db, np.arange(n), np.ones(n, bool), *empty, distance="neg_dot", impl="fused",
+                device=dev, ivf=cells, scan_dtype=sd, overfetch=4, nprobe=nprobe)
+            del cells  # the index owns them now; a compact must be able to free them
+        else:  # trains its own cells in its first search
+            index = RetrievalIndex.build(np.arange(n), db, distance="neg_dot", impl="fused",
+                                         device=dev, ivf_cells=ncells, nprobe=nprobe,
+                                         scan_dtype=sd, overfetch=4)
+        engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+
+        def full_probe_gate(step, q):
+            """nprobe = ncells with an fp32 scan is exact: against brute force."""
+            vecs, ids = index._live_rows()
+            vt = torch.from_numpy(vecs).to(dev)
+            ids_t = torch.from_numpy(ids).to(dev).long()
+            qt = torch.from_numpy(q).to(dev)
+            index.nprobe = 10 ** 6
+            got = engine.search(q)
+            index.nprobe = nprobe
+            bv, bi = brute_topk(torch, qt, vt, 16)
+            pos = torch.full((int(ids_t.max()) + 1,), -1, dtype=torch.long, device=dev)
+            pos[ids_t] = torch.arange(len(ids_t), device=dev)
+            cmp = check_topk(got.distances, got.ids.long(), bv[:, :k], ids_t[bi[:, :k].long()],
+                             n=len(pos), rtol=1e-5, atol=1e-3,
+                             dist=lambda r, c: -(qt[r] * vt[pos[c]]).sum(1))
+            say(f"ivf_full_probe_{step}", cmp)
+
+        def serve():
+            t0 = time.perf_counter()
+            got = engine.search(queries)
+            first_s = time.perf_counter() - t0
+            rec = recall_at(torch, got.ids, truth)
+            if sd == "float32":
+                full_probe_gate("initial", queries[:1024])
+            # The epoch's centroids stand for its cells: holding the cells
+            # themselves would keep their packed copy on the card.
+            cent0 = index._dev["main_ivf"].centroids
+            rng = np.random.default_rng(8)
+            ins = db[rng.choice(n, 4096, replace=False)] + 0.05 * rng.standard_normal(
+                (4096, d)).astype(np.float32)
+            index.upsert(np.concatenate([np.arange(0, n, n // 2048)[:2048],
+                                         np.arange(n, n + 2048)]), ins)
+            engine.search(queries[:1024])
+            index.delete(rng.choice(n, n // 100, replace=False))
+            engine.search(queries[1024:2048])
+            check(index._dev["main_ivf"].centroids is cent0,
+                  f"ivf {sd}: a delete retrained the cells")
+            if sd == "float32":
+                full_probe_gate("churned", queries[2048:3072])
+            index.compact()
+            engine.search(queries[3072:4096])
+            check(index._dev["main_ivf"].centroids is not cent0,
+                  f"ivf {sd}: compact kept the old cells")
+            if sd == "float32":
+                full_probe_gate("compacted", queries[4096:5120])
+            steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+            for b in range(51):  # the first batch is tagged cold
+                steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024])
+            return rec, first_s, engine.meter.summary(), steady.meter
+
+        (rec, first_s, meter, steady), counts_ = run_path(f"serving_ivf_{sd}", serve)
+        for name in ("fused_knn", "ivf_scan", "rescore_topk"):
+            check(counts_[name] > 0, f"ivf {sd}: {name} never launched: {counts_}")
+        check(rec >= 0.9, f"ivf {sd}: served recall@10 {rec} < 0.9")
+        say(f"ivf_{sd}_serving", {"recall_at_10": rec, "first_search_s": first_s,
+                                  "meter": meter, "steady": steady.summary(),
+                                  "steady_p90_ms": steady.latency_ms(90)})
+
+        # Kernel path and plain path on the same 256 queries, at nprobe = 8,
+        # on the compacted index.
+        vecs_t, live = index._dev["main_vecs"], index._dev["main_mask"][0]
+        ivf, ivf_q = index._dev["main_ivf"], index._dev["main_ivf_q"]
+        vecs, ids = index._live_rows()
+        q256 = q_t[:256]
+        want = torch.from_numpy(ids).to(dev)[true_ids(torch, q256, torch.from_numpy(vecs).to(dev), k)]
+        main_ids = index._dev["main_mask"][1]
+        recs = {}
+        for impl in ("fused", "torch"):
+            r = ivf_query(q256, vecs_t, ivf, k, nprobe=nprobe, distance="neg_dot", impl=impl,
+                          db_live=live, packed_q=ivf_q)
+            recs[impl] = recall_at(torch, main_ids[r.indices.clamp(min=0).long()], want)
+        # The floor of the reference's tests (0.9), on both paths.
+        check(min(recs.values()) >= 0.9, f"ivf {sd}: recall@10 on 256 queries {recs} < 0.9")
+        res = {"recall_at_10_256q": recs}
+
+        # The ivf_scan kernel against its plain version, at batches of 1024 and 8.
+        live_p = packed_live(ivf, live)
+        k_scan = min(scan_width(len(vecs), k, 4), ivf.cell_cap)
+        for m in (1024, 8):
+            qm = q_t[:m]
+            cq = probe_cells(qm, ivf.centroids, nprobe, distance="neg_dot")
+            probes, fx, gy, gs, hx, hy, alpha, tile_m, extent = ops.ivf_scan_operands(
+                qm, ivf_q, cq, k_scan, cell_cap=ivf.cell_cap, distance="neg_dot",
+                packed_live=live_p)
+            kw = dict(cell_cap=ivf.cell_cap, tile_m=tile_m, distance_finalize="identity",
+                      alpha=alpha, gy_scale=gs, cell_extent=extent)
+            outs = {}
+            ms = time_ms(torch, lambda: outs.__setitem__(
+                "k", IVS.ivf_scan(probes, fx, gy, hx, hy, k_scan, **kw)))
+            plain_ms, (pv, pi) = time_plain(torch, lambda: IVS.ivf_scan_plain(
+                probes, fx, gy, hx, hy, k_scan, cell_cap=ivf.cell_cap, tile_m=tile_m,
+                cell_extent=extent, alpha=alpha, finalize="identity", gy_scale=gs))
+            v, i = outs["k"]
+            cmp = check_topk(v, i, pv, pi, n=gy.shape[0], rtol=1e-5, atol=1e-3,
+                             dist=operand_distance(fx, gy, hx, hy, alpha=alpha,
+                                                   finalize="identity", gy_scale=gs))
+            # The bound counts the rows the function needs: each tile's
+            # queries against the rows of the distinct cells in its list (pad
+            # slots are +inf and never selected; the compacted index has no
+            # dead rows), each of those rows read once.
+            cnt = ivf.counts.long()
+            fresh = torch.ones_like(probes, dtype=torch.bool)
+            fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
+            rows_per_tile = (cnt[probes.long()] * fresh).sum(1)  # live rows in each union
+            q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
+                                      device=dev)
+            pairs = int((q_per_tile * rows_per_tile).sum())  # (query, row) pairs scored
+            read = int(cnt[torch.unique(probes).long()].sum())  # rows read at least once
+            K = next_pow2(k_scan)
+            bnd = bound_ms(2.0 * pairs * d, m * d * 4 + read * d * gy.element_size()
+                           + read * 4 * (1 if gs is None else 2) + m * K * 8)
+            # What the kernel walks: per CTA (a query block and a range of
+            # the list), the 128-column tiles of its distinct cells.
+            pr, bm, splits, sps = IVS.plan(probes, m, tile_m, K, dev, gy.dtype, gs is not None)
+            fresh = torch.ones_like(pr, dtype=torch.bool)
+            fresh[:, 1:] = pr[:, 1:] != pr[:, :-1]
+            walk = ((extent.long() + 127) // 128)[pr.long()] * fresh
+            walk = torch.cat([walk, walk.new_zeros((len(pr), splits * sps - pr.shape[1]))], 1)
+            walk = walk.reshape(len(pr), splits, sps).sum(2)  # [tiles, splits]
+            part_ms = time_ms(torch, lambda: IVS.ivf_scan_partials(probes, fx, gy, hx, hy,
+                                                                   k_scan, **kw))
+            res[f"ivf_scan_batch_{m}"] = {
+                "ms": ms, "partials_ms": part_ms, "plain_ms": plain_ms, "vs_plain": cmp,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "rows_scored": pairs, "rows_read": read,
+                "columns_walked": int((q_per_tile[:, None] * walk).sum()) * 128,
+                "bm": bm, "splits": splits, "ctas": -(-m // bm) * splits,
+                "tiles_per_cta_max": int(walk.max()),
+                "tiles_per_cta_mean": float(walk.float().mean()),
+                "tile_m": tile_m, "k_scan": k_scan}
+        out[sd] = res
+        say(f"ivf_{sd}_kernels", res)
+        del index, engine, ivf, ivf_q, vecs_t, live, fx, gy, gs, hx, hy, outs
+        torch.cuda.empty_cache()
+    out["fused_knn"] = fused_ivf
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -111,9 +528,12 @@ def main() -> int:
     from repro_torch.data.synthetic import random_vectors
     from repro_torch.kernels import _backend as B
     from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import ivf_scan as IVS
     from repro_torch.kernels import merge_partials as MP
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_distance as PD
+    from repro_torch.kernels import rescore as RS
+    from repro_torch.kernels import scan as SC
     from repro_torch.kernels import stream_topk as ST
     from repro_torch.kernels.ref import check_topk, operand_distance
     from repro_torch.serving.engine import EngineConfig, QueryEngine
@@ -129,7 +549,7 @@ def main() -> int:
     print(card, flush=True)
     say("card", {"nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
     modules = {"fused_knn": FK, "merge_partials": MP, "pairwise_distance": PD,
-               "stream_topk": ST}
+               "stream_topk": ST, "rescore_topk": RS, "ivf_scan": IVS}
     launches = {name: 0 for name in modules}
 
     def run_path(label, fn):
@@ -193,7 +613,8 @@ def main() -> int:
     fused_bound, fused_by = bound_ms(2.0 * n * n * d, 2 * n * d * 4 + 2 * n * 4 + n * K * 8)
     say("allpairs_160k", {"median_ms": statistics.median(fused_times), "runs_ms": fused_times,
                           "plain_ms": fused_plain_ms, "vs_plain": fused_cmp, "bm": bm,
-                          "splits": splits, "ctas_per_sm": FK.kernel_shape(dev, bm, K)[0],
+                          "splits": splits,
+                          "ctas_per_sm": SC.kernel_shape("fused_knn", dev, bm, K)[0],
                           "ctas": ctas, "bound_ms": fused_bound})
 
     # 3. The paper's two phases on rows 0..8191, and the symmetric per-tile path.
@@ -300,10 +721,10 @@ def main() -> int:
         engine.search(queries[o + 2048 : o + 3072])
         engine.search(queries[o + 3072 : o + 4096])
         brute_check("compact", queries[o + 2048 : o + 2112])
-        # A steady window after the churn: 100 full batches on one engine of
+        # A steady window after the churn: 50 full batches on one engine of
         # its own, so the percentiles rest on more than a handful of samples.
         steady = QueryEngine(index, EngineConfig(k=k4, min_batch=8, max_batch=1024))
-        for b in range(101):  # the first batch is tagged cold
+        for b in range(51):  # the first batch is tagged cold
             steady.search(random_vectors(1024, d, seed=100 + b))
         return engine.meter.summary(), steady.meter
 
@@ -342,19 +763,38 @@ def main() -> int:
                                "merge_ms": mg_ms, "plain_ms": serve_plain_ms,
                                "merge_plain_ms": mg_plain_ms, "vs_plain": serve_cmp,
                                "bm": bm4, "splits": splits4, "ctas": -(-1024 // bm4) * splits4,
-                               "ctas_per_sm": FK.kernel_shape(dev, bm4, 16)[0],
+                               "ctas_per_sm": SC.kernel_shape("fused_knn", dev, bm4, 16)[0],
                                "bound_ms": bound_ms(2.0 * 1024 * nn * d,
                                                     (1024 + nn) * d * 4 + 1024 * 16 * 8)[0],
                                "merge_bound_ms": mg_bound})
 
+    del index, engine, steady, vecs_t, qb, sf, outs, part_v, part_i, mv, mi, mpv, mpi
+    torch.cuda.empty_cache()
+
+    # 5. Two-stage quantized serving; 6. IVF serving.
+    ts = phase_two_stage(torch, dev, run_path)
+    ivf = phase_ivf(torch, dev, run_path)
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
+    fused_variants = {
+        sd: {"ms": ts[sd]["partials_ms"], "plain_ms": ts[sd].get("plain_ms"),
+             "bound_ms": ts[sd]["bound_ms"], "bound_by": "operations",
+             "max_abs_err": ts[sd]["vs_plain"]["max_abs_err"] if "vs_plain" in ts[sd] else None,
+             "shape": f"partial sets, 1024 x {QUERY_ROWS} (gy {sd}), d 256, k {ts['k_scan']}"}
+        for sd in ("float32", "bfloat16", "int8")}
+    for label, v in ivf["fused_knn"].items():
+        fused_variants[label] = {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                         "shape")}
+        fused_variants[label]["max_abs_err"] = v["vs_plain"]["max_abs_err"]
     kernels = [
         {"name": "fused_knn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_knn.cu",
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["fused_knn"],
          "max_abs_err": fused_err, "ms": statistics.median(fused_times),
          "plain_ms": fused_plain_ms, "bound_ms": fused_bound, "bound_by": fused_by,
-         "library_ms": None, "shape": "allpairs 160000 x 160000, d 256, k 100"},
+         "library_ms": None, "shape": "allpairs 160000 x 160000, d 256, k 100",
+         "variants": fused_variants},
         {"name": "merge_partials", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge_partials.cu",
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["merge_partials"],
@@ -372,6 +812,23 @@ def main() -> int:
          "replaces": "src/repro/kernels/stream_topk.py:88", "launches": launches["stream_topk"],
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
          "bound_by": st_by, "library_ms": st_lib_ms, "shape": "8192 x 160000, k 100"},
+        {"name": "rescore_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rescore.cu",
+         "replaces": "src/repro/kernels/rescore.py:65", "launches": launches["rescore_topk"],
+         "max_abs_err": rs["vs_plain"]["max_abs_err"], "ms": rs["ms"],
+         "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"][0], "bound_by": rs["bound_ms"][1],
+         "library_ms": None, "shape": f"candidates {rs['shape']} (int8 two-stage, k 10)"},
+        {"name": "ivf_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
+         "replaces": "src/repro/kernels/ivf_scan.py:130", "launches": launches["ivf_scan"],
+         "max_abs_err": iv["vs_plain"]["max_abs_err"], "ms": iv["ms"],
+         "plain_ms": iv["plain_ms"], "bound_ms": iv["bound_ms"], "bound_by": iv["bound_by"],
+         "library_ms": None,
+         "shape": f"1024 queries, tile_m {iv['tile_m']}, nprobe 8 of 4096 cells, fp32, "
+                  f"k {iv['k_scan']}",
+         "variants": {f"{sd}_batch_{m}": {key: ivf[sd][f"ivf_scan_batch_{m}"][key]
+                                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                      for sd in ("float32", "int8") for m in (1024, 8)}},
     ]
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels

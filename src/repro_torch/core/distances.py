@@ -11,11 +11,14 @@ evaluation paths:
 All distances are smaller-is-nearer; similarities (dot, cosine) are negated.
 The kernels take the finalizer as one of two kinds, ``"identity"`` and
 ``"sqrt"`` (``sqrt(max(a, 0))``), see ``finalize_kind``.
+
+Row quantization for the two-stage scan (``quantize_rows``) builds the
+bf16 / int8 scan replicas in ``gy`` space.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -217,3 +220,99 @@ FINALIZERS: dict[str, Callable[[Tensor], Tensor]] = {
 def matmul_finalize(dist: Distance) -> Callable[[Tensor], Tensor]:
     """Finalizer to use with the matmul form (accounts for prefactor folding)."""
     return FINALIZERS[finalize_kind(dist)]
+
+
+# ---------------------------------------------------------------------------
+# Row quantization for the two-stage scan (DESIGN.md §Quantized).
+# ---------------------------------------------------------------------------
+
+# Canonical scan dtypes, plus the short spellings the CLIs accept.
+SCAN_DTYPES = ("float32", "bfloat16", "int8")
+_SCAN_DTYPE_ALIASES = {"fp32": "float32", "f32": "float32", "bf16": "bfloat16"}
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+_QUANT_BLOCK = 1 << 26  # elements of y quantized at a time
+
+# Distances whose ``gy`` map is row-local, so that the rank-1 ``hy`` term of
+# the dequantized rows is ``mf.hy`` applied to them directly.  KL and
+# Hellinger quantize log/sqrt-space rows nonlinearly and stay out.
+QUANTIZABLE = ("sqeuclidean", "euclidean", "neg_dot", "neg_cosine")
+
+
+def canonical_scan_dtype(name: str) -> str:
+    name = _SCAN_DTYPE_ALIASES.get(str(name), str(name))
+    if name not in SCAN_DTYPES:
+        raise ValueError(f"unknown scan dtype {name!r}; have {SCAN_DTYPES}")
+    return name
+
+
+def _require_quantizable(distance: str) -> Distance:
+    if distance not in QUANTIZABLE:
+        raise ValueError(f"distance {distance!r} has no row-local gy map; have {QUANTIZABLE}")
+    return get_distance(distance)
+
+
+def gy_rows(y: Tensor, distance: str) -> Tensor:
+    """Rows mapped to ``gy`` space, the geometry every compressed replica
+    (scalar, IVF cells) is built in.  Only ``QUANTIZABLE`` distances."""
+    return _require_quantizable(distance).matmul_form.gy(y.float()).float()
+
+
+class QuantizedRows(NamedTuple):
+    """A low-precision replica of a database, pre-mapped to ``gy`` space.
+
+    The scan computes ``finalize(alpha * (fx @ data^T) * scale + hx + hy)``:
+    the per-row scale folds into the rank-1 epilogue beside ``hy``.
+
+    data:  [n, d] rows in float32 / bfloat16 / int8.
+    scale: [n] fp32 per-row symmetric scales (int8 only, else None).
+    hy:    [n] fp32 rank-1 term of the DEQUANTIZED rows, so a scanned value
+           is the exact distance to the dequantized row; the exact rescore
+           repairs the candidate order.
+    """
+
+    data: Tensor
+    scale: Tensor | None
+    hy: Tensor
+
+
+def quantize_rows(y: Tensor, scan_dtype: str, *, distance: str = "sqeuclidean") -> QuantizedRows:
+    """The quantized scan replica of database rows ``y`` [n, d], on ``y``'s device.
+
+    int8 uses per-row symmetric scales ``max|row| / 127`` and
+    ``torch.round`` (half to even, as ``jnp.round``), so codes, scales and
+    bf16 data equal the reference's bit for bit.  Every step is row-local,
+    so the rows go through a block at a time into the preallocated replica:
+    the temporaries stay a block in size however large the corpus (a
+    cell-packed corpus can be many times the rows).
+    """
+    scan_dtype = canonical_scan_dtype(scan_dtype)
+    mf = _require_quantizable(distance).matmul_form
+    n, d = y.shape
+    step = max(1, _QUANT_BLOCK // max(d, 1))
+    hy = torch.empty(n, dtype=torch.float32, device=y.device)
+    if scan_dtype == "float32":
+        data, scale = mf.gy(y.float()).float(), None  # no copy where gy is the identity
+    else:
+        data = torch.empty((n, d), dtype=_STORAGE[scan_dtype], device=y.device)
+        scale = (torch.empty(n, dtype=torch.float32, device=y.device)
+                 if scan_dtype == "int8" else None)
+    for r in range(0, n, step):
+        rows = slice(r, r + step)
+        if scan_dtype == "int8":
+            g = mf.gy(y[rows].float()).float()
+            scale[rows] = torch.clamp_min(g.abs().amax(dim=-1), _EPS) / 127.0
+            data[rows] = torch.clamp(torch.round(g / scale[rows, None]), -127, 127)
+        elif scan_dtype == "bfloat16":
+            data[rows] = mf.gy(y[rows].float()).float()
+        hy[rows] = mf.hy(_dequantize(data[rows], None if scale is None else scale[rows]))
+    return QuantizedRows(data, scale, hy)
+
+
+def _dequantize(data: Tensor, scale: Tensor | None) -> Tensor:
+    deq = data.float()
+    return deq if scale is None else deq * scale[:, None]
+
+
+def dequantize_rows(q: QuantizedRows) -> Tensor:
+    """fp32 rows the quantized scan effectively scores against."""
+    return _dequantize(q.data, q.scale)

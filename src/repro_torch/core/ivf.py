@@ -1,0 +1,224 @@
+"""IVF coarse quantizer: cell-probed retrieval (DESIGN.md §IVF).
+
+PyTorch port of ``repro/core/ivf.py``.  The corpus is partitioned into
+``ncells`` Voronoi cells around k-means centroids; a query probes only the
+``nprobe`` cells nearest it, and the survivors are rescored exactly.  The
+scan kernel is ``kernels/ivf_scan.py``; the query pipeline is
+``core.knn.ivf_query``.
+
+* ``train_centroids``: Lloyd k-means (``core.kmeans.lloyd``) in ``gy``
+  space, the geometry the scan scores in.
+* ``pack_cells``: rows permuted so that each cell owns one contiguous block
+  of ``cell_cap`` slots (a power of two, at least ``MIN_CELL_CAP``): the
+  scan reads a cell by naming its block, so an unprobed cell costs no
+  reads.  ``slot_of_row`` and ``row_of_slot`` carry the permutation both
+  ways.  Numpy with a stable argsort, as the reference, so the packing is
+  the reference's bit for bit.
+* ``tile_probe_lists``: per tile of ``bm`` queries, the ascending union of
+  their probed cells, padded by repeating the last one.  Every query of the
+  tile scans the whole union, a superset of its own probes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import topk as T
+from repro_torch.core.distances import gy_rows
+
+Tensor = torch.Tensor
+
+# Minimum rows per cell block (the reference's TPU lane tile; here also a
+# multiple of the scan's 128-column tile).
+MIN_CELL_CAP = 128
+
+
+class IVFCells(NamedTuple):
+    """A trained coarse quantizer and the cell-packed corpus, as tensors on
+    one device.  ``ncells = centroids.shape[0]``, ``cell_cap =
+    packed.shape[0] // ncells``.
+
+    centroids:   [ncells, d] fp32 cell centres in ``gy`` space.
+    packed:      [ncells * cell_cap, d] fp32 corpus rows; cell c owns slots
+                 [c*cell_cap, (c+1)*cell_cap), slots past its count are zero.
+    row_of_slot: [ncells * cell_cap] int32 corpus row of each slot, -1 on pad.
+    slot_of_row: [n] int32 slot of each corpus row.
+    counts:      [ncells] int32 rows per cell.
+    """
+
+    centroids: Tensor
+    packed: Tensor
+    row_of_slot: Tensor
+    slot_of_row: Tensor
+    counts: Tensor
+
+    @property
+    def ncells(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def cell_cap(self) -> int:
+        return self.packed.shape[0] // self.centroids.shape[0]
+
+
+def train_centroids(x: Tensor, ncells: int, *, distance: str = "sqeuclidean",
+                    iters: int = 10, init_perm: Tensor | None = None,
+                    generator: torch.Generator | None = None,
+                    impl: str = "fused") -> tuple[Tensor, Tensor]:
+    """Lloyd k-means over ``x`` [n, d] in ``gy`` space, on ``x``'s device.
+
+    Returns (centroids [ncells, d], assign [n] int32).  The reference's
+    ``seed`` is a ``torch.Generator`` here (or an explicit ``init_perm``):
+    torch cannot replay ``jax.random``.
+    """
+    from repro_torch.core.kmeans import lloyd
+
+    assert 1 <= ncells <= x.shape[0], (ncells, x.shape[0])
+    return lloyd(gy_rows(x, distance), ncells, iters=iters, init_perm=init_perm,
+                 generator=generator, impl=impl)
+
+
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def pack_cells(x, centroids, assign, *, cell_cap: int | None = None,
+               device=None) -> IVFCells:
+    """Permute corpus rows into the cell-packed layout.
+
+    ``cell_cap`` defaults to ``next_pow2(largest cell)``, at least
+    ``MIN_CELL_CAP``.  Within a cell, rows keep their corpus order.  The
+    permutation is computed on the host with numpy's stable argsort, as the
+    reference computes it; the rows are then scattered into their slots on
+    ``device`` (default: the centroids'), so a packed copy many times the
+    corpus is never built on the host.
+    """
+    if device is None:
+        device = centroids.device if isinstance(centroids, torch.Tensor) else "cpu"
+    centroids = _np(centroids).astype(np.float32, copy=False)
+    assign = _np(assign).astype(np.int64)
+    n, d = x.shape
+    ncells = centroids.shape[0]
+    counts = np.bincount(assign, minlength=ncells).astype(np.int32)
+    cap = T.next_pow2(max(int(counts.max(initial=1)), MIN_CELL_CAP))
+    if cell_cap is not None:
+        assert cell_cap >= counts.max(initial=0), (cell_cap, counts.max())
+        assert cell_cap & (cell_cap - 1) == 0, cell_cap
+        cap = int(cell_cap)
+    # rank of each row within its cell (stable: in-cell order is corpus order)
+    order = np.argsort(assign, kind="stable")
+    rank = np.empty(n, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank[order] = np.arange(n) - np.repeat(starts, counts)
+    slot_of_row = (assign * cap + rank).astype(np.int32)
+    row_of_slot = np.full(ncells * cap, -1, np.int32)
+    row_of_slot[slot_of_row] = np.arange(n, dtype=np.int32)
+    rows = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+    packed = torch.zeros((ncells * cap, d), dtype=torch.float32, device=device)
+    packed[_tensor(slot_of_row, device).long()] = rows.to(device, torch.float32)
+    return IVFCells(_tensor(centroids, device), packed, _tensor(row_of_slot, device),
+                    _tensor(slot_of_row, device), _tensor(counts, device))
+
+
+def _tensor(a: np.ndarray, device) -> Tensor:
+    """``a`` on ``device``; torch needs a writable array, so a read-only one
+    is copied."""
+    return torch.from_numpy(a if a.flags.writeable and a.flags.c_contiguous
+                            else np.array(a, order="C")).to(device)
+
+
+def build_ivf(x, ncells: int, *, distance: str = "sqeuclidean", iters: int = 10,
+              init_perm: Tensor | None = None, generator: torch.Generator | None = None,
+              impl: str = "fused", cell_cap: int | None = None, device=None) -> IVFCells:
+    """Train the coarse quantizer and pack the corpus: the build-time entry.
+
+    ``x`` is a tensor (trained where it lies) or a numpy array (trained on
+    ``device``, default the CPU).  The reference's ``seed`` is a
+    ``torch.Generator`` or an ``init_perm`` here, as in ``train_centroids``.
+    """
+    xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+    xt = xt.to(device) if device is not None else xt
+    cent, assign = train_centroids(xt, ncells, distance=distance, iters=iters,
+                                   init_perm=init_perm, generator=generator, impl=impl)
+    return pack_cells(xt, cent, assign, cell_cap=cell_cap, device=xt.device)
+
+
+def ivf_to_arrays(ivf) -> dict[str, np.ndarray]:
+    """Host-side numpy dict of a trained IVF structure (the port's, or the
+    reference's: any object with the five ``IVFCells`` fields)."""
+    return {f: _np(getattr(ivf, f)) for f in IVFCells._fields}
+
+
+def ivf_from_arrays(arrays: dict, *, device="cpu") -> IVFCells:
+    """Rebuild and validate an ``IVFCells`` from ``ivf_to_arrays`` output.
+
+    The validation is structural, as the reference's: the permutation must
+    round-trip and the geometry cohere.  Raises ``ValueError``.
+    """
+    missing = [f for f in IVFCells._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"IVF arrays missing fields {missing}")
+    cent = np.asarray(arrays["centroids"], np.float32)
+    packed = np.asarray(arrays["packed"], np.float32)
+    row_of_slot = np.asarray(arrays["row_of_slot"], np.int32)
+    slot_of_row = np.asarray(arrays["slot_of_row"], np.int32)
+    counts = np.asarray(arrays["counts"], np.int32)
+    ncells, d = cent.shape
+    S, n = packed.shape[0], slot_of_row.shape[0]
+    if S == 0 or S % ncells or packed.shape[1] != d:
+        raise ValueError(f"packed shape {packed.shape} incoherent with centroids {cent.shape}")
+    cap = S // ncells
+    if cap & (cap - 1) or cap < MIN_CELL_CAP:
+        raise ValueError(f"cell_cap {cap} not a pow2 >= {MIN_CELL_CAP}")
+    if row_of_slot.shape != (S,) or counts.shape != (ncells,):
+        raise ValueError(f"permutation/count shapes {row_of_slot.shape}/{counts.shape} "
+                         f"incoherent with packed {packed.shape}")
+    if not ((slot_of_row >= 0) & (slot_of_row < S)).all():
+        raise ValueError("slot_of_row out of packed range")
+    if (row_of_slot[slot_of_row] != np.arange(n, dtype=np.int32)).any():
+        raise ValueError("slot_of_row / row_of_slot do not round-trip")
+    if int(counts.sum()) != n or int(counts.max(initial=0)) > cap:
+        raise ValueError(f"counts (sum {counts.sum()}) incoherent with n={n}, cell_cap={cap}")
+    return IVFCells(*(_tensor(a, device)
+                      for a in (cent, packed, row_of_slot, slot_of_row, counts)))
+
+
+def packed_live(ivf: IVFCells, db_live: Tensor | None = None) -> Tensor:
+    """Bool [ncells * cell_cap] live mask in packed-slot order: pad slots are
+    dead, and ``db_live`` ([n], original row order) rides the permutation."""
+    alive = ivf.row_of_slot >= 0
+    if db_live is None:
+        return alive
+    safe = ivf.row_of_slot.clamp(0, db_live.shape[0] - 1).long()
+    return alive & db_live[safe]
+
+
+def probe_cells(queries: Tensor, centroids: Tensor, nprobe: int, *,
+                distance: str = "sqeuclidean", impl: str = "fused") -> Tensor:
+    """The ``nprobe`` nearest cells of each query [m, nprobe], by the index
+    distance (``knn_query`` over the centroids)."""
+    from repro_torch.core.knn import knn_query
+
+    nprobe = min(nprobe, centroids.shape[0])
+    return knn_query(queries, centroids, nprobe, distance=distance, impl=impl).indices
+
+
+def tile_probe_lists(cells: Tensor, ncells: int, bm: int) -> Tensor:
+    """Per-query-tile union probe lists [m/bm, W] int32, W = min(ncells,
+    bm * nprobe): the tile's distinct probed cells ascending, padded out to
+    W by repeating the last one.  ``cells`` [m, nprobe] with m % bm == 0."""
+    m, nprobe = cells.shape
+    assert m % bm == 0, (m, bm)
+    nt = m // bm
+    W = min(ncells, bm * nprobe)
+    present = torch.zeros((nt, ncells), dtype=torch.bool, device=cells.device)
+    present.scatter_(1, cells.reshape(nt, bm * nprobe).long(), True)
+    ids = torch.arange(ncells, device=cells.device)
+    # Present cells first, ascending; absent cells after them.
+    order = torch.argsort(torch.where(present, ids, ncells + ids), dim=1)[:, :W]
+    n_present = present.sum(1)  # >= 1 always
+    last = order.gather(1, (n_present[:, None] - 1).clamp(0, W - 1))
+    real = torch.arange(W, device=cells.device)[None, :] < n_present[:, None]
+    return torch.where(real, order, last).to(torch.int32)

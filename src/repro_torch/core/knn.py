@@ -1,6 +1,10 @@
-"""Single-device k-nearest-vector solver (paper Sect. 4-6).
+"""Single-device k-nearest-vector solver (paper Sect. 4-6), and the
+two-stage quantized and IVF retrieval built on it.
 
-PyTorch port of ``repro/core/knn.py::knn_query`` / ``knn_allpairs``.
+PyTorch port of ``repro/core/knn.py``: ``knn_query`` / ``knn_allpairs``;
+``rescore``, ``quantized_scan`` (scalar branch), ``scan_width``,
+``two_stage_query`` (DESIGN.md §Quantized); ``ivf_query`` (DESIGN.md §IVF)
+without per-query filters.
 
 * Phase 1 (Sect. 5): distances tile by tile, in matmul form.
 * Phase 2 (Sect. 6): each row's k smallest kept in a running sorted buffer,
@@ -25,7 +29,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import topk as T
-from repro_torch.core.distances import Distance, get_distance, is_symmetric, matmul_finalize
+from repro_torch.core.distances import (
+    Distance,
+    QuantizedRows,
+    get_distance,
+    is_symmetric,
+    matmul_finalize,
+    quantize_rows,
+)
 from repro_torch.kernels import ops as kops
 
 Tensor = torch.Tensor
@@ -171,3 +182,210 @@ def knn_allpairs(x: Tensor, k: int, *, distance: str = "sqeuclidean",
                     run_v[cs], run_i[cs], t_col, row_off, threshold_skip=threshold_skip)
     vals, idx = T.finalize_topk(run_v, run_i, k)
     return KNNResult(vals[:n_real], idx[:n_real])
+
+
+# ---------------------------------------------------------------------------
+# Two-stage quantized retrieval: compressed scan + exact rescore
+# (DESIGN.md §Quantized).
+# ---------------------------------------------------------------------------
+
+
+def _unfiltered(q_allowed=None, exclude_rows=None) -> None:
+    if q_allowed is not None or exclude_rows is not None:
+        raise NotImplementedError("per-query filters (q_allowed, exclude_rows) come with "
+                                  "the filtered slice of the port")
+
+
+def rescore(queries: Tensor, database: Tensor, cand_idx: Tensor, k: int, *,
+            distance: str = "sqeuclidean", impl: str = "torch") -> KNNResult:
+    """Exact top-k re-rank of per-query candidate rows [m, Kp] (-1 = empty).
+
+    The repair stage of the quantized scan: gather the fp32 rows the scan
+    nominated, score them exactly, keep the k best.  ``impl="fused"`` runs
+    the rescore kernel (``kernels/rescore.py``); any other impl the plain
+    gather + batched dot + stable top-k.  Candidate slots must be distinct
+    within a row (scan output is).
+    """
+    if impl == "fused":
+        return kops.rescore_topk(queries, database, cand_idx, k, distance=distance)
+    m, d = queries.shape
+    n = database.shape[0]
+    Kp = cand_idx.shape[1]
+    dist = get_distance(distance)
+    mf = dist.matmul_form
+    rows = database[cand_idx.clamp(0, n - 1).reshape(-1).long()]  # [m * Kp, d]
+    gy = mf.gy(rows).float().reshape(m, Kp, d)
+    hy = mf.hy(rows).float().reshape(m, Kp)
+    fx = mf.fx(queries).float()
+    hx = mf.hx(queries).float()[:, None]
+    dots = torch.einsum("md,mcd->mc", fx, gy)
+    tile = matmul_finalize(dist)(mf.alpha * dots + hx + hy)
+    tile = torch.where(cand_idx >= 0, tile, T.POS_INF)
+    kk = min(k, Kp)
+    vals, pos = T.topk_smallest(tile, kk)
+    idx = cand_idx.gather(1, pos.long())
+    idx = torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
+    if kk < k:
+        vals, idx = T.pad_topk(vals, idx, k)
+    return KNNResult(vals, idx)
+
+
+def quantized_scan(queries: Tensor, db_q: QuantizedRows, k: int, *,
+                   distance: str = "sqeuclidean", tile_m: int = 256, tile_n: int = 1024,
+                   threshold_skip: bool | None = None, db_live: Tensor | None = None,
+                   probed: Tensor | None = None, cell_cap: int | None = None,
+                   q_allowed: Tensor | None = None) -> KNNResult:
+    """Tiled plain scan of a ``QuantizedRows`` replica: the stage-1 reference.
+
+    Per column tile the stored rows are widened to fp32 and the int8 scale
+    folds into the epilogue, ``finalize(alpha * (fx @ data^T) * scale + hx +
+    hy)``.  The replica is never dequantized as a whole: the only fp32
+    database-shaped tensors are the [tile_n, d] per-tile upcasts.
+
+    ``db_live``: [n] bool row mask (tombstones).  ``probed`` / ``cell_cap``:
+    a per-QUERY cell mask [m, ncells] for the plain IVF path; a column of
+    cell ``c`` is +inf for queries that did not probe ``c``.
+    """
+    _unfiltered(q_allowed)
+    threshold_skip = T.resolve_threshold_skip(threshold_skip, kernel=False)
+    dist = get_distance(distance)
+    mf = dist.matmul_form
+    fin = matmul_finalize(dist)
+    m_real = queries.shape[0]
+    n_real = db_q.data.shape[0]
+    k = min(k, n_real)
+    fx = _pad_rows(mf.fx(queries).float(), tile_m)
+    hx = _pad_rows(mf.hx(queries).float()[:, None], tile_m)
+    # Dead rows die through the hy epilogue term, as in the kernels.
+    hy = db_q.hy.float()
+    if db_live is not None:
+        hy = torch.where(db_live, hy, T.POS_INF)
+    if probed is not None:
+        if cell_cap is None:
+            raise ValueError("a per-query probe mask needs cell_cap")
+        probed = _pad_rows(probed, tile_m)
+    vals, idx = [], []
+    for row_off in range(0, fx.shape[0], tile_m):
+        fxt, hxt = fx[row_off : row_off + tile_m], hx[row_off : row_off + tile_m]
+        run = T.init_running(tile_m, k, device=queries.device)
+        for col_off in range(0, n_real, tile_n):
+            cols = slice(col_off, col_off + tile_n)
+            t = mf.alpha * (fxt @ db_q.data[cols].float().T)  # per-tile upcast only
+            if db_q.scale is not None:
+                t = t * db_q.scale[cols][None, :]
+            tile = fin(t + hxt + hy[None, cols])
+            if probed is not None:
+                cell = torch.arange(col_off, col_off + tile.shape[1],
+                                    device=tile.device) // cell_cap
+                tile = torch.where(probed[row_off : row_off + tile_m][:, cell], tile,
+                                   T.POS_INF)
+            run = T.update_running(*run, tile, col_off, threshold_skip=threshold_skip)
+        v, i = T.finalize_topk(*run, k)
+        vals.append(v)
+        idx.append(i)
+    return KNNResult(torch.cat(vals)[:m_real], torch.cat(idx)[:m_real])
+
+
+def scan_width(n: int, k: int, overfetch: int) -> int:
+    """Candidate fetch width K' = min(n, overfetch * next_pow2(k)) of the
+    quantized scan.  At K' = n the two-stage pipeline is exhaustive and
+    exact by construction."""
+    assert overfetch >= 1, overfetch
+    return min(n, overfetch * T.next_pow2(k))
+
+
+def two_stage_query(queries: Tensor, database: Tensor, db_q: QuantizedRows, k: int, *,
+                    distance: str = "sqeuclidean", impl: str = "fused", overfetch: int = 4,
+                    threshold_skip: bool | None = None, db_live: Tensor | None = None,
+                    q_allowed: Tensor | None = None) -> KNNResult:
+    """Quantized scan of ``db_q`` + exact fp32 rescore against ``database``.
+
+    Stage 1 scans the low-precision replica for K' = scan_width(n, k,
+    overfetch) candidates (tombstones masked inside the scan); stage 2
+    re-scores them against the fp32 rows and returns the exact top-k of the
+    candidate set.  With a float32 replica the set contains the true top-k,
+    so the result is exact.  ``impl="fused"`` scans with the fused kernel
+    and rescores with the rescore kernel; other impls run the plain
+    ``quantized_scan`` and the plain rescore.  (The reference's Pallas
+    query tile ``bm`` is a block size of its kernel; the CUDA kernel plans
+    its own, and the result does not depend on it.)
+    """
+    _check_impl(impl)
+    _unfiltered(q_allowed)
+    n = database.shape[0]
+    k_scan = scan_width(n, k, overfetch)
+    if impl == "fused":
+        cand = kops.fused_knn(queries, db_q, k_scan, distance=distance, db_live=db_live,
+                              threshold_skip=threshold_skip).indices
+    else:
+        cand = quantized_scan(queries, db_q, k_scan, distance=distance, db_live=db_live,
+                              threshold_skip=threshold_skip).indices
+    return rescore(queries, database, cand, min(k, n), distance=distance, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# IVF cell-probed retrieval: coarse quantizer + pruned scan + exact rescore
+# (DESIGN.md §IVF).
+# ---------------------------------------------------------------------------
+
+
+def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8,
+              distance: str = "sqeuclidean", impl: str = "fused", overfetch: int = 4,
+              threshold_skip: bool | None = None, db_live: Tensor | None = None,
+              packed_q: QuantizedRows | None = None, q_allowed: Tensor | None = None,
+              exclude_rows: Tensor | None = None) -> KNNResult:
+    """Cell-probed kNN: centroid shortlist -> pruned scan -> exact rescore.
+
+    ``ivf`` is a trained ``core.ivf.IVFCells`` over ``database``:
+
+      1. shortlist: the ``nprobe`` nearest centroids per query (``knn_query``
+         over [ncells, d]);
+      2. pruned scan of the cell-packed replica (``packed_q``, else the fp32
+         packed rows) for K' = scan_width(n, k, overfetch) candidates.
+         ``impl="fused"`` runs the ``ivf_scan`` kernel, each query tile
+         scanning the union of its queries' probes, each cell up to its
+         last live slot (fetch width capped at ``cell_cap``); other impls run ``quantized_scan`` with a per-query
+         probe mask;
+      3. rescore: candidates map back through ``row_of_slot`` and re-rank
+         exactly against the fp32 corpus.
+
+    ``nprobe = ncells`` probes everything: with the fp32 packed replica the
+    result equals ``knn_query``.  Every consumer takes the shortlist as a
+    set of cells, so there the shortlist is all cells and no kNN over the
+    centroids runs (whose width the kernels' K-buffer bounds).  ``db_live``
+    is the [n] tombstone mask in original row order; it rides the packing
+    permutation.  ``q_allowed`` and ``exclude_rows`` come with the filtered
+    slice and raise here.
+    """
+    from repro_torch.core import ivf as IVF
+
+    _check_impl(impl)
+    _unfiltered(q_allowed, exclude_rows)
+    n = database.shape[0]
+    k = min(k, n)
+    ncells, cap = ivf.ncells, ivf.cell_cap
+    if nprobe >= ncells:
+        cells = torch.arange(ncells, dtype=torch.int32, device=queries.device)
+        cells = cells.expand(queries.shape[0], ncells)
+    else:
+        cells = IVF.probe_cells(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
+    live_p = IVF.packed_live(ivf, db_live)
+    k_scan = scan_width(n, k, overfetch)
+    if impl == "fused":
+        cand = kops.ivf_scan(queries, ivf.packed if packed_q is None else packed_q, cells,
+                             min(k_scan, cap), cell_cap=cap, distance=distance,
+                             packed_live=live_p, threshold_skip=threshold_skip).indices
+    else:
+        scan_q = packed_q
+        if scan_q is None:
+            scan_q = quantize_rows(ivf.packed, "float32", distance=distance)
+        probed = torch.zeros((queries.shape[0], ncells), dtype=torch.bool,
+                             device=queries.device)
+        probed.scatter_(1, cells.long(), True)
+        cand = quantized_scan(queries, scan_q, k_scan, distance=distance, db_live=live_p,
+                              probed=probed, cell_cap=cap,
+                              threshold_skip=threshold_skip).indices
+    safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
+    rows = torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
+    return rescore(queries, database, rows, k, distance=distance,
+                   impl="fused" if impl == "fused" else "torch")

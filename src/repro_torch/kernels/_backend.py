@@ -33,7 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "merge_partials")
+KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "merge_partials",
+                  "rescore", "ivf_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -86,10 +87,12 @@ def require_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 
 def require_vec4(d: int, *tensors: torch.Tensor) -> None:
-    """The GEMM kernels read rows of d floats as float4s."""
-    require(d % 4 == 0, f"the kernel reads rows in float4s; d={d} is not a multiple of 4")
-    require(all(t.data_ptr() % 16 == 0 for t in tensors),
-            "the kernel's operands must be 16-byte aligned")
+    """The kernels read rows four elements at a time (16 bytes of fp32, 8 of
+    bf16, 4 of int8), so d is a multiple of 4 and each operand is aligned
+    to four of its elements."""
+    require(d % 4 == 0, f"the kernel reads rows in fours; d={d} is not a multiple of 4")
+    require(all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors),
+            "the kernel's operands must be aligned to four elements")
 
 
 # ---------------------------------------------------------------------------

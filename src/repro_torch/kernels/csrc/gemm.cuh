@@ -1,6 +1,10 @@
-// The fp32 tile product both distance kernels start from:
+// The fp32 tile product every distance kernel starts from:
 //   acc[BM x BN] = A[row0 : row0+BM, :] . B[col0 : col0+BN, :]^T
 // with A [rows_a, d] and B [rows_b, d] row-major (d contiguous), d % 4 == 0.
+// A is fp32; B is fp32, bf16 or int8 (the quantized scan replicas): each
+// thread reads four consecutive B elements at once (16, 8 or 4 bytes) and
+// upcasts them to a float4 in registers before the shared-memory store, so
+// the shared tiles and the product stay fp32 whatever B is stored in.
 //
 // Plain FMA on the CUDA cores, in full fp32: the distances must not shift
 // the way TF32 would move them (about 1e-3 relative, enough to change ids).
@@ -17,6 +21,28 @@
 #include "common.cuh"
 
 namespace repro {
+
+// bf16 storage: the raw 16 bits (the upper half of an fp32).  The kernels
+// only ever widen it, which is a shift; no bf16 arithmetic is needed.
+struct Bf16 {
+  unsigned short bits;
+};
+
+// Four consecutive elements of a row, as fp32.  The pointer is aligned to
+// four elements (16, 8 or 4 bytes).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const Bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
+                     static_cast<float>(c.z), static_cast<float>(c.w));
+}
 
 template <int BM, int BN, int BK, int TM, int TN>
 struct SimtGemm {
@@ -37,8 +63,8 @@ struct SimtGemm {
     return (j / 4) * (BN / kGN) + tx * 4 + (j % 4);
   }
 
-  template <int N>
-  static __device__ __forceinline__ void load(const float* __restrict__ X,
+  template <typename T, int N>
+  static __device__ __forceinline__ void load(const T* __restrict__ X,
                                               int rows, int d, int r0, int k0,
                                               float4 (&reg)[N], int tid) {
 #pragma unroll
@@ -46,9 +72,8 @@ struct SimtGemm {
       const int idx = tid + l * kThreads;
       const int r = idx / (BK / 4), kq = idx % (BK / 4);
       const int gr = r0 + r, gk = k0 + kq * 4;
-      reg[l] = (gr < rows && gk < d)
-                   ? *reinterpret_cast<const float4*>(X + static_cast<size_t>(gr) * d + gk)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      reg[l] = (gr < rows && gk < d) ? load4(X + static_cast<size_t>(gr) * d + gk)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
@@ -67,8 +92,9 @@ struct SimtGemm {
   }
 
   // Ends with a __syncthreads(): the caller may reuse smem right after.
+  template <typename TB>
   static __device__ __forceinline__ void run(const float* __restrict__ A, int rows_a,
-                                             const float* __restrict__ B, int rows_b,
+                                             const TB* __restrict__ B, int rows_b,
                                              int d, int row0, int col0, float* smem,
                                              float (&acc)[TM][TN]) {
     float* As = smem;            // [BK][BM]

@@ -1,16 +1,17 @@
 """Public wrappers around the kernels: operand maps, masks, output widths.
 
-PyTorch port of ``repro/kernels/ops.py`` for the three kernels of the exact
-kNN path.  Each wrapper maps raw vectors to the matmul form (``fx``, ``gy``,
-``hx``, ``hy``, ``alpha``), turns dead database rows into ``hy = +inf``,
-and cuts the kernel's ``[m, K]`` output to ``[m, k]``.
+PyTorch port of ``repro/kernels/ops.py`` for the kernels of the exact kNN,
+two-stage quantized and IVF paths.  Each wrapper maps raw vectors to the
+matmul form (``fx``, ``gy``, ``hx``, ``hy``, ``alpha``), or takes a
+``QuantizedRows`` replica already in ``gy`` form, turns dead database rows
+into ``hy = +inf``, and cuts the kernel's ``[m, K]`` output to ``[m, k]``.
 
 Padding: the Pallas kernels need every axis padded to its block; the CUDA
 kernels mask ragged rows and columns themselves, so only ``d`` is padded,
-with zero coordinates, to the float4 width of the tile loads (zero
+with zero coordinates, to the four-element width of the tile loads (zero
 coordinates add nothing to ``fx . gy``: the operands are padded after their
-maps).  The cumulative per-coordinate kernel (``cumulative=True``) and the
-quantized and filtered operands of ``fused_knn`` come with later slices.
+maps).  The cumulative per-coordinate kernel (``cumulative=True``), the
+filtered operand of ``fused_knn`` and the PQ scan come with later slices.
 """
 from __future__ import annotations
 
@@ -18,10 +19,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import topk as T
-from repro_torch.core.distances import finalize_kind, get_distance
+from repro_torch.core.distances import QuantizedRows, finalize_kind, get_distance
 from repro_torch.kernels import fused_knn as _fused
+from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import pairwise_distance as _pd
+from repro_torch.kernels import rescore as _rs
 from repro_torch.kernels import stream_topk as _st
+
+
+def _pad_d(*ts):
+    """Zero coordinates up to a multiple of 4 on the last axis."""
+    pad = (-ts[0].shape[-1]) % 4
+    return [F.pad(t, (0, pad)).contiguous() if pad else t.contiguous() for t in ts]
 
 
 def _mxu_operands(x, y, distance: str):
@@ -30,10 +39,28 @@ def _mxu_operands(x, y, distance: str):
     gy = mf.gy(y).float()
     hx = mf.hx(x).float()[:, None].contiguous()
     hy = mf.hy(y).float()[None, :].contiguous()
-    pad = (-fx.shape[1]) % 4
-    if pad:
-        fx, gy = F.pad(fx, (0, pad)), F.pad(gy, (0, pad))
-    return fx.contiguous(), gy.contiguous(), hx, hy, mf.alpha
+    fx, gy = _pad_d(fx, gy)
+    return fx, gy, hx, hy, mf.alpha
+
+
+def _scan_operands(q, db, distance: str, live=None):
+    """(fx, gy, gy_scale, hx, hy, alpha) of a scan of ``db``: raw fp32 rows,
+    or a ``QuantizedRows`` replica whose rows stay in their storage type
+    (the kernel widens them as it loads them).  ``live`` False rows get
+    ``hy = +inf``."""
+    if isinstance(db, QuantizedRows):
+        mf = get_distance(distance).matmul_form
+        fx, gy = _pad_d(mf.fx(q).float(), db.data)
+        hx = mf.hx(q).float()[:, None].contiguous()
+        hy = db.hy.float()[None, :]
+        gs = None if db.scale is None else db.scale.float()[None, :].contiguous()
+        alpha = mf.alpha
+    else:
+        fx, gy, hx, hy, alpha = _mxu_operands(q, db, distance)
+        gs = None
+    if live is not None:
+        hy = torch.where(live[None, :], hy, T.POS_INF)
+    return fx, gy, gs, hx, hy.contiguous(), alpha
 
 
 def pairwise_distance(x, y, *, distance: str = "sqeuclidean", cumulative: bool = False):
@@ -57,23 +84,129 @@ def fused_knn(q, db, k: int, *, distance: str = "sqeuclidean",
               db_live=None, q_allowed=None, threshold_skip: bool | None = None):
     """kNN of ``q`` against ``db`` with the fused kernel; returns KNNResult.
 
-    ``db_valid``: rows at index >= db_valid score +inf.  ``db_live``: bool
-    [n] mask, False rows score +inf (the serving index's tombstones).  Both
-    ride the rank-1 ``hy`` term, so the kernel never sees a mask operand.
+    ``db`` is raw fp32 rows [n, d] or a ``QuantizedRows`` replica (bf16 /
+    int8 in ``gy`` space, ``core.distances.quantize_rows``); distances are
+    then exact with respect to the dequantized rows, so callers over-fetch
+    and rescore.  ``db_valid``: rows at index >= db_valid score +inf.
+    ``db_live``: bool [n] mask, False rows score +inf (the serving index's
+    tombstones).  Both ride the rank-1 ``hy`` term, so the kernel never
+    sees a mask operand.
     """
     from repro_torch.core.knn import KNNResult
 
     if q_allowed is not None:
         raise NotImplementedError("per-query filters come with the filtered slice")
-    if not isinstance(db, torch.Tensor):
-        raise NotImplementedError("quantized database replicas come with the two-stage slice")
-    n = db.shape[0]
-    fx, gy, hx, hy, alpha = _mxu_operands(q, db, distance)
+    fx, gy, gs, hx, hy, alpha = _scan_operands(q, db, distance, db_live)
+    n = gy.shape[0]
     if db_valid is not None:
         hy = torch.where(torch.arange(n, device=hy.device)[None, :] < db_valid, hy, T.POS_INF)
-    if db_live is not None:
-        hy = torch.where(db_live[None, :], hy, T.POS_INF)
     vals, idx = _fused.fused_knn(
         fx, gy, hx, hy, k, distance_finalize=finalize_kind(get_distance(distance)),
-        alpha=alpha, n_real=n, exclude_self=exclude_self, threshold_skip=threshold_skip)
+        alpha=alpha, n_real=n, exclude_self=exclude_self, threshold_skip=threshold_skip,
+        gy_scale=gs)
+    return KNNResult(vals[:, :k], idx[:, :k])
+
+
+def cell_extent(packed_live, ncells: int, cell_cap: int):
+    """Per cell, one past its last live slot (0 for a cell with none), int32
+    [ncells]: the leading slots a scan must read, every slot past them being
+    dead.  Without a mask every slot is live, and the extent is ``cell_cap``."""
+    if packed_live is None:
+        return torch.full((ncells,), cell_cap, dtype=torch.int32)
+    lv = packed_live.view(ncells, cell_cap)
+    last = cell_cap - lv.flip(1).to(torch.uint8).argmax(1)  # the first live slot from the end
+    return torch.where(lv.any(1), last, 0).to(torch.int32)
+
+
+def ivf_scan_operands(q, db, cells, k: int, *, cell_cap: int, distance: str = "sqeuclidean",
+                      tile_m: int = 256, packed_live=None):
+    """The ``ivf_scan`` kernel's operands for a scan of ``db``:
+    (probes, fx, gy, gy_scale, hx, hy, alpha, tile_m, cell_extent).
+
+    Queries are taken in tiles of ``min(tile_m, next_pow2(max(m, 8)))``, as
+    the reference does, and every query of a tile scans the union of the
+    tile's probes (``core.ivf.tile_probe_lists``); pad queries repeat the
+    last query's probes, which leaves that union as it is.  Each cell is
+    scanned up to its last live slot (``cell_extent``).
+    """
+    from repro_torch.core.ivf import tile_probe_lists
+
+    m = q.shape[0]
+    fx, gy, gs, hx, hy, alpha = _scan_operands(q, db, distance, packed_live)
+    S = gy.shape[0]
+    if S % cell_cap:
+        raise ValueError(f"packed size {S} is not a multiple of cell_cap {cell_cap}")
+    if T.next_pow2(k) > cell_cap:
+        raise ValueError(f"fetch width K={T.next_pow2(k)} exceeds the cell block "
+                         f"({cell_cap}); lower k or rebuild with a larger cell_cap")
+    tile_m = min(tile_m, T.next_pow2(max(m, 8)))
+    pad = (-m) % tile_m
+    if pad:
+        cells = torch.cat([cells, cells[-1:].expand(pad, cells.shape[1])])
+    probes = tile_probe_lists(cells, S // cell_cap, tile_m)
+    extent = cell_extent(packed_live, S // cell_cap, cell_cap).to(q.device)
+    return probes, fx, gy, gs, hx, hy, alpha, tile_m, extent
+
+
+def ivf_scan(q, db, cells, k: int, *, cell_cap: int, distance: str = "sqeuclidean",
+             tile_m: int = 256, packed_live=None, threshold_skip: bool | None = None):
+    """Cell-probed kNN scan of a cell-packed corpus; returns KNNResult.
+
+    ``db`` is the cell-packed [S, d] fp32 array (``core.ivf.IVFCells.packed``)
+    or its ``QuantizedRows`` replica; ``cells`` [m, nprobe] int32 is each
+    query's probed-cell shortlist; tiles of queries scan the union of their
+    probes (``ivf_scan_operands``).  ``packed_live``: bool [S] mask in
+    packed-slot order; dead slots get ``hy = +inf``, and the scan stops each
+    cell at its last live slot.  Ids are PACKED slots (map back via
+    ``row_of_slot``).
+    """
+    from repro_torch.core.knn import KNNResult
+
+    probes, fx, gy, gs, hx, hy, alpha, tile_m, extent = ivf_scan_operands(
+        q, db, cells, k, cell_cap=cell_cap, distance=distance, tile_m=tile_m,
+        packed_live=packed_live)
+    vals, idx = _ivf.ivf_scan(
+        probes, fx, gy, hx, hy, k, cell_cap=cell_cap, tile_m=tile_m,
+        cell_extent=extent, distance_finalize=finalize_kind(get_distance(distance)),
+        alpha=alpha, gy_scale=gs, threshold_skip=threshold_skip)
+    return KNNResult(vals[:, :k], idx[:, :k])
+
+
+def rescore_operands(q, db, cand_idx, k: int, *, distance: str = "sqeuclidean"):
+    """The rescore kernel's operands: (fx, cand, hx, hy_cand, cand_idx), the
+    candidate axis padded to ``K * 2^t`` with empty slots (``hy = +inf``,
+    id -1) as the reference pads it.  The gather ``db[cand_idx]`` and the
+    ``gy`` / ``hy`` maps run here, as the reference leaves them to XLA."""
+    m, d = q.shape
+    n = db.shape[0]
+    Kp = cand_idx.shape[1]
+    K = T.next_pow2(k)
+    mf = get_distance(distance).matmul_form
+    rows = db[cand_idx.clamp(0, n - 1).reshape(-1).long()]  # [m * Kp, d]
+    cand = mf.gy(rows).float().reshape(m, Kp, d)
+    hy_c = torch.where(cand_idx >= 0, mf.hy(rows).float().reshape(m, Kp), T.POS_INF)
+    Kp_pad = K * T.next_pow2(-(-max(Kp, K) // K))
+    cand = F.pad(cand, (0, 0, 0, Kp_pad - Kp))
+    hy_c = F.pad(hy_c, (0, Kp_pad - Kp), value=T.POS_INF).contiguous()
+    cip = F.pad(cand_idx, (0, Kp_pad - Kp), value=-1)
+    fx, cand = _pad_d(mf.fx(q).float(), cand)
+    return fx, cand, mf.hx(q).float()[:, None].contiguous(), hy_c, cip
+
+
+def rescore_topk(q, db, cand_idx, k: int, *, distance: str = "sqeuclidean"):
+    """Exact re-rank of per-query candidate rows; returns KNNResult [m, k].
+
+    ``cand_idx`` [m, Kp] int32 database rows (-1 = empty slot), distinct
+    within a row.  The kernel scores the gathered [m, Kp, d] block
+    (``rescore_operands``) and selects; positions map back to rows through
+    ``cand_idx``, and an empty slot comes back as +inf / -1.
+    """
+    from repro_torch.core.knn import KNNResult
+
+    dist = get_distance(distance)
+    fx, cand, hx, hy_c, cip = rescore_operands(q, db, cand_idx, k, distance=distance)
+    vals, pos = _rs.rescore_topk(fx, cand, hx, hy_c, k, alpha=dist.matmul_form.alpha,
+                                 finalize=finalize_kind(dist))
+    idx = cip.gather(1, pos.clamp(min=0).long())
+    idx = torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
     return KNNResult(vals[:, :k], idx[:, :k])

@@ -43,12 +43,15 @@ def fused_knn_ref(q, db, k: int, *, distance: str = "sqeuclidean", exclude_self=
     return stream_topk_ref(d, k)
 
 
-def operand_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
+def operand_distance(fx, gy, hx, hy, *, alpha: float, finalize: str, gy_scale=None):
     """``dist(rows, cols)``: the distance of each (row, column) pair,
-    recomputed from the matmul-form operands one pair at a time."""
+    recomputed from the matmul-form operands one pair at a time (``gy`` of
+    any storage type, with its int8 scales ``gy_scale`` [1, n])."""
     def dist(rows, cols):
-        dot = (fx[rows] * gy[cols]).sum(1)
-        return FINALIZERS[finalize](alpha * dot + hx[rows, 0] + hy[0, cols])
+        t = alpha * (fx[rows] * gy[cols].float()).sum(1)
+        if gy_scale is not None:
+            t = t * gy_scale[0, cols]
+        return FINALIZERS[finalize](t + hx[rows, 0] + hy[0, cols])
     return dist
 
 

@@ -1,7 +1,9 @@
-"""RetrievalIndex: an exact-kNN index with an online update path (flat fp32).
+"""RetrievalIndex: a kNN index with an online update path.
 
-Port of ``repro/serving/index.py`` for the flat fp32 scan.  The design is
-the reference's two-segment split:
+Port of ``repro/serving/index.py`` for the flat fp32 scan and its two
+compressed tiers, the two-stage quantized scan (``scan_dtype``,
+``overfetch``) and the IVF cell-probed scan (``ivf_cells``, ``nprobe``).
+The design is the reference's two-segment split:
 
 * **main segment**: an immutable packed ``[n, d]`` array; deletes tombstone
   rows instead of repacking, so the device copy stays valid;
@@ -13,17 +15,30 @@ the reference's two-segment split:
   exact however many rows are dead;
 * **compact()**: re-packs the live main + delta rows into a fresh main.
 
-Each segment is scored by ``core.knn.knn_query`` (the fused kernel by
-default) for its ``next_pow2(k)`` best; the two candidate sets merge with
-the bitonic merge, main winning ties.  External ids are caller-chosen int32
-keys; rows past the live count come back as ``+inf`` / ``-1``.
+Each segment is scored for its ``next_pow2(k)`` best; the two candidate
+sets merge with the bitonic merge, main winning ties.  External ids are
+caller-chosen int32 keys; rows past the live count come back as ``+inf`` /
+``-1``.  The delta is always scanned flat in fp32 (``core.knn.knn_query``,
+the fused kernel by default).  The main segment is scanned
+
+* flat (``scan_dtype="float32"``, ``ivf_cells=0``): ``knn_query``, exact;
+* two-stage (``scan_dtype`` bf16/int8): a low-precision replica of the main
+  rows is scanned for ``overfetch * next_pow2(k)`` candidates, which are
+  rescored exactly against the fp32 rows (``core.knn.two_stage_query``);
+* IVF (``ivf_cells > 0``): k-means cells over the main rows, a scan of the
+  ``nprobe`` nearest cells of the cell-packed replica (quantized to
+  ``scan_dtype``), then the exact rescore (``core.knn.ivf_query``).
+
+The replicas and the IVF structure are keyed on the main EPOCH (build and
+compact), not the main version: a tombstone flips the live mask and never
+requantizes or retrains; compact does both.
 
 The index's vectors live on ``device`` (default ``"cuda"``; asking for CUDA
 on a machine without it raises).  The main rows are uploaded once per
 main epoch (build / compact); a tombstone re-uploads only the live mask.
 
-The quantized, IVF and IVF-PQ tiers, mesh sharding, filters, tenants and
-snapshots come with later slices of the port and raise here.
+The IVF-PQ tier, mesh sharding, filters, tenants and snapshots come with
+later slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -33,7 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import topk as T
-from repro_torch.core.knn import knn_query
+from repro_torch.core.distances import QUANTIZABLE, canonical_scan_dtype, quantize_rows
+from repro_torch.core.ivf import IVFCells, build_ivf
+from repro_torch.core.knn import ivf_query, knn_query, two_stage_query
 from repro_torch.kernels._backend import resolve_device
 
 Tensor = torch.Tensor
@@ -68,23 +85,26 @@ def _merge_candidates(av, ai, bv, bi, *, k):
 
 
 def _unported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet: the flat fp32 index only")
+    raise NotImplementedError(f"{name} is not ported yet: the flat, quantized and IVF "
+                              "index only")
 
 
 class RetrievalIndex:
-    """Mutable exact-kNN index over (id, vector) rows.  See module docstring.
+    """Mutable kNN index over (id, vector) rows.  See module docstring.
 
     ``impl``: ``"fused"`` (default), ``"kernel"`` or ``"torch"``, forwarded
-    to the per-segment scorer.  ``device``: where the segments live.
+    to the per-segment scorers.  ``device``: where the segments live.
+    ``scan_dtype`` / ``overfetch``: the two-stage tier ("float32" is the
+    exact flat scan).  ``ivf_cells`` / ``nprobe``: the IVF tier (0 cells is
+    off; ``nprobe >= ivf_cells`` probes every cell, exact with a float32
+    scan).  k-means is seeded from the main epoch, through a
+    ``torch.Generator``, so a rebuild of one epoch trains the same cells.
     """
 
     def __init__(self, dim: int, *, distance: str = "sqeuclidean",
                  impl: str = "fused", device="cuda", scan_dtype: str = "float32",
-                 ivf_cells: int = 0, pq_m: int = 0, mesh=None):
-        if scan_dtype not in ("float32", "fp32", "f32"):
-            _unported(f"scan_dtype={scan_dtype!r}")
-        if ivf_cells:
-            _unported("ivf_cells")
+                 overfetch: int = 4, ivf_cells: int = 0, nprobe: int = 8, pq_m: int = 0,
+                 mesh=None):
         if pq_m:
             _unported("pq_m")
         if mesh is not None:
@@ -93,6 +113,15 @@ class RetrievalIndex:
         self.distance = distance
         self.impl = impl
         self.device = resolve_device(device)
+        self.scan_dtype = canonical_scan_dtype(scan_dtype)
+        self.overfetch = int(overfetch)
+        self.ivf_cells = int(ivf_cells)
+        self.nprobe = int(nprobe)
+        assert self.overfetch >= 1, overfetch
+        assert self.ivf_cells >= 0 and self.nprobe >= 1, (ivf_cells, nprobe)
+        if (self.scan_dtype != "float32" or self.ivf_cells) and distance not in QUANTIZABLE:
+            raise ValueError(f"scan_dtype={scan_dtype!r} / ivf_cells need a distance with a "
+                             f"row-local gy map; {distance!r} is not in {QUANTIZABLE}")
         self._main_epoch = 0
         self._main_vecs = np.zeros((0, dim), np.float32)
         self._main_ids = np.zeros((0,), np.int32)
@@ -128,15 +157,22 @@ class RetrievalIndex:
     @classmethod
     def from_arrays(cls, main_vecs, main_ids, main_live, delta_vecs, delta_ids,
                     delta_live, delta_n, *, distance: str = "sqeuclidean",
-                    impl: str = "fused", device="cuda") -> "RetrievalIndex":
+                    impl: str = "fused", device="cuda", ivf: IVFCells | None = None,
+                    scan_dtype: str = "float32", overfetch: int = 4,
+                    nprobe: int = 8) -> "RetrievalIndex":
         """An index with exactly this segment state (e.g. the reference's).
 
         Arrays are numpy: the main segment's rows, external ids and live
         mask, and the delta segment's rows, ids and live mask at full
-        capacity with its write head ``delta_n``.
+        capacity with its write head ``delta_n``.  ``ivf``: trained cells
+        over the main rows (e.g. the reference's, through
+        ``core.ivf.ivf_from_arrays``); the index then serves the IVF tier
+        with them until the next compact retrains.
         """
         main_vecs = np.ascontiguousarray(main_vecs, np.float32)
-        idx = cls(main_vecs.shape[1], distance=distance, impl=impl, device=device)
+        idx = cls(main_vecs.shape[1], distance=distance, impl=impl, device=device,
+                  scan_dtype=scan_dtype, overfetch=overfetch,
+                  ivf_cells=0 if ivf is None else ivf.ncells, nprobe=nprobe)
         idx._main_vecs = main_vecs
         idx._main_ids = np.asarray(main_ids, np.int32).copy()
         idx._main_live = np.asarray(main_live, bool).copy()
@@ -155,6 +191,11 @@ class RetrievalIndex:
         idx._bump("main")
         idx._bump("delta")
         idx._main_epoch += 1
+        if ivf is not None:
+            if ivf.slot_of_row.shape[0] != len(main_vecs):
+                raise ValueError(f"the cells cover {ivf.slot_of_row.shape[0]} rows, the main "
+                                 f"segment has {len(main_vecs)}")
+            idx._install_ivf(IVFCells(*(t.to(idx.device) for t in ivf)))
         return idx
 
     def save(self, directory: str, **kw) -> str:
@@ -273,6 +314,7 @@ class RetrievalIndex:
 
     def _upload(self, key: str, version, make) -> None:
         if self._dev_version.get(key) != version:
+            self._dev.pop(key, None)  # drop the stale copy first: one on the card at a time
             self._dev[key] = make()
             self._dev_version[key] = version
 
@@ -281,7 +323,9 @@ class RetrievalIndex:
 
         The main rows are keyed on the main epoch (they change only at build
         and compact), the main mask and ids on the main version (tombstones);
-        the delta, small by construction, on its version.
+        the delta, small by construction, on its version.  The quantized
+        replica (``main_q``) and the IVF cells with their scan replica
+        (``main_ivf``, ``main_ivf_q``) are keyed on the main epoch too.
         """
         dev = self.device
         self._upload("main_vecs", self._main_epoch,
@@ -292,16 +336,63 @@ class RetrievalIndex:
         self._upload("delta", self._version["delta"], lambda: tuple(
             torch.from_numpy(a).to(dev)
             for a in (self._delta_vecs, self._delta_live, self._delta_ids)))
+        if self.scan_dtype != "float32" and not self._use_ivf():
+            self._upload("main_q", self._main_epoch, lambda: quantize_rows(
+                self._dev["main_vecs"], self.scan_dtype, distance=self.distance))
+        if self._use_ivf() and self._dev_version.get("main_ivf") != self._main_epoch:
+            # The stale epoch's cells go before the new ones are built: the
+            # cell-packed copy can be many times the corpus (pow2 cell_cap).
+            self._dev.pop("main_ivf", None)
+            self._dev.pop("main_ivf_q", None)
+            self._install_ivf(build_ivf(
+                self._dev["main_vecs"], self._effective_ncells(), distance=self.distance,
+                impl=self.impl, generator=torch.Generator().manual_seed(self._main_epoch)))
         return {"main": (self._dev["main_vecs"], *self._dev["main_mask"]),
                 "delta": self._dev["delta"]}
 
+    def _install_ivf(self, ivf: IVFCells) -> None:
+        """The main epoch's cells and the scan replica of their packed rows
+        (built for float32 too, so that no search re-derives it)."""
+        self._dev["main_ivf"] = ivf
+        self._dev["main_ivf_q"] = quantize_rows(ivf.packed, self.scan_dtype,
+                                                distance=self.distance)
+        self._dev_version["main_ivf"] = self._main_epoch
+
+    def _use_ivf(self) -> bool:
+        return bool(self.ivf_cells) and self._effective_ncells() > 0
+
+    def _effective_ncells(self) -> int:
+        """``ivf_cells`` clamped so that a cell expects at least ~4 rows; 0
+        (the flat scan) for an empty main segment."""
+        n = len(self._main_vecs)
+        if n == 0:
+            return 0
+        return max(1, min(self.ivf_cells, n // 4 or 1))
+
+    def effective_nprobe(self) -> int:
+        """``nprobe`` clamped to the trained cell count: a larger value means
+        "probe every cell"."""
+        if not self._use_ivf():
+            return self.nprobe
+        self._device_state()
+        return min(self.nprobe, self._dev["main_ivf"].ncells)
+
     def shape_signature(self, k: int) -> tuple:
         """Everything that fixes the shapes of a k-search: the segment row
-        counts (main size, delta capacity), never the number of dead rows.
-        The third entry is the reference's cell-packed size, 0 without IVF.
+        counts (main size, delta capacity), never the number of dead rows,
+        and with IVF the cell-packed size (``ncells * cell_cap``; cell_cap
+        can move with the largest cell at a compact).  Before this epoch's
+        cells are built it is a per-epoch marker, so the first batch after a
+        compact is tagged cold.
         """
         del k  # fetch width is next_pow2(k), already part of the batch key
-        return (len(self._main_vecs), len(self._delta_vecs) if self._delta_n else 0, 0)
+        packed = 0
+        if self._use_ivf():
+            if self._dev_version.get("main_ivf") == self._main_epoch:
+                packed = int(self._dev["main_ivf"].packed.shape[0])
+            else:
+                packed = -(self._main_epoch + 1)
+        return (len(self._main_vecs), len(self._delta_vecs) if self._delta_n else 0, packed)
 
     def search(self, queries, k: int, *, filter=None) -> SearchResult:
         """Exact k nearest live rows for each query row.
@@ -319,8 +410,7 @@ class RetrievalIndex:
         dev = self._device_state()
         sets = []
         if len(self._main_vecs):
-            sets.append(_segment_candidates(q, *dev["main"], k_out=k_out,
-                                            distance=self.distance, impl=self.impl))
+            sets.append(self._main_candidates(q, k_out, dev))
         if self._delta_n:
             sets.append(_segment_candidates(q, *dev["delta"], k_out=k_out,
                                             distance=self.distance, impl=self.impl))
@@ -332,3 +422,19 @@ class RetrievalIndex:
             return SearchResult(*T.finalize_topk(*sets[0], k))
         (av, ai), (bv, bi) = sets
         return SearchResult(*_merge_candidates(av, ai, bv, bi, k=k))
+
+    def _main_candidates(self, q, k_out: int, dev: dict):
+        """Top-``k_out`` live candidates of the main segment, by its tier."""
+        vecs, live, ids = dev["main"]
+        kw = dict(distance=self.distance, impl=self.impl, overfetch=self.overfetch,
+                  db_live=live)
+        if self._use_ivf():
+            vals, idx = ivf_query(q, vecs, self._dev["main_ivf"], k_out,
+                                  nprobe=self.effective_nprobe(),
+                                  packed_q=self._dev["main_ivf_q"], **kw)
+        elif self.scan_dtype != "float32":
+            vals, idx = two_stage_query(q, vecs, self._dev["main_q"], k_out, **kw)
+        else:
+            return _segment_candidates(q, vecs, live, ids, k_out=k_out,
+                                       distance=self.distance, impl=self.impl)
+        return _externalize(vals, idx, ids, k_out)

@@ -44,7 +44,8 @@ def test_import_works_with_jax_blocked():
         "    sys.modules[name] = None  # any import of them now raises\n"
         "import repro_torch, repro_torch.kernels.ops, repro_torch.serving.engine\n"
         "import repro_torch.data.synthetic, repro_torch.kernels.ref\n"
-        "import repro_torch.accounting\n"
+        "import repro_torch.accounting, repro_torch.core.ivf, repro_torch.core.kmeans\n"
+        "import repro_torch.kernels.rescore, repro_torch.kernels.ivf_scan\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

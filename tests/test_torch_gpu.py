@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from repro_torch.core import topk as T
-from repro_torch.core.distances import finalize_kind, get_distance
+from repro_torch.core.distances import finalize_kind, get_distance, quantize_rows
 from repro_torch.kernels import fused_knn as FK
+from repro_torch.kernels import ivf_scan as IVS
 from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
+from repro_torch.kernels import rescore as RS
 from repro_torch.kernels import stream_topk as ST
 from repro_torch.kernels.ref import check_topk, operand_distance
 
@@ -186,9 +188,12 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     fx, gy, hx, hy, alpha = ops._mxu_operands(x.to(cuda), y.to(cuda), "sqeuclidean")
     with pytest.raises(ValueError):  # mixed devices
         PD.pairwise_distance(fx, gy.cpu(), hx, hy, alpha=alpha, finalize="identity")
+    with pytest.raises(ValueError):  # a scale left on the host
+        FK.fused_knn(fx, gy.to(torch.int8), hx, hy, 4, distance_finalize="identity",
+                     alpha=alpha, n_real=16, gy_scale=hy.cpu())
     with pytest.raises(NotImplementedError):
         FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
-                     n_real=16, gy_scale=hy)
+                     n_real=16, q_mask=torch.ones(8, 16, device=cuda))
 
 
 def test_index_on_card_matches_cpu_index(cuda):
@@ -209,3 +214,147 @@ def test_index_on_card_matches_cpu_index(cuda):
         out[dev] = (r.distances.cpu().numpy(), r.ids.cpu().numpy())
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", ["sqeuclidean", "neg_dot", "neg_cosine"])
+@pytest.mark.parametrize("mnk", [(64, 1000, 16), (3, 50_000, 40), (300, 3000, 100),
+                                 (20, 700, 256)])
+def test_fused_kernel_over_a_replica_matches_plain(cuda, scan_dtype, name, mnk):
+    """bf16 / int8 gy widened in the loads, int8 scales in the epilogue."""
+    m, n, k = mnk
+    x, y = _data(name, m, n, 64, 10)
+    db_q = quantize_rows(y.to(cuda), scan_dtype, distance=name)
+    fx, gy, gs, hx, hy, alpha = ops._scan_operands(x.to(cuda), db_q, name)
+    assert gy.dtype == db_q.data.dtype
+    fin = finalize_kind(get_distance(name))
+    before = FK.LAUNCHES
+    v, i = FK.fused_knn(fx, gy, hx, hy, k, distance_finalize=fin, alpha=alpha, n_real=n,
+                        gy_scale=gs)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES == before + 1
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, k, alpha=alpha, finalize=fin, n_real=n,
+                                gy_scale=gs)
+    check_topk(v, i, pv, pi, n=n, rtol=1e-5, atol=1e-4,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize=fin, gy_scale=gs))
+
+
+@pytest.mark.parametrize("gy_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fused_kernel_with_or_without_a_scale_on_every_storage_type(cuda, gy_dtype, scaled):
+    """Each (storage type, scale) pair is a kernel of its own: a scale on an
+    fp32 or bf16 gy, and int8 codes without one, follow the contract too."""
+    g = torch.Generator().manual_seed(int(scaled))
+    fx = torch.randn(200, 32, generator=g).to(cuda)
+    gy = (torch.randn(5000, 32, generator=g) * 20).to(gy_dtype).to(cuda)
+    hx, hy = torch.zeros(200, 1, device=cuda), torch.randn(1, 5000, generator=g).to(cuda)
+    gs = torch.rand(1, 5000, generator=g).to(cuda) + 0.5 if scaled else None
+    v, i = FK.fused_knn(fx, gy, hx, hy, 16, distance_finalize="identity", alpha=-1.0,
+                        n_real=5000, gy_scale=gs)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 16, alpha=-1.0, finalize="identity",
+                                n_real=5000, gy_scale=gs)
+    check_topk(v, i, pv, pi, n=5000, rtol=1e-5, atol=1e-3,
+               dist=operand_distance(fx, gy, hx, hy, alpha=-1.0, finalize="identity",
+                                     gy_scale=gs))
+
+
+@pytest.mark.parametrize("name", ["sqeuclidean", "neg_dot", "euclidean"])
+@pytest.mark.parametrize("m,Kp,d,k", [(1, 16, 4, 10), (1024, 64, 256, 10), (37, 160, 68, 25),
+                                      (8, 512, 32, 256), (300, 20, 128, 7)])
+def test_rescore_kernel_matches_plain(cuda, name, m, Kp, d, k):
+    g = torch.Generator().manual_seed(m * Kp + d)
+    fx = torch.randn(m, d, generator=g).to(cuda)
+    cand = torch.randn(m, Kp, d, generator=g).to(cuda)
+    hx = torch.randn(m, 1, generator=g).to(cuda)
+    hy = torch.randn(m, Kp, generator=g).abs().to(cuda)
+    hy[::3, -Kp // 4:] = T.POS_INF  # empty slots
+    fin = finalize_kind(get_distance(name))
+    before = RS.LAUNCHES
+    v, p = RS.rescore_topk(fx, cand, hx, hy, k, alpha=-2.0, finalize=fin)
+    torch.cuda.synchronize()
+    assert RS.LAUNCHES == before + 1
+    pv, pp = RS.rescore_topk_plain(fx, cand, hx, hy, k, alpha=-2.0, finalize=fin)
+
+    def dist(r, c):  # a candidate position's value, from the operands
+        out = -2.0 * (fx[r] * cand[r, c]).sum(1) + hx[r, 0] + hy[r, c]
+        return torch.sqrt(out.clamp_min(0)) if fin == "sqrt" else out
+    check_topk(v, p, pv, pp, n=Kp, rtol=1e-5, atol=1e-4, dist=dist)
+
+
+@pytest.mark.parametrize("whole", [True, False])
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m,tile_m,cap", [(8, 8, 128), (1024, 256, 256), (300, 256, 128),
+                                          (40, 64, 512), (300, 64, 512)])
+def test_ivf_scan_kernel_matches_plain(cuda, scan_dtype, m, tile_m, cap, whole):
+    """Random probe lists over a packed corpus with dead slots; the list is
+    split across CTAs and merged.  Cells are scanned whole, or to random
+    extents (0 to cell_cap, the slots past them left live): the kernel must
+    stop each cell where the plain version does."""
+    ncells, d, k = 64, 64, 40
+    g = torch.Generator().manual_seed(m + cap)
+    extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32).to(cuda)
+    if whole:
+        extent.fill_(cap)
+    packed = torch.randn(ncells * cap, d, generator=g).to(cuda)
+    db_q = quantize_rows(packed, scan_dtype, distance="neg_dot")
+    live = (torch.rand(ncells * cap, generator=g) > 0.3).to(cuda)
+    q = torch.randn(m, d, generator=g).to(cuda)
+    fx, gy, gs, hx, hy, alpha = ops._scan_operands(q, db_q, "neg_dot", live)
+    m_pad = -(-m // tile_m) * tile_m
+    cells = torch.randint(0, ncells, (m_pad, 4), generator=g, dtype=torch.int32).to(cuda)
+    from repro_torch.core.ivf import tile_probe_lists
+
+    probes = tile_probe_lists(cells, ncells, tile_m)
+    kw = dict(cell_cap=cap, tile_m=tile_m, distance_finalize="identity", alpha=alpha,
+              gy_scale=gs, cell_extent=extent)
+    before = IVS.LAUNCHES
+    v, i = IVS.ivf_scan(probes, fx, gy, hx, hy, k, **kw)
+    torch.cuda.synchronize()
+    assert IVS.LAUNCHES == before + 1
+    pv, pi = IVS.ivf_scan_plain(probes, fx, gy, hx, hy, k, cell_cap=cap, tile_m=tile_m,
+                                cell_extent=extent, alpha=alpha, finalize="identity",
+                                gy_scale=gs)
+    check_topk(v, i, pv, pi, n=ncells * cap, rtol=1e-5, atol=1e-4,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity",
+                                     gy_scale=gs))
+
+
+def test_ivf_scan_refuses_tiles_below_its_query_block(cuda):
+    """40 queries in union tiles of 16: no CTA of 64 rows fits one tile."""
+    fx = torch.randn(40, 16, device=cuda)
+    gy = torch.randn(256, 16, device=cuda)
+    probes = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile_m"):
+        IVS.ivf_scan(probes, fx, gy, torch.zeros(40, 1, device=cuda),
+                     torch.zeros(1, 256, device=cuda), 8, cell_cap=128, tile_m=16,
+                     cell_extent=torch.full((2,), 128, dtype=torch.int32, device=cuda),
+                     distance_finalize="identity", alpha=-1.0)
+
+
+@pytest.mark.parametrize("kw", [dict(scan_dtype="int8"), dict(scan_dtype="bfloat16"),
+                                dict(ivf_cells=16, nprobe=4),
+                                dict(ivf_cells=16, nprobe=3, scan_dtype="int8")])
+def test_index_tiers_on_card_match_cpu_index(cuda, kw):
+    """The same index on the card and on the host: the IVF cells come from
+    one training (on the card), carried to the host through from_arrays."""
+    from repro_torch.core.ivf import IVFCells
+    from repro_torch.serving.index import RetrievalIndex
+
+    g = np.random.default_rng(11)
+    vecs = g.standard_normal((4000, 32)).astype(np.float32)
+    q = g.standard_normal((37, 32)).astype(np.float32)
+    card = RetrievalIndex.build(np.arange(4000), vecs, distance="neg_dot", device="cuda", **kw)
+    card.search(q, 10)
+    ivf = card._dev.get("main_ivf")
+    host = RetrievalIndex.from_arrays(
+        card._main_vecs, card._main_ids, card._main_live, card._delta_vecs, card._delta_ids,
+        card._delta_live, card._delta_n, distance="neg_dot", device="cpu",
+        ivf=None if ivf is None else IVFCells(*(t.cpu() for t in ivf)),
+        scan_dtype=card.scan_dtype, overfetch=card.overfetch, nprobe=card.nprobe)
+    for index in (card, host):
+        index.upsert(np.arange(300), vecs[:300] * 0.5)
+        index.delete(np.arange(1000, 1100))
+    a, b = card.search(q, 10), host.search(q, 10)
+    np.testing.assert_allclose(a.distances.cpu().numpy(), b.distances.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert (a.ids.cpu().numpy() == b.ids.numpy()).mean() > 0.99

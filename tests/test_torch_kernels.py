@@ -23,10 +23,13 @@ from repro.kernels import ops as rops
 from repro_torch.core import topk as T
 from repro_torch.core.distances import REGISTRY, get_distance
 from repro_torch.kernels import fused_knn as FK
+from repro_torch.kernels import ivf_scan as IVS
 from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
 from repro_torch.kernels import ref
+from repro_torch.kernels import rescore as RS
+from repro_torch.kernels import scan as SC
 from repro_torch.kernels import stream_topk as ST
 
 CSRC = Path(ops.__file__).parent / "csrc"
@@ -170,6 +173,56 @@ def test_plain_versions_keep_the_contract_and_launch_nothing():
                           n_real=12)
     assert fv.shape == (9, 4)
     assert (PD.LAUNCHES, ST.LAUNCHES, FK.LAUNCHES) == before
+    before = (RS.LAUNCHES, IVS.LAUNCHES)
+    rv, rp = RS.rescore_topk(fx, gy[None].expand(9, 12, 8).contiguous(), hx,
+                             hy.expand(9, 12).contiguous(), 3, alpha=alpha, finalize="identity")
+    torch.testing.assert_close(rv, fv)  # every row's candidates are the whole database
+    assert torch.equal(rp, fi)
+    probes = torch.zeros((1, 1), dtype=torch.int32)
+    iv, ii = IVS.ivf_scan(probes, fx, gy, hx, hy, 3, cell_cap=12, tile_m=16,
+                          cell_extent=torch.full((1,), 12, dtype=torch.int32),
+                          distance_finalize="identity", alpha=alpha)
+    assert torch.equal(iv, fv) and torch.equal(ii, fi)  # one cell, the whole database
+    assert (RS.LAUNCHES, IVS.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("tile_m", [8, 16])
+def test_ivf_scan_stops_each_cell_at_its_extent(tile_m):
+    """The scan reads each cell's first cell_extent[c] slots only: where the
+    slots past them are dead (+inf) the result is the whole-cell scan's, a
+    live slot past an extent is never returned, and a union of empty cells
+    comes back as +inf / -1."""
+    from repro_torch.core.ivf import tile_probe_lists
+
+    g = torch.Generator().manual_seed(tile_m)
+    ncells, cap, d, m = 6, 16, 8, 16
+    extent = torch.tensor([16, 0, 5, 9, 1, 12], dtype=torch.int32)
+    gy = torch.randn(ncells * cap, d, generator=g)
+    fx, hx, hy = torch.randn(m, d, generator=g), torch.zeros(m, 1), torch.zeros(1, ncells * cap)
+    past = torch.arange(ncells * cap) % cap >= extent.repeat_interleave(cap)
+    probes = tile_probe_lists(torch.randint(0, ncells, (m, 2), generator=g, dtype=torch.int32),
+                              ncells, tile_m)
+    kw = dict(cell_cap=cap, tile_m=tile_m, distance_finalize="identity", alpha=-1.0)
+    v, i = IVS.ivf_scan(probes, fx, gy, hx, hy, 8, cell_extent=extent, **kw)
+    assert (i >= 0).any() and not past[i[i >= 0].long()].any()
+    whole = torch.full((ncells,), cap, dtype=torch.int32)
+    wv, wi = IVS.ivf_scan(probes, fx, gy, hx, torch.where(past[None, :], T.POS_INF, hy), 8,
+                          cell_extent=whole, **kw)
+    torch.testing.assert_close(v, wv, rtol=1e-6, atol=1e-6)
+    assert torch.equal(i, wi)
+    empty = torch.ones((m // tile_m, 2), dtype=torch.int32)  # cell 1 has an extent of 0
+    ev, ei = IVS.ivf_scan(empty, fx, gy, hx, hy, 8, cell_extent=extent, **kw)
+    assert torch.isinf(ev).all() and (ei == -1).all()
+    with pytest.raises(ValueError, match="cell_extent"):
+        IVS.ivf_scan(probes, fx, gy, hx, hy, 8, cell_extent=extent.long(), **kw)
+
+
+def test_cell_extent_is_one_past_the_last_live_slot():
+    live = torch.tensor([[1, 1, 0, 1, 0, 0], [0] * 6, [1, 0, 0, 0, 0, 0], [1] * 6],
+                        dtype=torch.bool)
+    assert ops.cell_extent(live.reshape(-1), 4, 6).tolist() == [4, 0, 1, 6]
+    assert ops.cell_extent(None, 3, 8).tolist() == [8, 8, 8]
+    assert ops.cell_extent(live.reshape(-1), 4, 6).dtype == torch.int32
 
 
 def test_unported_operands_raise():
@@ -177,13 +230,13 @@ def test_unported_operands_raise():
     fx, gy, hx, hy, alpha = ops._mxu_operands(x, y, "sqeuclidean")
     with pytest.raises(NotImplementedError):
         FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
-                     n_real=16, gy_scale=hy)
-    with pytest.raises(NotImplementedError):
-        FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
                      n_real=16, q_mask=torch.ones(8, 16))
-    with pytest.raises(NotImplementedError):
-        FK.fused_knn(fx, gy.to(torch.bfloat16), hx, hy, 4, distance_finalize="identity",
-                     alpha=alpha, n_real=16)
+    with pytest.raises(ValueError):  # a storage type the kernels do not read
+        FK.fused_knn(fx, gy.half(), hx, hy, 4, distance_finalize="identity", alpha=alpha,
+                     n_real=16)
+    with pytest.raises(ValueError):  # a scale of the wrong shape
+        FK.fused_knn(fx, gy.to(torch.int8), hx, hy, 4, distance_finalize="identity",
+                     alpha=alpha, n_real=16, gy_scale=hy[:, :3].contiguous())
     with pytest.raises(NotImplementedError):
         ops.fused_knn(x, y, 4, q_allowed=torch.ones(8, 16, dtype=torch.bool))
     with pytest.raises(NotImplementedError):
@@ -200,24 +253,26 @@ def test_split_plan_covers_every_tile():
     for m, n, K, resident in [(1024, 1 << 20, 16, 132), (8, 1 << 20, 16, 264),
                               (160_000, 160_000, 128, 132), (5, 300, 256, 132),
                               (100, 129, 8, 4)]:
-        bm = FK.block_rows(m, K)
-        splits, tps = FK.split_plan(m, n, bm, 128, resident)
+        bm = SC.block_rows(m, K)
+        splits, tps = SC.split_plan(m, n, bm, 128, resident)
         n_tiles, row_tiles = -(-n // 128), -(-m // bm)
         assert bm in (64, 128) and (K <= 128 or bm == 64)
         assert (splits - 1) * tps < n_tiles <= splits * tps
         assert splits == 1 or splits * row_tiles <= resident
-    assert FK.split_plan(1024, 1 << 20, 128, 128, 132) == (16, 512)  # serving batch: split
-    assert FK.split_plan(160_000, 160_000, 128, 128, 132)[0] == 1  # all-pairs: enough rows
+    assert SC.split_plan(1024, 1 << 20, 128, 128, 132) == (16, 512)  # serving batch: split
+    assert SC.split_plan(160_000, 160_000, 128, 128, 132)[0] == 1  # all-pairs: enough rows
 
 
 @pytest.mark.parametrize("module,entry", [(PD, "pairwise_distance_f32"),
-                                          (ST, "stream_topk_f32"), (FK, "fused_knn_f32"),
+                                          (ST, "stream_topk_f32"), (FK, "fused_knn"),
                                           (MP, "merge_partials_f32"),
-                                          (FK, "fused_knn_occupancy")])
+                                          (FK, "fused_knn_occupancy"),
+                                          (IVS, "ivf_scan"), (IVS, "ivf_scan_occupancy"),
+                                          (RS, "rescore_f32")])
 def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     """The C entry point's parameter list and the wrapper's argtypes agree:
     a pointer or the stream is void*, an int is int, alpha is float."""
-    src = (CSRC / (entry.rsplit("_", 1)[0] + ".cu")).read_text()
+    src = (CSRC / (module.__name__.rsplit(".", 1)[1] + ".cu")).read_text()
     m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)
     assert m, entry
     kinds = []
@@ -227,9 +282,30 @@ def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     import ctypes
 
     want = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
-    argtypes = FK.OCCUPANCY_ARGTYPES if entry == "fused_knn_occupancy" else module.C_ARGTYPES
+    argtypes = SC.OCCUPANCY_ARGTYPES if entry.endswith("_occupancy") else module.C_ARGTYPES
     assert [want[k] for k in kinds] == argtypes
     assert "repro_error_string" in (CSRC / "common.cuh").read_text()
+    from repro_torch.kernels import _backend as B
+
+    name = module.__name__.rsplit(".", 1)[1]
+    assert name in B.KERNEL_SOURCES and entry.startswith(name)
+
+
+@pytest.mark.parametrize("library", ["fused_knn", "ivf_scan"])
+def test_scan_dtype_codes_match_the_cuda_sources(library):
+    """The storage-type codes the wrappers pass are the ones the C side
+    switches on, and each scan kernel is compiled for every type, with and
+    without a scale."""
+    header = (CSRC / "scan.cuh").read_text()
+    codes = dict(re.findall(r"k(F32|Bf16|I8) = (\d)", header))
+    assert {"F32": torch.float32, "Bf16": torch.bfloat16, "I8": torch.int8} == {
+        key: next(dt for dt, c in SC.GY_CODES.items() if c == int(v)) for key, v in codes.items()}
+    for tb in ("float", "Bf16", "int8_t"):
+        assert re.search(rf"f\(Type<{tb}>{{}}, std::true_type{{}}\) : f\(Type<{tb}>{{}}, "
+                         r"std::false_type{}\)", header), tb
+    src = (CSRC / f"{library}.cu").read_text()
+    assert "dispatch_gy(gy_dtype, gs != nullptr" in src
+    assert "dispatch_gy(gy_dtype, scaled != 0" in src
 
 
 def test_k_above_the_buffer_is_refused_by_every_wrapper():
@@ -297,6 +373,34 @@ def test_split_fused_then_merge_equals_one_pass():
     mv, mi = MP.merge_partials(torch.stack([p[0] for p in parts]).contiguous(),
                                torch.stack([p[1] for p in parts]).contiguous())
     assert torch.equal(mv, whole_v) and torch.equal(mi, whole_i)
+
+
+def test_split_ivf_scan_then_merge_equals_one_pass():
+    """The probe list cut into ranges of slots, each range's partial sets
+    merged, equals one pass over the whole list; duplicate slots are skipped."""
+    g = np.random.default_rng(5)
+    cap, ncells, d = 32, 10, 16
+    fx, gy, hx, hy, alpha = ops._mxu_operands(*_t(*_data("neg_dot", 9, cap * ncells, d, 6)),
+                                              "neg_dot")
+    hy = torch.where(torch.from_numpy(g.random(cap * ncells) < 0.2)[None, :], T.POS_INF, hy)
+    probes = torch.tensor([[0, 2, 3, 5, 7, 8, 8, 8]], dtype=torch.int32)
+    kw = dict(cell_cap=cap, tile_m=16, distance_finalize="identity", alpha=alpha,
+              cell_extent=torch.full((ncells,), cap, dtype=torch.int32))
+    whole_v, whole_i = IVS.ivf_scan(probes, fx, gy, hx, hy, 10, **kw)
+    dup_v, dup_i = IVS.ivf_scan(torch.tensor([[0, 0, 2, 3, 3, 5, 7, 8]], dtype=torch.int32),
+                                fx, gy, hx, hy, 10, **kw)
+    assert torch.equal(dup_v, whole_v) and torch.equal(dup_i, whole_i)
+    parts = [IVS.ivf_scan_partials(probes[:, a:b].contiguous(), fx, gy, hx, hy, 10, **kw)
+             for a, b in ((0, 3), (3, 5), (5, 8))]
+    mv, mi = MP.merge_partials(torch.cat([p[0] for p in parts]).contiguous(),
+                               torch.cat([p[1] for p in parts]).contiguous())
+    assert torch.equal(mv, whole_v) and torch.equal(mi, whole_i)
+    cols = torch.cat([torch.arange(c * cap, (c + 1) * cap) for c in (0, 2, 3, 5, 7, 8)])
+    pv, pi = FK.fused_knn_plain(fx, gy[cols], hx, hy[:, cols], 10, alpha=alpha,
+                                finalize="identity", n_real=len(cols))
+    assert torch.equal(whole_v, pv)
+    assert torch.equal(whole_i, torch.where(pi >= 0, cols[pi.clamp(min=0).long()].int(), pi))
+    assert IVS.live_slots(probes) == 6 and IVS.live_slots(torch.zeros((2, 5), dtype=torch.int32)) == 1
 
 
 def test_check_topk_holds_ids_not_only_values():

@@ -134,7 +134,7 @@ def test_serving_meter_matches_reference_statistics():
 
 
 def test_unported_knobs_raise():
-    for kw in (dict(scan_dtype="int8"), dict(ivf_cells=8), dict(pq_m=4), dict(mesh=object())):
+    for kw in (dict(pq_m=4), dict(mesh=object()), dict(ivf_cells=8, pq_m=4)):
         with pytest.raises(NotImplementedError):
             RetrievalIndex(8, **kw, **CPU)
     idx = RetrievalIndex.build(np.arange(4), np.ones((4, 8), np.float32), **CPU)
