@@ -16,6 +16,13 @@ Phases (each one raises on a failed check; nothing is caught):
    ``pairwise_distance`` kernel, then ``stream_topk``; held against phase 2's
    result and each kernel against its plain version.  Then the per-tile
    ``knn_allpairs(impl="kernel", symmetric=True)`` at n = 32,768.
+3b. The paper's two phases with the generic distance: rows 0..1023 against
+   all 160,000 through ``pairwise_distance(cumulative=True)`` (the
+   per-coordinate kernel, sqeuclidean) then ``stream_topk`` at k = 100; the
+   matrix held against its plain version and against the matmul-form
+   kernel, the ids tie-aware against phase 2's.  Then hellinger and kl on
+   non-negative rows (``abs``, each row normalised to sum 1) at 1024 x
+   16,384, each held against its plain version.
 4. Flat serving at the ``query_1m`` cell: 1,048,576 x 256 fp32 rows,
    ``neg_dot``, k = 10, batches 8..1024 (the two-tower serving defaults):
    8,192 queries through ``QueryEngine``, ragged flushes, then churn (upsert,
@@ -43,6 +50,22 @@ Phases (each one raises on a failed check; nothing is caught):
    kernel path and the plain path, at least 0.9; a steady window of 50
    batches; the ``ivf_scan`` kernel held against its plain version at both
    batch sizes, its bound counted from the rows of the cells it scans.
+7. IVF-PQ serving on phase 6's data: ``ivf_cells=4096, nprobe=8, pq_m=32,
+   pq_nbits=8`` (faiss's "IVF4096,PQ32": 32 bytes a row), ``neg_dot``,
+   k = 10.  First, for comparison, the reference's start (Lloyd from a
+   uniform draw of rows, cells and codebooks): recall@10 at overfetch 4, 8
+   and 16 beside the fp32 IVF scan of the same cells.  Then the index's own
+   epoch (the port's k-means++ start), the same figures, and its build time
+   split into k-means, packing, PQ training and encoding; the replica's
+   bytes on the card; per union tile the live rows the scan needs.  The fused kernel held against its plain version at the
+   encoding's shape (k 1 over 256 codewords of 8 coordinates); served
+   recall@10 against brute force at least 0.85 at overfetch 8 (the
+   reference's floor and setting, ``tests/test_pq.py``), reported at
+   overfetch 4; after churn (upsert, delete 1% of main, compact) no deleted
+   id is served and the retrained replica meets the floor; a steady window
+   of 50 batches; the ``pq_scan`` kernel held against its plain version at
+   batches of 1024 and 8, its partial sets and the merge timed apart, its
+   bound counted from the live rows of each tile's cells.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is ``{"kernels": [...]}``: per
@@ -71,6 +94,10 @@ PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_HBM = 3.35e12  # H100 SXM HBM3, bytes/s
 QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
+PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
+# fp32 operations per (pair, coordinate) of the cumulative accumulators
+# (csrc/pairwise_cumulative.cu); roots and logarithms are per element.
+CUMULATIVE_OPS = {"sqeuclidean": 3, "neg_dot": 2, "hellinger": 3, "kl": 3}
 REPORT: dict = {}
 
 
@@ -153,6 +180,100 @@ def time_plain(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def rows_close(torch, got, want, atol, rtol, what):
+    """max |got - want| over the finite entries; raise past atol + rtol |want|
+    or where the two disagree on which entries are +inf."""
+    check(torch.equal(torch.isinf(got), torch.isinf(want)), f"{what}: +inf entries differ")
+    fin = torch.isfinite(want)
+    diff = torch.where(fin, (got - want).abs(), torch.zeros_like(got))
+    err = float(diff.max())
+    check(bool((diff <= atol + rtol * want.abs().nan_to_num(0.0, 0.0, 0.0)).all()),
+          f"{what}: max |difference| {err} past atol {atol} + rtol {rtol}")
+    return err
+
+
+def phase_cumulative(torch, dev, run_path, x, res):
+    """Phase 3b: the paper's two phases with the per-coordinate kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_distance as PD
+    from repro_torch.kernels.ref import check_topk
+
+    m, k = 1024, 100
+    n, d = x.shape
+    xq = x[:m]
+    eps = 2.0 ** -24
+
+    def two_phase():
+        dm = ops.pairwise_distance(xq, x, cumulative=True)
+        dm.diagonal().fill_(float("inf"))  # exclude self, as phase 2 does
+        return dm, ops.stream_topk(dm, k)
+
+    (dm, (tv, ti)), counts = run_path("two_phase_cumulative_1024x160k", two_phase)
+    check(counts["pairwise_cumulative"] == 1 and counts["stream_topk"] == 1, f"launches {counts}")
+    out = {}
+    # Against the plain version: both fold 256 positive terms in fp32, so
+    # each is within 255 * 2^-24 of the exact sum, relatively; twice that.
+    plain_ms, plain = time_plain(torch, lambda: PD.pairwise_cumulative_plain(
+        xq, x, accumulate="sqeuclidean", finalize="identity"))
+    plain.diagonal().fill_(float("inf"))
+    err = rows_close(torch, dm, plain, 0.0, 2 * 255 * eps, "cumulative kernel vs plain")
+    del plain
+    # Against the matmul-form kernel: hx + hy - 2 x.y rounds its sums of d
+    # terms of up to |x|^2 + |y|^2: d * 2^-24 * max(hx + hy) bounds it.
+    mm = ops.pairwise_distance(xq, x)
+    mm.diagonal().fill_(float("inf"))
+    sq = (x * x).sum(1)
+    mm_atol = d * eps * float(sq[:m].max() + sq.max())
+    mm_err = rows_close(torch, dm, mm, mm_atol, 0.0, "cumulative vs matmul form")
+    del mm
+
+    def exact(rows, cols):  # the per-coordinate distance of each pair, in fp32
+        return ((xq[rows] - x[cols]) ** 2).sum(1)
+
+    ids = check_topk(tv, ti, res.distances[:m], res.indices[:m], n=n, rtol=1e-5,
+                     atol=mm_atol, dist=exact)
+    K = 128
+    lib_ms = time_ms(torch, lambda: torch.cdist(xq, x) ** 2)
+    out["sqeuclidean"] = {
+        "ms": time_ms(torch, lambda: ops.pairwise_distance(xq, x, cumulative=True)),
+        "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+        "max_abs_vs_matmul_form": mm_err, "matmul_form_atol": mm_atol, "ids_vs_fused": ids,
+        "stream_topk_ms": time_ms(torch, lambda: ops.stream_topk(dm, k)),
+        "shape": f"{m} x {n}, d {d}"}
+    bnd = bound_ms(1.0 * m * n * d * CUMULATIVE_OPS["sqeuclidean"],
+                   (m + n) * d * 4 + m * n * 4)
+    out["sqeuclidean"].update(bound_ms=bnd[0], bound_by=bnd[1])
+    del dm, tv, ti
+
+    # Hellinger and KL on distributions: rows |x|, each normalised to sum 1.
+    n2 = 16384
+    p = x[:n2].abs()
+    p = p / p.sum(1, keepdim=True)
+    pq_ = p[:m]
+
+    def generic():
+        return {name: ops.pairwise_distance(pq_, p, distance=name, cumulative=True)
+                for name in ("hellinger", "kl")}
+
+    mats, counts = run_path("cumulative_hellinger_kl_1024x16k", generic)
+    check(counts["pairwise_cumulative"] == 2, f"launches {counts}")
+    for name, got in mats.items():
+        acc, fin = ("hellinger", "half_sqrt") if name == "hellinger" else ("kl", "identity")
+        pms, want = time_plain(torch, lambda: PD.pairwise_cumulative_plain(
+            pq_, p, accumulate=acc, finalize=fin))
+        # Sums of d terms (KL's signed): d * 2^-24 of the largest value,
+        # plus 1e-5 relative for the roots and logarithms.
+        atol = d * eps * float(want.abs().max())
+        out[name] = {"ms": time_ms(torch, lambda: ops.pairwise_distance(
+            pq_, p, distance=name, cumulative=True)), "plain_ms": pms, "library_ms": None,
+            "max_abs_err": rows_close(torch, got, want, atol, 1e-5, f"{name} kernel vs plain"),
+            "atol": atol, "shape": f"{m} x {n2}, d {d}"}
+        bnd = bound_ms(1.0 * m * n2 * d * CUMULATIVE_OPS[acc], (m + n2) * d * 4 + m * n2 * 4)
+        out[name].update(bound_ms=bnd[0], bound_by=bnd[1])
+    say("cumulative_two_phase", out)
+    return out
 
 
 def phase_two_stage(torch, dev, run_path):
@@ -287,13 +408,13 @@ def union_widths(torch, probes, ncells):
     return [{"distinct_cells": int(w), "share_of_cells": int(w) / ncells} for w in fresh]
 
 
-def phase_ivf(torch, dev, run_path):
-    """Phase 6: the IVF tier at the query_1m width, on clustered rows."""
+def phase_ivf(torch, dev, run_path, x):
+    """Phase 6: the IVF tier at the query_1m width, on clustered rows ``x``
+    (the last 8,192 the queries)."""
     from repro_torch.core.distances import gy_rows
     from repro_torch.core.ivf import pack_cells, packed_live, probe_cells, train_centroids
     from repro_torch.core.knn import ivf_query, scan_width
     from repro_torch.core.topk import next_pow2
-    from repro_torch.data.synthetic import clustered_vectors
     from repro_torch.kernels import fused_knn as FK
     from repro_torch.kernels import ivf_scan as IVS
     from repro_torch.kernels import ops
@@ -302,7 +423,6 @@ def phase_ivf(torch, dev, run_path):
     from repro_torch.serving.index import RetrievalIndex
 
     n, d, k, ncells, nprobe = QUERY_ROWS, 256, 10, IVF_CELLS, 8
-    x = clustered_vectors(n + 8192, d, n_clusters=4096, seed=0)
     db, queries = x[:n], x[n:]
     db_t = torch.from_numpy(db).to(dev)
     q_t = torch.from_numpy(queries).to(dev)
@@ -517,6 +637,255 @@ def phase_ivf(torch, dev, run_path):
     return out
 
 
+def phase_ivfpq(torch, dev, run_path, x):
+    """Phase 7: the IVF-PQ tier at the query_1m width, on phase 6's rows."""
+    from repro_torch.core.ivf import pack_cells, packed_live, probe_cells, train_centroids
+    from repro_torch.core.knn import ivf_query, ivfpq_query, scan_width
+    from repro_torch.core.pq import decode_pq, encode_ivfpq, train_ivfpq
+    from repro_torch.core.topk import next_pow2
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import merge_partials as MP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_scan as PQS
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.index import RetrievalIndex
+
+    n, d, k, ncells, nprobe = QUERY_ROWS, 256, 10, IVF_CELLS, 8
+    db, queries = x[:n], x[n:]
+    db_t = torch.from_numpy(db).to(dev)
+    q_t = torch.from_numpy(queries).to(dev)
+    truth = true_ids(torch, q_t, db_t, k)
+
+    def quality(cells, cb, codes):
+        """On 1024 queries: recall@10 of the fp32 IVF scan of these cells
+        (the probe ceiling) and of IVF-PQ at overfetch 4, 8 and 16; the
+        share of rows in cells of more than 300 (the mean is 256), and for
+        those rows and the others the mean squared residual to the cell's
+        centroid and the mean squared error of its decoded row."""
+        q1, t1 = q_t[:1024], truth[:1024]
+        cnt = cells.counts.long()
+        sums = torch.zeros(2, 3, dtype=torch.float64, device=dev)  # [small, big] x [rows, resid, err]
+        for r0 in range(0, n, 1 << 18):
+            slot = cells.slot_of_row[r0 : r0 + (1 << 18)].long()
+            base = cells.centroids[slot // cells.cell_cap]
+            g = db_t[r0 : r0 + (1 << 18)]
+            big = (cnt[slot // cells.cell_cap] > 300).long()
+            stats = torch.stack([torch.ones_like(g[:, 0]), ((g - base) ** 2).sum(1),
+                                 ((g - base - decode_pq(cb, codes.codes[slot])) ** 2).sum(1)], 1)
+            sums.index_add_(0, big, stats.double())
+        mean = (sums[:, 1:] / sums[:, :1].clamp(min=1)).tolist()
+        return {"cell_cap": cells.cell_cap, "largest_cell": int(cnt.max()),
+                "rows_in_cells_over_300": float(cnt[cnt > 300].sum()) / n,
+                "residual_sq_and_error_sq": {"cells_to_300": mean[0], "cells_over_300": mean[1]},
+                "ivf_fp32_recall": recall_at(torch, ivf_query(
+                    q1, db_t, cells, k, nprobe=nprobe, distance="neg_dot").indices, t1),
+                "ivfpq_recall_by_overfetch": {of: recall_at(torch, ivfpq_query(
+                    q1, db_t, cells, cb, codes, k, nprobe=nprobe, distance="neg_dot",
+                    overfetch=of).indices, t1) for of in (4, 8, 16)}}
+
+    # The reference's start, for comparison: Lloyd from a uniform draw of
+    # rows (its jax.random.permutation), for the cells and each codebook.
+    g = torch.Generator().manual_seed(1)
+    cells = pack_cells(db_t, *train_centroids(db_t, ncells, distance="neg_dot",
+                                              init_perm=torch.randperm(n, generator=g)))
+    cb = train_ivfpq(db_t, cells, PQ_M, nbits=PQ_NBITS, distance="neg_dot",
+                     init_perms=[torch.randperm(n, generator=g) for _ in range(PQ_M)])
+    uniform = quality(cells, cb, encode_ivfpq(cb, cells, distance="neg_dot"))
+    say("ivfpq_uniform_start", uniform)
+    del cells, cb
+    torch.cuda.empty_cache()
+
+    # The index's first epoch, built by hand so that each step is timed
+    # apart; seeded as the index seeds its own (the main epoch, 1).
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    cent, assign = step("kmeans_s", lambda: train_centroids(
+        db_t, ncells, distance="neg_dot", generator=torch.Generator().manual_seed(1)))
+    cells = step("packing_s", lambda: pack_cells(db_t, cent, assign))
+    del cent, assign
+    cb = step("pq_training_s", lambda: train_ivfpq(
+        db_t, cells, PQ_M, nbits=PQ_NBITS, distance="neg_dot",
+        generator=torch.Generator().manual_seed(1)))
+    codes = step("encoding_s", lambda: encode_ivfpq(cb, cells, distance="neg_dot"))
+    drawn = quality(cells, cb, codes)
+    say("ivfpq_kmeanspp_start", drawn)
+    say("ivfpq_build", {**times, "ncells": ncells, "cell_cap": cells.cell_cap,
+                        "packed_slots": cells.packed.shape[0],
+                        "pq_replica_bytes": codes.codes.numel() + codes.hy.numel() * 4
+                        + cb.codebooks.numel() * 4,
+                        "codes_bytes": codes.codes.numel(),
+                        "packed_fp32_bytes": cells.packed.numel() * 4,
+                        "corpus_fp32_bytes": n * d * 4})
+
+    # The fused kernel at the encoding's shape: one block of packed slots'
+    # residuals, one subspace, k 1 over the 256 codewords.
+    nb = min(1 << 18, cells.packed.shape[0])
+    rows = cells.packed[:nb] - cells.centroids[torch.arange(nb, device=dev) // cells.cell_cap]
+    sub = rows[:, : d // PQ_M].contiguous()
+    fx, gy, hx, hy, alpha = ops._mxu_operands(sub, cb.codebooks[0], "sqeuclidean")
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=gy.shape[0])
+    outs = {}
+    enc_ms = time_ms(torch, lambda: outs.__setitem__("k", FK.fused_knn(fx, gy, hx, hy, 1, **kw)))
+    enc_plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+        fx, gy, hx, hy, 1, alpha=alpha, finalize="identity", n_real=gy.shape[0]))
+    v, i = outs["k"]
+    enc_cmp = check_topk(v[:, :1], i[:, :1], pv[:, :1], pi[:, :1], n=gy.shape[0], rtol=1e-5,
+                         atol=1e-4, dist=operand_distance(fx, gy, hx, hy, alpha=alpha,
+                                                          finalize="identity"))
+    enc_bound = bound_ms(2.0 * fx.shape[0] * gy.shape[0] * fx.shape[1],
+                         (fx.shape[0] + gy.shape[0]) * (fx.shape[1] + 1) * 4 + fx.shape[0] * 8)
+    fused_enc = {"ms": enc_ms, "plain_ms": enc_plain_ms, "vs_plain": enc_cmp,
+                 "bound_ms": enc_bound[0], "bound_by": enc_bound[1],
+                 "shape": f"{fx.shape[0]} x {gy.shape[0]} codewords, d {d // PQ_M}, k 1"}
+    say("ivfpq_fused_knn_encode_vs_plain", fused_enc)
+    del rows, sub, fx, gy, hx, hy, outs, v, i, pv, pi
+
+    empty = (np.zeros((0, d), np.float32), np.zeros(0, np.int32), np.zeros(0, bool), 0)
+    index = RetrievalIndex.from_arrays(
+        db, np.arange(n), np.ones(n, bool), *empty, distance="neg_dot", impl="fused",
+        device=dev, ivf=cells, pq=(cb, codes), overfetch=8, nprobe=nprobe)
+    del cells, cb, codes  # the index owns them now; a compact must be able to free them
+    engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+    rng = np.random.default_rng(9)
+    dead = rng.choice(n, n // 100, replace=False)
+
+    def no_dead(got, what):
+        check(not bool(torch.isin(got.ids.long(), torch.from_numpy(dead).to(dev)).any()),
+              f"ivfpq: a deleted id was served {what}")
+
+    def live_truth(q):
+        vecs, ids = index._live_rows()
+        vt = torch.from_numpy(vecs).to(dev)
+        return torch.from_numpy(ids).to(dev)[true_ids(torch, torch.from_numpy(q).to(dev), vt, k)]
+
+    def serve():
+        t0 = time.perf_counter()
+        got = engine.search(queries)
+        first_s = time.perf_counter() - t0
+        rec8 = recall_at(torch, got.ids, truth)
+        index.overfetch = 4
+        rec4 = recall_at(torch, engine.search(queries[:2048]).ids, truth[:2048])
+        index.overfetch = 8
+        cb0 = index._dev["main_pq"][0].codebooks  # the epoch's codebooks stand for its replica
+        ins = db[rng.choice(n, 4096, replace=False)] + 0.05 * rng.standard_normal(
+            (4096, d)).astype(np.float32)
+        index.upsert(np.concatenate([np.arange(0, n, n // 2048)[:2048],
+                                     np.arange(n, n + 2048)]), ins)
+        engine.search(queries[:1024])
+        index.delete(dead)
+        no_dead(engine.search(queries[1024:2048]), "after the delete")
+        check(index._dev["main_pq"][0].codebooks is cb0, "ivfpq: a delete retrained the codes")
+        index.compact()
+        got2 = engine.search(queries[2048:4096])
+        check(index._dev["main_pq"][0].codebooks is not cb0, "ivfpq: compact kept the old codes")
+        no_dead(got2, "after the compact")
+        rec8_churn = recall_at(torch, got2.ids, live_truth(queries[2048:4096]))
+        steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+        for b in range(51):  # the first batch is tagged cold
+            no_dead(steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024]), "steady")
+        return rec8, rec4, rec8_churn, first_s, engine.meter.summary(), steady.meter
+
+    (rec8, rec4, rec8_churn, first_s, meter, steady), counts = run_path("serving_ivfpq", serve)
+    for name in ("fused_knn", "pq_scan", "rescore_topk"):
+        check(counts[name] > 0, f"ivfpq: {name} never launched: {counts}")
+    res = {"recall_at_10_overfetch_8": rec8, "recall_at_10_overfetch_4": rec4,
+           "recall_at_10_overfetch_8_after_churn": rec8_churn, "first_search_s": first_s,
+           "meter": meter, "steady": steady.summary(), "steady_p90_ms": steady.latency_ms(90)}
+    say("ivfpq_serving", res)
+
+    # The pq_scan kernel against its plain version on the compacted index,
+    # at batches of 1024 and 8, at the served fetch width.
+    vecs_t, live = index._dev["main_vecs"], index._dev["main_mask"][0]
+    ivf = index._dev["main_ivf"]
+    cb, codes = index._dev["main_pq"]
+    live_p = packed_live(ivf, live)
+    live_cnt = live_p.view(ivf.ncells, ivf.cell_cap).sum(1).long()
+    k_scan = min(scan_width(vecs_t.shape[0], k, 8), ivf.cell_cap)
+    K = next_pow2(k_scan)
+    for m in (1024, 8):
+        qm = q_t[:m]
+        cq = probe_cells(qm, ivf.centroids, nprobe, distance="neg_dot")
+        probes, luts, cds, hx, hy, qc, tile_m, extent = ops.pq_scan_operands(
+            qm, cb, codes, cq, k_scan, cell_cap=ivf.cell_cap, centroids=ivf.centroids,
+            distance="neg_dot", packed_live=live_p)
+        kw = dict(cell_cap=ivf.cell_cap, ncodes=cb.ncodes, tile_m=tile_m, cell_extent=extent,
+                  qc=qc, distance_finalize="identity")
+        outs = {}
+        ms = time_ms(torch, lambda: outs.__setitem__(
+            "k", PQS.pq_scan(probes, luts, cds, hx, hy, k_scan, **kw)))
+        part_ms = time_ms(torch, lambda: outs.__setitem__(
+            "p", PQS.pq_scan_partials(probes, luts, cds, hx, hy, k_scan, **kw)))
+        part_v, part_i = outs["p"]
+        merge_ms = (time_ms(torch, lambda: MP.merge_partials(part_v, part_i))
+                    if part_v.shape[0] > 1 else 0.0)
+        plain_ms, (pv, pi) = time_plain(torch, lambda: PQS.pq_scan_plain(
+            probes, luts, cds, hx, hy, k_scan, cell_cap=ivf.cell_cap, ncodes=cb.ncodes,
+            tile_m=tile_m, cell_extent=extent, finalize="identity", qc=qc))
+        v, i = outs["k"]
+        lut3 = luts.view(m, PQ_M, cb.ncodes)
+        cap = ivf.cell_cap
+
+        def adc(rows, cols):  # the ADC value of each (query, packed slot)
+            s_ = lut3[rows[:, None], torch.arange(PQ_M, device=dev)[None, :],
+                      cds[cols].long()].sum(1)
+            return s_ + qc[rows, cols // cap] + hx[rows, 0] + hy[0, cols]
+
+        cmp = check_topk(v, i, pv, pi, n=cds.shape[0], rtol=1e-5, atol=1e-4, dist=adc)
+        # The bound counts what the function needs: each tile's queries
+        # against the live rows of its union's distinct cells, pq_m adds a
+        # pair; each input read once (the codes and hy of the rows read, the
+        # tables, hx and the cell bias), each output written once.
+        fresh = torch.ones_like(probes, dtype=torch.bool)
+        fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
+        rows_per_tile = (live_cnt[probes.long()] * fresh).sum(1)
+        q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
+                                  device=dev)
+        pairs = int((q_per_tile * rows_per_tile).sum())
+        read = int(live_cnt[torch.unique(probes).long()].sum())
+        bnd = bound_ms(1.0 * pairs * PQ_M, read * (PQ_M + 4) + luts.numel() * 4
+                       + qc.numel() * 4 + m * 4 + m * K * 8)
+        pr, qb, splits, sps = PQS.plan(probes, m, luts.shape[1], PQ_M, K, dev)
+        res[f"pq_scan_batch_{m}"] = {
+            "ms": ms, "partials_ms": part_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
+            "vs_plain": cmp, "bound_ms": bnd[0], "bound_by": bnd[1], "rows_scored": pairs,
+            "rows_read": read, "live_rows_per_tile": rows_per_tile.tolist(),
+            "qb": qb, "splits": splits, "ctas": -(-m // qb) * splits,
+            "ctas_per_sm": PQS.kernel_shape(dev, qb, luts.shape[1], PQ_M, K)[0],
+            "tile_m": tile_m, "k_scan": k_scan}
+        del probes, luts, cds, hx, hy, qc, outs, part_v, part_i, pv, pi, v, i
+    # Kernel path and plain path of the whole query on the same 256 queries.
+    main_ids = index._dev["main_mask"][1]
+    vecs, ids = index._live_rows()
+    q256 = q_t[:256]
+    want = torch.from_numpy(ids).to(dev)[true_ids(torch, q256, torch.from_numpy(vecs).to(dev), k)]
+    recs = {}
+    for impl in ("fused", "torch"):
+        r = ivfpq_query(q256, vecs_t, ivf, cb, codes, k, nprobe=nprobe, distance="neg_dot",
+                        impl=impl, overfetch=8, db_live=live)
+        recs[impl] = recall_at(torch, main_ids[r.indices.clamp(min=0).long()], want)
+    res["recall_at_10_256q"] = recs
+    res["fused_knn_encode"] = fused_enc
+    res["start"] = {"uniform": uniform, "kmeanspp": drawn}
+    say("ivfpq_kernels", {key: val for key, val in res.items() if key.startswith(("pq_", "rec"))})
+    # The reference's IVF-PQ floor and setting (tests/test_pq.py:163-185),
+    # checked once everything above is reported.
+    check(rec8 >= 0.85 and rec8_churn >= 0.85,
+          f"ivfpq: served recall@10 at overfetch 8 {rec8}, after churn {rec8_churn} < 0.85")
+    check(min(recs.values()) >= 0.85, f"ivfpq: recall@10 on 256 queries {recs} < 0.85")
+    del index, engine, ivf, cb, codes, vecs_t, live, live_p
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -525,13 +894,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.core.knn import knn_allpairs
-    from repro_torch.data.synthetic import random_vectors
+    from repro_torch.data.synthetic import clustered_vectors, random_vectors
     from repro_torch.kernels import _backend as B
     from repro_torch.kernels import fused_knn as FK
     from repro_torch.kernels import ivf_scan as IVS
     from repro_torch.kernels import merge_partials as MP
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_distance as PD
+    from repro_torch.kernels import pq_scan as PQS
     from repro_torch.kernels import rescore as RS
     from repro_torch.kernels import scan as SC
     from repro_torch.kernels import stream_topk as ST
@@ -548,18 +918,21 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     say("card", {"nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-    modules = {"fused_knn": FK, "merge_partials": MP, "pairwise_distance": PD,
-               "stream_topk": ST, "rescore_topk": RS, "ivf_scan": IVS}
-    launches = {name: 0 for name in modules}
+    # Each kernel's launch count: (wrapper module, counter).
+    counters = {"fused_knn": (FK, "LAUNCHES"), "merge_partials": (MP, "LAUNCHES"),
+                "pairwise_distance": (PD, "LAUNCHES"), "stream_topk": (ST, "LAUNCHES"),
+                "rescore_topk": (RS, "LAUNCHES"), "ivf_scan": (IVS, "LAUNCHES"),
+                "pq_scan": (PQS, "LAUNCHES"), "pairwise_cumulative": (PD, "CUMULATIVE_LAUNCHES")}
+    launches = {name: 0 for name in counters}
 
     def run_path(label, fn):
         """Drive one main path with the counts zeroed just before and read just after."""
-        for mod in modules.values():
-            mod.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: mod.LAUNCHES for name, mod in modules.items()}
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         for name in counts:
             launches[name] += counts[name]
         say(f"path_{label}", {"launches": counts, "wall_s": time.perf_counter() - t0})
@@ -665,6 +1038,10 @@ def main() -> int:
     say("symmetric_kernel_vs_fused_32k", check_topk(
         sym.distances, sym.indices, ref3.distances, ref3.indices, n=n3, rtol=1e-5, atol=2e-3,
         dist=dist))
+    del sym, ref3
+
+    # 3b. The paper's two phases with the per-coordinate kernel.
+    cum = phase_cumulative(torch, dev, run_path, x, res)
     del x, xq, x3, res, fx, gy, hx, hy, fq, gq, hxq, hyq, pd_args, dist
     torch.cuda.empty_cache()
 
@@ -771,9 +1148,12 @@ def main() -> int:
     del index, engine, steady, vecs_t, qb, sf, outs, part_v, part_i, mv, mi, mpv, mpi
     torch.cuda.empty_cache()
 
-    # 5. Two-stage quantized serving; 6. IVF serving.
+    # 5. Two-stage quantized serving; 6. IVF and 7. IVF-PQ serving, on one
+    # clustered dataset, the last 8,192 rows the queries.
     ts = phase_two_stage(torch, dev, run_path)
-    ivf = phase_ivf(torch, dev, run_path)
+    xc = clustered_vectors(QUERY_ROWS + 8192, d, n_clusters=4096, seed=0)
+    ivf = phase_ivf(torch, dev, run_path, xc)
+    pq = phase_ivfpq(torch, dev, run_path, xc)
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
@@ -783,7 +1163,7 @@ def main() -> int:
              "max_abs_err": ts[sd]["vs_plain"]["max_abs_err"] if "vs_plain" in ts[sd] else None,
              "shape": f"partial sets, 1024 x {QUERY_ROWS} (gy {sd}), d 256, k {ts['k_scan']}"}
         for sd in ("float32", "bfloat16", "int8")}
-    for label, v in ivf["fused_knn"].items():
+    for label, v in [*ivf["fused_knn"].items(), ("pq_encode", pq["fused_knn_encode"])]:
         fused_variants[label] = {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                          "shape")}
         fused_variants[label]["max_abs_err"] = v["vs_plain"]["max_abs_err"]
@@ -829,6 +1209,29 @@ def main() -> int:
          "variants": {f"{sd}_batch_{m}": {key: ivf[sd][f"ivf_scan_batch_{m}"][key]
                                           for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
                       for sd in ("float32", "int8") for m in (1024, 8)}},
+        {"name": "pq_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pq_scan.cu",
+         "replaces": "src/repro/kernels/pq_scan.py:138", "launches": launches["pq_scan"],
+         "max_abs_err": pq["pq_scan_batch_1024"]["vs_plain"]["max_abs_err"],
+         "ms": pq["pq_scan_batch_1024"]["ms"], "plain_ms": pq["pq_scan_batch_1024"]["plain_ms"],
+         "bound_ms": pq["pq_scan_batch_1024"]["bound_ms"],
+         "bound_by": pq["pq_scan_batch_1024"]["bound_by"], "library_ms": None,
+         "shape": f"1024 queries, tile_m 256, nprobe 8 of 4096 cells, pq_m {PQ_M}, "
+                  f"nbits {PQ_NBITS}, k {pq['pq_scan_batch_1024']['k_scan']}",
+         "variants": {"batch_8": {key: pq["pq_scan_batch_8"][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by")}}},
+        {"name": "pairwise_cumulative", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pairwise_cumulative.cu",
+         "replaces": "src/repro/kernels/pairwise_distance.py:134",
+         "launches": launches["pairwise_cumulative"],
+         "max_abs_err": cum["sqeuclidean"]["max_abs_err"], "ms": cum["sqeuclidean"]["ms"],
+         "plain_ms": cum["sqeuclidean"]["plain_ms"], "bound_ms": cum["sqeuclidean"]["bound_ms"],
+         "bound_by": cum["sqeuclidean"]["bound_by"],
+         "library_ms": cum["sqeuclidean"]["library_ms"],
+         "shape": f"sqeuclidean {cum['sqeuclidean']['shape']} (library: torch.cdist ** 2)",
+         "variants": {name: {key: cum[name][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "shape")}
+             for name in ("hellinger", "kl")}},
     ]
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels

@@ -3,8 +3,7 @@ the bytes model of the scan.
 
 Port of ``repro/accounting.py``: ``ServingMeter`` (the batch samples and
 their summary; the shard, WAL and handoff counters come with those tiers)
-and ``scan_bytes_per_query`` for the flat, quantized and IVF scans (the PQ
-term comes with its tier).
+and ``scan_bytes_per_query`` for the flat, quantized, IVF and IVF-PQ scans.
 """
 from __future__ import annotations
 
@@ -20,31 +19,42 @@ _SCAN_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 def scan_bytes_per_query(n_rows: int, d: int, *, scan_dtype: str = "float32", k: int = 10,
                          overfetch: int = 4, ncells: int | None = None,
-                         nprobe: int | None = None) -> dict:
+                         nprobe: int | None = None, pq_m: int | None = None,
+                         pq_nbits: int = 8) -> dict:
     """Analytic device bytes one query's corpus scan moves (a model, not a probe).
 
     * ``centroids``: the IVF shortlist reads the [ncells, d] fp32 centroids
       (zero for a flat scan);
     * ``scan``: the database stream over the scanned rows, all n for a flat
       scan or ``nprobe`` average cells (nprobe * n / ncells) for IVF, at d
-      times the scan dtype's width;
+      times the scan dtype's width, or ``pq_m`` code bytes a row with PQ
+      (one byte a code for any ``pq_nbits`` <= 8);
     * ``epilogue``: ``hy`` (fp32) over the scanned rows, plus the int8 scales;
     * ``rescore``: stage 2's K' = overfetch * next_pow2(k) fp32 rows (zero
       only for the flat fp32 scan, which has no second stage).
 
     Query-side operands and the [*, K] outputs are O(d + k) per query and
-    left out, identically for every configuration.
+    left out, identically for every configuration.  So is the PQ table
+    build, as the reference leaves it out: it reads the [2^nbits, d] fp32
+    codebook once per query batch, and each query's table
+    (``pq_m * 2^nbits`` floats) is built and read on the chip.
     """
     ivf = ncells is not None and ncells > 0
+    pq = pq_m is not None and pq_m > 0
     centroids = ncells * d * 4 if ivf else 0
     if ivf:
         nprobe = min(ncells if nprobe is None else nprobe, ncells)
         scanned_rows = min(n_rows, -(-n_rows // ncells) * nprobe)
     else:
         scanned_rows = n_rows
-    scan = scanned_rows * d * _SCAN_ITEMSIZE[scan_dtype]
-    epilogue = scanned_rows * 4 * (2 if scan_dtype == "int8" else 1)
-    two_stage = ivf or scan_dtype != "float32"
+    if pq:
+        if not 1 <= pq_nbits <= 8:
+            raise ValueError(f"pq_nbits={pq_nbits} must be in [1, 8]")
+        scan, scaled = scanned_rows * pq_m, False
+    else:
+        scan, scaled = scanned_rows * d * _SCAN_ITEMSIZE[scan_dtype], scan_dtype == "int8"
+    epilogue = scanned_rows * 4 * (2 if scaled else 1)
+    two_stage = ivf or pq or scan_dtype != "float32"
     rescore = min(n_rows, overfetch * next_pow2(k)) * d * 4 if two_stage else 0
     return {"centroids": centroids, "scan": scan, "epilogue": epilogue, "rescore": rescore,
             "total": centroids + scan + epilogue + rescore}

@@ -9,8 +9,10 @@ evaluation paths:
   h(y))`` that the kernels compute.
 
 All distances are smaller-is-nearer; similarities (dot, cosine) are negated.
-The kernels take the finalizer as one of two kinds, ``"identity"`` and
-``"sqrt"`` (``sqrt(max(a, 0))``), see ``finalize_kind``.
+The matmul-form kernels take the finalizer as one of two kinds,
+``"identity"`` and ``"sqrt"`` (``sqrt(max(a, 0))``), see ``finalize_kind``;
+the per-coordinate kernel takes a distance's accumulator and finalizer by
+name, see ``cumulative_kind``.
 
 Row quantization for the two-stage scan (``quantize_rows``) builds the
 bf16 / int8 scan replicas in ``gy`` space.
@@ -152,9 +154,12 @@ def _half_mass(x: Tensor) -> Tensor:
     return 0.5 * torch.sum(torch.clamp_min(x.float(), 0.0), dim=-1)
 
 
+def _half_sqrt0(a: Tensor) -> Tensor:
+    return torch.sqrt(torch.clamp_min(0.5 * a, 0.0))
+
+
 HELLINGER = Distance(
-    name="hellinger", init=0.0, accumulate=_hellinger_acc,
-    finalize=lambda a: torch.sqrt(torch.clamp_min(0.5 * a, 0.0)),
+    name="hellinger", init=0.0, accumulate=_hellinger_acc, finalize=_half_sqrt0,
     # sqrt-space inner product: H^2 = 1 - <sqrt p, sqrt q> for distributions.
     matmul_form=MatmulForm(fx=_sqrt_pos, gy=_sqrt_pos, hx=_half_mass,
                            hy=_half_mass, alpha=-1.0),
@@ -220,6 +225,28 @@ FINALIZERS: dict[str, Callable[[Tensor], Tensor]] = {
 def matmul_finalize(dist: Distance) -> Callable[[Tensor], Tensor]:
     """Finalizer to use with the matmul form (accounts for prefactor folding)."""
     return FINALIZERS[finalize_kind(dist)]
+
+
+# The cumulative route's four accumulators and three finalizers, by the names
+# the per-coordinate kernel takes (``kernels/pairwise_distance.py``).
+ACCUMULATORS: dict[str, Callable[[Tensor, Tensor, Tensor], Tensor]] = {
+    "sqeuclidean": _sqeuclidean_acc,
+    "neg_dot": _neg_dot_acc,
+    "hellinger": _hellinger_acc,
+    "kl": _kl_acc,
+}
+CUMULATIVE_FINALIZERS: dict[str, Callable[[Tensor], Tensor]] = {
+    "identity": _identity,
+    "sqrt": _sqrt0,
+    "half_sqrt": _half_sqrt0,
+}
+
+
+def cumulative_kind(dist: Distance) -> tuple[str, str]:
+    """(accumulator, finalizer) names of ``dist``'s cumulative route."""
+    acc = next(k for k, f in ACCUMULATORS.items() if f is dist.accumulate)
+    fin = next(k for k, f in CUMULATIVE_FINALIZERS.items() if f is dist.finalize)
+    return acc, fin
 
 
 # ---------------------------------------------------------------------------

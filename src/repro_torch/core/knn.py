@@ -2,9 +2,9 @@
 two-stage quantized and IVF retrieval built on it.
 
 PyTorch port of ``repro/core/knn.py``: ``knn_query`` / ``knn_allpairs``;
-``rescore``, ``quantized_scan`` (scalar branch), ``scan_width``,
+``rescore``, ``quantized_scan`` (scalar and ADC branches), ``scan_width``,
 ``two_stage_query`` (DESIGN.md §Quantized); ``ivf_query`` (DESIGN.md §IVF)
-without per-query filters.
+and ``ivfpq_query`` (DESIGN.md §PQ) without per-query filters.
 
 * Phase 1 (Sect. 5): distances tile by tile, in matmul form.
 * Phase 2 (Sect. 6): each row's k smallest kept in a running sorted buffer,
@@ -230,31 +230,57 @@ def rescore(queries: Tensor, database: Tensor, cand_idx: Tensor, k: int, *,
     return KNNResult(vals, idx)
 
 
-def quantized_scan(queries: Tensor, db_q: QuantizedRows, k: int, *,
+def quantized_scan(queries: Tensor, db_q, k: int, *,
                    distance: str = "sqeuclidean", tile_m: int = 256, tile_n: int = 1024,
                    threshold_skip: bool | None = None, db_live: Tensor | None = None,
                    probed: Tensor | None = None, cell_cap: int | None = None,
+                   pq_codebook=None, cell_bias: Tensor | None = None,
                    q_allowed: Tensor | None = None) -> KNNResult:
-    """Tiled plain scan of a ``QuantizedRows`` replica: the stage-1 reference.
+    """Tiled plain scan of a compressed replica: the stage-1 reference.
 
-    Per column tile the stored rows are widened to fp32 and the int8 scale
-    folds into the epilogue, ``finalize(alpha * (fx @ data^T) * scale + hx +
-    hy)``.  The replica is never dequantized as a whole: the only fp32
-    database-shaped tensors are the [tile_n, d] per-tile upcasts.
+    ``db_q`` is a ``QuantizedRows`` replica (scalar branch) or a
+    ``core.pq.PQCodes`` replica (ADC branch, with ``pq_codebook``).
+
+    Scalar branch: per column tile the stored rows are widened to fp32 and
+    the int8 scale folds into the epilogue, ``finalize(alpha * (fx @
+    data^T) * scale + hx + hy)``.  The replica is never dequantized as a
+    whole: the only fp32 database-shaped tensors are the [tile_n, d]
+    per-tile upcasts.
+
+    ADC branch (DESIGN.md §PQ), the plain counterpart of the ``pq_scan``
+    kernel: the per-query LUTs are built once (``core.pq.build_pq_luts``)
+    and each column tile sums its codes' table entries
+    (``kernels.pq_scan.adc_scores``); ``cell_bias`` [m, ncells] (the
+    residual cross term, ``core.pq.pq_cell_bias``) is added per column by
+    its cell, ``cell_cap`` giving the cells.
 
     ``db_live``: [n] bool row mask (tombstones).  ``probed`` / ``cell_cap``:
     a per-QUERY cell mask [m, ncells] for the plain IVF path; a column of
     cell ``c`` is +inf for queries that did not probe ``c``.
     """
+    from repro_torch.core.pq import PQCodes, build_pq_luts
+    from repro_torch.kernels.pq_scan import adc_scores
+
     _unfiltered(q_allowed)
     threshold_skip = T.resolve_threshold_skip(threshold_skip, kernel=False)
     dist = get_distance(distance)
     mf = dist.matmul_form
     fin = matmul_finalize(dist)
     m_real = queries.shape[0]
-    n_real = db_q.data.shape[0]
+    pq = isinstance(db_q, PQCodes)
+    n_real = (db_q.codes if pq else db_q.data).shape[0]
     k = min(k, n_real)
-    fx = _pad_rows(mf.fx(queries).float(), tile_m)
+    if pq:
+        if pq_codebook is None:
+            raise ValueError("a PQCodes scan needs its codebook")
+        luts = build_pq_luts(pq_codebook, queries, distance=distance)  # [m, pq_m, ncodes]
+        luts = _pad_rows(luts.reshape(m_real, -1), tile_m).reshape(-1, *luts.shape[1:])
+    else:
+        fx = _pad_rows(mf.fx(queries).float(), tile_m)
+    if cell_bias is not None:
+        if not pq or cell_cap is None:
+            raise ValueError("a cell bias needs a PQCodes replica and cell_cap")
+        cell_bias = _pad_rows(cell_bias, tile_m)
     hx = _pad_rows(mf.hx(queries).float()[:, None], tile_m)
     # Dead rows die through the hy epilogue term, as in the kernels.
     hy = db_q.hy.float()
@@ -265,14 +291,22 @@ def quantized_scan(queries: Tensor, db_q: QuantizedRows, k: int, *,
             raise ValueError("a per-query probe mask needs cell_cap")
         probed = _pad_rows(probed, tile_m)
     vals, idx = [], []
-    for row_off in range(0, fx.shape[0], tile_m):
-        fxt, hxt = fx[row_off : row_off + tile_m], hx[row_off : row_off + tile_m]
+    for row_off in range(0, hx.shape[0], tile_m):
+        rows = slice(row_off, row_off + tile_m)
+        hxt = hx[rows]
         run = T.init_running(tile_m, k, device=queries.device)
         for col_off in range(0, n_real, tile_n):
             cols = slice(col_off, col_off + tile_n)
-            t = mf.alpha * (fxt @ db_q.data[cols].float().T)  # per-tile upcast only
-            if db_q.scale is not None:
-                t = t * db_q.scale[cols][None, :]
+            if pq:
+                t = adc_scores(luts[rows], db_q.codes[cols])
+                if cell_bias is not None:
+                    cell = torch.arange(col_off, col_off + t.shape[1],
+                                        device=t.device) // cell_cap
+                    t = t + cell_bias[rows][:, cell]
+            else:
+                t = mf.alpha * (fx[rows] @ db_q.data[cols].float().T)  # per-tile upcast only
+                if db_q.scale is not None:
+                    t = t * db_q.scale[cols][None, :]
             tile = fin(t + hxt + hy[None, cols])
             if probed is not None:
                 cell = torch.arange(col_off, col_off + tile.shape[1],
@@ -385,6 +419,70 @@ def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8
         cand = quantized_scan(queries, scan_q, k_scan, distance=distance, db_live=live_p,
                               probed=probed, cell_cap=cap,
                               threshold_skip=threshold_skip).indices
+    safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
+    rows = torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
+    return rescore(queries, database, rows, k, distance=distance,
+                   impl="fused" if impl == "fused" else "torch")
+
+
+# ---------------------------------------------------------------------------
+# IVF-PQ: coarse quantizer + product-quantized ADC scan + exact rescore
+# (DESIGN.md §PQ).
+# ---------------------------------------------------------------------------
+
+
+def ivfpq_query(queries: Tensor, database: Tensor, ivf, pq_cb, pq_codes, k: int, *,
+                nprobe: int = 8, distance: str = "sqeuclidean", impl: str = "fused",
+                overfetch: int = 4, threshold_skip: bool | None = None,
+                db_live: Tensor | None = None, residual: bool = True,
+                q_allowed: Tensor | None = None,
+                exclude_rows: Tensor | None = None) -> KNNResult:
+    """IVF-PQ kNN: centroid shortlist -> ADC scan of m-byte codes -> rescore.
+
+    ``ivf`` is a trained ``core.ivf.IVFCells`` over ``database`` and
+    ``pq_cb`` / ``pq_codes`` its PQ replica in packed-slot order
+    (``core.pq.build_ivfpq``; ``residual`` must say how it was built).
+    Stage 1 probes ``nprobe`` cells and scans their code blocks for K' =
+    scan_width(n, k, overfetch) candidates: ``impl="fused"`` runs the
+    ``pq_scan`` kernel (fetch width capped at ``cell_cap``), other impls the
+    plain ADC branch of ``quantized_scan`` with a per-query probe mask.
+    Stage 2 maps the candidates back through ``row_of_slot`` and re-ranks
+    them exactly against the fp32 corpus.
+
+    PQ is lossy, but candidate order is its only error: with ``nprobe =
+    ncells`` and ``overfetch`` spanning the corpus the result is
+    ``knn_query``'s.  At ``nprobe >= ncells`` every cell is taken without a
+    kNN over the centroids, as in ``ivf_query``.  ``db_live`` is the [n]
+    tombstone mask in original row order.  ``q_allowed`` and
+    ``exclude_rows`` come with the filtered slice and raise here.
+    """
+    from repro_torch.core import ivf as IVF
+    from repro_torch.core.pq import pq_cell_bias
+
+    _check_impl(impl)
+    _unfiltered(q_allowed, exclude_rows)
+    n = database.shape[0]
+    k = min(k, n)
+    ncells, cap = ivf.ncells, ivf.cell_cap
+    if nprobe >= ncells:
+        cells = torch.arange(ncells, dtype=torch.int32, device=queries.device)
+        cells = cells.expand(queries.shape[0], ncells)
+    else:
+        cells = IVF.probe_cells(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
+    live_p = IVF.packed_live(ivf, db_live)
+    k_scan = scan_width(n, k, overfetch)
+    if impl == "fused":
+        cand = kops.pq_scan(queries, pq_cb, pq_codes, cells, min(k_scan, cap), cell_cap=cap,
+                            centroids=ivf.centroids if residual else None, distance=distance,
+                            packed_live=live_p, threshold_skip=threshold_skip).indices
+    else:
+        probed = torch.zeros((queries.shape[0], ncells), dtype=torch.bool,
+                             device=queries.device)
+        probed.scatter_(1, cells.long(), True)
+        cbias = pq_cell_bias(queries, ivf.centroids, distance=distance) if residual else None
+        cand = quantized_scan(queries, pq_codes, k_scan, distance=distance, db_live=live_p,
+                              probed=probed, cell_cap=cap, pq_codebook=pq_cb,
+                              cell_bias=cbias, threshold_skip=threshold_skip).indices
     safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
     rows = torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
     return rescore(queries, database, rows, k, distance=distance,

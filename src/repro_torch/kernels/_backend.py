@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "merge_partials",
-                  "rescore", "ivf_scan")
+                  "rescore", "ivf_scan", "pq_scan", "pairwise_cumulative")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

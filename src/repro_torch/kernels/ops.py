@@ -1,17 +1,18 @@
 """Public wrappers around the kernels: operand maps, masks, output widths.
 
 PyTorch port of ``repro/kernels/ops.py`` for the kernels of the exact kNN,
-two-stage quantized and IVF paths.  Each wrapper maps raw vectors to the
-matmul form (``fx``, ``gy``, ``hx``, ``hy``, ``alpha``), or takes a
-``QuantizedRows`` replica already in ``gy`` form, turns dead database rows
-into ``hy = +inf``, and cuts the kernel's ``[m, K]`` output to ``[m, k]``.
+two-stage quantized, IVF and IVF-PQ paths.  Each wrapper maps raw vectors
+to the matmul form (``fx``, ``gy``, ``hx``, ``hy``, ``alpha``), or takes a
+``QuantizedRows`` replica already in ``gy`` form, or builds the ADC lookup
+tables of a PQ replica, turns dead database rows into ``hy = +inf``, and
+cuts the kernel's ``[m, K]`` output to ``[m, k]``.
 
 Padding: the Pallas kernels need every axis padded to its block; the CUDA
 kernels mask ragged rows and columns themselves, so only ``d`` is padded,
 with zero coordinates, to the four-element width of the tile loads (zero
-coordinates add nothing to ``fx . gy``: the operands are padded after their
-maps).  The cumulative per-coordinate kernel (``cumulative=True``), the
-filtered operand of ``fused_knn`` and the PQ scan come with later slices.
+coordinates add nothing to ``fx . gy``, nor to any cumulative accumulator:
+the operands are padded after their maps).  The filtered operand of
+``fused_knn`` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -19,10 +20,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import topk as T
-from repro_torch.core.distances import QuantizedRows, finalize_kind, get_distance
+from repro_torch.core.distances import (
+    QuantizedRows,
+    cumulative_kind,
+    finalize_kind,
+    get_distance,
+)
 from repro_torch.kernels import fused_knn as _fused
 from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import pairwise_distance as _pd
+from repro_torch.kernels import pq_scan as _pq
 from repro_torch.kernels import rescore as _rs
 from repro_torch.kernels import stream_topk as _st
 
@@ -64,13 +71,22 @@ def _scan_operands(q, db, distance: str, live=None):
 
 
 def pairwise_distance(x, y, *, distance: str = "sqeuclidean", cumulative: bool = False):
-    """[m, n] distance matrix via the pairwise-distance kernel (phase 1)."""
+    """[m, n] distance matrix via a pairwise-distance kernel (phase 1).
+
+    ``cumulative=True`` takes the paper's generic route: the distance's
+    ``pre`` map, then its own accumulator folded one coordinate at a time
+    (``csrc/pairwise_cumulative.cu``); otherwise the matmul form.
+    """
+    dist = get_distance(distance)
     if cumulative:
-        raise NotImplementedError(
-            "the per-coordinate cumulative kernel is not ported yet")
+        if dist.pre is not None:
+            x, y = dist.pre(x), dist.pre(y)
+        xp, yp = _pad_d(x.float(), y.float())
+        acc, fin = cumulative_kind(dist)
+        return _pd.pairwise_distance_cumulative(xp, yp, accumulate=acc, finalize=fin,
+                                                init=dist.init)
     fx, gy, hx, hy, alpha = _mxu_operands(x, y, distance)
-    return _pd.pairwise_distance(fx, gy, hx, hy, alpha=alpha,
-                                 finalize=finalize_kind(get_distance(distance)))
+    return _pd.pairwise_distance(fx, gy, hx, hy, alpha=alpha, finalize=finalize_kind(dist))
 
 
 def stream_topk(x, k: int, *, threshold_skip: bool | None = None):
@@ -118,22 +134,15 @@ def cell_extent(packed_live, ncells: int, cell_cap: int):
     return torch.where(lv.any(1), last, 0).to(torch.int32)
 
 
-def ivf_scan_operands(q, db, cells, k: int, *, cell_cap: int, distance: str = "sqeuclidean",
-                      tile_m: int = 256, packed_live=None):
-    """The ``ivf_scan`` kernel's operands for a scan of ``db``:
-    (probes, fx, gy, gy_scale, hx, hy, alpha, tile_m, cell_extent).
-
-    Queries are taken in tiles of ``min(tile_m, next_pow2(max(m, 8)))``, as
-    the reference does, and every query of a tile scans the union of the
-    tile's probes (``core.ivf.tile_probe_lists``); pad queries repeat the
-    last query's probes, which leaves that union as it is.  Each cell is
-    scanned up to its last live slot (``cell_extent``).
-    """
+def _union_probes(cells, m: int, S: int, k: int, *, cell_cap: int, tile_m: int, packed_live,
+                  device):
+    """(probes, tile_m, cell_extent) of a cell-probed scan of ``m`` queries
+    over ``S`` packed slots: the union tiles of ``min(tile_m,
+    next_pow2(max(m, 8)))`` queries, as the reference takes them, pad
+    queries repeating the last query's probes (which leaves the union as it
+    is), and each cell's extent.  Refuses a fetch wider than a cell."""
     from repro_torch.core.ivf import tile_probe_lists
 
-    m = q.shape[0]
-    fx, gy, gs, hx, hy, alpha = _scan_operands(q, db, distance, packed_live)
-    S = gy.shape[0]
     if S % cell_cap:
         raise ValueError(f"packed size {S} is not a multiple of cell_cap {cell_cap}")
     if T.next_pow2(k) > cell_cap:
@@ -144,7 +153,22 @@ def ivf_scan_operands(q, db, cells, k: int, *, cell_cap: int, distance: str = "s
     if pad:
         cells = torch.cat([cells, cells[-1:].expand(pad, cells.shape[1])])
     probes = tile_probe_lists(cells, S // cell_cap, tile_m)
-    extent = cell_extent(packed_live, S // cell_cap, cell_cap).to(q.device)
+    return probes, tile_m, cell_extent(packed_live, S // cell_cap, cell_cap).to(device)
+
+
+def ivf_scan_operands(q, db, cells, k: int, *, cell_cap: int, distance: str = "sqeuclidean",
+                      tile_m: int = 256, packed_live=None):
+    """The ``ivf_scan`` kernel's operands for a scan of ``db``:
+    (probes, fx, gy, gy_scale, hx, hy, alpha, tile_m, cell_extent).
+
+    Every query of a union tile scans the union of the tile's probes
+    (``core.ivf.tile_probe_lists``, tiles as ``_union_probes`` takes them),
+    each cell up to its last live slot (``cell_extent``).
+    """
+    fx, gy, gs, hx, hy, alpha = _scan_operands(q, db, distance, packed_live)
+    probes, tile_m, extent = _union_probes(cells, q.shape[0], gy.shape[0], k,
+                                           cell_cap=cell_cap, tile_m=tile_m,
+                                           packed_live=packed_live, device=q.device)
     return probes, fx, gy, gs, hx, hy, alpha, tile_m, extent
 
 
@@ -169,6 +193,59 @@ def ivf_scan(q, db, cells, k: int, *, cell_cap: int, distance: str = "sqeuclidea
         probes, fx, gy, hx, hy, k, cell_cap=cell_cap, tile_m=tile_m,
         cell_extent=extent, distance_finalize=finalize_kind(get_distance(distance)),
         alpha=alpha, gy_scale=gs, threshold_skip=threshold_skip)
+    return KNNResult(vals[:, :k], idx[:, :k])
+
+
+def pq_scan_operands(q, pq_cb, pq_codes, cells, k: int, *, cell_cap: int, centroids=None,
+                     distance: str = "sqeuclidean", tile_m: int = 256, packed_live=None):
+    """The ``pq_scan`` kernel's operands for an ADC scan of a cell-packed PQ
+    replica: (probes, luts, codes, hx, hy, qc, tile_m, cell_extent).
+
+    ``luts`` [m, pq_m * ncodes] are the flattened per-query tables
+    (``core.pq.build_pq_luts``), ``hy`` the replica's rank-1 term with dead
+    slots at ``+inf`` (``packed_live``), ``qc`` the residual cross term
+    (``core.pq.pq_cell_bias``, None for plain codes).  The union tiles and
+    extents are ``ivf_scan_operands``'s (``_union_probes``).
+    """
+    from repro_torch.core.pq import build_pq_luts, pq_cell_bias
+
+    mf = get_distance(distance).matmul_form
+    m = q.shape[0]
+    probes, tile_m, extent = _union_probes(cells, m, pq_codes.codes.shape[0], k,
+                                           cell_cap=cell_cap, tile_m=tile_m,
+                                           packed_live=packed_live, device=q.device)
+    luts = build_pq_luts(pq_cb, q, distance=distance).reshape(m, -1).contiguous()
+    hx = mf.hx(q).float()[:, None].contiguous()
+    hy = pq_codes.hy.float()[None, :]
+    if packed_live is not None:
+        hy = torch.where(packed_live[None, :], hy, T.POS_INF)
+    qc = None if centroids is None else pq_cell_bias(q, centroids, distance=distance).contiguous()
+    return (probes, luts, pq_codes.codes.contiguous(), hx, hy.contiguous(), qc, tile_m,
+            extent)
+
+
+def pq_scan(q, pq_cb, pq_codes, cells, k: int, *, cell_cap: int, centroids=None,
+            distance: str = "sqeuclidean", tile_m: int = 256, packed_live=None,
+            threshold_skip: bool | None = None):
+    """Cell-probed ADC scan of a PQ-coded, cell-packed corpus; returns
+    KNNResult.
+
+    ``pq_cb`` / ``pq_codes`` are the ``core.pq`` codebook and replica (codes
+    in packed-slot order); ``cells`` [m, nprobe] int32 each query's probed
+    cells; ``centroids`` (the IVF coarse table) marks the codes residual and
+    brings the per-(query, cell) cross term; None means plain codes.
+    Operands as ``pq_scan_operands`` builds them; ids are PACKED slots.
+    """
+    from repro_torch.core.knn import KNNResult
+
+    probes, luts, codes, hx, hy, qc, tile_m, extent = pq_scan_operands(
+        q, pq_cb, pq_codes, cells, k, cell_cap=cell_cap, centroids=centroids,
+        distance=distance, tile_m=tile_m, packed_live=packed_live)
+    vals, idx = _pq.pq_scan(
+        probes, luts, codes, hx, hy, k, cell_cap=cell_cap, ncodes=pq_cb.ncodes,
+        tile_m=tile_m, cell_extent=extent, qc=qc,
+        distance_finalize=finalize_kind(get_distance(distance)),
+        threshold_skip=threshold_skip)
     return KNNResult(vals[:, :k], idx[:, :k])
 
 

@@ -1,8 +1,9 @@
 """RetrievalIndex: a kNN index with an online update path.
 
-Port of ``repro/serving/index.py`` for the flat fp32 scan and its two
-compressed tiers, the two-stage quantized scan (``scan_dtype``,
-``overfetch``) and the IVF cell-probed scan (``ivf_cells``, ``nprobe``).
+Port of ``repro/serving/index.py`` for the flat fp32 scan and its three
+compressed tiers: the two-stage quantized scan (``scan_dtype``,
+``overfetch``), the IVF cell-probed scan (``ivf_cells``, ``nprobe``) and
+IVF-PQ (``pq_m``, ``pq_nbits``).
 The design is the reference's two-segment split:
 
 * **main segment**: an immutable packed ``[n, d]`` array; deletes tombstone
@@ -27,18 +28,23 @@ the fused kernel by default).  The main segment is scanned
   rescored exactly against the fp32 rows (``core.knn.two_stage_query``);
 * IVF (``ivf_cells > 0``): k-means cells over the main rows, a scan of the
   ``nprobe`` nearest cells of the cell-packed replica (quantized to
-  ``scan_dtype``), then the exact rescore (``core.knn.ivf_query``).
+  ``scan_dtype``), then the exact rescore (``core.knn.ivf_query``);
+* IVF-PQ (``ivf_cells > 0`` and ``pq_m > 0``): the same cells, with
+  residual product-quantized codes of the packed rows (``pq_m`` bytes a
+  row) in place of the scan replica, scanned by ADC, then the exact
+  rescore (``core.knn.ivfpq_query``).  A main segment with fewer than
+  ``2^pq_nbits`` rows cannot train a codebook and is served by the IVF scan.
 
-The replicas and the IVF structure are keyed on the main EPOCH (build and
-compact), not the main version: a tombstone flips the live mask and never
-requantizes or retrains; compact does both.
+The replicas, the IVF structure and the PQ codes are keyed on the main
+EPOCH (build and compact), not the main version: a tombstone flips the live
+mask and never requantizes or retrains; compact does both.
 
 The index's vectors live on ``device`` (default ``"cuda"``; asking for CUDA
 on a machine without it raises).  The main rows are uploaded once per
 main epoch (build / compact); a tombstone re-uploads only the live mask.
 
-The IVF-PQ tier, mesh sharding, filters, tenants and snapshots come with
-later slices of the port and raise here.
+Mesh sharding, filters, tenants and snapshots come with later slices of
+the port and raise here.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ import torch
 from repro_torch.core import topk as T
 from repro_torch.core.distances import QUANTIZABLE, canonical_scan_dtype, quantize_rows
 from repro_torch.core.ivf import IVFCells, build_ivf
-from repro_torch.core.knn import ivf_query, knn_query, two_stage_query
+from repro_torch.core.knn import ivf_query, ivfpq_query, knn_query, two_stage_query
+from repro_torch.core.pq import PQCodebook, PQCodes, _check_pq_geometry, build_ivfpq
 from repro_torch.kernels._backend import resolve_device
 
 Tensor = torch.Tensor
@@ -78,6 +85,16 @@ def _segment_candidates(q, vecs, live, ids, *, k_out, distance, impl):
     return _externalize(vals, idx, ids, k_out)
 
 
+def _segment_candidates_ivfpq(q, vecs, ivf, pq_cb, pq_codes, live, ids, *, k_out, nprobe,
+                              overfetch, distance, impl):
+    """IVF-PQ top-``k_out`` of one segment (DESIGN.md §PQ): the segment's
+    epoch-keyed residual PQ replica over its packed rows, the live mask
+    riding the packing permutation, the rescore exact in fp32."""
+    vals, idx = ivfpq_query(q, vecs, ivf, pq_cb, pq_codes, k_out, nprobe=nprobe,
+                            distance=distance, impl=impl, overfetch=overfetch, db_live=live)
+    return _externalize(vals, idx, ids, k_out)
+
+
 def _merge_candidates(av, ai, bv, bi, *, k):
     """Merge two ascending equal-width candidate sets, keep k smallest."""
     mv, mi = T.merge_topk_sorted(av, ai, bv, bi)
@@ -85,8 +102,8 @@ def _merge_candidates(av, ai, bv, bi, *, k):
 
 
 def _unported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet: the flat, quantized and IVF "
-                              "index only")
+    raise NotImplementedError(f"{name} is not ported yet: the flat, quantized, IVF and "
+                              "IVF-PQ index only")
 
 
 class RetrievalIndex:
@@ -97,16 +114,17 @@ class RetrievalIndex:
     ``scan_dtype`` / ``overfetch``: the two-stage tier ("float32" is the
     exact flat scan).  ``ivf_cells`` / ``nprobe``: the IVF tier (0 cells is
     off; ``nprobe >= ivf_cells`` probes every cell, exact with a float32
-    scan).  k-means is seeded from the main epoch, through a
-    ``torch.Generator``, so a rebuild of one epoch trains the same cells.
+    scan).  ``pq_m`` / ``pq_nbits``: the IVF-PQ tier (needs ``ivf_cells >
+    0``; ``pq_m`` divides ``dim``; codes of ``pq_nbits`` <= 8 bits, a byte
+    each).  k-means (cells and codebooks) is seeded from the main epoch,
+    through a ``torch.Generator``, so a rebuild of one epoch trains the same
+    cells and codes.
     """
 
     def __init__(self, dim: int, *, distance: str = "sqeuclidean",
                  impl: str = "fused", device="cuda", scan_dtype: str = "float32",
                  overfetch: int = 4, ivf_cells: int = 0, nprobe: int = 8, pq_m: int = 0,
-                 mesh=None):
-        if pq_m:
-            _unported("pq_m")
+                 pq_nbits: int = 8, mesh=None):
         if mesh is not None:
             _unported("mesh")
         self.dim = int(dim)
@@ -117,11 +135,18 @@ class RetrievalIndex:
         self.overfetch = int(overfetch)
         self.ivf_cells = int(ivf_cells)
         self.nprobe = int(nprobe)
+        self.pq_m = int(pq_m)
+        self.pq_nbits = int(pq_nbits)
         assert self.overfetch >= 1, overfetch
         assert self.ivf_cells >= 0 and self.nprobe >= 1, (ivf_cells, nprobe)
         if (self.scan_dtype != "float32" or self.ivf_cells) and distance not in QUANTIZABLE:
             raise ValueError(f"scan_dtype={scan_dtype!r} / ivf_cells need a distance with a "
                              f"row-local gy map; {distance!r} is not in {QUANTIZABLE}")
+        if self.pq_m:
+            if not self.ivf_cells:
+                raise ValueError("pq_m needs a coarse quantizer: set ivf_cells > 0 "
+                                 "(the IVFADC composition, DESIGN.md §PQ)")
+            _check_pq_geometry(self.dim, self.pq_m, self.pq_nbits)
         self._main_epoch = 0
         self._main_vecs = np.zeros((0, dim), np.float32)
         self._main_ids = np.zeros((0,), np.int32)
@@ -158,6 +183,7 @@ class RetrievalIndex:
     def from_arrays(cls, main_vecs, main_ids, main_live, delta_vecs, delta_ids,
                     delta_live, delta_n, *, distance: str = "sqeuclidean",
                     impl: str = "fused", device="cuda", ivf: IVFCells | None = None,
+                    pq: tuple[PQCodebook, PQCodes] | None = None,
                     scan_dtype: str = "float32", overfetch: int = 4,
                     nprobe: int = 8) -> "RetrievalIndex":
         """An index with exactly this segment state (e.g. the reference's).
@@ -167,12 +193,20 @@ class RetrievalIndex:
         capacity with its write head ``delta_n``.  ``ivf``: trained cells
         over the main rows (e.g. the reference's, through
         ``core.ivf.ivf_from_arrays``); the index then serves the IVF tier
-        with them until the next compact retrains.
+        with them until the next compact retrains.  ``pq``: a (codebook,
+        codes) replica of those cells' packed rows, with residual codes
+        (e.g. the reference's, through ``core.pq.pq_from_arrays``); the
+        index then serves the IVF-PQ tier with it, ``pq_m`` and
+        ``pq_nbits`` taken from its codebook.
         """
         main_vecs = np.ascontiguousarray(main_vecs, np.float32)
+        if pq is not None and ivf is None:
+            raise ValueError("a PQ replica needs the cells it codes (ivf=...)")
+        pq_m, pq_nbits = (0, 8) if pq is None else (pq[0].m, pq[0].ncodes.bit_length() - 1)
         idx = cls(main_vecs.shape[1], distance=distance, impl=impl, device=device,
                   scan_dtype=scan_dtype, overfetch=overfetch,
-                  ivf_cells=0 if ivf is None else ivf.ncells, nprobe=nprobe)
+                  ivf_cells=0 if ivf is None else ivf.ncells, nprobe=nprobe, pq_m=pq_m,
+                  pq_nbits=pq_nbits)
         idx._main_vecs = main_vecs
         idx._main_ids = np.asarray(main_ids, np.int32).copy()
         idx._main_live = np.asarray(main_live, bool).copy()
@@ -195,7 +229,14 @@ class RetrievalIndex:
             if ivf.slot_of_row.shape[0] != len(main_vecs):
                 raise ValueError(f"the cells cover {ivf.slot_of_row.shape[0]} rows, the main "
                                  f"segment has {len(main_vecs)}")
-            idx._install_ivf(IVFCells(*(t.to(idx.device) for t in ivf)))
+            if pq is not None:
+                if pq[1].codes.shape[0] != ivf.packed.shape[0] or not idx._use_pq():
+                    raise ValueError(f"the PQ replica codes {pq[1].codes.shape[0]} slots; the "
+                                     f"cells pack {ivf.packed.shape[0]} and the main segment "
+                                     f"has {len(main_vecs)} rows (>= {2 ** pq_nbits} needed)")
+                pq = (PQCodebook(pq[0].codebooks.to(idx.device)),
+                      PQCodes(*(t.to(idx.device) for t in pq[1])))
+            idx._install_ivf(IVFCells(*(t.to(idx.device) for t in ivf)), pq)
         return idx
 
     def save(self, directory: str, **kw) -> str:
@@ -325,7 +366,8 @@ class RetrievalIndex:
         and compact), the main mask and ids on the main version (tombstones);
         the delta, small by construction, on its version.  The quantized
         replica (``main_q``) and the IVF cells with their scan replica
-        (``main_ivf``, ``main_ivf_q``) are keyed on the main epoch too.
+        (``main_ivf``, ``main_ivf_q``) or their PQ replica (``main_pq``) are
+        keyed on the main epoch too.
         """
         dev = self.device
         self._upload("main_vecs", self._main_epoch,
@@ -342,24 +384,39 @@ class RetrievalIndex:
         if self._use_ivf() and self._dev_version.get("main_ivf") != self._main_epoch:
             # The stale epoch's cells go before the new ones are built: the
             # cell-packed copy can be many times the corpus (pow2 cell_cap).
-            self._dev.pop("main_ivf", None)
-            self._dev.pop("main_ivf_q", None)
+            for key in ("main_ivf", "main_ivf_q", "main_pq"):
+                self._dev.pop(key, None)
             self._install_ivf(build_ivf(
                 self._dev["main_vecs"], self._effective_ncells(), distance=self.distance,
                 impl=self.impl, generator=torch.Generator().manual_seed(self._main_epoch)))
         return {"main": (self._dev["main_vecs"], *self._dev["main_mask"]),
                 "delta": self._dev["delta"]}
 
-    def _install_ivf(self, ivf: IVFCells) -> None:
+    def _install_ivf(self, ivf: IVFCells, pq: tuple[PQCodebook, PQCodes] | None = None) -> None:
         """The main epoch's cells and the scan replica of their packed rows
-        (built for float32 too, so that no search re-derives it)."""
+        (built for float32 too, so that no search re-derives it), or, for
+        the IVF-PQ tier, their residual PQ replica (``pq``, else trained
+        here), which then replaces the scan replica."""
         self._dev["main_ivf"] = ivf
-        self._dev["main_ivf_q"] = quantize_rows(ivf.packed, self.scan_dtype,
-                                                distance=self.distance)
+        if self._use_pq():
+            self._dev["main_pq"] = pq if pq is not None else build_ivfpq(
+                self._dev["main_vecs"], ivf, self.pq_m, nbits=self.pq_nbits,
+                distance=self.distance, impl=self.impl,
+                generator=torch.Generator().manual_seed(self._main_epoch))
+        else:
+            self._dev["main_ivf_q"] = quantize_rows(ivf.packed, self.scan_dtype,
+                                                    distance=self.distance)
         self._dev_version["main_ivf"] = self._main_epoch
 
     def _use_ivf(self) -> bool:
         return bool(self.ivf_cells) and self._effective_ncells() > 0
+
+    def _use_pq(self) -> bool:
+        """The IVF-PQ tier, unless the main segment has fewer rows than a
+        codebook has codewords: then the IVF scan serves it, never a
+        truncated codebook."""
+        return (bool(self.pq_m) and self._use_ivf()
+                and len(self._main_vecs) >= 2 ** self.pq_nbits)
 
     def _effective_ncells(self) -> int:
         """``ivf_cells`` clamped so that a cell expects at least ~4 rows; 0
@@ -381,9 +438,10 @@ class RetrievalIndex:
         """Everything that fixes the shapes of a k-search: the segment row
         counts (main size, delta capacity), never the number of dead rows,
         and with IVF the cell-packed size (``ncells * cell_cap``; cell_cap
-        can move with the largest cell at a compact).  Before this epoch's
-        cells are built it is a per-epoch marker, so the first batch after a
-        compact is tagged cold.
+        can move with the largest cell at a compact; the PQ codes, one row a
+        slot, have the same size).  Before this epoch's cells are built it
+        is a per-epoch marker, so the first batch after a compact is tagged
+        cold.
         """
         del k  # fetch width is next_pow2(k), already part of the batch key
         packed = 0
@@ -428,6 +486,11 @@ class RetrievalIndex:
         vecs, live, ids = dev["main"]
         kw = dict(distance=self.distance, impl=self.impl, overfetch=self.overfetch,
                   db_live=live)
+        if self._use_pq():
+            return _segment_candidates_ivfpq(
+                q, vecs, self._dev["main_ivf"], *self._dev["main_pq"], live, ids, k_out=k_out,
+                nprobe=self.effective_nprobe(), overfetch=self.overfetch,
+                distance=self.distance, impl=self.impl)
         if self._use_ivf():
             vals, idx = ivf_query(q, vecs, self._dev["main_ivf"], k_out,
                                   nprobe=self.effective_nprobe(),

@@ -16,12 +16,18 @@ import pytest
 import torch
 
 from repro_torch.core import topk as T
-from repro_torch.core.distances import finalize_kind, get_distance, quantize_rows
+from repro_torch.core.distances import (
+    cumulative_kind,
+    finalize_kind,
+    get_distance,
+    quantize_rows,
+)
 from repro_torch.kernels import fused_knn as FK
 from repro_torch.kernels import ivf_scan as IVS
 from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
+from repro_torch.kernels import pq_scan as PQS
 from repro_torch.kernels import rescore as RS
 from repro_torch.kernels import stream_topk as ST
 from repro_torch.kernels.ref import check_topk, operand_distance
@@ -358,3 +364,89 @@ def test_index_tiers_on_card_match_cpu_index(cuda, kw):
     np.testing.assert_allclose(a.distances.cpu().numpy(), b.distances.numpy(), rtol=1e-5,
                                atol=1e-4)
     assert (a.ids.cpu().numpy() == b.ids.numpy()).mean() > 0.99
+
+
+@pytest.mark.parametrize("name", ["sqeuclidean", "euclidean", "neg_dot", "neg_cosine",
+                                  "hellinger", "kl"])
+@pytest.mark.parametrize("shape", [(1, 1, 4), (100, 130, 20), (129, 257, 260),
+                                   (300, 1000, 68)])
+def test_pairwise_cumulative_kernel_matches_plain(cuda, name, shape):
+    """Every accumulator and finalizer, with m, n and d off the 128 x 128 x
+    16 tile: the same per-coordinate fold in another order."""
+    m, n, d = shape
+    x, y = (t.to(cuda) for t in _data(name, m, n, d, 2))
+    dist = get_distance(name)
+    if dist.pre is not None:
+        x, y = dist.pre(x), dist.pre(y)
+    x, y = ops._pad_d(x, y)
+    acc, fin = cumulative_kind(dist)
+    before = PD.CUMULATIVE_LAUNCHES
+    out = PD.pairwise_distance_cumulative(x, y, accumulate=acc, finalize=fin, init=dist.init)
+    torch.cuda.synchronize()
+    assert PD.CUMULATIVE_LAUNCHES == before + 1
+    want = PD.pairwise_cumulative_plain(x, y, accumulate=acc, finalize=fin, init=dist.init)
+    scale = float(x.abs().max() * y.abs().max() + x.abs().max() ** 2) * d
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * scale + 1e-6)
+    via_ops = ops.pairwise_distance(*_data(name, m, n, d, 2), distance=name, cumulative=True)
+    torch.testing.assert_close(out.cpu(), via_ops, rtol=1e-5, atol=1e-5 * scale + 1e-6)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("pq_m,nbits", [(32, 8), (8, 4), (6, 4)])
+@pytest.mark.parametrize("m,tile_m,cap", [(8, 8, 128), (1024, 256, 256), (300, 256, 128)])
+def test_pq_scan_kernel_matches_plain(cuda, residual, pq_m, nbits, m, tile_m, cap):
+    """Random codes, tables, extents and dead slots: the kernel equals its
+    plain version, values to rounding and ids tie-aware, whether the probe
+    list is split across CTAs (a batch of 8) or not."""
+    ncells, ncodes, k = 64, 2 ** nbits, 40
+    g = torch.Generator().manual_seed(m + pq_m + cap)
+    S = ncells * cap
+    codes = torch.randint(0, ncodes, (S, pq_m), generator=g, dtype=torch.uint8).to(cuda)
+    luts = torch.randn(m, pq_m * ncodes, generator=g).to(cuda)
+    hx = torch.randn(m, 1, generator=g).to(cuda)
+    live = torch.rand(S, generator=g) > 0.3
+    hy = torch.where(live, torch.randn(S, generator=g), float("inf"))[None, :].to(cuda)
+    qc = torch.randn(m, ncells, generator=g).to(cuda) if residual else None
+    extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32).to(cuda)
+    m_pad = -(-m // tile_m) * tile_m
+    cells = torch.randint(0, ncells, (m_pad, 4), generator=g, dtype=torch.int32).to(cuda)
+    from repro_torch.core.ivf import tile_probe_lists
+
+    probes = tile_probe_lists(cells, ncells, tile_m)
+    kw = dict(cell_cap=cap, ncodes=ncodes, tile_m=tile_m, cell_extent=extent, qc=qc,
+              distance_finalize="identity")
+    before = PQS.LAUNCHES
+    v, i = PQS.pq_scan(probes, luts, codes, hx, hy, k, **kw)
+    torch.cuda.synchronize()
+    assert PQS.LAUNCHES == before + 1
+    pv, pi = PQS.pq_scan_plain(probes, luts, codes, hx, hy, k, cell_cap=cap, ncodes=ncodes,
+                               tile_m=tile_m, cell_extent=extent, finalize="identity", qc=qc)
+    lut3 = luts.reshape(m, pq_m, ncodes)
+
+    def adc(rows, cols):
+        s = lut3[rows[:, None], torch.arange(pq_m, device=cuda)[None, :],
+                 codes[cols].long()].sum(1)
+        if qc is not None:
+            s = s + qc[rows, cols // cap]
+        return s + hx[rows, 0] + hy[0, cols]
+
+    check_topk(v, i, pv, pi, n=S, rtol=1e-5, atol=1e-4, dist=adc)
+    _, qb, splits, _ = PQS.plan(probes, m, pq_m * ncodes, pq_m, T.next_pow2(k), cuda)
+    assert qb == PQS.query_block(pq_m * ncodes)
+    if m == 8:  # two CTAs of queries: the list is split to fill the card
+        assert splits > 1
+    if m == 1024 and pq_m == 32:  # 512 CTAs of two queries: no split
+        assert splits == 1
+
+
+def test_pq_scan_refuses_a_lut_past_shared_memory(cuda):
+    """pq_m 256 at 8 bits: one query's table is 256 KiB, past a CTA's."""
+    m, pq_m, ncodes, cap = 4, 256, 256, 128
+    probes = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        PQS.pq_scan(probes, torch.zeros(m, pq_m * ncodes, device=cuda),
+                    torch.zeros((cap, pq_m), dtype=torch.uint8, device=cuda),
+                    torch.zeros(m, 1, device=cuda), torch.zeros(1, cap, device=cuda), 8,
+                    cell_cap=cap, ncodes=ncodes, tile_m=8,
+                    cell_extent=torch.full((1,), cap, dtype=torch.int32, device=cuda),
+                    distance_finalize="identity")

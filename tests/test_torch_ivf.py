@@ -80,6 +80,26 @@ def test_lloyd_generator_start_is_deterministic_and_assigns_all_rows():
     assert torch.equal(a1, PK.knn_query(x, c1, 1).indices[:, 0])
 
 
+def test_kmeanspp_start_seeds_every_separated_cluster():
+    """The drawn start (D^2 sampling) puts one seed in each of 12 tight,
+    far-apart clusters, where a uniform draw of 12 rows almost surely
+    misses some; the draw is deterministic for a generator seed."""
+    from repro_torch.core.kmeans import kmeanspp_rows
+
+    g = np.random.default_rng(4)
+    centers = 100.0 * g.standard_normal((12, 8))
+    label = g.integers(0, 12, 3000)
+    x = torch.from_numpy((centers[label] + 1e-3 * g.standard_normal((3000, 8)))
+                         .astype(np.float32))
+    rows = kmeanspp_rows(x, 12, torch.Generator().manual_seed(0))
+    assert sorted(label[rows.numpy()].tolist()) == list(range(12))
+    assert torch.equal(rows, kmeanspp_rows(x, 12, torch.Generator().manual_seed(0)))
+    cent, assign = lloyd(x, 12, iters=3, generator=torch.Generator().manual_seed(0))
+    # Cell j grows from the seed rows[j]: it holds exactly that seed's cluster.
+    assert torch.bincount(assign.long(), minlength=12).tolist() == np.bincount(
+        label, minlength=12)[label[rows.numpy()]].tolist()
+
+
 @pytest.mark.parametrize("cell_cap", [None, 256])
 def test_pack_cells_matches_reference_bit_for_bit(cell_cap):
     x = np.random.default_rng(1).standard_normal((300, 12)).astype(np.float32)

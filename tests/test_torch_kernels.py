@@ -27,6 +27,7 @@ from repro_torch.kernels import ivf_scan as IVS
 from repro_torch.kernels import merge_partials as MP
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
+from repro_torch.kernels import pq_scan as PQS
 from repro_torch.kernels import ref
 from repro_torch.kernels import rescore as RS
 from repro_torch.kernels import scan as SC
@@ -61,6 +62,47 @@ def test_pairwise_distance_matches_pallas(name, shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-3, rtol=1e-3)
     np.testing.assert_allclose(got.numpy(), ref.pairwise_distance_ref(*_t(x, y), distance=name),
                                atol=3e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+@pytest.mark.parametrize("shape", [(64, 64, 32), (100, 130, 30)])
+def test_pairwise_cumulative_matches_pallas(name, shape):
+    """The per-coordinate route against the reference's cumulative Pallas
+    kernel (interpret mode) and the cumulative oracle, for every distance:
+    the same accumulator over the same coordinates, summed in chunks of
+    another size, so values agree to fp32 rounding."""
+    m, n, d = shape
+    x, y = _data(name, m, n, d, 1)
+    want = rops.pairwise_distance(jnp.asarray(x), jnp.asarray(y), distance=name,
+                                  cumulative=True, bm=64, bn=64, bd=32)
+    before = PD.CUMULATIVE_LAUNCHES
+    got = ops.pairwise_distance(*_t(x, y), distance=name, cumulative=True)
+    assert got.shape == (m, n) and PD.CUMULATIVE_LAUNCHES == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref.pairwise_distance_ref(*_t(x, y), distance=name),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_pairwise_cumulative_plain_blocks_and_names(monkeypatch):
+    """The plain version's row, column and coordinate blocks give one pass's
+    values; every distance maps to one of the kernel's accumulators and
+    finalizers."""
+    from repro_torch.core.distances import cumulative_kind
+
+    x, y = _t(*_data("kl", 37, 50, 20, 2))
+    one = PD.pairwise_cumulative_plain(x, y, accumulate="kl", finalize="identity")
+    monkeypatch.setattr(PD, "PLAIN_CHUNK", 64)  # blocks of 1 row x 50 columns x 20 coordinates
+    torch.testing.assert_close(PD.pairwise_cumulative_plain(
+        x, y, accumulate="kl", finalize="identity"), one, rtol=1e-6, atol=1e-7)
+    kinds = {name: cumulative_kind(get_distance(name)) for name in REGISTRY}
+    assert kinds == {"sqeuclidean": ("sqeuclidean", "identity"),
+                     "euclidean": ("sqeuclidean", "sqrt"), "neg_dot": ("neg_dot", "identity"),
+                     "neg_cosine": ("neg_dot", "identity"),
+                     "hellinger": ("hellinger", "half_sqrt"), "kl": ("kl", "identity")}
+    for acc, fin in kinds.values():
+        assert acc in PD.ACCUMULATE_CODES and fin in PD.CUMULATIVE_FINALIZE_CODES
+    with pytest.raises(ValueError):
+        PD.pairwise_distance_cumulative(x, y, accumulate="cosine", finalize="identity")
 
 
 @pytest.mark.parametrize("shape,k", [((32, 128), 1), ((32, 128), 7), ((64, 1000), 16),
@@ -239,8 +281,6 @@ def test_unported_operands_raise():
                      alpha=alpha, n_real=16, gy_scale=hy[:, :3].contiguous())
     with pytest.raises(NotImplementedError):
         ops.fused_knn(x, y, 4, q_allowed=torch.ones(8, 16, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        ops.pairwise_distance(x, y, cumulative=True)
     with pytest.raises(ValueError):  # K = 512 is past the kernels' buffer
         ST.stream_topk(torch.zeros(2, 600), 300)
     with pytest.raises(ValueError):  # a wrong dtype is refused, not cast
@@ -268,11 +308,18 @@ def test_split_plan_covers_every_tile():
                                           (MP, "merge_partials_f32"),
                                           (FK, "fused_knn_occupancy"),
                                           (IVS, "ivf_scan"), (IVS, "ivf_scan_occupancy"),
-                                          (RS, "rescore_f32")])
+                                          (RS, "rescore_f32"), (PQS, "pq_scan"),
+                                          (PQS, "pq_scan_occupancy"),
+                                          (PD, "pairwise_cumulative")])
 def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     """The C entry point's parameter list and the wrapper's argtypes agree:
-    a pointer or the stream is void*, an int is int, alpha is float."""
-    src = (CSRC / (module.__name__.rsplit(".", 1)[1] + ".cu")).read_text()
+    a pointer or the stream is void*, an int is int, alpha (or init) is
+    float."""
+    from repro_torch.kernels import _backend as B
+
+    # The library an entry point lives in: the longest source name it starts with.
+    name = max((lib for lib in B.KERNEL_SOURCES if entry.startswith(lib)), key=len)
+    src = (CSRC / f"{name}.cu").read_text()
     m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)
     assert m, entry
     kinds = []
@@ -282,13 +329,14 @@ def test_ctypes_signatures_match_the_cuda_sources(module, entry):
     import ctypes
 
     want = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
-    argtypes = SC.OCCUPANCY_ARGTYPES if entry.endswith("_occupancy") else module.C_ARGTYPES
+    if entry == "pairwise_cumulative":
+        argtypes = module.CUMULATIVE_ARGTYPES
+    elif entry.endswith("_occupancy"):
+        argtypes = getattr(module, "OCCUPANCY_ARGTYPES", SC.OCCUPANCY_ARGTYPES)
+    else:
+        argtypes = module.C_ARGTYPES
     assert [want[k] for k in kinds] == argtypes
     assert "repro_error_string" in (CSRC / "common.cuh").read_text()
-    from repro_torch.kernels import _backend as B
-
-    name = module.__name__.rsplit(".", 1)[1]
-    assert name in B.KERNEL_SOURCES and entry.startswith(name)
 
 
 @pytest.mark.parametrize("library", ["fused_knn", "ivf_scan"])

@@ -134,9 +134,10 @@ def test_serving_meter_matches_reference_statistics():
 
 
 def test_unported_knobs_raise():
-    for kw in (dict(pq_m=4), dict(mesh=object()), dict(ivf_cells=8, pq_m=4)):
-        with pytest.raises(NotImplementedError):
-            RetrievalIndex(8, **kw, **CPU)
+    with pytest.raises(NotImplementedError):
+        RetrievalIndex(8, mesh=object(), **CPU)
+    with pytest.raises(ValueError):  # IVF-PQ needs its coarse quantizer
+        RetrievalIndex(8, pq_m=4, **CPU)
     idx = RetrievalIndex.build(np.arange(4), np.ones((4, 8), np.float32), **CPU)
     with pytest.raises(NotImplementedError):
         idx.search(np.ones((1, 8), np.float32), 2, filter=object())
