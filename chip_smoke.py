@@ -71,8 +71,14 @@ Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is ``{"kernels": [...]}``: per
 kernel its launches, max |difference| against its plain version, its time,
 the plain version's time, the least time the card could take (bytes over
-3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger) and, where
-one PyTorch call computes the same function, that call's time.  The last
+3.35 TB/s or operations over the peak rate, whichever is larger) and, where
+one PyTorch call computes the same function, that call's time.  The
+operations of a matmul-form kernel (``fused_knn``, ``pairwise_distance``,
+``ivf_scan``) are its 2 m n d product in three TF32 passes at 495 TFLOP/s
+(two for a bf16 or int8 database), the least work at an accuracy the checks
+accept, with the same work in fp32 FMAs at 67 TFLOP/s beside it as
+``bound_fp32_ms``; the others' are fp32 operations at 67 TFLOP/s.  Those
+two kernels also name the tile ``product`` they ran.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 before printing any result.  Everything it prints also goes, in full, to
@@ -91,7 +97,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 on the tensor cores, FLOP/s
 PEAK_HBM = 3.35e12  # H100 SXM HBM3, bytes/s
+PRODUCT = "wgmma 3xTF32 (gemm_tc.cuh)"  # the tile product of fused_knn and pairwise_distance
 QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
@@ -129,6 +137,19 @@ def time_ms(torch, fn, reps=3, warmup=1):
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_HBM
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mm_bound(flops: float, nbytes: float, gy_exact: bool = False) -> dict:
+    """The bound of a matmul-form kernel (fused_knn, pairwise_distance,
+    ivf_scan): ``flops`` = 2 m n d of its tile product in three TF32 passes
+    (two where gy is bf16 or int8, exact in TF32), the least the card needs
+    for the product at an accuracy the checks accept, or its bytes over
+    3.35 TB/s, whichever is larger; and beside it the same work in fp32 FMAs
+    on the CUDA cores (``bound_fp32_ms``)."""
+    t_ops, t_bytes = (2 if gy_exact else 3) * flops / PEAK_TF32, nbytes / PEAK_HBM
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_fp32_ms": bound_ms(flops, nbytes)[0]}
 
 
 def exact_ids_check(torch, x, rows, ids, vals, k, exclude_self):
@@ -314,7 +335,7 @@ def phase_two_stage(torch, dev, run_path):
     out["float32"] = {
         "partials_ms": time_ms(torch, lambda: FK.fused_knn_partials(fx32, gy32, hx32, hy32,
                                                                     k_scan, **kw32)),
-        "bound_ms": bound_ms(2.0 * 1024 * n * d, 1024 * d * 4 + n * d * 4 + n * 4)[0]}
+        **mm_bound(2.0 * 1024 * n * d, 1024 * d * 4 + n * d * 4 + n * 4)}
     del fx32, gy32, hx32, hy32
     for sd in ("int8", "bfloat16"):
         index = RetrievalIndex.build(np.arange(n), db, distance="neg_dot", impl="fused",
@@ -376,9 +397,9 @@ def phase_two_stage(torch, dev, run_path):
         epilogue = nn * 4 * (1 if gs is None else 2)  # hy, and the int8 scales
         out[sd] = {"partials_ms": part_ms, "plain_ms": plain_ms, "vs_plain": cmp,
                    "splits": splits, "bm": bm,
-                   "bound_ms": bound_ms(2.0 * 1024 * nn * d,
-                                        1024 * d * 4 + nn * d * gy.element_size() + epilogue
-                                        + part_v.numel() * 8)[0]}
+                   **mm_bound(2.0 * 1024 * nn * d,
+                              1024 * d * 4 + nn * d * gy.element_size() + epilogue
+                              + part_v.numel() * 8, gy_exact=True)}
         # The rescore kernel on the scan's candidates (main-segment rows).
         rfx, rcand, rhx, rhy, _ = ops.rescore_operands(qb, vecs_t, i[:, :k_scan], k,
                                                        distance="neg_dot")
@@ -478,10 +499,10 @@ def phase_ivf(torch, dev, run_path, x):
                          rtol=1e-5, atol=1e-3,
                          dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))
         m_, n_ = fx.shape[0], gy.shape[0]
-        bnd = bound_ms(2.0 * m_ * n_ * d, (m_ + n_) * d * 4 + (m_ + n_) * 4
+        bnd = mm_bound(2.0 * m_ * n_ * d, (m_ + n_) * d * 4 + (m_ + n_) * 4
                        + m_ * next_pow2(kk) * 8)
-        fused_ivf[label] = {"ms": ms, "plain_ms": plain_ms, "vs_plain": cmp, "bound_ms": bnd[0],
-                            "bound_by": bnd[1], "shape": f"{m_} x {n_}, d {d}, k {kk}"}
+        fused_ivf[label] = {"ms": ms, "plain_ms": plain_ms, "vs_plain": cmp, **bnd,
+                            "shape": f"{m_} x {n_}, d {d}, k {kk}"}
         del fx, gy, hx, hy, outs, v, i, pv, pi
     say("ivf_fused_knn_vs_plain", fused_ivf)
     del cent, assign
@@ -609,8 +630,9 @@ def phase_ivf(torch, dev, run_path, x):
             pairs = int((q_per_tile * rows_per_tile).sum())  # (query, row) pairs scored
             read = int(cnt[torch.unique(probes).long()].sum())  # rows read at least once
             K = next_pow2(k_scan)
-            bnd = bound_ms(2.0 * pairs * d, m * d * 4 + read * d * gy.element_size()
-                           + read * 4 * (1 if gs is None else 2) + m * K * 8)
+            bnd = mm_bound(2.0 * pairs * d, m * d * 4 + read * d * gy.element_size()
+                           + read * 4 * (1 if gs is None else 2) + m * K * 8,
+                           gy_exact=gy.dtype != torch.float32)
             # What the kernel walks: per CTA (a query block and a range of
             # the list), the 128-column tiles of its distinct cells.
             pr, bm, splits, sps = IVS.plan(probes, m, tile_m, K, dev, gy.dtype, gs is not None)
@@ -623,7 +645,7 @@ def phase_ivf(torch, dev, run_path, x):
                                                                    k_scan, **kw))
             res[f"ivf_scan_batch_{m}"] = {
                 "ms": ms, "partials_ms": part_ms, "plain_ms": plain_ms, "vs_plain": cmp,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "rows_scored": pairs, "rows_read": read,
+                **bnd, "rows_scored": pairs, "rows_read": read,
                 "columns_walked": int((q_per_tile[:, None] * walk).sum()) * 128,
                 "bm": bm, "splits": splits, "ctas": -(-m // bm) * splits,
                 "tiles_per_cta_max": int(walk.max()),
@@ -741,10 +763,9 @@ def phase_ivfpq(torch, dev, run_path, x):
     enc_cmp = check_topk(v[:, :1], i[:, :1], pv[:, :1], pi[:, :1], n=gy.shape[0], rtol=1e-5,
                          atol=1e-4, dist=operand_distance(fx, gy, hx, hy, alpha=alpha,
                                                           finalize="identity"))
-    enc_bound = bound_ms(2.0 * fx.shape[0] * gy.shape[0] * fx.shape[1],
+    enc_bound = mm_bound(2.0 * fx.shape[0] * gy.shape[0] * fx.shape[1],
                          (fx.shape[0] + gy.shape[0]) * (fx.shape[1] + 1) * 4 + fx.shape[0] * 8)
-    fused_enc = {"ms": enc_ms, "plain_ms": enc_plain_ms, "vs_plain": enc_cmp,
-                 "bound_ms": enc_bound[0], "bound_by": enc_bound[1],
+    fused_enc = {"ms": enc_ms, "plain_ms": enc_plain_ms, "vs_plain": enc_cmp, **enc_bound,
                  "shape": f"{fx.shape[0]} x {gy.shape[0]} codewords, d {d // PQ_M}, k 1"}
     say("ivfpq_fused_knn_encode_vs_plain", fused_enc)
     del rows, sub, fx, gy, hx, hy, outs, v, i, pv, pi
@@ -943,7 +964,10 @@ def main() -> int:
     regs = {}
     for name in B.KERNEL_SOURCES:
         log = B.library_path(name).with_suffix(".log")
-        regs[name] = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
+        # ptxas's report: each entry function with its target, then its registers
+        regs[name] = [ln.replace("ptxas info    : ", "").strip()
+                      for ln in log.read_text().splitlines()
+                      if "registers" in ln or "Compiling entry function" in ln]
     say("build", {"seconds": build_s, "ptxas": regs})
 
     # 2. The paper's problem: allpairs_160k, fused.
@@ -983,12 +1007,12 @@ def main() -> int:
     exact_ids_check(torch, x, sample, res.indices, res.distances, k, True)
     bm, splits, _ = FK.plan(n, n, K, dev)
     ctas = -(-n // bm) * splits
-    fused_bound, fused_by = bound_ms(2.0 * n * n * d, 2 * n * d * 4 + 2 * n * 4 + n * K * 8)
+    fused_bound = mm_bound(2.0 * n * n * d, 2 * n * d * 4 + 2 * n * 4 + n * K * 8)
     say("allpairs_160k", {"median_ms": statistics.median(fused_times), "runs_ms": fused_times,
                           "plain_ms": fused_plain_ms, "vs_plain": fused_cmp, "bm": bm,
                           "splits": splits,
                           "ctas_per_sm": SC.kernel_shape("fused_knn", dev, bm, K)[0],
-                          "ctas": ctas, "bound_ms": fused_bound})
+                          "ctas": ctas, **fused_bound})
 
     # 3. The paper's two phases on rows 0..8191, and the symmetric per-tile path.
     m2 = 8192
@@ -1015,8 +1039,7 @@ def main() -> int:
     pd_plain_ms = time_ms(torch, lambda: PD.pairwise_distance_plain(
         *pd_args, alpha=alpha, finalize="identity"))
     pd_lib_ms = time_ms(torch, lambda: torch.addmm(hxq + hyq, fq, gq.T, alpha=alpha))
-    pd_bound, pd_by = bound_ms(2.0 * m2 * n * d + 3.0 * m2 * n,
-                               (m2 + n) * d * 4 + (m2 + n) * 4 + m2 * n * 4)
+    pd_bound = mm_bound(2.0 * m2 * n * d, (m2 + n) * d * 4 + (m2 + n) * 4 + m2 * n * 4)
     st_ms = time_ms(torch, lambda: ST.stream_topk(dm, k))
     t0 = time.perf_counter()
     sv, si = ST.stream_topk_plain(dm, k)
@@ -1136,14 +1159,18 @@ def main() -> int:
     check(mg_err == 0.0 and torch.equal(mv.isinf(), mpv.isinf()), "merge kernel vs plain: values")
     check(torch.equal(mi, outs["kernel"][1]), "merge kernel vs the fused call's result")
     mg_bound, mg_by = bound_ms(0.0, part_v.numel() * 8 + mv.numel() * 8)
+    # The library yardstick: torch.topk over the [m, S * K] concatenation.
+    cat_v = part_v.permute(1, 0, 2).reshape(part_v.shape[1], -1).contiguous()
+    mg_lib_ms = time_ms(torch, lambda: torch.topk(cat_v, part_v.shape[2], dim=1, largest=False))
+    del cat_v
     say("serving_batch_1024", {"kernel_ms": serve_ms, "partials_ms": partials_ms,
                                "merge_ms": mg_ms, "plain_ms": serve_plain_ms,
                                "merge_plain_ms": mg_plain_ms, "vs_plain": serve_cmp,
                                "bm": bm4, "splits": splits4, "ctas": -(-1024 // bm4) * splits4,
                                "ctas_per_sm": SC.kernel_shape("fused_knn", dev, bm4, 16)[0],
-                               "bound_ms": bound_ms(2.0 * 1024 * nn * d,
-                                                    (1024 + nn) * d * 4 + 1024 * 16 * 8)[0],
-                               "merge_bound_ms": mg_bound})
+                               **mm_bound(2.0 * 1024 * nn * d,
+                                          (1024 + nn) * d * 4 + 1024 * 16 * 8),
+                               "merge_bound_ms": mg_bound, "merge_library_ms": mg_lib_ms})
 
     del index, engine, steady, vecs_t, qb, sf, outs, part_v, part_i, mv, mi, mpv, mpi
     torch.cuda.empty_cache()
@@ -1159,34 +1186,32 @@ def main() -> int:
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
         sd: {"ms": ts[sd]["partials_ms"], "plain_ms": ts[sd].get("plain_ms"),
-             "bound_ms": ts[sd]["bound_ms"], "bound_by": "operations",
+             **{key: ts[sd][key] for key in ("bound_ms", "bound_by", "bound_fp32_ms")},
              "max_abs_err": ts[sd]["vs_plain"]["max_abs_err"] if "vs_plain" in ts[sd] else None,
              "shape": f"partial sets, 1024 x {QUERY_ROWS} (gy {sd}), d 256, k {ts['k_scan']}"}
         for sd in ("float32", "bfloat16", "int8")}
     for label, v in [*ivf["fused_knn"].items(), ("pq_encode", pq["fused_knn_encode"])]:
         fused_variants[label] = {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                         "shape")}
+                                                         "bound_fp32_ms", "shape")}
         fused_variants[label]["max_abs_err"] = v["vs_plain"]["max_abs_err"]
     kernels = [
         {"name": "fused_knn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_knn.cu",
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["fused_knn"],
          "max_abs_err": fused_err, "ms": statistics.median(fused_times),
-         "plain_ms": fused_plain_ms, "bound_ms": fused_bound, "bound_by": fused_by,
-         "library_ms": None, "shape": "allpairs 160000 x 160000, d 256, k 100",
+         "plain_ms": fused_plain_ms, **fused_bound, "library_ms": None, "product": PRODUCT, "shape": "allpairs 160000 x 160000, d 256, k 100",
          "variants": fused_variants},
         {"name": "merge_partials", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/merge_partials.cu",
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["merge_partials"],
          "max_abs_err": mg_err, "ms": mg_ms, "plain_ms": mg_plain_ms, "bound_ms": mg_bound,
-         "bound_by": mg_by, "library_ms": None,
+         "bound_by": mg_by, "library_ms": mg_lib_ms,
          "shape": f"{splits4} splits x 1024 x 16 (serving batch, k 10)"},
         {"name": "pairwise_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_distance.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:85",
          "launches": launches["pairwise_distance"], "max_abs_err": pd_err, "ms": pd_ms,
-         "plain_ms": pd_plain_ms, "bound_ms": pd_bound, "bound_by": pd_by,
-         "library_ms": pd_lib_ms, "shape": "8192 x 160000, d 256"},
+         "plain_ms": pd_plain_ms, **pd_bound, "library_ms": pd_lib_ms, "product": PRODUCT, "shape": "8192 x 160000, d 256"},
         {"name": "stream_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/stream_topk.cu",
          "replaces": "src/repro/kernels/stream_topk.py:88", "launches": launches["stream_topk"],
@@ -1202,12 +1227,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan.py:130", "launches": launches["ivf_scan"],
          "max_abs_err": iv["vs_plain"]["max_abs_err"], "ms": iv["ms"],
-         "plain_ms": iv["plain_ms"], "bound_ms": iv["bound_ms"], "bound_by": iv["bound_by"],
-         "library_ms": None,
+         "plain_ms": iv["plain_ms"], **{key: iv[key] for key in (
+             "bound_ms", "bound_by", "bound_fp32_ms")}, "library_ms": None,
+         "product": "SIMT fp32 FMA (gemm.cuh)",
          "shape": f"1024 queries, tile_m {iv['tile_m']}, nprobe 8 of 4096 cells, fp32, "
                   f"k {iv['k_scan']}",
          "variants": {f"{sd}_batch_{m}": {key: ivf[sd][f"ivf_scan_batch_{m}"][key]
-                                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                                          for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "bound_fp32_ms")}
                       for sd in ("float32", "int8") for m in (1024, 8)}},
         {"name": "pq_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pq_scan.cu",

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import topk as T
 from repro_torch.core.distances import gy_rows
+from repro_torch.kernels._backend import resolve_device
 
 Tensor = torch.Tensor
 
@@ -151,12 +152,14 @@ def ivf_to_arrays(ivf) -> dict[str, np.ndarray]:
     return {f: _np(getattr(ivf, f)) for f in IVFCells._fields}
 
 
-def ivf_from_arrays(arrays: dict, *, device="cpu") -> IVFCells:
-    """Rebuild and validate an ``IVFCells`` from ``ivf_to_arrays`` output.
+def ivf_from_arrays(arrays: dict, *, device="cuda") -> IVFCells:
+    """Rebuild and validate an ``IVFCells`` from ``ivf_to_arrays`` output,
+    on ``device`` (the card unless the caller asks for the CPU).
 
     The validation is structural, as the reference's: the permutation must
     round-trip and the geometry cohere.  Raises ``ValueError``.
     """
+    device = resolve_device(device)
     missing = [f for f in IVFCells._fields if f not in arrays]
     if missing:
         raise ValueError(f"IVF arrays missing fields {missing}")

@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.distances import get_distance, gy_rows
 from repro_torch.core.ivf import _np, _tensor
 from repro_torch.core.kmeans import lloyd
+from repro_torch.kernels._backend import resolve_device
 
 Tensor = torch.Tensor
 
@@ -205,13 +206,15 @@ def pq_to_arrays(cb, codes) -> dict[str, np.ndarray]:
     return {"codebooks": _np(cb.codebooks), "codes": _np(codes.codes), "hy": _np(codes.hy)}
 
 
-def pq_from_arrays(arrays: dict, *, device="cpu") -> tuple[PQCodebook, PQCodes]:
-    """Rebuild and validate (PQCodebook, PQCodes) from ``pq_to_arrays`` output.
+def pq_from_arrays(arrays: dict, *, device="cuda") -> tuple[PQCodebook, PQCodes]:
+    """Rebuild and validate (PQCodebook, PQCodes) from ``pq_to_arrays``
+    output, on ``device`` (the card unless the caller asks for the CPU).
 
     Structural checks, as the reference's: geometry, dtypes and code range,
     so that a corrupted replica fails here rather than index past a
     codebook inside the scan.  Raises ``ValueError``.
     """
+    device = resolve_device(device)
     missing = [f for f in ("codebooks", "codes", "hy") if f not in arrays]
     if missing:
         raise ValueError(f"PQ snapshot missing fields {missing}")

@@ -26,4 +26,10 @@ __device__ __forceinline__ float finalize(float a, int fin) {
   return fin == kSqrt ? sqrtf(fmaxf(a, 0.0f)) : a;
 }
 
+// bf16 storage: the raw 16 bits (the upper half of an fp32).  The kernels
+// only ever widen it, which is a shift; no bf16 arithmetic is needed.
+struct Bf16 {
+  unsigned short bits;
+};
+
 }  // namespace repro

@@ -22,12 +22,6 @@
 
 namespace repro {
 
-// bf16 storage: the raw 16 bits (the upper half of an fp32).  The kernels
-// only ever widen it, which is a shift; no bf16 arithmetic is needed.
-struct Bf16 {
-  unsigned short bits;
-};
-
 // Four consecutive elements of a row, as fp32.  The pointer is aligned to
 // four elements (16, 8 or 4 bytes).
 __device__ __forceinline__ float4 load4(const float* p) {

@@ -2,18 +2,19 @@
 
 Replaces ``repro/kernels/fused_knn.py::fused_knn_pallas`` (body ``_kernel``)
 without the per-query mask.  Source: ``csrc/fused_knn.cu``, with
-``csrc/scan.cuh`` for the tile walk (and ``kernels/scan.py`` for what the
-wrapper shares with ``ivf_scan``), ``csrc/gemm.cuh`` for the tile product
-and ``csrc/select.cuh`` for the selection.  ``gy`` is fp32, or a bf16 /
-int8 scan replica (``core.distances.quantize_rows``) whose int8 rows carry
-a per-row ``gy_scale``: the kernel widens each element to fp32 as it loads
-it, and folds the scale into the epilogue.  The ``q_mask`` operand belongs
-to the filtered slice and raises here.
+``csrc/gemm_tc.cuh`` for the tile product and its walk (``kernels/scan.py``
+for what the wrapper shares with ``ivf_scan``) and ``csrc/select.cuh`` for
+the selection.  ``gy`` is fp32, or a bf16 / int8 scan replica
+(``core.distances.quantize_rows``) whose int8 rows carry a per-row
+``gy_scale``: the kernel widens each element to fp32 as it stages it, and
+folds the scale into the epilogue.  The ``q_mask`` operand belongs to the
+filtered slice and raises here.
 
-Bound on the H100: operations (2·m·n·d fp32 FMAs, whatever ``gy`` is stored
-in; the [m, n] distances never reach device memory).  One CTA owns BM query
-rows and walks a range of 128-column database tiles, keeping each row's
-K-buffer in shared memory.  When the query tiles alone cannot fill the card
+Bound on the H100: operations (2·m·n·d, as three TF32 passes on the tensor
+cores, two for a bf16 / int8 ``gy``: ``kernels/tf32.py``; the [m, n]
+distances never reach device memory).  One CTA owns BM query rows (128
+where K <= 32, else 64: ``block_rows``) and walks a range of 128-column
+database tiles, keeping each row's K-buffer in shared memory.  When the query tiles alone cannot fill the card
 (a serving batch), the database axis is split across CTAs and a second
 kernel (``merge_partials``) merges the partial sets; ``plan`` picks BM and
 the split from what the compiled kernel reports of its occupancy.
@@ -39,6 +40,7 @@ from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
 from repro_torch.kernels.stream_topk import MAX_K, sorted_prefix
 
 LAUNCHES = 0
+WIDE_MAX_K = 32  # the widest K of the kernel's 128-row layout (csrc/fused_knn.cu kWideMaxK)
 
 
 def fused_knn_plain(fx, gy, hx, hy, k: int, *, alpha: float, finalize: str,
@@ -65,10 +67,16 @@ def fused_knn_plain(fx, gy, hx, hy, k: int, *, alpha: float, finalize: str,
     return torch.cat(vals), torch.cat(idx)
 
 
+def block_rows(m: int, K: int) -> int:
+    """BM, the query rows of a CTA: 128 where the K-buffers leave the room
+    (K <= 32) and the batch fills them, else 64."""
+    return 128 if (K <= WIDE_MAX_K and m > 64) else 64
+
+
 def plan(m: int, n: int, K: int, device: torch.device, gy_dtype=torch.float32,
          scaled: bool = False) -> tuple[int, int, int]:
     """(BM, splits, tiles per split) for an [m] x [n] search at width K."""
-    bm = SC.block_rows(m, K)
+    bm = block_rows(m, K)
     per_sm, tile_n, _ = SC.kernel_shape("fused_knn", device, bm, K, gy_dtype, scaled)
     return (bm, *SC.split_plan(m, n, bm, tile_n, per_sm * B.sm_count(device)))
 

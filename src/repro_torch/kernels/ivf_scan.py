@@ -3,8 +3,9 @@
 Stage 1 of IVF: the fused scan restricted, for each tile of ``tile_m``
 queries, to the union of the cells its queries probe.  Replaces
 ``repro/kernels/ivf_scan.py::ivf_scan_pallas`` (body ``_kernel``).  Source:
-``csrc/ivf_scan.cu``, with the tile walk of ``csrc/scan.cuh`` that
-``fused_knn.cu`` uses too (``kernels/scan.py`` on this side).  ``gy`` is
+``csrc/ivf_scan.cu``, with the tile walk of ``csrc/scan.cuh`` and its fp32
+SIMT tile product (``kernels/scan.py`` on this side, shared with
+``fused_knn``).  ``gy`` is
 the cell-packed corpus (cell c owns slots ``[c * cell_cap, (c + 1) *
 cell_cap)``, its rows first) in fp32, bf16 or int8 (with ``gy_scale``);
 pad and dead slots carry ``hy = +inf``, and ``cell_extent`` gives, per

@@ -8,11 +8,13 @@ per-coordinate (cumulative) route replaces
 ``_coord_accumulate``); source ``csrc/pairwise_cumulative.cu``, described
 at ``pairwise_distance_cumulative`` below.
 
-Bound on the H100: operations (2·m·n·d fp32 FMAs on the CUDA cores; TF32 is
-ruled out because it moves distances by about 1e-3 relative).  The kernel
-keeps each 128 x 128 tile product in registers, applies the rank-1 epilogue
-and the finalizer there, and writes every output element once; ragged edges
-are masked inside the kernel, so no operand is padded or copied.
+Bound on the H100: operations (2·m·n·d as three TF32 passes on the tensor
+cores, ``csrc/gemm_tc.cuh``: one pass would move distances by about 1e-3
+relative, so each operand is split into TF32 halves, ``kernels/tf32.py``).
+The kernel forms each 128 x 128 tile product with ``wgmma``, applies the
+rank-1 epilogue and the finalizer to it in registers, and writes every
+output element once; ragged edges are masked inside the kernel, so no
+operand is padded or copied.
 
 ``pairwise_distance_plain`` is the same function in plain PyTorch: the
 wrapper runs it for CPU tensors, and ``chip_smoke.py`` holds the kernel

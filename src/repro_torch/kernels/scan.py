@@ -2,8 +2,9 @@
 block and split plan, and the occupancy query.
 
 ``csrc/fused_knn.cu`` walks contiguous 128-column tiles of the whole
-database, ``csrc/ivf_scan.cu`` the cells a probe list names; both fold the
-tiles into per-row K-buffers with the tile walk of ``csrc/scan.cuh``.  Each
+database (the walk of ``csrc/gemm_tc.cuh``), ``csrc/ivf_scan.cu`` the
+cells a probe list names (the walk of ``csrc/scan.cuh``); both fold the
+tiles into per-row K-buffers (``csrc/select.cuh``).  Each
 is compiled once per storage type of ``gy`` (fp32, bf16, int8) and per
 presence of the ``gy_scale`` operand; its C entry point takes the storage
 type as a code (``GY_CODES``) and the scale as a nullable pointer.

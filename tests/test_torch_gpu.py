@@ -22,6 +22,7 @@ from repro_torch.core.distances import (
     get_distance,
     quantize_rows,
 )
+from repro_torch.kernels import _backend as B
 from repro_torch.kernels import fused_knn as FK
 from repro_torch.kernels import ivf_scan as IVS
 from repro_torch.kernels import merge_partials as MP
@@ -29,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as PD
 from repro_torch.kernels import pq_scan as PQS
 from repro_torch.kernels import rescore as RS
+from repro_torch.kernels import scan as SC
 from repro_torch.kernels import stream_topk as ST
 from repro_torch.kernels.ref import check_topk, operand_distance
 
@@ -70,7 +72,8 @@ def _assert_topk_close(v, i, pv, pi, tol, fx, gy, hx, hy, alpha, fin="identity")
 
 
 @pytest.mark.parametrize("name", ["sqeuclidean", "euclidean", "neg_dot", "kl", "hellinger"])
-@pytest.mark.parametrize("shape", [(1, 1, 4), (100, 130, 20), (256, 384, 256), (300, 1000, 68)])
+@pytest.mark.parametrize("shape", [(1, 1, 4), (100, 130, 20), (256, 384, 256), (300, 1000, 68),
+                                   (130, 300, 36), (64, 131, 260)])
 def test_pairwise_kernel_matches_plain(cuda, name, shape):
     m, n, d = shape
     x, y = _data(name, m, n, d, 0)
@@ -450,3 +453,141 @@ def test_pq_scan_refuses_a_lut_past_shared_memory(cuda):
                     cell_cap=cap, ncodes=ncodes, tile_m=8,
                     cell_extent=torch.full((1,), cap, dtype=torch.int32, device=cuda),
                     distance_finalize="identity")
+
+
+# The 3xTF32 wgmma tile product (csrc/gemm_tc.cuh) of pairwise_distance and
+# fused_knn, against float64 where a one-pass TF32 product would fail.
+
+def _f64_matrix(fx, gy, hx, hy, alpha, fin="identity"):
+    t = alpha * (fx.double() @ gy.double().T) + hx.double() + hy.double()
+    return t.clamp(min=0).sqrt() if fin == "sqrt" else t
+
+
+def _cancelling(name, m, n, d, seed):
+    """Rows where the product's rounding shows: a large common offset for
+    sqeuclidean (-2 x.y cancels against the norms), rows of norm ~ 1e3 for
+    neg_dot."""
+    x, y = _data("sqeuclidean", m, n, d, seed)
+    if name == "sqeuclidean":
+        return x + 30.0, y + 30.0
+    return x * 60.0, y * 60.0
+
+
+@pytest.mark.parametrize("name", ["sqeuclidean", "neg_dot"])
+@pytest.mark.parametrize("shape", [(300, 1000, 256), (129, 257, 260)])
+def test_pairwise_kernel_matches_float64_where_cancellation_bites(cuda, name, shape):
+    m, n, d = shape
+    x, y = _cancelling(name, m, n, d, 20)
+    fx, gy, hx, hy, alpha = _operands(name, x, y, cuda)
+    out = PD.pairwise_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity")
+    want = _f64_matrix(fx, gy, hx, hy, alpha)
+    scale = float(fx.abs().max() * gy.abs().max()) * d
+    torch.testing.assert_close(out.double(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name", ["sqeuclidean", "neg_dot"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_fused_kernel_matches_float64_where_cancellation_bites(cuda, name, exclude_self):
+    x, _ = _cancelling(name, 700, 700, 256, 21)
+    fx, gy, hx, hy, alpha = _operands(name, x, x, cuda)
+    v, i = FK.fused_knn(fx, gy, hx, hy, 10, distance_finalize="identity", alpha=alpha,
+                        n_real=700, exclude_self=exclude_self)
+    full = _f64_matrix(fx, gy, hx, hy, alpha)
+    if exclude_self:
+        full.fill_diagonal_(float("inf"))
+    pv, pi = ST.sorted_prefix(full, 16)
+    scale = float(fx.abs().max() * gy.abs().max()) * 256
+    check_topk(v.double(), i, pv, pi, n=700, rtol=1e-5, atol=1e-5 * scale,
+               dist=lambda r, c: ((alpha * (fx[r].double() * gy[c].double()).sum(1)
+                                   + hx[r, 0].double() + hy[0, c].double())))
+
+
+@pytest.mark.parametrize("gy_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mnd", [(1, 1, 4), (65, 129, 20), (70, 300, 36), (130, 1000, 68),
+                                 (64, 131, 260)])
+def test_fused_kernel_on_ragged_shapes(cuda, gy_dtype, mnd):
+    m, n, d = mnd
+    x, y = _data("neg_dot", m, n, d, 23)
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
+    gs = None
+    if gy_dtype == torch.bfloat16:
+        gy = gy.to(torch.bfloat16)
+    elif gy_dtype == torch.int8:
+        q = quantize_rows(y.to(cuda), "int8", distance="neg_dot")
+        gy, gs = q.data, q.scale.float()[None, :].contiguous()
+    k = min(n, 10)
+    v, i = FK.fused_knn(fx, gy, hx, hy, k, distance_finalize="identity", alpha=alpha,
+                        n_real=n, gy_scale=gs)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, k, alpha=alpha, finalize="identity",
+                                n_real=n, gy_scale=gs)
+    scale = float(fx.abs().max() * gy.float().abs().max()) * d * (
+        1.0 if gs is None else float(gs.max()))
+    check_topk(v, i, pv, pi, n=n, rtol=1e-5, atol=1e-5 * scale + 1e-6,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity",
+                                     gy_scale=gs))
+
+
+def test_fused_split_gives_the_one_pass_sets_bit_for_bit(cuda, monkeypatch):
+    """Each database tile's product is the same whichever CTA forms it, so
+    the merged split equals the unsplit scan exactly."""
+    x, y = _data("neg_dot", 200, 20_000, 256, 24)
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=20_000)
+    assert FK.plan(200, 20_000, 16, cuda)[1] > 1
+    v, i = FK.fused_knn(fx, gy, hx, hy, 10, **kw)
+    n_tiles = -(-20_000 // 128)
+    monkeypatch.setattr(FK, "plan", lambda *a, **k: (FK.block_rows(200, 16), 1, n_tiles))
+    parts = FK.fused_knn_partials(fx, gy, hx, hy, 10, **kw)
+    assert parts[0].shape[0] == 1
+    assert torch.equal(v, parts[0][0]) and torch.equal(i, parts[1][0])
+
+
+@pytest.mark.parametrize("bm,K", [(64, 1), (64, 16), (64, 128), (64, 256), (128, 1), (128, 16),
+                                  (128, 32)])
+def test_fused_occupancy_reports_the_compiled_layout(cuda, bm, K):
+    per_sm, tile_n, smem = SC.kernel_shape("fused_knn", cuda, bm, K)
+    assert per_sm >= 1 and tile_n == 128 and 0 < smem <= 232448
+    assert FK.block_rows(1024, K) == (128 if K <= FK.WIDE_MAX_K else 64)
+
+
+def test_a_failed_launch_or_build_raises_and_nothing_falls_back(cuda, monkeypatch):
+    x, y = _data("sqeuclidean", 100, 300, 64, 25)
+    fx, gy, hx, hy, alpha = _operands("sqeuclidean", x, y, cuda)
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=300)
+    before = FK.LAUNCHES
+    with monkeypatch.context() as mp:  # a block width the kernel is not built for
+        mp.setattr(FK, "plan", lambda *a, **k: (96, 1, 3))
+        with pytest.raises(RuntimeError, match="fused_knn"):
+            FK.fused_knn(fx, gy, hx, hy, 10, **kw)
+    assert FK.LAUNCHES == before
+
+    def no_build(names=()):
+        raise RuntimeError("kernel build failed: (simulated)")
+
+    monkeypatch.setattr(B, "_LIBS", {})
+    monkeypatch.setattr(B, "build", no_build)
+    before = PD.LAUNCHES, FK.LAUNCHES
+    with pytest.raises(RuntimeError, match="build failed"):
+        PD.pairwise_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity")
+    with pytest.raises(RuntimeError, match="build failed"):
+        FK.fused_knn(fx, gy, hx, hy, 10, **kw)
+    assert (PD.LAUNCHES, FK.LAUNCHES) == before
+
+
+def test_fused_kmeans_assignment_holds_the_chip_smoke_tolerance(cuda):
+    """Rows near their centroid (clustered_vectors' shape): distances near
+    5.8 from dot products near 256, so the product's absolute error shows;
+    chip_smoke.py holds the k-means pass to atol 1e-3 against the plain
+    version, as here."""
+    g = np.random.default_rng(26)
+    centers = g.standard_normal((512, 256)).astype(np.float32)
+    x = centers[g.integers(0, 512, 20_000)] + 0.15 * g.standard_normal((20_000, 256)).astype(
+        np.float32)
+    fx, gy, hx, hy, alpha = ops._mxu_operands(torch.from_numpy(x).to(cuda),
+                                              torch.from_numpy(centers).to(cuda), "sqeuclidean")
+    v, i = FK.fused_knn(fx, gy, hx, hy, 1, distance_finalize="identity", alpha=alpha,
+                        n_real=512)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 1, alpha=alpha, finalize="identity",
+                                n_real=512)
+    check_topk(v, i, pv, pi, n=512, rtol=1e-5, atol=1e-3,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))

@@ -51,7 +51,7 @@ def trained():
     x = clustered_vectors(700, 24, n_clusters=8, seed=2)
     q = clustered_vectors(13, 24, n_clusters=8, seed=3)
     ivf = RIVF.build_ivf(jnp.asarray(x), 8, iters=6)
-    return x, q, ivf, PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(ivf))
+    return x, q, ivf, PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(ivf), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -131,11 +131,22 @@ def test_ivf_arrays_carry_the_reference_cells_and_validate(trained):
     assert set(arrays) == set(PIVF.IVFCells._fields)
     broken = dict(arrays, slot_of_row=np.roll(arrays["slot_of_row"], 1))
     with pytest.raises(ValueError, match="round-trip"):
-        PIVF.ivf_from_arrays(broken)
+        PIVF.ivf_from_arrays(broken, device="cpu")
     with pytest.raises(ValueError, match="missing"):
-        PIVF.ivf_from_arrays({k: v for k, v in arrays.items() if k != "counts"})
+        PIVF.ivf_from_arrays({k: v for k, v in arrays.items() if k != "counts"},
+                             device="cpu")
     with pytest.raises(ValueError):
-        PIVF.ivf_from_arrays(dict(arrays, packed=arrays["packed"][:-1]))
+        PIVF.ivf_from_arrays(dict(arrays, packed=arrays["packed"][:-1]), device="cpu")
+
+
+def test_ivf_from_arrays_runs_on_the_card_unless_asked_for_the_cpu(trained, monkeypatch):
+    """The loader's default device is the card, as the index's: without one
+    it raises rather than build the cells on the host."""
+    arrays = PIVF.ivf_to_arrays(trained[3])
+    assert PIVF.ivf_from_arrays(arrays, device="cpu").packed.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        PIVF.ivf_from_arrays(arrays)
 
 
 def test_packed_live_and_probe_cells_match_reference(trained):
@@ -247,7 +258,7 @@ def _carry(refi, **kw):
     return RetrievalIndex.from_arrays(
         refi._main_vecs, refi._main_ids, refi._main_live, refi._delta_vecs, refi._delta_ids,
         refi._delta_live, refi._delta_n, distance=refi.distance,
-        ivf=PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(refi._dev["main_ivf"])),
+        ivf=PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(refi._dev["main_ivf"]), device="cpu"),
         scan_dtype=refi.scan_dtype, overfetch=refi.overfetch, nprobe=refi.nprobe, **kw, **CPU)
 
 

@@ -50,7 +50,7 @@ def _perms(seed, n, m):
 
 
 def _carry_pq(cb, codes):
-    return PPQ.pq_from_arrays(RPQ.pq_to_arrays(cb, codes))
+    return PPQ.pq_from_arrays(RPQ.pq_to_arrays(cb, codes), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +59,8 @@ def trained():
     PQ replicas of the packed rows (pq_m 4, nbits 4), carried to the port."""
     x = clustered_vectors(700, 16, n_clusters=8, spread=0.4, seed=3)
     ivf = RIVF.build_ivf(jnp.asarray(x), 8, iters=5)
-    out = {"x": x, "ivf": ivf, "pivf": PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(ivf))}
+    out = {"x": x, "ivf": ivf,
+           "pivf": PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(ivf), device="cpu")}
     for residual in (True, False):
         cb, codes = RPQ.build_ivfpq(jnp.asarray(x), ivf, 4, nbits=4, iters=4, seed=2,
                                     residual=residual)
@@ -164,7 +165,17 @@ def test_pq_arrays_round_trip_and_reject_what_the_reference_rejects(trained):
         with pytest.raises(ValueError):
             RPQ.pq_from_arrays(bad)
         with pytest.raises(ValueError):
-            PPQ.pq_from_arrays(bad)
+            PPQ.pq_from_arrays(bad, device="cpu")
+
+
+def test_pq_from_arrays_runs_on_the_card_unless_asked_for_the_cpu(trained, monkeypatch):
+    """The loader's default device is the card, as the index's: without one
+    it raises rather than build the replica on the host."""
+    arrays = RPQ.pq_to_arrays(*trained[True][:2])
+    assert PPQ.pq_from_arrays(arrays, device="cpu")[1].codes.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        PPQ.pq_from_arrays(arrays)
 
 
 @pytest.mark.parametrize("distance", ["sqeuclidean", "neg_dot", "neg_cosine"])
@@ -336,7 +347,7 @@ def _carry(refi, **kw):
     return RetrievalIndex.from_arrays(
         refi._main_vecs, refi._main_ids, refi._main_live, refi._delta_vecs, refi._delta_ids,
         refi._delta_live, refi._delta_n, distance=refi.distance,
-        ivf=PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(refi._dev["main_ivf"])),
+        ivf=PIVF.ivf_from_arrays(PIVF.ivf_to_arrays(refi._dev["main_ivf"]), device="cpu"),
         pq=_carry_pq(cb, codes), overfetch=refi.overfetch, nprobe=refi.nprobe, **kw, **CPU)
 
 
