@@ -66,6 +66,24 @@ Phases (each one raises on a failed check; nothing is caught):
    of 50 batches; the ``pq_scan`` kernel held against its plain version at
    batches of 1024 and 8, its partial sets and the merge timed apart, its
    bound counted from the live rows of each tile's cells.
+8. Filtered and multi-tenant serving (DESIGN.md §17) on phase 4's rows:
+   1,048,576 x 256 fp32, ``neg_dot``, k = 10, through ``QueryEngine``.
+   Each row carries one of 8 tenant tags drawn with shares 1/(t+1) (the
+   smallest about 4.6%); an allow-list holds 70% of the ids.  Per batch of
+   1024: a tenant filter ("auto" resolves to pre: the fused kernel's
+   bitmap), the allow-list ("auto": post, at a fetch of widen(10, 0.7) =
+   15), the tenant filter with 500 exclusions a query (its unfiltered top 5
+   and 495 drawn ids: k + E = 510, so the fused kernel and the merge at
+   K = 512), and an all-False filter; each held against a brute force over
+   the allowed, live, not excluded rows, before churn, after an upsert with
+   tags and a delete of 1% of main, and after the compact.  An all-True
+   bitmap through ``knn_query`` must equal no bitmap bit for bit.  Steady
+   windows of 50 batches for the tenant filter and the allow-list; at 1024 x
+   1,048,576 the masked partial sets beside the unmasked ones, the bitmap
+   build, the K = 512 call and its merge, each timed and held against its
+   plain version.  Phase 6's fp32 IVF index carries tags of the same kind,
+   and one tenant-filtered batch of 1024 there must serve no id of another
+   tenant; its recall against the filtered brute force is reported.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is ``{"kernels": [...]}``: per
@@ -102,6 +120,7 @@ PEAK_HBM = 3.35e12  # H100 SXM HBM3, bytes/s
 PRODUCT = "wgmma 3xTF32 (gemm_tc.cuh)"  # the tile product of fused_knn and pairwise_distance
 QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
+N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
 # fp32 operations per (pair, coordinate) of the cumulative accumulators
 # (csrc/pairwise_cumulative.cu); roots and logarithms are per element.
@@ -188,6 +207,14 @@ def true_ids(torch, q, vecs, k, chunk=1024):
     """The k largest dot products' row ids (the neg_dot k nearest)."""
     return torch.cat([torch.topk(q[r : r + chunk] @ vecs.T, k, dim=1).indices
                       for r in range(0, len(q), chunk)])
+
+
+def tenant_tags(n: int, seed: int) -> np.ndarray:
+    """``n`` tags of ``N_TENANTS`` tenants, tenant t drawn with a share
+    proportional to 1 / (t + 1)."""
+    share = 1.0 / np.arange(1, N_TENANTS + 1)
+    return np.random.default_rng(seed).choice(N_TENANTS, n, p=share / share.sum()).astype(
+        np.int32)
 
 
 def neg_dot_distance(qt, vt):
@@ -513,7 +540,8 @@ def phase_ivf(torch, dev, run_path, x):
         if sd == "float32":
             index = RetrievalIndex.from_arrays(
                 db, np.arange(n), np.ones(n, bool), *empty, distance="neg_dot", impl="fused",
-                device=dev, ivf=cells, scan_dtype=sd, overfetch=4, nprobe=nprobe)
+                device=dev, ivf=cells, scan_dtype=sd, overfetch=4, nprobe=nprobe,
+                main_tenant=tenant_tags(n, 28))
             del cells  # the index owns them now; a compact must be able to free them
         else:  # trains its own cells in its first search
             index = RetrievalIndex.build(np.arange(n), db, distance="neg_dot", impl="fused",
@@ -595,6 +623,9 @@ def phase_ivf(torch, dev, run_path, x):
         # The floor of the reference's tests (0.9), on both paths.
         check(min(recs.values()) >= 0.9, f"ivf {sd}: recall@10 on 256 queries {recs} < 0.9")
         res = {"recall_at_10_256q": recs}
+        if sd == "float32":
+            res["filtered_tenant_batch"] = ivf_filtered_batch(torch, dev, run_path, index, engine,
+                                                              queries[:1024], k)
 
         # The ivf_scan kernel against its plain version, at batches of 1024 and 8.
         live_p = packed_live(ivf, live)
@@ -656,6 +687,38 @@ def phase_ivf(torch, dev, run_path, x):
         del index, engine, ivf, ivf_q, vecs_t, live, fx, gy, gs, hx, hy, outs
         torch.cuda.empty_cache()
     out["fused_knn"] = fused_ivf
+    return out
+
+
+def ivf_filtered_batch(torch, dev, run_path, index, engine, queries, k):
+    """One tenant-filtered batch through an IVF index whose rows carry
+    tags: "auto" pre-filters, which on the cell-probed kernel drops the
+    scan's candidates of other tenants at scan width (as the reference
+    does), so no id of another tenant may be served; recall@k against the
+    filtered brute force is reported, not gated."""
+    from repro_torch.serving.filters import QueryFilter
+
+    m = len(queries)
+    qten = np.random.default_rng(27).integers(0, N_TENANTS, m).astype(np.int32)
+    got, counts = run_path("serving_ivf_float32_filtered",
+                           lambda: engine.search(queries, filter=QueryFilter(tenant=qten)))
+    for name in ("fused_knn", "ivf_scan", "rescore_topk"):
+        check(counts[name] > 0, f"ivf filtered: {name} never launched: {counts}")
+    vecs, ids = index._live_rows()
+    tens = index._live_tenants()
+    tag_of = np.full(int(ids.max()) + 1, -1, np.int64)
+    tag_of[ids] = tens
+    gi = got.ids.cpu().numpy()
+    check(bool(((tag_of[gi.clip(0)] == qten[:, None]) | (gi < 0)).all()),
+          "ivf filtered: an id of another tenant was served")
+    vt, tt = torch.from_numpy(vecs).to(dev), torch.from_numpy(tens).to(dev)
+    qt, qten_t = torch.from_numpy(queries).to(dev), torch.from_numpy(qten).to(dev)
+    want = torch.cat([torch.topk(torch.where(tt[None, :] == qten_t[r0 : r0 + 256, None],
+                                             qt[r0 : r0 + 256] @ vt.T, float("-inf")),
+                                 k, dim=1).indices for r0 in range(0, m, 256)])
+    out = {"recall_at_10": recall_at(torch, got.ids, torch.from_numpy(ids).to(dev)[want]),
+           "empty_slots": int((got.ids < 0).sum()), "launches": counts}
+    say("ivf_float32_filtered_tenant_batch", out)
     return out
 
 
@@ -907,6 +970,261 @@ def phase_ivfpq(torch, dev, run_path, x):
     return res
 
 
+def phase_filtered(torch, dev, run_path, db):
+    """Phase 8: filtered and multi-tenant serving at the query_1m shape on
+    rows ``db`` (DESIGN.md §17)."""
+    from repro_torch.core.knn import knn_query
+    from repro_torch.data.synthetic import random_vectors
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import merge_partials as MP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.kernels.stream_topk import sorted_prefix
+    from repro_torch.serving import filters as F
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.filters import QueryFilter
+    from repro_torch.serving.index import RetrievalIndex
+
+    n, d, k, m = db.shape[0], db.shape[1], 10, 1024
+    rng = np.random.default_rng(21)
+    tags = tenant_tags(n, 22)
+    allow = np.sort(rng.choice(n, int(0.7 * n), replace=False))
+    queries = random_vectors(6 * m, d, seed=23)
+    q_tenant = rng.integers(0, N_TENANTS, 6 * m).astype(np.int32)
+    index = RetrievalIndex.build(np.arange(n), db, tenants=tags, distance="neg_dot",
+                                 impl="fused", device=dev)
+    engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+
+    def batch(b):
+        return queries[b * m : (b + 1) * m], q_tenant[b * m : (b + 1) * m]
+
+    def brute(q, f):
+        """Exact top-16 of each query over the live rows its canonical
+        filter allows and does not exclude, a chunk of queries at a time:
+        (values, external ids, and a check of served (values, ids) that each
+        id is a live row the filter allows, at its own distance)."""
+        vecs, ids = index._live_rows()
+        vt = torch.from_numpy(vecs).to(dev)
+        ids_t = torch.from_numpy(ids).to(dev).long()
+        tt = torch.from_numpy(index._live_tenants()).to(dev)
+        pos = torch.full((int(ids_t.max()) + 1,), -1, dtype=torch.long, device=dev)
+        pos[ids_t] = torch.arange(len(ids_t), device=dev)
+        row_ok = torch.ones(len(ids), dtype=torch.bool, device=dev)
+        if f.allowed_ids is not None:
+            row_ok = torch.from_numpy(np.isin(ids, f.allowed_ids)).to(dev)
+        qt = torch.from_numpy(q).to(dev)
+        vals, rows = [], []
+        for r0 in range(0, len(q), 256):
+            dm = -(qt[r0 : r0 + 256] @ vt.T)
+            ok = row_ok[None, :].expand_as(dm)
+            if f.tenant is not None:
+                ok = ok & (tt[None, :] == torch.from_numpy(f.tenant[r0 : r0 + 256]).to(dev)[:, None])
+            dm = torch.where(ok, dm, float("inf"))
+            if f.exclude_ids is not None:
+                ex = torch.from_numpy(f.exclude_ids[r0 : r0 + 256]).to(dev).long()
+                p = pos[ex.clamp(0, len(pos) - 1)]
+                hit = (ex >= 0) & (ex < len(pos)) & (p >= 0)
+                r = torch.arange(len(ex), device=dev)[:, None].expand_as(ex)
+                dm[r[hit], p[hit]] = float("inf")
+            v, i = sorted_prefix(dm, 16)
+            vals.append(v)
+            rows.append(i)
+        v, i = torch.cat(vals), torch.cat(rows)
+
+        def served_ok(got):
+            r, c = (got.ids >= 0).nonzero(as_tuple=True)
+            p = pos[got.ids[r, c].long()]
+            check(bool((p >= 0).all()), "a served id is not live")
+            ok = row_ok[p]
+            if f.tenant is not None:
+                ok = ok & (tt[p] == torch.from_numpy(f.tenant).to(dev)[r])
+            check(bool(ok.all()), "a served id is not allowed")
+            want = -(qt[r] * vt[p]).sum(1)
+            err = (got.distances[r, c] - want).abs()
+            check(bool((err <= 1e-3 + 1e-5 * want.abs()).all()), "a served value is not its id's")
+            return float(err.max()) if err.numel() else 0.0
+
+        return v, torch.where(i >= 0, ids_t[i.clamp(min=0).long()], -1), pos, vt, qt, served_ok
+
+    def held(step, name, q, f):
+        """Serve ``f`` through the engine and hold it against the brute force.
+
+        Pre mode is exact: the brute force's top k, ties allowed for.  Post
+        mode drops the disallowed rows of a fetch widened by 1/s, so it may
+        miss rows (the reference's contract; the main segment's fetch also
+        bounds what merges in from the delta): each served id must be a
+        live row the filter allows, at its own distance, and the share of
+        the brute force's top k served is reported."""
+        got = engine.search(q, filter=f)
+        fc = F.normalize(f, len(q))
+        nd = index._delta_n
+        s = F.selectivity(fc, live=np.concatenate([index._main_live, index._delta_live[:nd]]),
+                          ids=np.concatenate([index._main_ids, index._delta_ids[:nd]]),
+                          tenants=np.concatenate([index._main_tenant, index._delta_tenant[:nd]]))
+        state = index._device_state()
+        check(index._selectivity(fc, state, index._memberships(fc, state)) == s,
+              f"filtered {step} {name}: the index's count of the selectivity vs the host's")
+        mode = F.resolve_mode(fc.mode, s)
+        bv, bi, pos, vt, qt, served_ok = brute(q, fc)
+        bv, bi = bv[:, :k], bi[:, :k]
+        fin = torch.isfinite(got.distances)
+        short = int((~fin & torch.isfinite(bv)).any(1).sum())
+        recall = recall_at(torch, torch.where(fin, got.ids, -2), bi)
+        err = served_ok(got)
+        if mode == "post":
+            cmp = {"max_abs_err": err}
+        else:
+            cmp = check_topk(got.distances, got.ids.long(), bv, bi, n=len(pos), rtol=1e-5,
+                             atol=1e-3, dist=lambda r, e: -(qt[r] * vt[pos[e]]).sum(1))
+        out = {**cmp, "selectivity": s, "mode": mode, "exclusion_width": F.exclusion_width(fc),
+               "rows_short_of_k": short, "recall_at_10": recall}
+        say(f"filtered_{step}_{name}", out)
+        return out
+
+    def cases(step, b):
+        q, qt = batch(b)
+        unfiltered_top5 = engine.search(q).ids[:, :5].cpu().numpy().astype(np.int64)
+        ex = np.concatenate([unfiltered_top5, rng.integers(0, n, (m, 495))], 1)
+        res = {"tenant": held(step, "tenant", q, QueryFilter(tenant=qt)),
+               "allow": held(step, "allow", q, QueryFilter(allowed_ids=allow)),
+               "tenant_exclude": held(step, "tenant_exclude", q,
+                                      QueryFilter(tenant=qt, exclude_ids=ex))}
+        check(res["tenant"]["mode"] == "pre" and res["allow"]["mode"] == "post"
+              and res["tenant_exclude"]["mode"] == "pre"
+              and res["tenant_exclude"]["exclusion_width"] == 500,
+              f"filtered {step}: modes {res}")
+        none = engine.search(q, filter=QueryFilter(allowed_ids=np.zeros(0, np.int64)))
+        check(bool((none.ids == -1).all() and torch.isinf(none.distances).all()),
+              f"filtered {step}: an all-False filter served a row")
+        return res
+
+    def serve():
+        out = {"initial": cases("initial", 0)}
+        new_ids = np.concatenate([np.arange(0, n, n // 2048)[:2048], np.arange(n, n + 2048)])
+        index.upsert(new_ids, random_vectors(4096, d, seed=24), tenants=tenant_tags(4096, 25))
+        index.delete(np.random.default_rng(26).choice(n, n // 100, replace=False))
+        out["churned"] = cases("churned", 1)
+        index.compact()
+        out["compacted"] = cases("compacted", 2)
+        # An all-True bitmap through knn_query is no bitmap, bit for bit.
+        vecs_t, live = index._dev["main_vecs"], index._dev["main_mask"][0]
+        qb = torch.from_numpy(batch(3)[0]).to(dev)
+        ones = torch.full((m, FK.mask_words(vecs_t.shape[0])), -1, dtype=torch.int32, device=dev)
+        full = knn_query(qb, vecs_t, k, distance="neg_dot", db_live=live, q_allowed=ones)
+        bare = knn_query(qb, vecs_t, k, distance="neg_dot", db_live=live)
+        check(torch.equal(full.indices, bare.indices) and torch.equal(full.distances,
+                                                                      bare.distances),
+              "an all-True bitmap changed knn_query's result")
+        # The index keeps nothing of a filter between searches; the
+        # "allow_fresh" window draws a new allow-list for every batch.
+        fresh = [np.sort(rng.choice(n, int(0.7 * n), replace=False)) for _ in range(5)]
+        steady = {}
+        for name in ("tenant", "allow", "allow_fresh"):
+            eng = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
+            for b in range(51):  # the first batch is tagged cold
+                q, qt = batch(b % 6)
+                eng.search(q, filter=QueryFilter(tenant=qt) if name == "tenant"
+                           else QueryFilter(allowed_ids=allow if name == "allow"
+                                            else fresh[b % 5]))
+            steady[name] = {**eng.meter.summary(), "p90_ms": eng.meter.latency_ms(90)}
+        return out, steady
+
+    (out, steady), counts = run_path("filtered_query_1m", serve)
+    for name in ("fused_knn", "fused_knn_masked", "fused_knn_wide", "merge_partials",
+                 "merge_partials_wide"):
+        check(counts[name] > 0, f"filtered: {name} never launched: {counts}")
+    say("filtered_steady", steady)
+
+    # The kernels at a batch of 1024 over the compacted main, against their
+    # plain versions: the tenant bitmap's partial sets beside the unmasked
+    # ones, the bitmap build, and the K = 512 call with its merge.
+    q, qt = batch(4)
+    f = F.normalize(QueryFilter(tenant=qt), m)
+    vecs_t = index._dev["main_vecs"]
+    nn = vecs_t.shape[0]
+    fx, gy, hx, hy, alpha = ops._mxu_operands(torch.from_numpy(q).to(dev), vecs_t, "neg_dot")
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=nn)
+    words = index._allowed_bitmap("main", f, m)
+    tags_t = torch.from_numpy(index._main_tenant).to(dev)
+    qt_t = torch.from_numpy(qt).to(dev)
+    plain_words = lambda: FK.pack_mask(tags_t[None, :] == qt_t[:, None])  # noqa: E731
+    check(torch.equal(words, plain_words()), "the tenant bitmap vs its plain build")
+    for cache in (index._dev, index._dev_version):  # time the per-tenant rows' build
+        cache.pop("main_tenant_words")
+    bitmap = {"tenant_rows_build_ms": time_ms(torch, lambda: index._tenant_words("main"),
+                                              reps=1, warmup=0),
+              "gather_ms": time_ms(torch, lambda: index._allowed_bitmap("main", f, m)),
+              "plain_ms": time_ms(torch, plain_words), "bytes": words.numel() * 4,
+              "shape": list(words.shape)}
+    # What every allow-list search pays before its scan: the rows'
+    # membership, and the selectivity counted from it.
+    fa = F.normalize(QueryFilter(allowed_ids=allow), m)
+    state = index._device_state()
+    members = index._memberships(fa, state)
+    bitmap["allow_membership_ms"] = time_ms(torch, lambda: index._memberships(fa, state))
+    bitmap["allow_selectivity_ms"] = time_ms(torch, lambda: index._selectivity(fa, state,
+                                                                               members))
+    bitmap["allow_row_pack_ms"] = time_ms(torch, lambda: index._allowed_bitmap(
+        "main", fa, m, members["main"]))
+    del state, members
+    outs = {}
+    unmasked_ms = time_ms(torch, lambda: FK.fused_knn_partials(fx, gy, hx, hy, k, **kw))
+    call_ms = time_ms(torch, lambda: FK.fused_knn(fx, gy, hx, hy, k, **kw))
+    masked_ms = time_ms(torch, lambda: outs.__setitem__(
+        "p", FK.fused_knn_partials(fx, gy, hx, hy, k, q_mask=words, **kw)))
+    part_v, part_i = outs["p"]
+    v, i = MP.merge_partials(part_v, part_i)
+    plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+        fx, gy, hx, hy, k, alpha=alpha, finalize="identity", n_real=nn, q_mask=words))
+    dist = operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity")
+    cmp = check_topk(v[:, :k], i[:, :k], pv[:, :k], pi[:, :k], n=nn, rtol=1e-5, atol=1e-3,
+                     dist=dist)
+    check(bool((tags_t[i[:, :k].clamp(min=0).long()] == qt_t[:, None])[i[:, :k] >= 0].all()),
+          "the masked kernel served a row of another tenant")
+    bm, splits, _ = FK.plan(m, nn, 16, dev)
+    masked = {"ms": masked_ms, "unmasked_ms": unmasked_ms, "fused_call_unmasked_ms": call_ms,
+              "plain_ms": plain_ms, "vs_plain": cmp, "library_ms": None, "bm": bm,
+              "splits": splits,
+              **mm_bound(2.0 * m * nn * d, (m + nn) * d * 4 + nn * 4 + words.numel() * 4
+                         + part_v.numel() * 8),
+              "shape": f"partial sets, {m} x {nn}, d {d}, k {k}, tenant bitmap"}
+    del outs, part_v, part_i, pv, pi
+    # K = 512: the tenant filter with 500 exclusions fetches k + E = 510.
+    outs = {}
+    wide_ms = time_ms(torch, lambda: outs.__setitem__(
+        "p", FK.fused_knn_partials(fx, gy, hx, hy, 510, q_mask=words, **kw)))
+    part_v, part_i = outs["p"]
+    merge_ms = time_ms(torch, lambda: outs.__setitem__("m", MP.merge_partials(part_v, part_i)))
+    mv, mi = outs["m"]
+    merge_plain_ms, (mpv, mpi) = time_plain(torch, lambda: MP.merge_partials_plain(
+        part_v, part_i))
+    check(torch.equal(mi, mpi) and torch.equal(mv, mpv), "the K = 512 merge vs plain")
+    cat_v = part_v.permute(1, 0, 2).reshape(m, -1).contiguous()
+    merge_lib_ms = time_ms(torch, lambda: torch.topk(cat_v, 512, dim=1, largest=False))
+    del cat_v
+    wide_plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+        fx, gy, hx, hy, 510, alpha=alpha, finalize="identity", n_real=nn, q_mask=words))
+    wide_cmp = check_topk(mv, mi, pv, pi, n=nn, rtol=1e-5, atol=1e-3, dist=dist)
+    bm_w, splits_w, _ = FK.plan(m, nn, 512, dev)
+    wide = {"ms": wide_ms, "plain_ms": wide_plain_ms, "vs_plain": wide_cmp, "library_ms": None,
+            "bm": bm_w, "splits": splits_w,
+            **mm_bound(2.0 * m * nn * d, (m + nn) * d * 4 + nn * 4 + words.numel() * 4
+                       + part_v.numel() * 8),
+            "shape": f"partial sets, {m} x {nn}, d {d}, k 510 (K 512), tenant bitmap"}
+    mb = bound_ms(0.0, part_v.numel() * 8 + mv.numel() * 8)
+    merge = {"ms": merge_ms, "plain_ms": merge_plain_ms, "library_ms": merge_lib_ms,
+             "max_abs_err": float((mv - mpv).abs().nan_to_num(0.0).max()),
+             "bound_ms": mb[0], "bound_by": mb[1],
+             "shape": f"{part_v.shape[0]} splits x {m} x 512"}
+    res = {"cases": out, "steady": steady, "bitmap": bitmap, "masked_partials": masked,
+           "wide_k512": wide, "merge_k512": merge}
+    say("filtered_kernels", {key: res[key] for key in ("bitmap", "masked_partials",
+                                                       "wide_k512", "merge_k512")})
+    del index, engine, fx, gy, hx, hy, words, outs, part_v, part_i, pv, pi, mv, mi
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -943,7 +1261,9 @@ def main() -> int:
     counters = {"fused_knn": (FK, "LAUNCHES"), "merge_partials": (MP, "LAUNCHES"),
                 "pairwise_distance": (PD, "LAUNCHES"), "stream_topk": (ST, "LAUNCHES"),
                 "rescore_topk": (RS, "LAUNCHES"), "ivf_scan": (IVS, "LAUNCHES"),
-                "pq_scan": (PQS, "LAUNCHES"), "pairwise_cumulative": (PD, "CUMULATIVE_LAUNCHES")}
+                "pq_scan": (PQS, "LAUNCHES"), "pairwise_cumulative": (PD, "CUMULATIVE_LAUNCHES"),
+                "fused_knn_masked": (FK, "MASKED_LAUNCHES"), "fused_knn_wide": (FK, "WIDE_LAUNCHES"),
+                "merge_partials_wide": (MP, "WIDE_LAUNCHES")}
     launches = {name: 0 for name in counters}
 
     def run_path(label, fn):
@@ -1175,6 +1495,10 @@ def main() -> int:
     del index, engine, steady, vecs_t, qb, sf, outs, part_v, part_i, mv, mi, mpv, mpi
     torch.cuda.empty_cache()
 
+    # 8. Filtered and multi-tenant serving on phase 4's rows.
+    flt = phase_filtered(torch, dev, run_path, db)
+    del db
+
     # 5. Two-stage quantized serving; 6. IVF and 7. IVF-PQ serving, on one
     # clustered dataset, the last 8,192 rows the queries.
     ts = phase_two_stage(torch, dev, run_path)
@@ -1190,10 +1514,16 @@ def main() -> int:
              "max_abs_err": ts[sd]["vs_plain"]["max_abs_err"] if "vs_plain" in ts[sd] else None,
              "shape": f"partial sets, 1024 x {QUERY_ROWS} (gy {sd}), d 256, k {ts['k_scan']}"}
         for sd in ("float32", "bfloat16", "int8")}
-    for label, v in [*ivf["fused_knn"].items(), ("pq_encode", pq["fused_knn_encode"])]:
+    for label, v in [*ivf["fused_knn"].items(), ("pq_encode", pq["fused_knn_encode"]),
+                     ("masked_partials", flt["masked_partials"]), ("wide_k512", flt["wide_k512"])]:
         fused_variants[label] = {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                          "bound_fp32_ms", "shape")}
         fused_variants[label]["max_abs_err"] = v["vs_plain"]["max_abs_err"]
+        fused_variants[label]["library_ms"] = None
+    fused_variants["masked_partials"].update(
+        launches=launches["fused_knn_masked"], unmasked_ms=flt["masked_partials"]["unmasked_ms"],
+        fused_call_unmasked_ms=flt["masked_partials"]["fused_call_unmasked_ms"])
+    fused_variants["wide_k512"]["launches"] = launches["fused_knn_wide"]
     kernels = [
         {"name": "fused_knn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -1206,7 +1536,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["merge_partials"],
          "max_abs_err": mg_err, "ms": mg_ms, "plain_ms": mg_plain_ms, "bound_ms": mg_bound,
          "bound_by": mg_by, "library_ms": mg_lib_ms,
-         "shape": f"{splits4} splits x 1024 x 16 (serving batch, k 10)"},
+         "shape": f"{splits4} splits x 1024 x 16 (serving batch, k 10)",
+         "variants": {"k512": {**flt["merge_k512"], "launches": launches["merge_partials_wide"]}}},
         {"name": "pairwise_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_distance.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:85",

@@ -7,7 +7,8 @@ Hopper (``kernels/csrc``), built on first use.
 """
 from repro_torch.core.knn import KNNResult, knn_allpairs, knn_query
 from repro_torch.serving.engine import EngineConfig, QueryEngine
+from repro_torch.serving.filters import QueryFilter
 from repro_torch.serving.index import RetrievalIndex, SearchResult
 
-__all__ = ["EngineConfig", "KNNResult", "QueryEngine", "RetrievalIndex",
+__all__ = ["EngineConfig", "KNNResult", "QueryEngine", "QueryFilter", "RetrievalIndex",
            "SearchResult", "knn_allpairs", "knn_query"]

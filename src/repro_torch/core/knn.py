@@ -4,7 +4,8 @@ two-stage quantized and IVF retrieval built on it.
 PyTorch port of ``repro/core/knn.py``: ``knn_query`` / ``knn_allpairs``;
 ``rescore``, ``quantized_scan`` (scalar and ADC branches), ``scan_width``,
 ``two_stage_query`` (DESIGN.md §Quantized); ``ivf_query`` (DESIGN.md §IVF)
-and ``ivfpq_query`` (DESIGN.md §PQ) without per-query filters.
+and ``ivfpq_query`` (DESIGN.md §PQ); each with the per-query filters of
+DESIGN.md §17 (``q_allowed``, and ``exclude_rows`` on the IVF paths).
 
 * Phase 1 (Sect. 5): distances tile by tile, in matmul form.
 * Phase 2 (Sect. 6): each row's k smallest kept in a running sorted buffer,
@@ -38,6 +39,7 @@ from repro_torch.core.distances import (
     quantize_rows,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_knn import check_mask, mask_bits_at, pack_mask, unpack_mask
 
 Tensor = torch.Tensor
 
@@ -74,6 +76,17 @@ def _mask_tile(tile, row_off, col_off, n_rows, n_cols, exclude_diag):
     return tile
 
 
+def _allowed_rows(q_allowed, m: int, n: int, m_pad: int, n_pad: int) -> Tensor:
+    """A per-query filter (the fused kernel's packed words, [m or 1, W]) as
+    bool [m_pad, n_pad]: pad rows (sliced off) and pad columns (already
+    +inf) False."""
+    check_mask(q_allowed, m, n)
+    allowed = unpack_mask(q_allowed, n).expand(m, n)
+    out = torch.zeros((m_pad, n_pad), dtype=torch.bool, device=allowed.device)
+    out[:m, :n] = allowed
+    return out
+
+
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
@@ -96,12 +109,16 @@ def knn_query(queries: Tensor, database: Tensor, k: int, *,
     ``threshold_skip=None`` resolves per substrate (on inside the kernels,
     off on the plain selection), see ``topk.resolve_threshold_skip``.
     ``db_live``: bool [n] row mask; False rows score +inf and are never
-    selected (the serving index's tombstones).  ``tile_m``/``tile_n`` tile
-    the plain and per-tile-kernel paths; the fused kernel picks its own.
+    selected (the serving index's tombstones).  ``q_allowed``: the per-query
+    filter (DESIGN.md §17) as the fused kernel's packed bitmap, int32
+    [m or 1, ceil(n / 32)] (``kernels.fused_knn.pack_mask``); row j scores
+    +inf for query i where its bit is clear.  Both masks compose (a row must be live and
+    allowed); an all-True bitmap gives the result of None.  On the fused
+    path the bitmap is a kernel operand, on the others a ``where`` beside
+    ``db_live``.  ``tile_m``/``tile_n`` tile the plain and per-tile-kernel
+    paths; the fused kernel picks its own.
     """
     _check_impl(impl)
-    if q_allowed is not None:
-        raise NotImplementedError("per-query filters come with the filtered slice")
     m_real, d = queries.shape
     n_real = database.shape[0]
     assert database.shape[1] == d, (queries.shape, database.shape)
@@ -110,7 +127,7 @@ def knn_query(queries: Tensor, database: Tensor, k: int, *,
     if impl == "fused":
         return kops.fused_knn(queries, database, k, distance=distance,
                               exclude_self=exclude_self, db_live=db_live,
-                              threshold_skip=threshold_skip)
+                              q_allowed=q_allowed, threshold_skip=threshold_skip)
     threshold_skip = T.resolve_threshold_skip(threshold_skip, kernel=False)
     tile_fn = _tile_fn(impl, distance)
     q = _pad_rows(queries, tile_m)
@@ -118,6 +135,9 @@ def knn_query(queries: Tensor, database: Tensor, k: int, *,
     live = None
     if db_live is not None:
         live = torch.cat([db_live, db_live.new_zeros(db.shape[0] - n_real)])
+    allowed = None
+    if q_allowed is not None:
+        allowed = _allowed_rows(q_allowed, m_real, n_real, q.shape[0], db.shape[0])
 
     vals, idx = [], []
     for row_off in range(0, q.shape[0], tile_m):
@@ -128,6 +148,9 @@ def knn_query(queries: Tensor, database: Tensor, k: int, *,
             tile = _mask_tile(tile, row_off, col_off, m_real, n_real, exclude_self)
             if live is not None:
                 tile = torch.where(live[None, col_off : col_off + tile_n], tile, T.POS_INF)
+            if allowed is not None:
+                tile = torch.where(allowed[row_off : row_off + tile_m, col_off : col_off + tile_n],
+                                   tile, T.POS_INF)
             run = T.update_running(*run, tile, col_off, threshold_skip=threshold_skip)
         v, i = T.finalize_topk(*run, k)
         vals.append(v)
@@ -190,12 +213,6 @@ def knn_allpairs(x: Tensor, k: int, *, distance: str = "sqeuclidean",
 # ---------------------------------------------------------------------------
 
 
-def _unfiltered(q_allowed=None, exclude_rows=None) -> None:
-    if q_allowed is not None or exclude_rows is not None:
-        raise NotImplementedError("per-query filters (q_allowed, exclude_rows) come with "
-                                  "the filtered slice of the port")
-
-
 def rescore(queries: Tensor, database: Tensor, cand_idx: Tensor, k: int, *,
             distance: str = "sqeuclidean", impl: str = "torch") -> KNNResult:
     """Exact top-k re-rank of per-query candidate rows [m, Kp] (-1 = empty).
@@ -256,12 +273,13 @@ def quantized_scan(queries: Tensor, db_q, k: int, *,
 
     ``db_live``: [n] bool row mask (tombstones).  ``probed`` / ``cell_cap``:
     a per-QUERY cell mask [m, ncells] for the plain IVF path; a column of
-    cell ``c`` is +inf for queries that did not probe ``c``.
+    cell ``c`` is +inf for queries that did not probe ``c``.  ``q_allowed``:
+    the per-query filter (DESIGN.md §17), packed as ``knn_query`` takes it;
+    a clear bit is +inf.
     """
     from repro_torch.core.pq import PQCodes, build_pq_luts
     from repro_torch.kernels.pq_scan import adc_scores
 
-    _unfiltered(q_allowed)
     threshold_skip = T.resolve_threshold_skip(threshold_skip, kernel=False)
     dist = get_distance(distance)
     mf = dist.matmul_form
@@ -290,6 +308,8 @@ def quantized_scan(queries: Tensor, db_q, k: int, *,
         if cell_cap is None:
             raise ValueError("a per-query probe mask needs cell_cap")
         probed = _pad_rows(probed, tile_m)
+    if q_allowed is not None:
+        q_allowed = _allowed_rows(q_allowed, m_real, n_real, hx.shape[0], n_real)
     vals, idx = [], []
     for row_off in range(0, hx.shape[0], tile_m):
         rows = slice(row_off, row_off + tile_m)
@@ -313,6 +333,8 @@ def quantized_scan(queries: Tensor, db_q, k: int, *,
                                     device=tile.device) // cell_cap
                 tile = torch.where(probed[row_off : row_off + tile_m][:, cell], tile,
                                    T.POS_INF)
+            if q_allowed is not None:
+                tile = torch.where(q_allowed[rows, cols], tile, T.POS_INF)
             run = T.update_running(*run, tile, col_off, threshold_skip=threshold_skip)
         v, i = T.finalize_topk(*run, k)
         vals.append(v)
@@ -342,19 +364,59 @@ def two_stage_query(queries: Tensor, database: Tensor, db_q: QuantizedRows, k: i
     and rescores with the rescore kernel; other impls run the plain
     ``quantized_scan`` and the plain rescore.  (The reference's Pallas
     query tile ``bm`` is a block size of its kernel; the CUDA kernel plans
-    its own, and the result does not depend on it.)
+    its own, and the result does not depend on it.)  ``q_allowed`` (packed
+    as ``knn_query`` takes it, DESIGN.md §17) masks the scan per query, so
+    the candidate set, and with it the exact rescore, only ever holds
+    allowed rows.
     """
     _check_impl(impl)
-    _unfiltered(q_allowed)
     n = database.shape[0]
     k_scan = scan_width(n, k, overfetch)
     if impl == "fused":
         cand = kops.fused_knn(queries, db_q, k_scan, distance=distance, db_live=db_live,
-                              threshold_skip=threshold_skip).indices
+                              q_allowed=q_allowed, threshold_skip=threshold_skip).indices
     else:
         cand = quantized_scan(queries, db_q, k_scan, distance=distance, db_live=db_live,
-                              threshold_skip=threshold_skip).indices
+                              q_allowed=q_allowed, threshold_skip=threshold_skip).indices
     return rescore(queries, database, cand, min(k, n), distance=distance, impl=impl)
+
+
+def _packed_allowed(ivf, q_allowed):
+    """A per-query bitmap over the n rows in original order -> one over the
+    S slots in packed-slot order (pad slots disallowed), both packed: the
+    per-query analogue of ``core.ivf.packed_live``, riding the packing
+    permutation (DESIGN.md §17)."""
+    if q_allowed is None:
+        return None
+    n = ivf.slot_of_row.shape[0]
+    safe = ivf.row_of_slot.clamp(0, n - 1).long()
+    return pack_mask(unpack_mask(q_allowed, n)[:, safe] & (ivf.row_of_slot >= 0)[None, :])
+
+
+def _post_filter(cand, rows, q_allowed):
+    """Drop scanned candidates whose row the per-query bitmap disallows:
+    ``cand`` [m, K'] packed slots, ``rows`` their original rows (-1 empty);
+    dropped slots become -1.  The bitmap is read only at the candidates."""
+    if q_allowed is None:
+        return cand
+    return torch.where(mask_bits_at(q_allowed, rows), cand, -1)
+
+
+def _mask_excluded_rows(rows: Tensor, exclude_rows: Tensor | None) -> Tensor:
+    """Drop candidate rows named by a per-query exclusion list.
+
+    ``exclude_rows`` [m, E] int32 database rows, -1 padded; matching
+    candidates become -1 (the empty slot ``rescore`` maps to +inf / id -1).
+    Exactness needs the candidate width to exceed k + E: callers widen
+    ``overfetch`` (DESIGN.md §17).  Each row's list is sorted once and the
+    candidates looked up in it, where the reference compares [m, K', E].
+    """
+    if exclude_rows is None or exclude_rows.shape[1] == 0:
+        return rows
+    ex = torch.sort(exclude_rows.to(rows.dtype), dim=1).values.contiguous()
+    pos = torch.searchsorted(ex, rows.contiguous()).clamp(max=ex.shape[1] - 1)
+    hit = (ex.gather(1, pos) == rows) & (rows >= 0)
+    return torch.where(hit, -1, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -386,16 +448,24 @@ def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8
     ``nprobe = ncells`` probes everything: with the fp32 packed replica the
     result equals ``knn_query``.  Every consumer takes the shortlist as a
     set of cells, so there the shortlist is all cells and no kNN over the
-    centroids runs (whose width the kernels' K-buffer bounds).  ``db_live``
-    is the [n] tombstone mask in original row order; it rides the packing
-    permutation.  ``q_allowed`` and ``exclude_rows`` come with the filtered
-    slice and raise here.
+    centroids runs.  ``db_live`` is the [n] tombstone mask in original row
+    order; it rides the packing permutation.
+
+    ``q_allowed`` (packed as ``knn_query`` takes it, over the rows in
+    original order, DESIGN.md §17) is the per-query filter: on ``impl="fused"`` the ``ivf_scan`` kernel is left as
+    it is and the bitmap drops disallowed candidates before the rescore
+    (post-filter at scan width: widen ``overfetch`` for selective filters);
+    on the other impls it is permuted to slot order and masks inside the
+    plain scan (pre-filter, exact under the full-probe hatch).
+    ``exclude_rows`` ([m, E] int32, -1 padded) names per-query rows dropped
+    at the rescore on every impl.
     """
     from repro_torch.core import ivf as IVF
 
     _check_impl(impl)
-    _unfiltered(q_allowed, exclude_rows)
     n = database.shape[0]
+    if q_allowed is not None:
+        check_mask(q_allowed, queries.shape[0], n)
     k = min(k, n)
     ncells, cap = ivf.ncells, ivf.cell_cap
     if nprobe >= ncells:
@@ -409,6 +479,7 @@ def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8
         cand = kops.ivf_scan(queries, ivf.packed if packed_q is None else packed_q, cells,
                              min(k_scan, cap), cell_cap=cap, distance=distance,
                              packed_live=live_p, threshold_skip=threshold_skip).indices
+        cand = _post_filter(cand, _slot_rows(ivf, cand), q_allowed)
     else:
         scan_q = packed_q
         if scan_q is None:
@@ -418,11 +489,17 @@ def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8
         probed.scatter_(1, cells.long(), True)
         cand = quantized_scan(queries, scan_q, k_scan, distance=distance, db_live=live_p,
                               probed=probed, cell_cap=cap,
+                              q_allowed=_packed_allowed(ivf, q_allowed),
                               threshold_skip=threshold_skip).indices
-    safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
-    rows = torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
+    rows = _mask_excluded_rows(_slot_rows(ivf, cand), exclude_rows)
     return rescore(queries, database, rows, k, distance=distance,
                    impl="fused" if impl == "fused" else "torch")
+
+
+def _slot_rows(ivf, cand):
+    """Packed slots -> original rows, -1 kept."""
+    safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
+    return torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -453,15 +530,18 @@ def ivfpq_query(queries: Tensor, database: Tensor, ivf, pq_cb, pq_codes, k: int,
     ncells`` and ``overfetch`` spanning the corpus the result is
     ``knn_query``'s.  At ``nprobe >= ncells`` every cell is taken without a
     kNN over the centroids, as in ``ivf_query``.  ``db_live`` is the [n]
-    tombstone mask in original row order.  ``q_allowed`` and
-    ``exclude_rows`` come with the filtered slice and raise here.
+    tombstone mask in original row order.  ``q_allowed`` / ``exclude_rows``
+    follow ``ivf_query``: post-filtered at the candidates on
+    ``impl="fused"``, pre-filtered inside the plain ADC scan otherwise, the
+    exclusions dropped at the rescore (DESIGN.md §17).
     """
     from repro_torch.core import ivf as IVF
     from repro_torch.core.pq import pq_cell_bias
 
     _check_impl(impl)
-    _unfiltered(q_allowed, exclude_rows)
     n = database.shape[0]
+    if q_allowed is not None:
+        check_mask(q_allowed, queries.shape[0], n)
     k = min(k, n)
     ncells, cap = ivf.ncells, ivf.cell_cap
     if nprobe >= ncells:
@@ -475,6 +555,7 @@ def ivfpq_query(queries: Tensor, database: Tensor, ivf, pq_cb, pq_codes, k: int,
         cand = kops.pq_scan(queries, pq_cb, pq_codes, cells, min(k_scan, cap), cell_cap=cap,
                             centroids=ivf.centroids if residual else None, distance=distance,
                             packed_live=live_p, threshold_skip=threshold_skip).indices
+        cand = _post_filter(cand, _slot_rows(ivf, cand), q_allowed)
     else:
         probed = torch.zeros((queries.shape[0], ncells), dtype=torch.bool,
                              device=queries.device)
@@ -482,8 +563,8 @@ def ivfpq_query(queries: Tensor, database: Tensor, ivf, pq_cb, pq_codes, k: int,
         cbias = pq_cell_bias(queries, ivf.centroids, distance=distance) if residual else None
         cand = quantized_scan(queries, pq_codes, k_scan, distance=distance, db_live=live_p,
                               probed=probed, cell_cap=cap, pq_codebook=pq_cb,
-                              cell_bias=cbias, threshold_skip=threshold_skip).indices
-    safe = cand.clamp(0, ivf.row_of_slot.shape[0] - 1).long()
-    rows = torch.where(cand >= 0, ivf.row_of_slot[safe], -1)
+                              cell_bias=cbias, q_allowed=_packed_allowed(ivf, q_allowed),
+                              threshold_skip=threshold_skip).indices
+    rows = _mask_excluded_rows(_slot_rows(ivf, cand), exclude_rows)
     return rescore(queries, database, rows, k, distance=distance,
                    impl="fused" if impl == "fused" else "torch")

@@ -33,8 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "merge_partials",
-                  "rescore", "ivf_scan", "pq_scan", "pairwise_cumulative")
+KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "fused_knn_masked",
+                  "merge_partials", "rescore", "ivf_scan", "pq_scan", "pairwise_cumulative")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -14,23 +14,26 @@
 // K <= 32 that batch is the whole list, so every entry is read once.
 // Since the order is lexicographic on (value, column) and lower splits hold
 // lower columns, lower splits win ties, as in one unsplit pass.
+//
+// K up to kMaxK runs 8 warps a block; K = 512 and 1024 (a filtered search's
+// wider fetch) run select.cuh's wide insertion, 4 warps a block, so that
+// the buffers (4 x 1024 x 8 bytes) stay within the 48 KB a block gets
+// without asking.  The buffers are dynamic shared memory, K entries a warp.
 #include "select.cuh"
 
 namespace repro {
 
-constexpr int kMergeWarps = 8;
-
-__global__ void __launch_bounds__(kMergeWarps * 32)
+template <int kCap, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
     merge_partials_kernel(const float* __restrict__ pv, const int* __restrict__ pi,
                           float* __restrict__ ov, int* __restrict__ oi, int m, int S,
                           int K) {
-  __shared__ float sv[kMergeWarps][kMaxK];
-  __shared__ int si[kMergeWarps][kMaxK];
+  extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kMergeWarps + warp;
+  const int row = blockIdx.x * kWarps + warp;
   if (row >= m) return;
-  float* rv = sv[warp];
-  int* ri = si[warp];
+  float* rv = smem + warp * K;
+  int* ri = reinterpret_cast<int*>(smem + kWarps * K) + warp * K;
   for (int j = lane; j < K; j += 32) {
     rv[j] = pv[static_cast<size_t>(row) * K + j];
     ri[j] = pi[static_cast<size_t>(row) * K + j];
@@ -47,7 +50,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
       const int c = valid ? pi[base + j] : -1;
       const bool want = valid && lex_less(v, c, kv, ki);
       if (__ballot_sync(kFullMask, want) == 0) break;
-      warp_offer(rv, ri, K, v, c, valid, true, kv, ki, lane);
+      warp_offer<kCap>(rv, ri, K, v, c, valid, true, kv, ki, lane);
     }
   }
   for (int j = lane; j < K; j += 32) {
@@ -56,16 +59,24 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 }
 
+template <int kCap, int kWarps>
+int launch_merge(const float* pv, const int* pi, float* ov, int* oi, int m, int S, int K,
+                 cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kWarps) * K * (sizeof(float) + sizeof(int));
+  merge_partials_kernel<kCap, kWarps><<<(m + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
+      pv, pi, ov, oi, m, S, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro
 
 // part_v/part_i: [S, m, K], each row of each split ascending; out: [m, K].
 extern "C" int merge_partials_f32(const float* part_v, const int* part_i, float* out_v,
                                   int* out_i, int m, int S, int K, void* stream) {
-  if (m <= 0 || S <= 0 || K <= 0 || K > repro::kMaxK || (K & (K - 1)) != 0)
+  using namespace repro;
+  if (m <= 0 || S <= 0 || K <= 0 || K > kMaxSelectK || (K & (K - 1)) != 0)
     return cudaErrorInvalidValue;
-  const int blocks = (m + repro::kMergeWarps - 1) / repro::kMergeWarps;
-  repro::merge_partials_kernel<<<blocks, repro::kMergeWarps * 32, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      part_v, part_i, out_v, out_i, m, S, K);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (K <= kMaxK) return launch_merge<kMaxK, 8>(part_v, part_i, out_v, out_i, m, S, K, st);
+  return launch_merge<kMaxSelectK, 4>(part_v, part_i, out_v, out_i, m, S, K, st);
 }

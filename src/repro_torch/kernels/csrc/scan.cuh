@@ -201,6 +201,6 @@ int dispatch_gy(int gy_dtype, bool scaled, F&& f) {
   }
 }
 
-inline bool valid_k(int K) { return K > 0 && K <= kMaxK && (K & (K - 1)) == 0; }
+inline bool valid_k(int K, int cap = kMaxK) { return K > 0 && K <= cap && (K & (K - 1)) == 0; }
 
 }  // namespace repro

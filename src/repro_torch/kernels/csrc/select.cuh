@@ -15,6 +15,12 @@
 // column does not displace it: the running buffer (earlier columns) wins a
 // tie, as in the reference merge, and a split of the columns into slices that
 // are merged afterwards gives the same set (lower slices win ties).
+//
+// The buffer may lie in shared or in device memory: the insertion reads the
+// entries it moves into registers, up to eight per lane (256 entries) at a
+// time, before it writes any, so that those reads are in flight at once.
+// kCap bounds K: the K <= 256 callers keep kMaxK, and the kernels that
+// select up to kMaxSelectK instantiate a wide copy.
 #pragma once
 
 #include "common.cuh"
@@ -22,6 +28,7 @@
 namespace repro {
 
 constexpr int kMaxK = 256;
+constexpr int kMaxSelectK = 1024;  // the widest K fused_knn.cu and merge_partials.cu select
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
@@ -36,38 +43,85 @@ __device__ __forceinline__ void warp_init(float* rv, int* ri, int K, int lane) {
   __syncwarp();
 }
 
-// Insert (v, c) into the warp's ascending buffer; a no-op if it is not
-// among the K smallest.  Every lane of the warp calls it with the same
-// candidate.
+// Insert (v, c) into the warp's ascending buffer (K <= kCap); a no-op if it
+// is not among the K smallest.  Every lane of the warp calls it with the same
+// candidate.  Up to K = 256 each lane holds the entries it moves, all at
+// once.  The wide copy holds eight chunks of 32 (256 entries) at a time: the
+// position is counted a group at a time until a group holds an entry not
+// below (v, c), and the entries at and after it move up one a group at a
+// time from the top, so that a group's writes land only on entries already
+// moved.
+template <int kCap = kMaxK>
 __device__ __forceinline__ void warp_insert(float* rv, int* ri, int K, float v,
                                             int c, int lane) {
   int p = 0;  // entries strictly below (v, c): the insertion position
+  if constexpr (kCap <= kMaxK) {
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
-    if (s * 32 < K) {
+    for (int s = 0; s < kMaxK / 32; ++s) {
+      if (s * 32 < K) {
+        const int j = s * 32 + lane;
+        const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
+        p += __popc(__ballot_sync(kFullMask, lt));
+      }
+    }
+    if (p >= K) return;
+    float tv[kMaxK / 32];
+    int ti[kMaxK / 32];
+#pragma unroll
+    for (int s = 0; s < kMaxK / 32; ++s) {
       const int j = s * 32 + lane;
-      const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
-      p += __popc(__ballot_sync(kFullMask, lt));
+      if (s * 32 < K && j >= p && j < K - 1) {
+        tv[s] = rv[j];
+        ti[s] = ri[j];
+      }
     }
-  }
-  if (p >= K) return;
-  float tv[kMaxK / 32];
-  int ti[kMaxK / 32];
+    __syncwarp();
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
-    const int j = s * 32 + lane;
-    if (s * 32 < K && j >= p && j < K - 1) {
-      tv[s] = rv[j];
-      ti[s] = ri[j];
+    for (int s = 0; s < kMaxK / 32; ++s) {
+      const int j = s * 32 + lane;
+      if (s * 32 < K && j >= p && j < K - 1) {
+        rv[j + 1] = tv[s];
+        ri[j + 1] = ti[s];
+      }
     }
-  }
-  __syncwarp();
+  } else {
+    constexpr int kGroup = kMaxK / 32;
+    for (int g0 = 0; g0 < kCap / 32 && g0 * 32 < K; g0 += kGroup) {
+      int below = 0;
 #pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
-    const int j = s * 32 + lane;
-    if (s * 32 < K && j >= p && j < K - 1) {
-      rv[j + 1] = tv[s];
-      ri[j + 1] = ti[s];
+      for (int s = 0; s < kGroup; ++s) {
+        if ((g0 + s) * 32 < K) {
+          const int j = (g0 + s) * 32 + lane;
+          const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
+          below += __popc(__ballot_sync(kFullMask, lt));
+        }
+      }
+      p += below;
+      if (below < kGroup * 32) break;  // the buffer is ascending: nothing later is below
+    }
+    if (p >= K) return;
+    for (int g0 = (K - 1) / 32 / kGroup * kGroup; g0 >= 0 && (g0 + kGroup) * 32 > p;
+         g0 -= kGroup) {
+      float tv[kGroup];
+      int ti[kGroup];
+#pragma unroll
+      for (int s = 0; s < kGroup; ++s) {
+        const int j = (g0 + s) * 32 + lane;
+        if ((g0 + s) * 32 < K && j >= p && j < K - 1) {
+          tv[s] = rv[j];
+          ti[s] = ri[j];
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < kGroup; ++s) {
+        const int j = (g0 + s) * 32 + lane;
+        if ((g0 + s) * 32 < K && j >= p && j < K - 1) {
+          rv[j + 1] = tv[s];
+          ri[j + 1] = ti[s];
+        }
+      }
+      __syncwarp();
     }
   }
   if (lane == 0) {
@@ -82,6 +136,7 @@ __device__ __forceinline__ void warp_insert(float* rv, int* ri, int K, float v,
 // in which none does costs one ballot and no branch is taken.  With it off,
 // every valid candidate goes through the insertion, which gives the same
 // buffer.  kv, ki hold the K-th entry and are kept current for all lanes.
+template <int kCap = kMaxK>
 __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
                                            int c, bool valid, bool skip,
                                            float& kv, int& ki, int lane) {
@@ -93,7 +148,7 @@ __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
     const float cv = __shfl_sync(kFullMask, v, src);
     const int cc = __shfl_sync(kFullMask, c, src);
     if (!skip || lex_less(cv, cc, kv, ki)) {
-      warp_insert(rv, ri, K, cv, cc, lane);
+      warp_insert<kCap>(rv, ri, K, cv, cc, lane);
       kv = rv[K - 1];
       ki = ri[K - 1];
     }

@@ -40,7 +40,7 @@ from repro_torch.kernels import _backend as B
 from repro_torch.kernels import scan as SC
 from repro_torch.kernels.merge_partials import merge_partials
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import MAX_K, sorted_prefix
+from repro_torch.kernels.stream_topk import require_card_k, sorted_prefix
 
 LAUNCHES = 0
 
@@ -124,7 +124,6 @@ def ivf_scan_partials(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: 
     m, d = fx.shape
     S = gy.shape[0]
     K = T.next_pow2(k)
-    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the kernel's {MAX_K}")
     B.require(distance_finalize in FINALIZE_CODES, f"unknown finalizer {distance_finalize!r}")
     B.require(cell_cap > 0 and S % cell_cap == 0, f"S={S} is not a multiple of {cell_cap}")
     B.require(probes.dtype == torch.int32 and probes.dim() == 2
@@ -143,6 +142,7 @@ def ivf_scan_partials(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: 
                               cell_extent=cell_extent, alpha=alpha, finalize=distance_finalize,
                               gy_scale=gy_scale)
         return v[None], i[None]
+    require_card_k(K, "ivf_scan")
     B.require_vec4(d, fx, gy)
     dev = fx.device
     if m == 0:

@@ -12,7 +12,9 @@ itself is ``core/topk.py::merge_many_sorted``.  Source:
 Bound on the H100: bytes (each partial entry is read at most once, each
 output written once).  One warp owns a row and keeps its K-buffer in shared
 memory; a list is read only until its first batch of 32 that does not beat
-the K-th entry.
+the K-th entry.  K up to ``MAX_SELECT_K`` = 1024 on the card (K = 512 and
+1024 through the wide instantiation of the selection, four warps a block);
+a CPU tensor serves any power of 2.
 
 Result contract: the K smallest of the union by (value, column), ascending,
 ``+inf`` slots carrying id ``-1``; since lower splits hold lower columns,
@@ -30,6 +32,8 @@ from repro_torch.kernels import _backend as B
 from repro_torch.kernels.stream_topk import MAX_K
 
 LAUNCHES = 0
+WIDE_LAUNCHES = 0  # launches at K > 256 (counted in LAUNCHES too)
+MAX_SELECT_K = 1024  # the widest K fused_knn and merge_partials select on the card
 
 
 def merge_partials_plain(part_v: torch.Tensor, part_i: torch.Tensor):
@@ -57,15 +61,16 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     B.require(part_v.dim() == 3, f"part_v: want [S, m, K], got {tuple(part_v.shape)}")
     S, m, K = part_v.shape
-    B.require(K == T.next_pow2(K) and K <= MAX_K, f"K = {K}: want a power of 2 <= {MAX_K}")
+    B.require(K == T.next_pow2(K), f"K = {K}: want a power of 2")
     B.require_f32("part_v", part_v, (S, m, K))
     B.require(part_i.dtype == torch.int32 and tuple(part_i.shape) == (S, m, K)
               and part_i.is_contiguous(), "part_i: want contiguous int32 of part_v's shape")
     if not B.on_cuda(part_v, part_i):
         return merge_partials_plain(part_v, part_i)
+    B.require(K <= MAX_SELECT_K, f"K = {K} exceeds the merge kernel's {MAX_SELECT_K} on the card")
     vals = torch.empty((m, K), dtype=torch.float32, device=part_v.device)
     idx = torch.empty((m, K), dtype=torch.int32, device=part_v.device)
     if m == 0 or S == 0:
@@ -73,4 +78,5 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
     B.launch("merge_partials", "merge_partials_f32", C_ARGTYPES, part_v.device,
              B.ptr(part_v), B.ptr(part_i), B.ptr(vals), B.ptr(idx), m, S, K)
     LAUNCHES += 1
+    WIDE_LAUNCHES += K > MAX_K
     return vals, idx

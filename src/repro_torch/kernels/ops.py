@@ -11,8 +11,11 @@ Padding: the Pallas kernels need every axis padded to its block; the CUDA
 kernels mask ragged rows and columns themselves, so only ``d`` is padded,
 with zero coordinates, to the four-element width of the tile loads (zero
 coordinates add nothing to ``fx . gy``, nor to any cumulative accumulator:
-the operands are padded after their maps).  The filtered operand of
-``fused_knn`` comes with a later slice.
+the operands are padded after their maps).  The per-query filter of
+``fused_knn`` (``q_allowed``) is the kernel's bit-packed bitmap
+(``fused_knn.pack_mask``), passed through as it is, not the reference's
+padded fp32 block: the kernel masks ragged columns itself, so the bitmap
+needs no padding either.
 """
 from __future__ import annotations
 
@@ -105,13 +108,14 @@ def fused_knn(q, db, k: int, *, distance: str = "sqeuclidean",
     then exact with respect to the dequantized rows, so callers over-fetch
     and rescore.  ``db_valid``: rows at index >= db_valid score +inf.
     ``db_live``: bool [n] mask, False rows score +inf (the serving index's
-    tombstones).  Both ride the rank-1 ``hy`` term, so the kernel never
-    sees a mask operand.
+    tombstones).  Both ride the rank-1 ``hy`` term.  ``q_allowed``: the
+    per-query filter (DESIGN.md §17) as the kernel's packed bitmap, int32
+    [m or 1, ceil(n / 32)] (``fused_knn.pack_mask``); a clear bit scores
+    +inf for that query.  It composes with both masks; an all-True bitmap
+    gives the result of None.
     """
     from repro_torch.core.knn import KNNResult
 
-    if q_allowed is not None:
-        raise NotImplementedError("per-query filters come with the filtered slice")
     fx, gy, gs, hx, hy, alpha = _scan_operands(q, db, distance, db_live)
     n = gy.shape[0]
     if db_valid is not None:
@@ -119,7 +123,7 @@ def fused_knn(q, db, k: int, *, distance: str = "sqeuclidean",
     vals, idx = _fused.fused_knn(
         fx, gy, hx, hy, k, distance_finalize=finalize_kind(get_distance(distance)),
         alpha=alpha, n_real=n, exclude_self=exclude_self, threshold_skip=threshold_skip,
-        gy_scale=gs)
+        gy_scale=gs, q_mask=q_allowed)
     return KNNResult(vals[:, :k], idx[:, :k])
 
 

@@ -50,7 +50,7 @@ from repro_torch.kernels import scan as SC
 from repro_torch.kernels.ivf_scan import live_slots
 from repro_torch.kernels.merge_partials import merge_partials
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import MAX_K, sorted_prefix
+from repro_torch.kernels.stream_topk import require_card_k, sorted_prefix
 
 LAUNCHES = 0
 MAX_QB = 8  # queries per CTA
@@ -159,7 +159,6 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
     m, L = luts.shape
     S, pq_m = codes.shape
     K = T.next_pow2(k)
-    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the kernel's {MAX_K}")
     B.require(distance_finalize in FINALIZE_CODES, f"unknown finalizer {distance_finalize!r}")
     B.require(2 <= ncodes <= 256 and ncodes & (ncodes - 1) == 0,
               f"ncodes={ncodes}: want a power of 2 in [2, 256]")
@@ -186,6 +185,7 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
                              tile_m=tile_m, cell_extent=cell_extent,
                              finalize=distance_finalize, qc=qc)
         return v[None], i[None]
+    require_card_k(K, "pq_scan")
     dev = luts.device
     if m == 0:
         return (torch.full((1, 0, K), T.POS_INF, device=dev),

@@ -30,7 +30,7 @@ from repro_torch.core import topk as T
 from repro_torch.core.distances import FINALIZERS
 from repro_torch.kernels import _backend as B
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import MAX_K, sorted_prefix
+from repro_torch.kernels.stream_topk import require_card_k, sorted_prefix
 
 LAUNCHES = 0
 
@@ -60,13 +60,13 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
     m, d = fx.shape
     Kp = cand.shape[1]
     K = T.next_pow2(k)
-    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the kernel's {MAX_K}")
     B.require(finalize in FINALIZE_CODES, f"unknown finalizer {finalize!r}")
     for name, t, shape in (("fx", fx, (m, d)), ("cand", cand, (m, Kp, d)),
                            ("hx", hx, (m, 1)), ("hy_cand", hy_cand, (m, Kp))):
         B.require_f32(name, t, shape)
     if not B.on_cuda(fx, cand, hx, hy_cand):
         return rescore_topk_plain(fx, cand, hx, hy_cand, k, alpha=alpha, finalize=finalize)
+    require_card_k(K, "rescore_topk")
     B.require_vec4(d, fx, cand)
     vals = torch.empty((m, K), dtype=torch.float32, device=fx.device)
     pos = torch.empty((m, K), dtype=torch.int32, device=fx.device)

@@ -74,7 +74,8 @@ def split_plan(m: int, n: int, bm: int, tile_n: int, resident: int) -> tuple[int
 def kernel_shape(library: str, device: torch.device, bm: int, K: int,
                  gy_dtype=torch.float32, scaled: bool = False) -> tuple[int, int, int]:
     """(CTAs resident per SM, columns per tile, shared-memory bytes per CTA)
-    of scan kernel ``library`` (``fused_knn`` or ``ivf_scan``) as compiled
+    of scan kernel ``library`` (``fused_knn``, ``fused_knn_masked`` or
+    ``ivf_scan``) as compiled
     for BM, K, the storage type of gy and the scale, as the CUDA occupancy
     calculator gives them for its registers and shared memory."""
     key = (library, torch.device(device).index, bm, K, gy_dtype, scaled)

@@ -23,7 +23,7 @@ from repro_torch.core import topk as T
 from repro_torch.kernels import _backend as B
 
 LAUNCHES = 0
-MAX_K = 256
+MAX_K = 256  # the K-buffer of stream_topk, rescore_topk, ivf_scan and pq_scan on the card
 # The plain version sorts this many elements at a time, to bound its memory.
 _PLAIN_CHUNK = 1 << 27
 
@@ -46,6 +46,15 @@ def sorted_prefix(x: torch.Tensor, K: int):
     return v, i.to(torch.int32)
 
 
+def require_card_k(K: int, kernel: str) -> None:
+    """Refuse a fetch width past ``MAX_K`` on the card, naming the limit: a
+    CPU tensor's plain version serves any K, and only ``fused_knn`` and
+    ``merge_partials`` select wider on the card (ROADMAP fault F1b)."""
+    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the {kernel} kernel's {MAX_K} on "
+              "the card (fault F1b: only fused_knn and merge_partials select up to 1024; "
+              "CPU tensors serve any K)")
+
+
 def stream_topk_plain(x: torch.Tensor, k: int):
     """(values [m, K], ids [m, K]), K = next_pow2(k), by a stable sort."""
     return sorted_prefix(x, T.next_pow2(k))
@@ -61,15 +70,15 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
 
     Returns (values [m, K] fp32, ids [m, K] int32).  ``threshold_skip``
     (default on) changes the work, never the result.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel.
+    plain version at any K; CUDA tensors launch the kernel (K <= 256).
     """
     global LAUNCHES
     m, n = x.shape
     K = T.next_pow2(k)
-    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the kernel's {MAX_K}")
     B.require_f32("x", x, (m, n))
     if not B.on_cuda(x):
         return stream_topk_plain(x, k)
+    require_card_k(K, "stream_topk")
     skip = T.resolve_threshold_skip(threshold_skip, kernel=True)
     vals = torch.empty((m, K), dtype=torch.float32, device=x.device)
     idx = torch.empty((m, K), dtype=torch.int32, device=x.device)

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import accounting
 from repro_torch.core import topk as T
+from repro_torch.serving import filters as F
 from repro_torch.serving.index import SearchResult
 
 
@@ -71,9 +72,13 @@ class QueryEngine:
         return min(self.cfg.max_batch, T.next_pow2(max(m, self.cfg.min_batch)))
 
     def search(self, queries, k: int | None = None, *, filter=None) -> SearchResult:
-        """Exact top-k for [m, d] queries, padded/chunked to engine shapes."""
-        if filter is not None:
-            raise NotImplementedError("filters come with the filtered slice")
+        """Exact top-k for [m, d] queries, padded/chunked to engine shapes.
+
+        ``filter``: a ``serving.filters.QueryFilter`` (DESIGN.md §17).  Its
+        per-query rows (tenant tags, exclusion lists) are chunked and padded
+        with the query rows; pad rows get tenant 0 and no exclusions, and
+        their results are sliced off.
+        """
         k = self.cfg.k if k is None else int(k)
         q = np.asarray(queries, np.float32)
         assert q.ndim == 2, q.shape
@@ -81,14 +86,16 @@ class QueryEngine:
             dev = self.index.device
             return SearchResult(torch.zeros((0, k), device=dev),
                                 torch.zeros((0, k), dtype=torch.int32, device=dev))
+        f = F.normalize(filter, len(q)) if filter is not None else None
         out_v, out_i = [], []
         for s in range(0, len(q), self.cfg.max_batch):
-            r = self._search_padded(q[s : s + self.cfg.max_batch], k)
+            chunk = q[s : s + self.cfg.max_batch]
+            r = self._search_padded(chunk, k, F.slice_rows(f, s, s + len(chunk)))
             out_v.append(r.distances)
             out_i.append(r.ids)
         return SearchResult(torch.cat(out_v), torch.cat(out_i))
 
-    def _search_padded(self, chunk: np.ndarray, k: int) -> SearchResult:
+    def _search_padded(self, chunk: np.ndarray, k: int, f=None) -> SearchResult:
         m = len(chunk)
         mp = self._bucket(m)
         qp = np.zeros((mp, chunk.shape[1]), np.float32)
@@ -97,12 +104,19 @@ class QueryEngine:
         if sig[0] != self._live_main:  # new packed main: old keys stranded
             self._seen_shapes = {s for s in self._seen_shapes if s[2][0] == sig[0]}
             self._live_main = sig[0]
-        shape_key = (mp, k, sig)
+        # The filter's part of the shapes: which predicates exist, the mode,
+        # and the exclusion width.
+        fkey = None if f is None else (f.mode, f.tenant is not None, f.allowed_ids is not None,
+                                       F.exclusion_width(f))
+        shape_key = (mp, k, sig, fkey)
         cold = shape_key not in self._seen_shapes
         self._seen_shapes.add(shape_key)
         device = self.index.device
         t0 = accounting.device_clock(device)
-        res = self.index.search(qp, k)
+        if f is None:
+            res = self.index.search(qp, k)
+        else:
+            res = self.index.search(qp, k, filter=F.pad_rows(f, mp))
         self.meter.record(m, accounting.device_clock(device) - t0, compile_batch=cold)
         return SearchResult(res.distances[:m], res.ids[:m])
 

@@ -43,8 +43,18 @@ The index's vectors live on ``device`` (default ``"cuda"``; asking for CUDA
 on a machine without it raises).  The main rows are uploaded once per
 main epoch (build / compact); a tombstone re-uploads only the live mask.
 
-Mesh sharding, filters, tenants and snapshots come with later slices of
-the port and raise here.
+Filtered and multi-tenant search (DESIGN.md §17): every row carries an
+int32 tenant tag (default 0) through insert, upsert and compact, and
+``search(filter=)`` takes a ``serving.filters.QueryFilter``.  Its row
+predicates (tenant, allow-list) become the fused kernel's bit-packed
+bitmap, built from per-tenant rows of words cached per segment and ANDed
+with the allow-list's row, and applied inside the scan ("pre") or to the
+scanned candidates ("post"); exclusions are dropped by external id on the
+merged candidates, at a fetch widened by their count.  A trivially-true
+filter runs the unfiltered code.
+
+Mesh sharding and snapshots come with later slices of the port and raise
+here.
 """
 from __future__ import annotations
 
@@ -56,9 +66,17 @@ import torch
 from repro_torch.core import topk as T
 from repro_torch.core.distances import QUANTIZABLE, canonical_scan_dtype, quantize_rows
 from repro_torch.core.ivf import IVFCells, build_ivf
-from repro_torch.core.knn import ivf_query, ivfpq_query, knn_query, two_stage_query
+from repro_torch.core.knn import (
+    _mask_excluded_rows,
+    ivf_query,
+    ivfpq_query,
+    knn_query,
+    two_stage_query,
+)
 from repro_torch.core.pq import PQCodebook, PQCodes, _check_pq_geometry, build_ivfpq
 from repro_torch.kernels._backend import resolve_device
+from repro_torch.kernels.fused_knn import mask_bits_at, pack_mask
+from repro_torch.serving import filters as F
 
 Tensor = torch.Tensor
 
@@ -79,20 +97,63 @@ def _externalize(vals, idx, ids, k_out):
     return vals, ext
 
 
-def _segment_candidates(q, vecs, live, ids, *, k_out, distance, impl):
-    """Top-``k_out`` live candidates of one segment, ascending, padded."""
-    vals, idx = knn_query(q, vecs, k_out, distance=distance, impl=impl, db_live=live)
+def _segment_candidates(q, vecs, live, ids, allowed=None, *, k_out, distance, impl,
+                        post=False):
+    """Top-``k_out`` live candidates of one segment, ascending, padded.
+
+    ``allowed``: the per-query filter bitmap over the segment's rows (packed
+    words, DESIGN.md §17) or None; ``post=False`` masks inside the scan,
+    ``post=True`` scans unfiltered and drops disallowed candidates after
+    (the caller widens ``k_out``)."""
+    vals, idx = knn_query(q, vecs, k_out, distance=distance, impl=impl, db_live=live,
+                          q_allowed=None if post else allowed)
+    return _scored(vals, idx, ids, k_out, allowed if post else None)
+
+
+def _scored(vals, idx, ids, k_out, drop=None):
+    """A scorer's (values, rows) -> (values, external ids) at width
+    ``k_out``, after the post-filter ``drop`` (a bitmap, or None)."""
+    if drop is not None:
+        vals, idx = _drop_disallowed(vals, idx, drop)
     return _externalize(vals, idx, ids, k_out)
 
 
-def _segment_candidates_ivfpq(q, vecs, ivf, pq_cb, pq_codes, live, ids, *, k_out, nprobe,
-                              overfetch, distance, impl):
-    """IVF-PQ top-``k_out`` of one segment (DESIGN.md §PQ): the segment's
-    epoch-keyed residual PQ replica over its packed rows, the live mask
-    riding the packing permutation, the rescore exact in fp32."""
-    vals, idx = ivfpq_query(q, vecs, ivf, pq_cb, pq_codes, k_out, nprobe=nprobe,
-                            distance=distance, impl=impl, overfetch=overfetch, db_live=live)
-    return _externalize(vals, idx, ids, k_out)
+def _drop_disallowed(vals, idx, allowed):
+    """Post-filter scored candidates by the bitmap; re-sorts.  Disallowed
+    entries become +inf / -1 behind every survivor (a stable sort keeps the
+    survivors' order): the scorers' ascending, -1-padded contract."""
+    ok = mask_bits_at(allowed, idx)
+    vals = torch.where(ok, vals, T.POS_INF)
+    idx = torch.where(ok, idx, -1)
+    order = torch.sort(vals, dim=1, stable=True).indices
+    return vals.gather(1, order), idx.gather(1, order)
+
+
+def _members(ids, allowed):
+    """bool [n]: which of ``ids`` (int32 [n]) are in ``allowed`` (int32,
+    sorted and unique, as ``filters.normalize`` leaves an allow-list)."""
+    if allowed.numel() == 0:
+        return torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+    pos = torch.searchsorted(allowed, ids).clamp_(max=allowed.numel() - 1)
+    return allowed[pos] == ids
+
+
+def _finalize_filtered(vals, ids, exclude_ids, *, k):
+    """Drop per-query external-id exclusions and cut to width ``k``.
+
+    ``exclude_ids`` [m, E] int32, -1 padded, or None.  The candidates
+    arriving here are at least k + E wide (``_search_filtered`` widens the
+    fetch), so k exact survivors remain.  The lookup is ``core.knn``'s
+    (each row's list sorted once, where the reference compares [m, K, E]);
+    the same stable re-sort as ``_drop_disallowed``.
+    """
+    if exclude_ids is not None:
+        kept = _mask_excluded_rows(ids, exclude_ids)
+        vals = torch.where(kept != ids, T.POS_INF, vals)
+        ids = kept
+        order = torch.sort(vals, dim=1, stable=True).indices
+        vals, ids = vals.gather(1, order), ids.gather(1, order)
+    return vals[:, :k], ids[:, :k]
 
 
 def _merge_candidates(av, ai, bv, bi, *, k):
@@ -102,8 +163,8 @@ def _merge_candidates(av, ai, bv, bi, *, k):
 
 
 def _unported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet: the flat, quantized, IVF and "
-                              "IVF-PQ index only")
+    raise NotImplementedError(f"{name} is not ported yet: the single-device flat, "
+                              "quantized, IVF and IVF-PQ index only")
 
 
 class RetrievalIndex:
@@ -151,9 +212,12 @@ class RetrievalIndex:
         self._main_vecs = np.zeros((0, dim), np.float32)
         self._main_ids = np.zeros((0,), np.int32)
         self._main_live = np.zeros((0,), bool)
+        # Per-row namespace tags (DESIGN.md §17): int32, default tenant 0.
+        self._main_tenant = np.zeros((0,), np.int32)
         self._delta_vecs = np.zeros((0, dim), np.float32)
         self._delta_ids = np.zeros((0,), np.int32)
         self._delta_live = np.zeros((0,), bool)
+        self._delta_tenant = np.zeros((0,), np.int32)
         self._delta_n = 0  # write head; rows past it are dead capacity
         self._loc: dict[int, tuple[str, int]] = {}  # id -> (segment, row)
         # Per-segment versions: a delta append must not re-upload the main.
@@ -165,15 +229,18 @@ class RetrievalIndex:
 
     @classmethod
     def build(cls, ids, vectors, *, tenants=None, **kw) -> "RetrievalIndex":
-        """Pack (ids, vectors) straight into the main segment."""
-        if tenants is not None:
-            _unported("tenants")
+        """Pack (ids, vectors) straight into the main segment.
+
+        ``tenants``: per-row int32 namespace tags (DESIGN.md §17); None tags
+        every row tenant 0.
+        """
         vectors = np.asarray(vectors, np.float32)
         idx = cls(vectors.shape[1], **kw)
         ids = idx._check_ids(ids, vectors)
         idx._main_vecs = np.ascontiguousarray(vectors)
         idx._main_ids = ids.copy()
         idx._main_live = np.ones(len(ids), bool)
+        idx._main_tenant = idx._check_tenants(tenants, len(ids))
         idx._loc = {int(i): ("main", r) for r, i in enumerate(ids)}
         idx._bump("main")
         idx._main_epoch += 1
@@ -185,12 +252,14 @@ class RetrievalIndex:
                     impl: str = "fused", device="cuda", ivf: IVFCells | None = None,
                     pq: tuple[PQCodebook, PQCodes] | None = None,
                     scan_dtype: str = "float32", overfetch: int = 4,
-                    nprobe: int = 8) -> "RetrievalIndex":
+                    nprobe: int = 8, main_tenant=None,
+                    delta_tenant=None) -> "RetrievalIndex":
         """An index with exactly this segment state (e.g. the reference's).
 
         Arrays are numpy: the main segment's rows, external ids and live
         mask, and the delta segment's rows, ids and live mask at full
-        capacity with its write head ``delta_n``.  ``ivf``: trained cells
+        capacity with its write head ``delta_n``; ``main_tenant`` /
+        ``delta_tenant`` their tenant tags (None: tenant 0).  ``ivf``: trained cells
         over the main rows (e.g. the reference's, through
         ``core.ivf.ivf_from_arrays``); the index then serves the IVF tier
         with them until the next compact retrains.  ``pq``: a (codebook,
@@ -214,6 +283,8 @@ class RetrievalIndex:
         idx._delta_ids = np.asarray(delta_ids, np.int32).copy()
         idx._delta_live = np.asarray(delta_live, bool).copy()
         idx._delta_n = int(delta_n)
+        idx._main_tenant = idx._check_tenants(main_tenant, len(main_vecs))
+        idx._delta_tenant = idx._check_tenants(delta_tenant, len(idx._delta_vecs))
         assert len(idx._main_ids) == len(idx._main_live) == len(main_vecs)
         assert len(idx._delta_ids) == len(idx._delta_live) == len(idx._delta_vecs)
         assert idx._delta_n <= len(idx._delta_vecs)
@@ -253,6 +324,15 @@ class RetrievalIndex:
         assert len(np.unique(ids)) == len(ids), "duplicate ids in one call"
         return ids.astype(np.int32)
 
+    @staticmethod
+    def _check_tenants(tenants, n: int) -> np.ndarray:
+        if tenants is None:
+            return np.zeros((n,), np.int32)
+        tenants = np.asarray(tenants, np.int64)
+        assert tenants.shape == (n,), (tenants.shape, n)
+        assert (tenants >= 0).all() and (tenants < 2**31).all(), "tenant tags must fit int32"
+        return tenants.astype(np.int32)
+
     # -- introspection ------------------------------------------------------
 
     def __len__(self) -> int:
@@ -271,24 +351,20 @@ class RetrievalIndex:
 
     def insert(self, ids, vectors, *, tenants=None) -> None:
         """Append new rows; error on an id that already exists (use upsert)."""
-        if tenants is not None:
-            _unported("tenants")
         vectors = np.asarray(vectors, np.float32)
         ids = self._check_ids(ids, vectors)
         for i in ids:
             if int(i) in self._loc:
                 raise KeyError(f"id {int(i)} already indexed (use upsert)")
-        self._append_delta(ids, vectors)
+        self._append_delta(ids, vectors, self._check_tenants(tenants, len(ids)))
 
     def upsert(self, ids, vectors, *, tenants=None) -> None:
         """Insert-or-replace: an existing id is tombstoned, then re-appended."""
-        if tenants is not None:
-            _unported("tenants")
         vectors = np.asarray(vectors, np.float32)
         ids = self._check_ids(ids, vectors)
         for i in ids:
             self._tombstone(int(i))
-        self._append_delta(ids, vectors)
+        self._append_delta(ids, vectors, self._check_tenants(tenants, len(ids)))
 
     def delete(self, ids) -> int:
         """Tombstone ids; returns how many existed."""
@@ -303,14 +379,17 @@ class RetrievalIndex:
         self._bump(seg)
         return 1
 
-    def _append_delta(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+    def _append_delta(self, ids: np.ndarray, vectors: np.ndarray,
+                      tenants: np.ndarray | None = None) -> None:
+        if tenants is None:
+            tenants = np.zeros((len(ids),), np.int32)
         need = self._delta_n + len(ids)
         if need > len(self._delta_vecs):
             cap = max(_MIN_DELTA_CAP, T.next_pow2(need))
             grown = np.zeros((cap, self.dim), np.float32)
             grown[: self._delta_n] = self._delta_vecs[: self._delta_n]
             self._delta_vecs = grown
-            for name in ("_delta_ids", "_delta_live"):
+            for name in ("_delta_ids", "_delta_live", "_delta_tenant"):
                 old = getattr(self, name)
                 fresh = np.zeros((cap,), old.dtype)
                 fresh[: self._delta_n] = old[: self._delta_n]
@@ -319,6 +398,7 @@ class RetrievalIndex:
         self._delta_vecs[r0 : r0 + len(ids)] = vectors
         self._delta_ids[r0 : r0 + len(ids)] = ids
         self._delta_live[r0 : r0 + len(ids)] = True
+        self._delta_tenant[r0 : r0 + len(ids)] = tenants
         for off, i in enumerate(ids):
             self._loc[int(i)] = ("delta", r0 + off)
         self._delta_n = r0 + len(ids)
@@ -333,15 +413,24 @@ class RetrievalIndex:
                               self._delta_ids[:n][self._delta_live[:n]]], axis=0)
         return np.ascontiguousarray(vecs), ids
 
+    def _live_tenants(self) -> np.ndarray:
+        """Live tenant tags in the ``_live_rows`` order (DESIGN.md §17)."""
+        n = self._delta_n
+        return np.concatenate([self._main_tenant[self._main_live],
+                               self._delta_tenant[:n][self._delta_live[:n]]])
+
     def compact(self) -> None:
         """Re-pack live rows into a fresh immutable main segment."""
         vecs, ids = self._live_rows()
+        tenants = self._live_tenants()
         self._main_vecs = vecs
         self._main_ids = ids
         self._main_live = np.ones(len(ids), bool)
+        self._main_tenant = tenants
         self._delta_vecs = np.zeros((0, self.dim), np.float32)
         self._delta_ids = np.zeros((0,), np.int32)
         self._delta_live = np.zeros((0,), bool)
+        self._delta_tenant = np.zeros((0,), np.int32)
         self._delta_n = 0
         self._loc = {int(i): ("main", r) for r, i in enumerate(ids)}
         self._bump("main")
@@ -457,13 +546,19 @@ class RetrievalIndex:
 
         Result width is exactly ``k``; rows beyond the live count carry +inf
         distance and id -1 (same convention as ``core.knn``).
+
+        ``filter``: a ``serving.filters.QueryFilter`` (DESIGN.md §17): tenant
+        isolation, an allow-list, per-query exclusions.  None or a
+        trivially-true filter runs this unfiltered code.
         """
-        if filter is not None:
-            _unported("filter")
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         assert q.ndim == 2 and q.shape[1] == self.dim, q.shape
         k = int(k)
         assert k >= 1
+        if filter is not None:
+            f = F.normalize(filter, q.shape[0])
+            if f is not None:
+                return self._search_filtered(q, k, f)
         k_out = T.next_pow2(k)
         dev = self._device_state()
         sets = []
@@ -481,23 +576,153 @@ class RetrievalIndex:
         (av, ai), (bv, bi) = sets
         return SearchResult(*_merge_candidates(av, ai, bv, bi, k=k))
 
-    def _main_candidates(self, q, k_out: int, dev: dict):
-        """Top-``k_out`` live candidates of the main segment, by its tier."""
+    # -- filtered search (DESIGN.md §17) ------------------------------------
+
+    def _search_filtered(self, q, k: int, f) -> SearchResult:
+        """Search under a canonical, non-trivial ``QueryFilter``.
+
+        The filter's live selectivity ``s`` is counted exactly, on the card,
+        for every search, and resolves the mode ("auto": pre below 0.5).
+        The fetch is widened by the exclusion width E (dropping E rows
+        leaves k exact survivors), and in post mode by ~1/s too
+        (``filters.widen``).  The row predicates become a bitmap per
+        segment, applied inside the main scan (pre) or to its candidates
+        (post); the delta, small by construction, is always pre-filtered.
+        Exclusions are dropped once, by external id, on the merged
+        candidates.
+        """
+        m = q.shape[0]
+        dev = self._device_state()
+        in_allowed = self._memberships(f, dev)
+        E = F.exclusion_width(f)
+        s = self._selectivity(f, dev, in_allowed)
+        mode = F.resolve_mode(f.mode, s)
+        k_fetch = k + E
+        if mode == "post":
+            k_fetch = max(k_fetch, F.widen(k, s) + E)
+        if self._use_ivf() and self.impl == "fused" and len(self._main_vecs):
+            # The cell-probed kernels bound the fetch by the cell block:
+            # clamp the widening rather than refuse it.
+            k_fetch = max(k, min(k_fetch, int(self._dev["main_ivf"].cell_cap)))
+        k_out = T.next_pow2(k_fetch)
+        sets = []
+        if "main" in in_allowed:
+            sets.append(self._main_candidates(
+                q, k_out, dev, self._allowed_bitmap("main", f, m, in_allowed["main"]),
+                post=mode == "post"))
+        if "delta" in in_allowed:
+            sets.append(_segment_candidates(
+                q, *dev["delta"], self._allowed_bitmap("delta", f, m, in_allowed["delta"]),
+                k_out=k_out, distance=self.distance, impl=self.impl))
+        if not sets:
+            return SearchResult(torch.full((m, k), T.POS_INF, device=self.device),
+                                torch.full((m, k), -1, dtype=torch.int32, device=self.device))
+        vals, ids = sets[0] if len(sets) == 1 else T.merge_topk_sorted(*sets[0], *sets[1])
+        ex = None if f.exclude_ids is None else torch.from_numpy(f.exclude_ids).to(self.device)
+        return SearchResult(*_finalize_filtered(vals, ids, ex, k=k))
+
+    def _memberships(self, f, dev: dict) -> dict:
+        """{segment: its rows' allow-list membership, bool [n_seg] on the
+        card, or None without an allow-list}, for the segments that hold
+        rows; computed for each search."""
+        segs = [seg for seg, rows in (("main", len(self._main_vecs)), ("delta", self._delta_n))
+                if rows]
+        if f.allowed_ids is None:
+            return dict.fromkeys(segs)
+        allowed = torch.from_numpy(f.allowed_ids).to(self.device)
+        return {seg: _members(dev[seg][2], allowed) for seg in segs}
+
+    def _selectivity(self, f, dev: dict, in_allowed: dict) -> float:
+        """``filters.selectivity`` over both segments' rows, counted on the
+        card: the live rows that the allow-list (``in_allowed``, a
+        segment's membership or None) and the batch's most selective tenant
+        allow, over the live rows.  One read back to the host."""
+        uniq = None if f.tenant is None else np.unique(f.tenant)
+        n_live, allowed = 0, 0
+        for seg, ok in in_allowed.items():
+            live = dev[seg][1]
+            base = live if ok is None else live & ok
+            n_live = n_live + live.sum()
+            if uniq is None:
+                allowed = allowed + base.sum()
+                continue
+            tags, _, tag_of_row = self._tenant_words(seg)
+            pos = np.searchsorted(tags, uniq).clip(0, len(tags) - 1)
+            rows = np.where(tags[pos] == uniq, pos, len(tags))
+            # Rows of each tag that the live mask and allow-list pass; the
+            # last bin (rows that do not pass, and tags absent here) reads 0.
+            per_tag = torch.bincount(torch.where(base, tag_of_row, len(tags)),
+                                     minlength=len(tags) + 1)
+            per_tag[-1] = 0
+            allowed = allowed + per_tag[torch.from_numpy(rows).to(self.device)]
+        if not in_allowed:
+            return 1.0
+        n_live, *counts = torch.cat([n_live.reshape(1), allowed.reshape(-1)]).tolist()
+        if n_live == 0:
+            return 1.0
+        return min(counts) / n_live
+
+    def _tenant_words(self, seg: str):
+        """(the segment's distinct tenant tags, sorted; their packed rows
+        [T + 1, ceil(n_seg / 32)] on the card, row t the bitmap of the rows
+        tagged with tag t, the last row all zero; each row's tag as an index
+        into the tags, int64 [n_seg] on the card), kept per segment version:
+        the main epoch (tags change only at build and compact), the delta's
+        version."""
+        if seg == "main":
+            tenants, key = self._main_tenant, self._main_epoch
+        else:
+            tenants, key = self._delta_tenant, self._version["delta"]
+
+        def make():
+            tags = np.unique(tenants)
+            col = torch.from_numpy(tenants).to(self.device)
+            tags_t = torch.from_numpy(tags).to(self.device)
+            words = pack_mask(col[None, :] == tags_t[:, None])
+            zero = torch.zeros((1, words.shape[1]), dtype=torch.int32, device=self.device)
+            return tags, torch.cat([words, zero]), torch.searchsorted(tags_t, col)
+
+        self._upload(seg + "_tenant_words", key, make)
+        return self._dev[seg + "_tenant_words"]
+
+    def _allowed_bitmap(self, seg: str, f, m: int, in_allowed=None):
+        """The filter's row predicates over a segment's rows as the fused
+        kernel's packed bitmap on the card: [m, W] with a tenant predicate,
+        one shared row [1, W] for an allow-list alone (``in_allowed``, the
+        rows' membership), None for neither.
+
+        Built packed, never as [m, n] bools: the per-tenant rows
+        (``_tenant_words``) gathered by the batch's tags, ANDed with the
+        allow-list's row.  Dead and capacity rows may come out allowed: the
+        live mask already kills them.
+        """
+        ok = None if in_allowed is None else pack_mask(in_allowed[None, :])
+        if f.tenant is not None:
+            tags, words, _ = self._tenant_words(seg)
+            pos = np.searchsorted(tags, f.tenant).clip(0, len(tags) - 1)
+            rows = np.where(tags[pos] == f.tenant, pos, len(tags))
+            t_ok = words[torch.from_numpy(rows).to(self.device)]
+            ok = t_ok if ok is None else t_ok & ok
+        return ok
+
+    # -- main-segment scoring -------------------------------------------------
+
+    def _main_candidates(self, q, k_out: int, dev: dict, allowed=None, post: bool = False):
+        """Top-``k_out`` live candidates of the main segment, by its tier;
+        ``allowed`` / ``post`` as ``_segment_candidates`` takes them."""
         vecs, live, ids = dev["main"]
+        if not self._use_ivf() and self.scan_dtype == "float32":
+            return _segment_candidates(q, vecs, live, ids, allowed, k_out=k_out,
+                                       distance=self.distance, impl=self.impl, post=post)
         kw = dict(distance=self.distance, impl=self.impl, overfetch=self.overfetch,
-                  db_live=live)
+                  db_live=live, q_allowed=None if post else allowed)
         if self._use_pq():
-            return _segment_candidates_ivfpq(
-                q, vecs, self._dev["main_ivf"], *self._dev["main_pq"], live, ids, k_out=k_out,
-                nprobe=self.effective_nprobe(), overfetch=self.overfetch,
-                distance=self.distance, impl=self.impl)
-        if self._use_ivf():
+            vals, idx = ivfpq_query(q, vecs, self._dev["main_ivf"], *self._dev["main_pq"],
+                                    k_out, nprobe=self.effective_nprobe(), **kw)
+        elif self._use_ivf():
             vals, idx = ivf_query(q, vecs, self._dev["main_ivf"], k_out,
                                   nprobe=self.effective_nprobe(),
                                   packed_q=self._dev["main_ivf_q"], **kw)
-        elif self.scan_dtype != "float32":
-            vals, idx = two_stage_query(q, vecs, self._dev["main_q"], k_out, **kw)
         else:
-            return _segment_candidates(q, vecs, live, ids, k_out=k_out,
-                                       distance=self.distance, impl=self.impl)
-        return _externalize(vals, idx, ids, k_out)
+            vals, idx = two_stage_query(q, vecs, self._dev["main_q"], k_out, **kw)
+        return _scored(vals, idx, ids, k_out, allowed if post else None)

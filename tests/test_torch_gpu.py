@@ -200,9 +200,11 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):  # a scale left on the host
         FK.fused_knn(fx, gy.to(torch.int8), hx, hy, 4, distance_finalize="identity",
                      alpha=alpha, n_real=16, gy_scale=hy.cpu())
-    with pytest.raises(NotImplementedError):
-        FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
-                     n_real=16, q_mask=torch.ones(8, 16, device=cuda))
+    for bad in (torch.ones(8, 16, device=cuda),  # a float mask is refused, not cast
+                FK.pack_mask(torch.ones(8, 16, dtype=torch.bool))):  # a mask left on the host
+        with pytest.raises(ValueError):
+            FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
+                         n_real=16, q_mask=bad)
 
 
 def test_index_on_card_matches_cpu_index(cuda):
@@ -543,7 +545,7 @@ def test_fused_split_gives_the_one_pass_sets_bit_for_bit(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("bm,K", [(64, 1), (64, 16), (64, 128), (64, 256), (128, 1), (128, 16),
-                                  (128, 32)])
+                                  (128, 32), (64, 512), (64, 1024)])
 def test_fused_occupancy_reports_the_compiled_layout(cuda, bm, K):
     per_sm, tile_n, smem = SC.kernel_shape("fused_knn", cuda, bm, K)
     assert per_sm >= 1 and tile_n == 128 and 0 < smem <= 232448
@@ -591,3 +593,197 @@ def test_fused_kmeans_assignment_holds_the_chip_smoke_tolerance(cuda):
                                 n_real=512)
     check_topk(v, i, pv, pi, n=512, rtol=1e-5, atol=1e-3,
                dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))
+
+
+# ---------------------------------------------------------------------------
+# The per-query filter bitmap (q_mask) and fetch widths above 256
+# ---------------------------------------------------------------------------
+
+
+def _scan_operands_of(gy_dtype, x, y, dev):
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, dev)
+    gs = None
+    if gy_dtype == torch.bfloat16:
+        gy = gy.to(torch.bfloat16)
+    elif gy_dtype == torch.int8:
+        q = quantize_rows(y.to(dev), "int8", distance="neg_dot")
+        gy, gs = q.data, q.scale.float()[None, :].contiguous()
+    return fx, gy, gs, hx, hy, alpha
+
+
+def _masked_check(v, i, pv, pi, fx, gy, gs, hx, hy, alpha, d):
+    scale = float(fx.abs().max() * gy.float().abs().max()) * d * (
+        1.0 if gs is None else float(gs.max()))
+    check_topk(v, i, pv, pi, n=gy.shape[0], rtol=1e-5, atol=1e-5 * scale + 1e-6,
+               dist=operand_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity",
+                                     gy_scale=gs))
+
+
+@pytest.mark.parametrize("gy_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mn", [(3, 20_001), (70, 4_999), (130, 1_000), (1, 33)])
+@pytest.mark.parametrize("split", [True, False])
+def test_fused_masked_kernel_matches_plain(cuda, monkeypatch, gy_dtype, mn, split):
+    """Ragged m and n (n % 32 != 0), every storage type, the database axis
+    split or walked in one pass: the masked kernel keeps the plain
+    version's sets, and no masked column enters."""
+    m, n = mn
+    x, y = _data("neg_dot", m, n, 36, 30)
+    fx, gy, gs, hx, hy, alpha = _scan_operands_of(gy_dtype, x, y, cuda)
+    allowed = torch.rand((m, n), generator=torch.Generator().manual_seed(n)) < 0.3
+    words = FK.pack_mask(allowed).to(cuda)
+    if not split:
+        n_tiles = -(-n // 128)
+        monkeypatch.setattr(FK, "plan", lambda *a, **k: (FK.block_rows(m, 16), 1, n_tiles))
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=n, gy_scale=gs)
+    before = FK.LAUNCHES, FK.MASKED_LAUNCHES
+    v, i = FK.fused_knn(fx, gy, hx, hy, 10, q_mask=words, **kw)
+    torch.cuda.synchronize()
+    assert (FK.LAUNCHES, FK.MASKED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 10, alpha=alpha, finalize="identity",
+                                n_real=n, gy_scale=gs, q_mask=words)
+    _masked_check(v, i, pv, pi, fx, gy, gs, hx, hy, alpha, 36)
+    ok = i >= 0
+    assert allowed.to(cuda).gather(1, i.clamp(min=0).long())[ok].all()
+
+
+@pytest.mark.parametrize("skip", [True, False])
+def test_fused_mask_composes_with_db_live_and_exclude_self(cuda, skip):
+    x, _ = _data("sqeuclidean", 300, 300, 32, 31)
+    fx, gy, hx, hy, alpha = _operands("sqeuclidean", x, x, cuda)
+    live = torch.ones(300, dtype=torch.bool, device=cuda)
+    live[::3] = False
+    hy = torch.where(live[None, :], hy, T.POS_INF).contiguous()
+    allowed = (torch.rand((300, 300), generator=torch.Generator().manual_seed(1)) < 0.5).to(cuda)
+    allowed[5] = False
+    kw = dict(alpha=alpha, n_real=290, exclude_self=True, q_mask=FK.pack_mask(allowed))
+    v, i = FK.fused_knn(fx, gy, hx, hy, 16, distance_finalize="identity", threshold_skip=skip,
+                        **kw)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 16, finalize="identity", **kw)
+    _assert_topk_close(v, i, pv, pi, 1e-3, fx, gy, hx, hy, alpha)
+    ii = i.cpu().numpy()
+    ok = ii >= 0
+    assert not (ii == np.arange(300)[:, None]).any() and (ii < 290).all()
+    assert (ii[ok] % 3 != 0).all() and allowed.cpu().numpy()[np.nonzero(ok)[0], ii[ok]].all()
+    assert (i[5] == -1).all() and torch.isinf(v[5]).all()
+
+
+@pytest.mark.parametrize("m", [3, 200])
+def test_fused_all_true_mask_equals_no_mask_and_all_false_is_empty(cuda, m):
+    x, y = _data("neg_dot", m, 30_000, 64, 32)
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
+    kw = dict(distance_finalize="identity", alpha=alpha, n_real=30_000)
+    none = FK.fused_knn(fx, gy, hx, hy, 10, **kw)
+    W = FK.mask_words(30_000)
+    for words in (torch.full((m, W), -1, dtype=torch.int32, device=cuda),
+                  torch.full((1, W), -1, dtype=torch.int32, device=cuda)):  # a shared row
+        full = FK.fused_knn(fx, gy, hx, hy, 10, q_mask=words, **kw)
+        assert torch.equal(full[0], none[0]) and torch.equal(full[1], none[1])
+    empty = FK.fused_knn(fx, gy, hx, hy, 10, q_mask=torch.zeros((m, W), dtype=torch.int32,
+                                                                device=cuda), **kw)
+    assert torch.isinf(empty[0]).all() and (empty[1] == -1).all()
+
+
+@pytest.mark.parametrize("k", [300, 1000])
+@pytest.mark.parametrize("mn", [(3, 100_003), (70, 5_000), (130, 1_500)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_wide_k_matches_plain(cuda, k, mn, masked):
+    """K = 512 and 1024: the K-buffers in the kernel's output; split (few
+    queries) and not; with and without a mask."""
+    m, n = mn
+    x, y = _data("neg_dot", m, n, 64, 33)
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
+    words = None
+    if masked:
+        words = FK.pack_mask(torch.rand((m, n), generator=torch.Generator().manual_seed(m)) < 0.4
+                             ).to(cuda)
+    before = FK.WIDE_LAUNCHES
+    v, i = FK.fused_knn(fx, gy, hx, hy, k, distance_finalize="identity", alpha=alpha, n_real=n,
+                        q_mask=words)
+    torch.cuda.synchronize()
+    assert FK.WIDE_LAUNCHES == before + 1 and v.shape == (m, T.next_pow2(k))
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, k, alpha=alpha, finalize="identity", n_real=n,
+                                q_mask=words)
+    _masked_check(v, i, pv, pi, fx, gy, None, hx, hy, alpha, 64)
+
+
+@pytest.mark.parametrize("gy_dtype", [torch.bfloat16, torch.int8])
+def test_fused_wide_k_over_a_replica_matches_plain(cuda, gy_dtype):
+    x, y = _data("neg_dot", 20, 40_000, 64, 34)
+    fx, gy, gs, hx, hy, alpha = _scan_operands_of(gy_dtype, x, y, cuda)
+    v, i = FK.fused_knn(fx, gy, hx, hy, 512, distance_finalize="identity", alpha=alpha,
+                        n_real=40_000, gy_scale=gs)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, 512, alpha=alpha, finalize="identity",
+                                n_real=40_000, gy_scale=gs)
+    _masked_check(v, i, pv, pi, fx, gy, gs, hx, hy, alpha, 64)
+
+
+@pytest.mark.parametrize("S,m,K", [(2, 5, 512), (8, 1024, 512), (3, 40, 1024), (16, 100, 1024)])
+def test_merge_kernel_wide_matches_plain_exactly(cuda, S, m, K):
+    g = torch.Generator().manual_seed(S * m + K)
+    v = torch.randint(0, 200, (S, m, K), generator=g).float()
+    v[:, :, K // 2 :] = torch.where(torch.rand((S, m, K - K // 2), generator=g) < 0.3,
+                                    T.POS_INF, v[:, :, K // 2 :])
+    v = torch.sort(v, dim=2).values
+    cols = torch.sort(torch.randperm(10 * K, generator=g)[:K]).values
+    i = (torch.arange(S)[:, None, None] * 10 * K + cols).expand(S, m, K).int()
+    i = torch.where(torch.isinf(v), -1, i).contiguous()
+    pv, pi = MP.merge_partials_plain(v, i)
+    before = MP.WIDE_LAUNCHES
+    gv, gi = MP.merge_partials(v.to(cuda), i.to(cuda))
+    torch.cuda.synchronize()
+    assert MP.WIDE_LAUNCHES == before + 1
+    assert torch.equal(gv.cpu(), pv) and torch.equal(gi.cpu(), pi)
+
+
+def test_card_refuses_k_past_the_narrow_kernels_buffer(cuda):
+    """ROADMAP F1b: stream_topk, rescore_topk, ivf_scan and pq_scan keep a
+    K-buffer of 256 on the card and refuse K = 512 there, naming the limit;
+    fused_knn and merge_partials refuse past 1024."""
+    x = torch.zeros((2, 600), device=cuda)
+    with pytest.raises(ValueError, match="F1b"):
+        ST.stream_topk(x, 300)
+    fx, gy, hx, hy, alpha = _operands("sqeuclidean", *_data("sqeuclidean", 4, 600, 8, 35), cuda)
+    with pytest.raises(ValueError, match="F1b"):
+        RS.rescore_topk(fx, gy[None].expand(4, 600, 8).contiguous(), hx,
+                        hy.expand(4, 600).contiguous(), 300, alpha=alpha, finalize="identity")
+    probes = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    extent = torch.full((1,), 600, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="F1b"):
+        IVS.ivf_scan(probes, fx, gy, hx, hy, 300, cell_cap=600, tile_m=8, cell_extent=extent,
+                     distance_finalize="identity", alpha=alpha)
+    luts = torch.zeros((4, 2 * 16), device=cuda)
+    codes = torch.zeros((600, 2), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="F1b"):
+        PQS.pq_scan(probes, luts, codes, hx, hy, 300, cell_cap=600, ncodes=16, tile_m=8,
+                    cell_extent=extent, distance_finalize="identity")
+    with pytest.raises(ValueError, match="1024"):
+        FK.fused_knn(fx, gy, hx, hy, 1025, distance_finalize="identity", alpha=alpha, n_real=600)
+    with pytest.raises(ValueError, match="1024"):
+        MP.merge_partials(torch.zeros((2, 4, 2048), device=cuda),
+                          torch.zeros((2, 4, 2048), dtype=torch.int32, device=cuda))
+
+
+def test_filtered_index_on_card_matches_cpu_index(cuda):
+    """Tenants, an allow-list and exclusions through the served path, on
+    the card and on the CPU: the same ids (K = 512 through k + E)."""
+    from repro_torch.serving.filters import QueryFilter
+    from repro_torch.serving.index import RetrievalIndex
+
+    g = np.random.default_rng(36)
+    vecs = g.standard_normal((6000, 32)).astype(np.float32)
+    ids = g.permutation(100_000)[:6000]
+    tenants = g.integers(0, 5, 6000)
+    q = g.standard_normal((37, 32)).astype(np.float32)
+    idx = {dev: RetrievalIndex.build(ids, vecs, tenants=tenants, device=dev)
+           for dev in ("cpu", "cuda")}
+    for i in idx.values():
+        i.upsert(ids[:50], vecs[50:100], tenants=np.full(50, 4))
+        i.delete(ids[200:260])
+    filters = [QueryFilter(tenant=g.integers(0, 5, 37)),
+               QueryFilter(allowed_ids=ids[::3]),
+               QueryFilter(tenant=g.integers(0, 5, 37), exclude_ids=[ids[:400].tolist()]),
+               QueryFilter(allowed_ids=[])]
+    for f in filters:
+        a, b = idx["cpu"].search(q, 10, filter=f), idx["cuda"].search(q, 10, filter=f)
+        torch.testing.assert_close(b.distances.cpu(), a.distances, rtol=1e-5, atol=1e-3)
+        assert (b.ids.cpu() == a.ids).float().mean() > 0.99

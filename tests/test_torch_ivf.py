@@ -29,6 +29,7 @@ from repro_torch.core import ivf as PIVF
 from repro_torch.core import knn as PK
 from repro_torch.core.distances import quantize_rows
 from repro_torch.core.kmeans import lloyd
+from repro_torch.kernels import fused_knn as FK
 from repro_torch.kernels import ops, ref
 from repro_torch.serving.index import RetrievalIndex
 
@@ -225,8 +226,10 @@ def test_ivf_full_probe_equals_knn_query(trained, impl):
 
 @pytest.mark.parametrize("impl", ["torch", "fused"])
 def test_ivf_full_probe_past_the_k_buffer_equals_knn_query(impl):
-    """nprobe = ncells = 300: a shortlist wider than the kernels' K-buffer
-    (256) is every cell, taken without a kNN over the centroids."""
+    """nprobe = ncells = 300: a shortlist wider than the card's narrow
+    K-buffer (256) is every cell, taken without a kNN over the centroids;
+    nprobe = 299 is a shortlist at K = 512, which the plain versions serve
+    (ROADMAP F1) and both impls take alike."""
     x = torch.from_numpy(clustered_vectors(1500, 8, n_clusters=40, seed=6))
     q = torch.from_numpy(clustered_vectors(9, 8, n_clusters=40, seed=7))
     ivf = PIVF.build_ivf(x, 300, iters=2, generator=torch.Generator().manual_seed(0),
@@ -234,18 +237,26 @@ def test_ivf_full_probe_past_the_k_buffer_equals_knn_query(impl):
     res = PK.ivf_query(q, x, ivf, 5, nprobe=300, impl=impl)
     exact = PK.knn_query(q, x, 5)
     assert torch.equal(res.indices, exact.indices)
-    with pytest.raises(ValueError, match="exceeds"):  # a shortlist of 299 needs k = 299
-        PK.ivf_query(q, x, ivf, 5, nprobe=299, impl="fused")
+    near = PK.ivf_query(q, x, ivf, 5, nprobe=299, impl=impl)  # a shortlist of k = 299
+    assert torch.equal(near.indices, PK.ivf_query(q, x, ivf, 5, nprobe=299,
+                                                   impl="torch").indices)
+    assert (near.indices >= 0).all()
 
 
 def test_ivf_query_filters_wait_for_their_slice(trained):
+    """The filters are served: an all-True bitmap is no filter, and an
+    exclusion list drops its row (tests/test_torch_filters.py holds them
+    against the reference)."""
     x, q, _, pivf = trained
-    with pytest.raises(NotImplementedError, match="filtered"):
-        PK.ivf_query(torch.from_numpy(q), torch.from_numpy(x), pivf, 3,
-                     q_allowed=torch.ones(13, 700, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="filtered"):
-        PK.ivf_query(torch.from_numpy(q), torch.from_numpy(x), pivf, 3,
-                     exclude_rows=torch.zeros(13, 1, dtype=torch.int32))
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    for impl in ("torch", "fused"):
+        none = PK.ivf_query(qt, xt, pivf, 3, impl=impl)
+        full = PK.ivf_query(qt, xt, pivf, 3, impl=impl,
+                            q_allowed=FK.pack_mask(torch.ones(13, 700, dtype=torch.bool)))
+        assert torch.equal(full.indices, none.indices)
+        top = none.indices[:, :1]
+        excl = PK.ivf_query(qt, xt, pivf, 3, impl=impl, exclude_rows=top)
+        assert not (excl.indices == top).any()
 
 
 # ---------------------------------------------------------------------------

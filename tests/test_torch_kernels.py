@@ -268,21 +268,30 @@ def test_cell_extent_is_one_past_the_last_live_slot():
 
 
 def test_unported_operands_raise():
+    """Every operand is ported: the packed filter bitmap is taken (a bool or
+    fp32 mask is refused, not cast), as is K = 512 on the CPU; wrong types
+    and shapes still raise."""
     x, y = _t(*_data("sqeuclidean", 8, 16, 8, 2))
     fx, gy, hx, hy, alpha = ops._mxu_operands(x, y, "sqeuclidean")
-    with pytest.raises(NotImplementedError):
-        FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
-                     n_real=16, q_mask=torch.ones(8, 16))
+    allowed = torch.from_numpy(np.random.default_rng(1).random((8, 16)) < 0.5)
+    masked = FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
+                          n_real=16, q_mask=FK.pack_mask(allowed))
+    plain = FK.fused_knn_plain(fx, gy, hx, hy, 4, alpha=alpha, finalize="identity",
+                               n_real=16, q_mask=FK.pack_mask(allowed))
+    assert torch.equal(masked[1], plain[1])
+    for bad in (torch.ones(8, 16), allowed, FK.pack_mask(allowed)[:3]):
+        with pytest.raises(ValueError):
+            FK.fused_knn(fx, gy, hx, hy, 4, distance_finalize="identity", alpha=alpha,
+                         n_real=16, q_mask=bad)
     with pytest.raises(ValueError):  # a storage type the kernels do not read
         FK.fused_knn(fx, gy.half(), hx, hy, 4, distance_finalize="identity", alpha=alpha,
                      n_real=16)
     with pytest.raises(ValueError):  # a scale of the wrong shape
         FK.fused_knn(fx, gy.to(torch.int8), hx, hy, 4, distance_finalize="identity",
                      alpha=alpha, n_real=16, gy_scale=hy[:, :3].contiguous())
-    with pytest.raises(NotImplementedError):
-        ops.fused_knn(x, y, 4, q_allowed=torch.ones(8, 16, dtype=torch.bool))
-    with pytest.raises(ValueError):  # K = 512 is past the kernels' buffer
-        ST.stream_topk(torch.zeros(2, 600), 300)
+    assert torch.equal(ops.fused_knn(x, y, 4, q_allowed=FK.pack_mask(allowed)).indices,
+                       masked[1])
+    assert ST.stream_topk(torch.zeros(2, 600), 300)[1].shape == (2, 512)
     with pytest.raises(ValueError):  # a wrong dtype is refused, not cast
         PD.pairwise_distance(fx.double(), gy, hx, hy, alpha=alpha, finalize="identity")
 
@@ -307,6 +316,8 @@ def test_split_plan_covers_every_tile():
                                           (ST, "stream_topk_f32"), (FK, "fused_knn"),
                                           (MP, "merge_partials_f32"),
                                           (FK, "fused_knn_occupancy"),
+                                          (FK, "fused_knn_masked"),
+                                          (FK, "fused_knn_masked_occupancy"),
                                           (IVS, "ivf_scan"), (IVS, "ivf_scan_occupancy"),
                                           (RS, "rescore_f32"), (PQS, "pq_scan"),
                                           (PQS, "pq_scan_occupancy"),
@@ -333,13 +344,15 @@ def test_ctypes_signatures_match_the_cuda_sources(module, entry):
         argtypes = module.CUMULATIVE_ARGTYPES
     elif entry.endswith("_occupancy"):
         argtypes = getattr(module, "OCCUPANCY_ARGTYPES", SC.OCCUPANCY_ARGTYPES)
+    elif entry.endswith("_masked"):
+        argtypes = module.MASKED_ARGTYPES
     else:
         argtypes = module.C_ARGTYPES
     assert [want[k] for k in kinds] == argtypes
     assert "repro_error_string" in (CSRC / "common.cuh").read_text()
 
 
-@pytest.mark.parametrize("library", ["fused_knn", "ivf_scan"])
+@pytest.mark.parametrize("library", ["fused_knn", "fused_knn_masked", "ivf_scan"])
 def test_scan_dtype_codes_match_the_cuda_sources(library):
     """The storage-type codes the wrappers pass are the ones the C side
     switches on, and each scan kernel is compiled for every type, with and
@@ -352,15 +365,30 @@ def test_scan_dtype_codes_match_the_cuda_sources(library):
         assert re.search(rf"f\(Type<{tb}>{{}}, std::true_type{{}}\) : f\(Type<{tb}>{{}}, "
                          r"std::false_type{}\)", header), tb
     src = (CSRC / f"{library}.cu").read_text()
+    if library.startswith("fused_knn"):  # the entry points' bodies live in the shared header
+        src += (CSRC / "fused_knn.cuh").read_text()
     assert "dispatch_gy(gy_dtype, gs != nullptr" in src
     assert "dispatch_gy(gy_dtype, scaled != 0" in src
 
 
 def test_k_above_the_buffer_is_refused_by_every_wrapper():
+    """ROADMAP F1: past the card's narrow K-buffer (256) every wrapper's
+    plain version serves a CPU tensor at any K, as the reference does; the
+    card's refusals are held in tests/test_torch_gpu.py."""
     assert T.next_pow2(257) > ST.MAX_K
     x, y = _t(*_data("sqeuclidean", 4, 300, 8, 3))
-    with pytest.raises(ValueError):
-        ops.fused_knn(x, y, 257)
+    got = ops.fused_knn(x, y, 257)
+    dm = ops.pairwise_distance(x, y)
+    want = ST.stream_topk_plain(dm, 257)
+    assert torch.equal(got.indices, want[1][:, :257])
+    assert torch.equal(ops.stream_topk(dm, 257)[1], want[1][:, :257])
+    parts = torch.stack([want[0], want[0]]), torch.stack([want[1], want[1]])
+    assert torch.equal(MP.merge_partials(*parts)[1], MP.merge_partials_plain(*parts)[1])
+    fx, gy, hx, hy, alpha = ops._mxu_operands(x, y, "sqeuclidean")
+    rv, rp = RS.rescore_topk(fx, gy[None].expand(4, 300, 8).contiguous(), hx,
+                             hy.expand(4, 300).contiguous(), 257, alpha=alpha,
+                             finalize="identity")
+    assert torch.equal(rp, want[1])
 
 
 def _partials(S, m, K, seed, ties):

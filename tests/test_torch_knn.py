@@ -14,6 +14,7 @@ import torch
 from repro.core import knn as RK
 from repro_torch.core import knn as PK
 from repro_torch.data import synthetic as PS
+from repro_torch.kernels import fused_knn as FK
 from repro.data import synthetic as RS
 
 PAIRS = [("torch", "jnp"), ("kernel", "pallas"), ("fused", "fused")]
@@ -104,8 +105,15 @@ def test_knn_query_brute_force_exactness():
 
 
 def test_unknown_impl_and_filters_raise():
+    """An unknown impl raises; a filter bitmap is served on every impl, the
+    masked entries never selected (tests/test_torch_filters.py holds it
+    against the reference)."""
     x = torch.from_numpy(PS.random_vectors(10, 4))
     with pytest.raises(ValueError):
         PK.knn_query(x, x, 3, impl="jnp")
-    with pytest.raises(NotImplementedError):
-        PK.knn_query(x, x, 3, q_allowed=torch.ones(10, 10, dtype=torch.bool))
+    allowed = torch.from_numpy(np.random.default_rng(0).random((10, 10)) < 0.5)
+    for impl in ("torch", "kernel", "fused"):
+        res = PK.knn_query(x, x, 3, impl=impl, q_allowed=FK.pack_mask(allowed))
+        ok = res.indices >= 0
+        assert allowed.gather(1, res.indices.clamp(min=0).long())[ok].all()
+        assert ok.sum(1).tolist() == allowed.sum(1).clamp(max=3).tolist()

@@ -32,6 +32,7 @@ from repro_torch import accounting
 from repro_torch.core import ivf as PIVF
 from repro_torch.core import knn as PK
 from repro_torch.core import pq as PPQ
+from repro_torch.kernels import fused_knn as FK
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pq_scan as PQS
 from repro_torch.serving.index import RetrievalIndex
@@ -331,9 +332,11 @@ def test_ivfpq_exhaustive_overfetch_equals_knn_query(trained, impl):
     res = PK.ivfpq_query(qt, xt, pivf, pcb, pcodes, 9, nprobe=pivf.ncells,
                          overfetch=min(pivf.cell_cap, 256) // 16, impl=impl, db_live=live)
     assert not np.isin(res.indices.numpy(), np.flatnonzero(~live.numpy())).any()
-    with pytest.raises(NotImplementedError, match="filtered"):
-        PK.ivfpq_query(qt, xt, pivf, pcb, pcodes, 3, impl=impl,
-                       q_allowed=torch.ones(11, 700, dtype=torch.bool))
+    # An all-True filter bitmap is no filter.
+    full = PK.ivfpq_query(qt, xt, pivf, pcb, pcodes, 3, impl=impl,
+                          q_allowed=FK.pack_mask(torch.ones(11, 700, dtype=torch.bool)))
+    assert torch.equal(full.indices, PK.ivfpq_query(qt, xt, pivf, pcb, pcodes, 3,
+                                                    impl=impl).indices)
 
 
 # ---------------------------------------------------------------------------

@@ -140,10 +140,13 @@ def test_unported_knobs_raise():
         RetrievalIndex(8, pq_m=4, **CPU)
     idx = RetrievalIndex.build(np.arange(4), np.ones((4, 8), np.float32), **CPU)
     with pytest.raises(NotImplementedError):
-        idx.search(np.ones((1, 8), np.float32), 2, filter=object())
-    with pytest.raises(NotImplementedError):
         idx.save("unused")
-    with pytest.raises(NotImplementedError):
-        idx.insert([9], np.ones((1, 8), np.float32), tenants=[1])
-    with pytest.raises(NotImplementedError):
-        QueryEngine(idx).search(np.ones((1, 8), np.float32), filter=object())
+    # Tenants and filters are served (tests/test_torch_filters.py).
+    from repro_torch.serving.filters import QueryFilter
+
+    idx.insert([9], np.ones((1, 8), np.float32), tenants=[1])
+    q = np.ones((1, 8), np.float32)
+    assert idx.search(q, 2, filter=QueryFilter(tenant=1)).ids.tolist() == [[9, -1]]
+    assert QueryEngine(idx).search(q, 2, filter=QueryFilter(tenant=1)).ids.tolist() == [[9, -1]]
+    with pytest.raises(ValueError):
+        idx.search(q, 2, filter=QueryFilter(mode="sideways"))
