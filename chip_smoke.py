@@ -14,7 +14,9 @@ Phases (each one raises on a failed check; nothing is caught):
    it is reported at), against float64 brute force on sampled rows.
 3. The paper's two phases: rows 0..8191 against all 160,000 through the
    ``pairwise_distance`` kernel, then ``stream_topk``; held against phase 2's
-   result and each kernel against its plain version.  Then the per-tile
+   result and each kernel against its plain version.  Then ``stream_topk``
+   at the card's cap, k = 4096, on rows 0..1023 of that matrix, equal to its
+   plain version.  Then the per-tile
    ``knn_allpairs(impl="kernel", symmetric=True)`` at n = 32,768.
 3b. The paper's two phases with the generic distance: rows 0..1023 against
    all 160,000 through ``pairwise_distance(cumulative=True)`` (the
@@ -29,7 +31,10 @@ Phases (each one raises on a failed check; nothing is caught):
    delete 1% of main, compact), each step held against brute force; then a
    steady window of 50 batches of 1024 queries.  A batch of 1024 there
    splits the database axis, so the fused kernel's partial sets and the
-   merge kernel are each timed and held against their plain versions.
+   merge kernel are each timed and held against their plain versions (the
+   merge's and ``torch.topk``'s device time also by a CUDA graph); and
+   the fused kernel with its merge at the card's cap, K = 4096, on 64 of
+   the batch's queries.
 5. Two-stage quantized serving at the same shape: ``random_vectors(seed=0)``
    rows, ``RetrievalIndex(scan_dtype=...)`` for int8 and for bf16 (overfetch
    4): 8,192 queries, churn (the replica must be kept at a delete and rebuilt
@@ -37,7 +42,14 @@ Phases (each one raises on a failed check; nothing is caught):
    (floor 0.9).  A float32 replica through ``two_stage_query`` must equal
    brute force.  At a batch of 1024 the fp32, bf16 and int8 fused scans, the
    merge and the rescore kernel are timed and held against their plain
-   versions.
+   versions.  The int8 index carries tenant tags, and after its churn one
+   batch of 1024 carries phase 8's tenant filter with 500 exclusions a
+   query: the masked fused scan at K' = 4 x 512 = 2048, its merge, and the
+   rescore at K 512 (``filtered_wide_batch``: no excluded id, no id of
+   another tenant, every served id live at its own distance, each wide
+   launch equal to its plain version; recall against the filtered brute
+   force reported).  The rescore kernel at K = 4096 on 8192 drawn
+   candidates of 128 queries.
 6. IVF serving at the same width: ``clustered_vectors(1,048,576 + 8,192,
    256, n_clusters=4096, seed=0)``, the last 8,192 rows held out as queries;
    ``ivf_cells=4096, nprobe=8``, float32 then int8.  Build time (k-means on
@@ -50,6 +62,10 @@ Phases (each one raises on a failed check; nothing is caught):
    kernel path and the plain path, at least 0.9; a steady window of 50
    batches; the ``ivf_scan`` kernel held against its plain version at both
    batch sizes, its bound counted from the rows of the cells it scans.
+   The kernel that builds the scan's tile table on the card
+   (``ivf_scan_table``) is held against its plain version at both batch
+   sizes.  The fp32 index's tags also serve the filtered batch with 500
+   exclusions (the scan at K = min(2048, cell_cap)), gated as in phase 5.
 7. IVF-PQ serving on phase 6's data: ``ivf_cells=4096, nprobe=8, pq_m=32,
    pq_nbits=8`` (faiss's "IVF4096,PQ32": 32 bytes a row), ``neg_dot``,
    k = 10.  First, for comparison, the reference's start (Lloyd from a
@@ -65,7 +81,9 @@ Phases (each one raises on a failed check; nothing is caught):
    id is served and the retrained replica meets the floor; a steady window
    of 50 batches; the ``pq_scan`` kernel held against its plain version at
    batches of 1024 and 8, its partial sets and the merge timed apart, its
-   bound counted from the live rows of each tile's cells.
+   bound counted from the live rows of each tile's cells.  The index
+   carries tenant tags, and serves the filtered batch with 500 exclusions
+   (the scan at K = min(4096, cell_cap)), gated as in phase 5.
 8. Filtered and multi-tenant serving (DESIGN.md §17) on phase 4's rows:
    1,048,576 x 256 fp32, ``neg_dot``, k = 10, through ``QueryEngine``.
    Each row carries one of 8 tenant tags drawn with shares 1/(t+1) (the
@@ -96,7 +114,11 @@ operations of a matmul-form kernel (``fused_knn``, ``pairwise_distance``,
 (two for a bf16 or int8 database), the least work at an accuracy the checks
 accept, with the same work in fp32 FMAs at 67 TFLOP/s beside it as
 ``bound_fp32_ms``; the others' are fp32 operations at 67 TFLOP/s.  Those
-two kernels also name the tile ``product`` they ran.  The last
+three kernels also name the tile ``product`` they ran.  Each of the six
+selection kernels also carries variants at K > 256: its launches in the
+filtered batches of phases 5-7 and its call at the card's cap (K = 4096;
+``ivf_scan`` and ``pq_scan`` at K = ``cell_cap``, their widest fetch), each
+timed and held against its plain version on the same inputs.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 before printing any result.  Everything it prints also goes, in full, to
@@ -117,7 +139,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 on the tensor cores, FLOP/s
 PEAK_HBM = 3.35e12  # H100 SXM HBM3, bytes/s
-PRODUCT = "wgmma 3xTF32 (gemm_tc.cuh)"  # the tile product of fused_knn and pairwise_distance
+PRODUCT = "wgmma 3xTF32 (gemm_tc.cuh)"  # the tile product of the matmul-form kernels
 QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
 N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
@@ -151,6 +173,24 @@ def time_ms(torch, fn, reps=3, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, n=20):
+    """Device ms of one call of ``fn``: ``n`` calls captured in a CUDA graph,
+    the graph replayed and timed by CUDA events, so that the host's launch
+    overhead, which ``time_ms`` sees for a small kernel, drops out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, g.replay, reps=5) / n
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -240,6 +280,241 @@ def rows_close(torch, got, want, atol, rtol, what):
     check(bool((diff <= atol + rtol * want.abs().nan_to_num(0.0, 0.0, 0.0)).all()),
           f"{what}: max |difference| {err} past atol {atol} + rtol {rtol}")
     return err
+
+
+class WideLaunches:
+    """While active, record every call of a selection kernel's wrapper at
+    K > 256 (its arguments and its result), so that each launch can be held
+    against its plain version at that shape afterwards."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import fused_knn as FK
+        from repro_torch.kernels import ivf_scan as IVS
+        from repro_torch.kernels import merge_partials as MP
+        from repro_torch.kernels import pq_scan as PQS
+        from repro_torch.kernels import rescore as RS
+        from repro_torch.kernels import stream_topk as ST
+
+        # (kernel, module of its wrapper, wrapper, modules that import it by name)
+        self.targets = [("fused_knn", FK, "fused_knn_partials", []),
+                        ("ivf_scan", IVS, "ivf_scan_partials", []),
+                        ("pq_scan", PQS, "pq_scan_partials", []),
+                        ("rescore_topk", RS, "rescore_topk", []),
+                        ("merge_partials", MP, "merge_partials", [FK, IVS, PQS]),
+                        ("stream_topk", ST, "stream_topk", [])]
+        self.records, self.saved = [], []
+
+    def __enter__(self):
+        for name, mod, attr, users in self.targets:
+            orig = getattr(mod, attr)
+
+            def wrap(*a, _orig=orig, _name=name, **kw):
+                out = _orig(*a, **kw)
+                if out[0].shape[-1] > 256:
+                    self.records.append((_name, _orig, a, kw, out))
+                return out
+
+            for m in (mod, *users):
+                self.saved.append((m, attr, orig))
+                setattr(m, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, orig in reversed(self.saved):
+            setattr(m, attr, orig)
+        self.saved = []
+
+
+def ivf_pairs(torch, probes, live_per_cell, tile_m, m):
+    """(query, row) pairs a cell-probed scan needs, and the rows it reads:
+    each union tile's queries against the live rows of the distinct cells
+    of its list."""
+    fresh = torch.ones_like(probes, dtype=torch.bool)
+    fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
+    rows_per_tile = (live_per_cell[probes.long()] * fresh).sum(1)
+    q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
+                              device=probes.device)
+    pairs = int((q_per_tile * rows_per_tile).sum())
+    read = int(live_per_cell[torch.unique(probes).long()].sum())
+    return pairs, read, rows_per_tile
+
+
+def hold_wide(torch, records):
+    """Each recorded wide launch against its plain version on the same
+    inputs: times (the kernel again, by CUDA events; the plain version
+    once), the bound from these inputs, and the comparison (exact for the
+    merge and stream_topk, tie-aware for the scans).  {kernel: [entry]}."""
+    import inspect
+
+    from repro_torch.core.distances import FINALIZERS
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import ivf_scan as IVS
+    from repro_torch.kernels import merge_partials as MP
+    from repro_torch.kernels import pq_scan as PQS
+    from repro_torch.kernels import rescore as RS
+    from repro_torch.kernels import stream_topk as ST
+    from repro_torch.kernels.ref import check_topk, operand_distance
+
+    out = {}
+    for name, fn, a, kw, (v, i) in records:
+        arg = inspect.signature(fn).bind(*a, **kw)
+        arg.apply_defaults()
+        p = dict(arg.arguments)
+        p.update(p.pop("kw", {}))
+        ms = time_ms(torch, lambda: fn(*a, **kw))
+        K = v.shape[-1]
+        lib_ms = None
+        if name == "merge_partials":
+            plain_ms, (pv, pi) = time_plain(torch, lambda: MP.merge_partials_plain(*a))
+            check(torch.equal(v, pv) and torch.equal(i, pi), "a wide merge vs its plain version")
+            cmp = {"max_abs_err": 0.0}
+            bnd = bound_ms(0.0, a[0].numel() * 8 + v.numel() * 8)
+            shape = f"{a[0].shape[0]} splits x {a[0].shape[1]} x {K}"
+            cat_v = a[0].permute(1, 0, 2).reshape(a[0].shape[1], -1).contiguous()
+            lib_ms = time_ms(torch, lambda: torch.topk(cat_v, K, dim=1, largest=False))
+            del cat_v
+        elif name == "stream_topk":
+            x = p["x"]
+            plain_ms, (pv, pi) = time_plain(torch, lambda: ST.stream_topk_plain(x, p["k"]))
+            check(torch.equal(v, pv) and torch.equal(i, pi), "a wide stream_topk vs plain")
+            cmp = {"max_abs_err": 0.0}
+            bnd = bound_ms(1.0 * x.numel(), x.numel() * 4 + v.numel() * 8)
+            shape = f"{x.shape[0]} x {x.shape[1]}, k {p['k']}"
+            lib_ms = time_ms(torch, lambda: torch.topk(x, p["k"], dim=1, largest=False))
+        elif name == "rescore_topk":
+            fx, cand, hx, hy = p["fx"], p["cand"], p["hx"], p["hy_cand"]
+            fin = FINALIZERS[p["finalize"]]
+            plain_ms, (pv, pi) = time_plain(torch, lambda: RS.rescore_topk_plain(
+                fx, cand, hx, hy, p["k"], alpha=p["alpha"], finalize=p["finalize"]))
+            cmp = check_topk(v, i, pv, pi, n=cand.shape[1], rtol=1e-5, atol=1e-3,
+                             dist=lambda r, c: fin(p["alpha"] * (fx[r] * cand[r, c]).sum(1)
+                                                   + hx[r, 0] + hy[r, c]))
+            bnd = bound_ms(2.0 * cand.numel(), (cand.numel() + fx.numel() + hx.numel()
+                                                + hy.numel()) * 4 + v.numel() * 8)
+            shape = f"candidates {list(cand.shape)}, k {p['k']}"
+        elif name == "fused_knn":
+            fx, gy, hx, hy, gs, qm = p["fx"], p["gy"], p["hx"], p["hy"], p["gy_scale"], p["q_mask"]
+            plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
+                fx, gy, hx, hy, p["k"], alpha=p["alpha"], finalize=p["distance_finalize"],
+                n_real=p["n_real"], exclude_self=p["exclude_self"], gy_scale=gs, q_mask=qm))
+            mv, mi = MP.merge_partials_plain(v, i)
+            cmp = check_topk(mv, mi, pv, pi, n=gy.shape[0], rtol=1e-5, atol=1e-3,
+                             dist=operand_distance(fx, gy, hx, hy, alpha=p["alpha"],
+                                                   finalize=p["distance_finalize"],
+                                                   gy_scale=gs))
+            m_, n_, d_ = fx.shape[0], gy.shape[0], fx.shape[1]
+            extra = (0 if gs is None else n_ * 4) + (0 if qm is None else qm.numel() * 4)
+            bnd_d = mm_bound(2.0 * m_ * n_ * d_, m_ * d_ * 4 + n_ * d_ * gy.element_size()
+                             + (m_ + n_) * 4 + extra + v.numel() * 8,
+                             gy_exact=gy.dtype != torch.float32)
+            bnd = (bnd_d["bound_ms"], bnd_d["bound_by"])
+            shape = (f"partial sets, {m_} x {n_} (gy {str(gy.dtype)[6:]}), d {d_}, k {p['k']}"
+                     + ("" if qm is None else ", bitmap"))
+        elif name == "ivf_scan":
+            probes, fx, gy, gs = p["probes"], p["fx"], p["gy"], p["gy_scale"]
+            hx, hy = p["hx"], p["hy"]
+            cap, extent = p["cell_cap"], p["cell_extent"]
+            plain_ms, (pv, pi) = time_plain(torch, lambda: IVS.ivf_scan_plain(
+                probes, fx, gy, hx, hy, p["k"], cell_cap=cap, tile_m=p["tile_m"],
+                cell_extent=extent, alpha=p["alpha"], finalize=p["distance_finalize"],
+                gy_scale=gs))
+            mv, mi = MP.merge_partials_plain(v, i)
+            cmp = check_topk(mv, mi, pv, pi, n=gy.shape[0], rtol=1e-5, atol=1e-3,
+                             dist=operand_distance(fx, gy, hx, hy, alpha=p["alpha"],
+                                                   finalize=p["distance_finalize"],
+                                                   gy_scale=gs))
+            live = torch.isfinite(hy[0]).view(-1, cap).sum(1)
+            m_, d_ = fx.shape
+            pairs, read, _ = ivf_pairs(torch, probes, live, p["tile_m"], m_)
+            bnd_d = mm_bound(2.0 * pairs * d_, m_ * d_ * 4 + read * d_ * gy.element_size()
+                             + read * 4 * (1 if gs is None else 2) + v.numel() * 8,
+                             gy_exact=gy.dtype != torch.float32)
+            bnd = (bnd_d["bound_ms"], bnd_d["bound_by"])
+            shape = (f"{m_} queries, tile_m {p['tile_m']}, cell_cap {cap}, gy "
+                     f"{str(gy.dtype)[6:]}, k {p['k']}")
+        elif name == "pq_scan":
+            probes, luts, codes, hx, hy, qc = (p["probes"], p["luts"], p["codes"], p["hx"],
+                                               p["hy"], p["qc"])
+            cap, nc = p["cell_cap"], p["ncodes"]
+            plain_ms, (pv, pi) = time_plain(torch, lambda: PQS.pq_scan_plain(
+                probes, luts, codes, hx, hy, p["k"], cell_cap=cap, ncodes=nc,
+                tile_m=p["tile_m"], cell_extent=p["cell_extent"],
+                finalize=p["distance_finalize"], qc=qc))
+            mv, mi = MP.merge_partials_plain(v, i)
+            m_, pq_m = luts.shape[0], codes.shape[1]
+            lut3 = luts.view(m_, pq_m, nc)
+            sub = torch.arange(pq_m, device=luts.device)[None, :]
+
+            def adc(rows, cols):
+                s_ = lut3[rows[:, None], sub, codes[cols].long()].sum(1) + hx[rows, 0] + hy[0, cols]
+                return s_ if qc is None else s_ + qc[rows, cols // cap]
+
+            cmp = check_topk(mv, mi, pv, pi, n=codes.shape[0], rtol=1e-5, atol=1e-4, dist=adc)
+            live = torch.isfinite(hy[0]).view(-1, cap).sum(1)
+            pairs, read, _ = ivf_pairs(torch, probes, live, p["tile_m"], m_)
+            bnd = bound_ms(1.0 * pairs * pq_m, read * (pq_m + 4) + luts.numel() * 4
+                           + (0 if qc is None else qc.numel() * 4) + m_ * 4 + v.numel() * 8)
+            shape = f"{m_} queries, tile_m {p['tile_m']}, cell_cap {cap}, pq_m {pq_m}, k {p['k']}"
+        out.setdefault(name, []).append({
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "max_abs_err": cmp["max_abs_err"], "vs_plain": cmp, "library_ms": lib_ms, "K": K,
+            "shape": shape})
+    return out
+
+
+def filtered_wide_batch(torch, dev, run_path, index, engine, queries, k, label, seed):
+    """One batch through ``engine`` under phase 8's tenant filter with 500
+    exclusions a query (its unfiltered top 5 and 495 drawn ids: k + E = 510,
+    a fetch of K = 512 and, overfetched, up to 4096).  Gates: no excluded
+    id and no id of another tenant is served; every served id is live, at
+    its own distance; each wide launch equals its plain version at its
+    shape.  Recall@k against the filtered brute force is reported."""
+    from repro_torch.serving.filters import QueryFilter
+
+    m = len(queries)
+    rng = np.random.default_rng(seed)
+    qten = rng.integers(0, N_TENANTS, m).astype(np.int32)
+    top5 = engine.search(queries).ids[:, :5].cpu().numpy().astype(np.int64)
+    vecs, ids = index._live_rows()
+    ex = np.concatenate([top5, rng.integers(0, int(ids.max()) + 1, (m, 495))], 1)
+    f = QueryFilter(tenant=qten, exclude_ids=ex)
+    with WideLaunches(torch) as rec:
+        got, counts = run_path(label, lambda: engine.search(queries, filter=f))
+    tens = index._live_tenants()
+    vt = torch.from_numpy(vecs).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev).long()
+    pos = torch.full((int(ids_t.max()) + 1,), -1, dtype=torch.long, device=dev)
+    pos[ids_t] = torch.arange(len(ids_t), device=dev)
+    qt = torch.from_numpy(queries).to(dev)
+    tt, qten_t = torch.from_numpy(tens).to(dev), torch.from_numpy(qten).to(dev)
+    ex_t = torch.from_numpy(ex).to(dev)
+    r, c = (got.ids >= 0).nonzero(as_tuple=True)
+    gid = got.ids[r, c].long()
+    check(bool((gid < len(pos)).all()) and bool((pos[gid.clamp(max=len(pos) - 1)] >= 0).all()),
+          f"{label}: a served id is not live")
+    p = pos[gid]
+    check(bool((tt[p] == qten_t[r]).all()), f"{label}: an id of another tenant was served")
+    check(not bool((ex_t[r] == gid[:, None]).any()), f"{label}: an excluded id was served")
+    want = -(qt[r] * vt[p]).sum(1)
+    err = (got.distances[r, c] - want).abs()
+    check(bool((err <= 1e-3 + 1e-5 * want.abs()).all()), f"{label}: a served value is not its id's")
+    truth = []
+    for r0 in range(0, m, 256):
+        dm = torch.where(tt[None, :] == qten_t[r0 : r0 + 256, None], qt[r0 : r0 + 256] @ vt.T,
+                         float("-inf"))
+        e = ex_t[r0 : r0 + 256]
+        pe = pos[e.clamp(0, len(pos) - 1)]
+        hit = (e >= 0) & (e < len(pos)) & (pe >= 0)
+        rows = torch.arange(len(e), device=dev)[:, None].expand_as(e)
+        dm[rows[hit], pe[hit]] = float("-inf")
+        top = torch.topk(dm, k, dim=1)
+        truth.append(torch.where(torch.isfinite(top.values), ids_t[top.indices], -1))
+    wide = hold_wide(torch, rec.records)
+    out = {"recall_at_10": recall_at(torch, got.ids, torch.cat(truth)),
+           "empty_slots": int((got.ids < 0).sum()), "max_abs_err": float(err.max()),
+           "launches": counts, "wide": wide}
+    say(label, out)
+    return out
 
 
 def phase_cumulative(torch, dev, run_path, x, res):
@@ -366,7 +641,8 @@ def phase_two_stage(torch, dev, run_path):
     del fx32, gy32, hx32, hy32
     for sd in ("int8", "bfloat16"):
         index = RetrievalIndex.build(np.arange(n), db, distance="neg_dot", impl="fused",
-                                     device=dev, scan_dtype=sd, overfetch=4)
+                                     device=dev, scan_dtype=sd, overfetch=4,
+                                     tenants=tenant_tags(n, 30) if sd == "int8" else None)
         engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
 
         def serve():
@@ -401,6 +677,11 @@ def phase_two_stage(torch, dev, run_path):
         say(f"two_stage_{sd}_serving", {"recall_at_10": rec, "recall_at_10_after_churn": rec2,
                                         "meter": meter, "steady": steady.summary(),
                                         "steady_p90_ms": steady.latency_ms(90)})
+        if sd == "int8":  # phase 8's tenant filter with 500 exclusions: K' = 4 * 512
+            flt = filtered_wide_batch(torch, dev, run_path, index, engine, queries[:1024], k,
+                                      "two_stage_int8_filtered_exclude", 31)
+            for name in ("fused_knn_wide", "merge_partials_wide", "rescore_topk_wide"):
+                check(flt["launches"][name] > 0, f"two-stage filtered: {name} never launched")
 
         # The kernels at a batch of 1024, against their plain versions.
         vecs_t, main_q = index._dev["main_vecs"], index._dev["main_q"]
@@ -444,7 +725,19 @@ def phase_two_stage(torch, dev, run_path):
             "shape": list(rcand.shape),
             "bound_ms": bound_ms(2.0 * rcand.numel(), rcand.numel() * 4 + rfx.numel() * 4
                                  + rhx.numel() * 4 + rhy.numel() * 4 + 1024 * 16 * 8)}
-        del index, engine, fx, gy, gs, hx, hy, parts, part_v, part_i, pv, pi, rcand
+        del rcand, rfx, rhx, rhy
+        if sd == "int8":
+            out[sd]["filtered_exclude"] = flt
+            # The rescore kernel at the card's cap: 128 queries, 8192 drawn
+            # candidate rows each, K 4096.
+            cidx = torch.randint(0, nn, (128, 8192), generator=torch.Generator().manual_seed(32),
+                                 dtype=torch.int32).to(dev)
+            w = ops.rescore_operands(qb[:128], vecs_t, cidx, 4096, distance="neg_dot")
+            with WideLaunches(torch) as rec:
+                RS.rescore_topk(*w[:4], 4096, alpha=-1.0, finalize="identity")
+            out[sd]["rescore_k4096"] = hold_wide(torch, rec.records)["rescore_topk"][0]
+            del w, rec, cidx
+        del index, engine, fx, gy, gs, hx, hy, parts, part_v, part_i, pv, pi
         torch.cuda.empty_cache()
     say("two_stage_batch_1024", out)
     return out
@@ -626,6 +919,13 @@ def phase_ivf(torch, dev, run_path, x):
         if sd == "float32":
             res["filtered_tenant_batch"] = ivf_filtered_batch(torch, dev, run_path, index, engine,
                                                               queries[:1024], k)
+            # Phase 8's tenant filter with 500 exclusions: a fetch of 512,
+            # the scan at K = min(4 * 512, cell_cap).
+            flt = filtered_wide_batch(torch, dev, run_path, index, engine, queries[:1024], k,
+                                      "ivf_float32_filtered_exclude", 33)
+            for name in ("ivf_scan_wide", "rescore_topk_wide"):
+                check(flt["launches"][name] > 0, f"ivf filtered: {name} never launched")
+            res["filtered_exclude"] = flt
 
         # The ivf_scan kernel against its plain version, at batches of 1024 and 8.
         live_p = packed_live(ivf, live)
@@ -652,36 +952,47 @@ def phase_ivf(torch, dev, run_path, x):
             # queries against the rows of the distinct cells in its list (pad
             # slots are +inf and never selected; the compacted index has no
             # dead rows), each of those rows read once.
-            cnt = ivf.counts.long()
-            fresh = torch.ones_like(probes, dtype=torch.bool)
-            fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
-            rows_per_tile = (cnt[probes.long()] * fresh).sum(1)  # live rows in each union
-            q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
-                                      device=dev)
-            pairs = int((q_per_tile * rows_per_tile).sum())  # (query, row) pairs scored
-            read = int(cnt[torch.unique(probes).long()].sum())  # rows read at least once
+            pairs, read, _ = ivf_pairs(torch, probes, ivf.counts.long(), tile_m, m)
             K = next_pow2(k_scan)
             bnd = mm_bound(2.0 * pairs * d, m * d * 4 + read * d * gy.element_size()
                            + read * 4 * (1 if gs is None else 2) + m * K * 8,
                            gy_exact=gy.dtype != torch.float32)
-            # What the kernel walks: per CTA (a query block and a range of
-            # the list), the 128-column tiles of its distinct cells.
-            pr, bm, splits, sps = IVS.plan(probes, m, tile_m, K, dev, gy.dtype, gs is not None)
-            fresh = torch.ones_like(pr, dtype=torch.bool)
-            fresh[:, 1:] = pr[:, 1:] != pr[:, :-1]
-            walk = ((extent.long() + 127) // 128)[pr.long()] * fresh
-            walk = torch.cat([walk, walk.new_zeros((len(pr), splits * sps - pr.shape[1]))], 1)
-            walk = walk.reshape(len(pr), splits, sps).sum(2)  # [tiles, splits]
+            # What the kernel walks: per CTA (a block of a union tile's rows
+            # and a split of its tile table), 128-column tiles.
+            _, bounds, bm, splits = IVS.plan(probes, extent, ivf.cell_cap, m, tile_m, K, dev,
+                                             gy.dtype, gs is not None)
+            walk = (bounds[:, 1:] - bounds[:, :-1]).long()  # [union tiles, splits]
+            # The tile-table kernel against its plain version (tile_table and
+            # split_bounds on the same tensors): equal on every live entry.
+            tabs = {}
+            table_ms = time_ms(torch, lambda: tabs.__setitem__(
+                "k", IVS.build_table(probes, extent, ivf.cell_cap, splits)))
+            table_plain_ms, (want, counts) = time_plain(
+                torch, lambda: IVS.tile_table(probes, extent, ivf.cell_cap))
+            table, tbounds = tabs["k"]
+            check(torch.equal(tbounds, IVS.split_bounds(counts, splits)), "table bounds vs plain")
+            for t_, c_ in enumerate(counts.tolist()):
+                check(torch.equal(table[t_, :c_], want[t_, :c_]), "tile table vs plain")
+            table_bnd = bound_ms(0.0, probes.numel() * 4 + extent.numel() * 4
+                                 + int(counts.sum()) * 8 + tbounds.numel() * 4)
+            q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
+                                      device=dev)
             part_ms = time_ms(torch, lambda: IVS.ivf_scan_partials(probes, fx, gy, hx, hy,
                                                                    k_scan, **kw))
             res[f"ivf_scan_batch_{m}"] = {
                 "ms": ms, "partials_ms": part_ms, "plain_ms": plain_ms, "vs_plain": cmp,
                 **bnd, "rows_scored": pairs, "rows_read": read,
                 "columns_walked": int((q_per_tile[:, None] * walk).sum()) * 128,
-                "bm": bm, "splits": splits, "ctas": -(-m // bm) * splits,
+                "bm": bm, "splits": splits,
+                "ctas": len(probes) * -(-min(tile_m, m) // bm) * splits,
                 "tiles_per_cta_max": int(walk.max()),
                 "tiles_per_cta_mean": float(walk.float().mean()),
-                "tile_m": tile_m, "k_scan": k_scan}
+                "tile_m": tile_m, "k_scan": k_scan, "product": PRODUCT,
+                "table": {"ms": table_ms, "plain_ms": table_plain_ms, "max_abs_err": 0.0,
+                          "bound_ms": table_bnd[0], "bound_by": table_bnd[1],
+                          "library_ms": None, "entries": int(counts.sum()),
+                          "shape": f"{len(probes)} union tiles x {probes.shape[1]} slots, "
+                                   f"{splits} splits"}}
         out[sd] = res
         say(f"ivf_{sd}_kernels", res)
         del index, engine, ivf, ivf_q, vecs_t, live, fx, gy, gs, hx, hy, outs
@@ -836,7 +1147,8 @@ def phase_ivfpq(torch, dev, run_path, x):
     empty = (np.zeros((0, d), np.float32), np.zeros(0, np.int32), np.zeros(0, bool), 0)
     index = RetrievalIndex.from_arrays(
         db, np.arange(n), np.ones(n, bool), *empty, distance="neg_dot", impl="fused",
-        device=dev, ivf=cells, pq=(cb, codes), overfetch=8, nprobe=nprobe)
+        device=dev, ivf=cells, pq=(cb, codes), overfetch=8, nprobe=nprobe,
+        main_tenant=tenant_tags(n, 29))
     del cells, cb, codes  # the index owns them now; a compact must be able to free them
     engine = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
     rng = np.random.default_rng(9)
@@ -885,6 +1197,13 @@ def phase_ivfpq(torch, dev, run_path, x):
            "recall_at_10_overfetch_8_after_churn": rec8_churn, "first_search_s": first_s,
            "meter": meter, "steady": steady.summary(), "steady_p90_ms": steady.latency_ms(90)}
     say("ivfpq_serving", res)
+    # Phase 8's tenant filter with 500 exclusions: a fetch of 512, the scan at
+    # K = min(8 * 512, cell_cap).
+    flt = filtered_wide_batch(torch, dev, run_path, index, engine, queries[:1024], k,
+                              "ivfpq_filtered_exclude", 34)
+    for name in ("pq_scan_wide", "rescore_topk_wide"):
+        check(flt["launches"][name] > 0, f"ivfpq filtered: {name} never launched")
+    res["filtered_exclude"] = flt
 
     # The pq_scan kernel against its plain version on the compacted index,
     # at batches of 1024 and 8, at the served fetch width.
@@ -928,13 +1247,7 @@ def phase_ivfpq(torch, dev, run_path, x):
         # against the live rows of its union's distinct cells, pq_m adds a
         # pair; each input read once (the codes and hy of the rows read, the
         # tables, hx and the cell bias), each output written once.
-        fresh = torch.ones_like(probes, dtype=torch.bool)
-        fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
-        rows_per_tile = (live_cnt[probes.long()] * fresh).sum(1)
-        q_per_tile = torch.tensor([min(tile_m, m - t * tile_m) for t in range(len(probes))],
-                                  device=dev)
-        pairs = int((q_per_tile * rows_per_tile).sum())
-        read = int(live_cnt[torch.unique(probes).long()].sum())
+        pairs, read, rows_per_tile = ivf_pairs(torch, probes, live_cnt, tile_m, m)
         bnd = bound_ms(1.0 * pairs * PQ_M, read * (PQ_M + 4) + luts.numel() * 4
                        + qc.numel() * 4 + m * 4 + m * K * 8)
         pr, qb, splits, sps = PQS.plan(probes, m, luts.shape[1], PQ_M, K, dev)
@@ -1201,6 +1514,9 @@ def phase_filtered(torch, dev, run_path, db):
     check(torch.equal(mi, mpi) and torch.equal(mv, mpv), "the K = 512 merge vs plain")
     cat_v = part_v.permute(1, 0, 2).reshape(m, -1).contiguous()
     merge_lib_ms = time_ms(torch, lambda: torch.topk(cat_v, 512, dim=1, largest=False))
+    merge_graph = {"graph_ms": graph_ms(torch, lambda: MP.merge_partials(part_v, part_i)),
+                   "library_graph_ms": graph_ms(torch, lambda: torch.topk(
+                       cat_v, 512, dim=1, largest=False))}
     del cat_v
     wide_plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
         fx, gy, hx, hy, 510, alpha=alpha, finalize="identity", n_real=nn, q_mask=words))
@@ -1213,6 +1529,7 @@ def phase_filtered(torch, dev, run_path, db):
             "shape": f"partial sets, {m} x {nn}, d {d}, k 510 (K 512), tenant bitmap"}
     mb = bound_ms(0.0, part_v.numel() * 8 + mv.numel() * 8)
     merge = {"ms": merge_ms, "plain_ms": merge_plain_ms, "library_ms": merge_lib_ms,
+             **merge_graph,
              "max_abs_err": float((mv - mpv).abs().nan_to_num(0.0).max()),
              "bound_ms": mb[0], "bound_by": mb[1],
              "shape": f"{part_v.shape[0]} splits x {m} x 512"}
@@ -1263,7 +1580,11 @@ def main() -> int:
                 "rescore_topk": (RS, "LAUNCHES"), "ivf_scan": (IVS, "LAUNCHES"),
                 "pq_scan": (PQS, "LAUNCHES"), "pairwise_cumulative": (PD, "CUMULATIVE_LAUNCHES"),
                 "fused_knn_masked": (FK, "MASKED_LAUNCHES"), "fused_knn_wide": (FK, "WIDE_LAUNCHES"),
-                "merge_partials_wide": (MP, "WIDE_LAUNCHES")}
+                "merge_partials_wide": (MP, "WIDE_LAUNCHES"),
+                "stream_topk_wide": (ST, "WIDE_LAUNCHES"),
+                "rescore_topk_wide": (RS, "WIDE_LAUNCHES"),
+                "ivf_scan_wide": (IVS, "WIDE_LAUNCHES"), "pq_scan_wide": (PQS, "WIDE_LAUNCHES"),
+                "ivf_scan_table": (IVS, "TABLE_LAUNCHES")}
     launches = {name: 0 for name in counters}
 
     def run_path(label, fn):
@@ -1370,7 +1691,13 @@ def main() -> int:
     del sv, si
     st_lib_ms = time_ms(torch, lambda: torch.topk(dm, k, dim=1, largest=False))
     st_bound, st_by = bound_ms(1.0 * m2 * n, m2 * n * 4 + m2 * K * 8)
-    del dm
+    # Phase 2 of the paper at the card's cap, k = 4096, on rows 0..1023.
+    with WideLaunches(torch) as rec:
+        _, counts = run_path("two_phase_1024x160k_k4096",
+                             lambda: ops.stream_topk(dm[:1024], 4096))
+    check(counts["stream_topk_wide"] == 1, f"launches {counts}")
+    st_wide = hold_wide(torch, rec.records)["stream_topk"][0]
+    del dm, rec
 
     n3 = 32_768
     x3 = x[:n3]
@@ -1482,7 +1809,17 @@ def main() -> int:
     # The library yardstick: torch.topk over the [m, S * K] concatenation.
     cat_v = part_v.permute(1, 0, 2).reshape(part_v.shape[1], -1).contiguous()
     mg_lib_ms = time_ms(torch, lambda: torch.topk(cat_v, part_v.shape[2], dim=1, largest=False))
+    mg_graph = {"graph_ms": graph_ms(torch, lambda: MP.merge_partials(part_v, part_i)),
+                "library_graph_ms": graph_ms(torch, lambda: torch.topk(
+                    cat_v, part_v.shape[2], dim=1, largest=False))}
     del cat_v
+    # The fused kernel and its merge at the card's cap, K = 4096: the first
+    # 64 queries of the batch (one row tile, the database axis split 132 ways).
+    with WideLaunches(torch) as rec:
+        FK.fused_knn(sf[0][:64].contiguous(), sf[1], sf[2][:64].contiguous(), sf[3], 4096, **kw)
+    cap_k = hold_wide(torch, rec.records)
+    check(len(cap_k.get("merge_partials", [])) == 1, "the K = 4096 call was not split")
+    del rec
     say("serving_batch_1024", {"kernel_ms": serve_ms, "partials_ms": partials_ms,
                                "merge_ms": mg_ms, "plain_ms": serve_plain_ms,
                                "merge_plain_ms": mg_plain_ms, "vs_plain": serve_cmp,
@@ -1490,7 +1827,8 @@ def main() -> int:
                                "ctas_per_sm": SC.kernel_shape("fused_knn", dev, bm4, 16)[0],
                                **mm_bound(2.0 * 1024 * nn * d,
                                           (1024 + nn) * d * 4 + 1024 * 16 * 8),
-                               "merge_bound_ms": mg_bound, "merge_library_ms": mg_lib_ms})
+                               "merge_bound_ms": mg_bound, "merge_library_ms": mg_lib_ms,
+                               "merge_graph": mg_graph})
 
     del index, engine, steady, vecs_t, qb, sf, outs, part_v, part_i, mv, mi, mpv, mpi
     torch.cuda.empty_cache()
@@ -1524,6 +1862,25 @@ def main() -> int:
         launches=launches["fused_knn_masked"], unmasked_ms=flt["masked_partials"]["unmasked_ms"],
         fused_call_unmasked_ms=flt["masked_partials"]["fused_call_unmasked_ms"])
     fused_variants["wide_k512"]["launches"] = launches["fused_knn_wide"]
+    # Each selection kernel's wide launches (K > 256): those of the filtered
+    # batches with 500 exclusions of phases 5-7, and each kernel at the
+    # card's cap (K = 4096; ivf_scan and pq_scan take K up to cell_cap).
+    wide = {}
+    for label, rows in (("two_stage_filtered", ts["int8"]["filtered_exclude"]["wide"]),
+                        ("ivf_filtered", ivf["float32"]["filtered_exclude"]["wide"]),
+                        ("ivfpq_filtered", pq["filtered_exclude"]["wide"]),
+                        ("cap", {**cap_k, "stream_topk": [st_wide],
+                                 "rescore_topk": [ts["int8"]["rescore_k4096"]]})):
+        for name, entries in rows.items():
+            for e in entries:
+                key = f"{label}_k{e['K']}"
+                while key in wide.setdefault(name, {}):
+                    key += "_"
+                wide[name][key] = {k_: e[k_] for k_ in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms",
+                    "shape")}
+                wide[name][key]["launches"] = launches[f"{name}_wide"]
+    fused_variants.update(wide["fused_knn"])
     kernels = [
         {"name": "fused_knn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -1535,9 +1892,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/merge_partials.cu",
          "replaces": "src/repro/kernels/fused_knn.py:129", "launches": launches["merge_partials"],
          "max_abs_err": mg_err, "ms": mg_ms, "plain_ms": mg_plain_ms, "bound_ms": mg_bound,
-         "bound_by": mg_by, "library_ms": mg_lib_ms,
+         "bound_by": mg_by, "library_ms": mg_lib_ms, **mg_graph,
          "shape": f"{splits4} splits x 1024 x 16 (serving batch, k 10)",
-         "variants": {"k512": {**flt["merge_k512"], "launches": launches["merge_partials_wide"]}}},
+         "variants": {"k512": {**flt["merge_k512"], "launches": launches["merge_partials_wide"]},
+                      **wide["merge_partials"]}},
         {"name": "pairwise_distance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_distance.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:85",
@@ -1547,25 +1905,35 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/stream_topk.cu",
          "replaces": "src/repro/kernels/stream_topk.py:88", "launches": launches["stream_topk"],
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
-         "bound_by": st_by, "library_ms": st_lib_ms, "shape": "8192 x 160000, k 100"},
+         "bound_by": st_by, "library_ms": st_lib_ms, "shape": "8192 x 160000, k 100",
+         "variants": wide["stream_topk"]},
         {"name": "rescore_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rescore.cu",
          "replaces": "src/repro/kernels/rescore.py:65", "launches": launches["rescore_topk"],
          "max_abs_err": rs["vs_plain"]["max_abs_err"], "ms": rs["ms"],
          "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"][0], "bound_by": rs["bound_ms"][1],
-         "library_ms": None, "shape": f"candidates {rs['shape']} (int8 two-stage, k 10)"},
+         "library_ms": None, "shape": f"candidates {rs['shape']} (int8 two-stage, k 10)",
+         "variants": wide["rescore_topk"]},
         {"name": "ivf_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
          "replaces": "src/repro/kernels/ivf_scan.py:130", "launches": launches["ivf_scan"],
          "max_abs_err": iv["vs_plain"]["max_abs_err"], "ms": iv["ms"],
          "plain_ms": iv["plain_ms"], **{key: iv[key] for key in (
              "bound_ms", "bound_by", "bound_fp32_ms")}, "library_ms": None,
-         "product": "SIMT fp32 FMA (gemm.cuh)",
+         "product": PRODUCT,
          "shape": f"1024 queries, tile_m {iv['tile_m']}, nprobe 8 of 4096 cells, fp32, "
                   f"k {iv['k_scan']}",
-         "variants": {f"{sd}_batch_{m}": {key: ivf[sd][f"ivf_scan_batch_{m}"][key]
-                                          for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                      "bound_fp32_ms")}
+         "variants": {**{f"{sd}_batch_{m}": {key: ivf[sd][f"ivf_scan_batch_{m}"][key]
+                                             for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                         "bound_fp32_ms", "product")}
+                         for sd in ("float32", "int8") for m in (1024, 8)},
+                      **wide["ivf_scan"]}},
+        {"name": "ivf_scan_table", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ivf_scan.cu",
+         "replaces": "src/repro/kernels/ivf_scan.py:130", "launches": launches["ivf_scan_table"],
+         **{key: iv["table"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "shape")},
+         "variants": {f"{sd}_batch_{m}": ivf[sd][f"ivf_scan_batch_{m}"]["table"]
                       for sd in ("float32", "int8") for m in (1024, 8)}},
         {"name": "pq_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pq_scan.cu",
@@ -1577,7 +1945,7 @@ def main() -> int:
          "shape": f"1024 queries, tile_m 256, nprobe 8 of 4096 cells, pq_m {PQ_M}, "
                   f"nbits {PQ_NBITS}, k {pq['pq_scan_batch_1024']['k_scan']}",
          "variants": {"batch_8": {key: pq["pq_scan_batch_8"][key] for key in (
-             "ms", "plain_ms", "bound_ms", "bound_by")}}},
+             "ms", "plain_ms", "bound_ms", "bound_by")}, **wide["pq_scan"]}},
         {"name": "pairwise_cumulative", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_cumulative.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:134",

@@ -1,11 +1,11 @@
-"""Time the matmul-form kernels of several source trees, in turn, on one card.
+"""Time the kernels of several source trees, in turn, on one card.
 
     python3 src/repro_torch/ab_allpairs.py SRC [SRC ...]
 
 Each SRC is the ``src`` directory of a checkout of this repository: its
 ``repro_torch`` is imported from there, and its kernels are built beside
 it, in that checkout's ``build/``.  Each SRC runs in a process of its own,
-which times three calls, each after one warm-up call (the first of which
+which times these calls, each after one warm-up call (the first of which
 builds the kernels), five times by CUDA events:
 
 - ``allpairs``: ``knn_allpairs(x, 100, impl="fused")`` at the
@@ -15,7 +15,18 @@ builds the kernels), five times by CUDA events:
   against all 160,000 (sqeuclidean operands);
 - ``serving``: one fused serving batch, the ``fused_knn`` kernel (with its
   merge) on 1024 queries over the ``query_1m`` rows (1,048,576 x 256
-  ``random_vectors(seed=0)``), ``neg_dot``, k = 10.
+  ``random_vectors(seed=0)``), ``neg_dot``, k = 10;
+- ``ivf_<dtype>_<m>``: the ``ivf_scan`` kernel (with its merge) at
+  ``chip_smoke.py`` phase 6's shape: ``clustered_vectors(1,048,576 +
+  8,192, 256, n_clusters=4096, seed=0)``, 4096 cells of the k-means that
+  phase 6 trains (seeded 1; trained once, by the first process, and kept
+  in ``build/ab_ivf_cells.pt``), ``nprobe`` 8, ``neg_dot``, K' 64, union
+  tiles of up to 256 queries, every row live; batches of 1024 and 8
+  queries over the fp32 and the int8 packed rows;
+- ``merge_<S>x<m>x<K>``: the ``merge_partials`` kernel on random ascending
+  partial sets at the serving batch's shape (16 x 1024 x 16) and at a
+  filtered fetch's (8 x 1024 x 512), and beside it ``torch.topk`` over the
+  ``[m, S K]`` concatenation (``library_ms``).
 
 Listing two trees as A B B A compares them within one run of this script,
 on one card, under one power limit.  The card's name and power limit head
@@ -33,7 +44,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-CASES = ("allpairs", "pairwise", "serving")
+IVF_CASES = tuple(f"ivf_{sd}_{m}" for sd in ("float32", "int8") for m in (1024, 8))
+MERGE_SHAPES = ((16, 1024, 16), (8, 1024, 512))
+MERGE_CASES = tuple(f"merge_{s}x{m}x{k}" for s, m, k in MERGE_SHAPES)
+CASES = ("allpairs", "pairwise", "serving", *IVF_CASES, *MERGE_CASES)
 
 CHILD = r"""
 import json, statistics, sys, time
@@ -79,7 +93,63 @@ fx, gy, hx, hy, alpha = ops._mxu_operands(db[:1024].contiguous(), db, "neg_dot")
 (v, i), report["serving"] = timed(lambda: FK.fused_knn(
     fx, gy, hx, hy, 10, distance_finalize="identity", alpha=alpha, n_real=gy.shape[0]))
 report["serving"]["ids_checksum"] = int(i[:, :10].long().sum())
+del db, fx, gy, hx, hy, v, i
+
+from repro_torch.core.distances import quantize_rows
+from repro_torch.core.ivf import pack_cells, packed_live, probe_cells
+from repro_torch.data.synthetic import clustered_vectors
+from repro_torch.kernels import ivf_scan as IVS
+from repro_torch.kernels import merge_partials as MP
+
+xc = torch.from_numpy(clustered_vectors((1 << 20) + 8192, 256, n_clusters=4096, seed=0))
+db, q = xc[: 1 << 20].to("cuda"), xc[1 << 20 :][:1024].to("cuda")
+cent, assign = torch.load(sys.argv[2])
+cells = pack_cells(db, cent.to("cuda"), assign.to("cuda"))
+live = packed_live(cells)
+for sd in ("float32", "int8"):
+    packed_q = quantize_rows(cells.packed, sd, distance="neg_dot")
+    for m in (1024, 8):
+        cq = probe_cells(q[:m], cells.centroids, 8, distance="neg_dot")
+        probes, fx, gy, gs, hx, hy, alpha, tile_m, extent = ops.ivf_scan_operands(
+            q[:m], packed_q, cq, 64, cell_cap=cells.cell_cap, distance="neg_dot",
+            packed_live=live)
+        key = f"ivf_{sd}_{m}"
+        (v, i), report[key] = timed(lambda: IVS.ivf_scan(
+            probes, fx, gy, hx, hy, 64, cell_cap=cells.cell_cap, tile_m=tile_m,
+            distance_finalize="identity", alpha=alpha, gy_scale=gs, cell_extent=extent))
+        report[key]["ids_checksum"] = int(i[:, :10].long().sum())
+    del packed_q
+del db, cells, live, xc
+
+g = torch.Generator().manual_seed(0)
+for S, m, K in ((16, 1024, 16), (8, 1024, 512)):
+    pv = torch.sort(torch.randn(S, m, K, generator=g), dim=2).values.to("cuda")
+    cols = torch.sort(torch.rand(S, m, 4 * K, generator=g).argsort(2)[:, :, :K], dim=2).values
+    pi = (cols + torch.arange(S)[:, None, None] * 4 * K).int().to("cuda")
+    key = f"merge_{S}x{m}x{K}"
+    (v, i), report[key] = timed(lambda: MP.merge_partials(pv, pi))
+    report[key]["ids_checksum"] = int(i.long().sum())
+    cat_v = pv.permute(1, 0, 2).reshape(m, S * K).contiguous()
+    _, lib = timed(lambda: torch.topk(cat_v, K, dim=1, largest=False))
+    report[key]["library_ms"] = lib["median_ms"]
 print(json.dumps(report))
+"""
+
+# Trains phase 6's cells once (the k-means of chip_smoke.py, seeded 1) and
+# keeps the centroids and the assignment for the timing processes.
+SETUP = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core.ivf import train_centroids
+from repro_torch.data.synthetic import clustered_vectors
+
+torch.backends.cuda.matmul.allow_tf32 = False
+xc = clustered_vectors((1 << 20) + 8192, 256, n_clusters=4096, seed=0)
+db = torch.from_numpy(xc[: 1 << 20]).to("cuda")
+cent, assign = train_centroids(db, 4096, distance="neg_dot",
+                               generator=torch.Generator().manual_seed(1))
+torch.save((cent.cpu(), assign.cpu()), sys.argv[2])
 """
 
 
@@ -90,9 +160,17 @@ def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card.splitlines()[0], flush=True)
+    cells = ROOT / "build" / "ab_ivf_cells.pt"
+    if not cells.exists():
+        cells.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([sys.executable, "-c", SETUP, os.path.abspath(argv[1]), str(cells)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
     runs = []
     for src in argv[1:]:
-        proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(src)],
+        proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(src), str(cells)],
                               capture_output=True, text=True)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)
@@ -103,6 +181,9 @@ def main(argv: list[str]) -> int:
     summary = {case: {src: statistics.median(r[case]["median_ms"] for r in runs
                                              if r["src"] == src) for src in srcs}
                for case in CASES}
+    summary.update({f"{case}_library": {src: statistics.median(
+        r[case]["library_ms"] for r in runs if r["src"] == src) for src in srcs}
+        for case in MERGE_CASES})
     same = {case: len({json.dumps({k: v for k, v in r[case].items() if "checksum" in k})
                        for r in runs}) == 1 for case in CASES}
     report = {"card": card.splitlines()[0], "runs": runs, "median_ms_by_src": summary,

@@ -64,10 +64,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     Mixed or other devices raise: a wrapper never moves data behind the
     caller's back.
     """
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"operands lie on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            devs = {str(t.device) for t in tensors}
+            raise ValueError(f"operands lie on several devices: {sorted(devs)}")
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
@@ -75,22 +76,25 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {dev}")
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg) -> None:
+    """Raise ValueError(msg) unless ``cond``; ``msg`` may be a function
+    giving it, so that a launch does not format a message it never shows."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def require_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
-    require(t.dtype == torch.float32, f"{name}: want float32, got {t.dtype}")
-    require(tuple(t.shape) == tuple(shape), f"{name}: want shape {shape}, got {tuple(t.shape)}")
-    require(t.is_contiguous(), f"{name}: must be contiguous")
+    require(t.dtype == torch.float32, lambda: f"{name}: want float32, got {t.dtype}")
+    require(t.shape == tuple(shape),
+            lambda: f"{name}: want shape {tuple(shape)}, got {tuple(t.shape)}")
+    require(t.is_contiguous(), lambda: f"{name}: must be contiguous")
 
 
 def require_vec4(d: int, *tensors: torch.Tensor) -> None:
     """The kernels read rows four elements at a time (16 bytes of fp32, 8 of
     bf16, 4 of int8), so d is a multiple of 4 and each operand is aligned
     to four of its elements."""
-    require(d % 4 == 0, f"the kernel reads rows in fours; d={d} is not a multiple of 4")
+    require(d % 4 == 0, lambda: f"the kernel reads rows in fours; d={d} is not a multiple of 4")
     require(all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors),
             "the kernel's operands must be aligned to four elements")
 
@@ -156,6 +160,9 @@ def build(names=KERNEL_SOURCES) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -169,13 +176,20 @@ def load(name: str) -> ctypes.CDLL:
 
 def call(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` of library ``name`` with ``device``
-    current; raise if it reports a CUDA error."""
+    current; raise if it reports a CUDA error.  (A launch's host time is
+    latency to a small kernel's caller: the entry point is typed once per
+    loaded library, and the device switched only when another is
+    current.)"""
     lib = load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
+    fn = getattr(lib, entry)  # ctypes keeps the function object on the library
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
@@ -183,12 +197,12 @@ def call(name: str, entry: str, argtypes: list, device: torch.device, *args) -> 
 
 def launch(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
     """``call``, with ``device``'s current stream as the last argument."""
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    call(name, entry, argtypes, device, *args, stream)
+    call(name, entry, argtypes, device, *args, torch.cuda.current_stream(device).cuda_stream)
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's address for a ``void*`` parameter (None: a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def sm_count(device: torch.device) -> int:

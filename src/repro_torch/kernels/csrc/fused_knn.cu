@@ -5,7 +5,7 @@
 #include "fused_knn.cuh"
 
 // The launch parameters of this compiled kernel at BM query rows (128 for
-// K <= 32, or 64), width K (up to 1024), gy storage type (0 fp32, 1 bf16,
+// K <= 32, or 64), width K (up to 4096), gy storage type (0 fp32, 1 bf16,
 // 2 int8) and with or without a scale: out[0] = CTAs resident per SM
 // (registers and shared memory both counted), out[1] = database columns per
 // tile, out[2] = dynamic shared memory per CTA in bytes.

@@ -46,8 +46,9 @@
 //   BM 64, K = 256:   R = 0 (the rows land in the operand stages), 225 KB.
 // (Ids kept in the CTA's rows of out_i, to give K = 128 the 128-row layout,
 // made the all-pairs call slower: an insertion then reads them from L2.)
-// K = 512 and 1024 (a filtered search's k + E, or a post-filter's widened
-// fetch) cannot stay beside the stages: [64, 1024] entries are 512 KB.
+// K = 512 to 4096 (a filtered search's k + E, a post-filter's widened
+// fetch, or the two-stage scan's overfetch of either) cannot stay beside the
+// stages: [64, 1024] entries are 512 KB.
 // Their K-buffers are the CTA's rows of its own output, out [splits, m, K],
 // in device memory, with the K-th entry in registers (select.cuh's wide
 // instantiation reads the entries an insertion moves all at once); R = 2,
@@ -67,6 +68,15 @@
 // partial [m, K] set, which merge_partials.cu then merges, lower splits
 // winning ties through the (value, column) order.  The caller picks the
 // split from what fused_knn_occupancy reports of this compiled kernel.
+//
+// The walk (kTable): the contiguous range of tiles above, or, for
+// ivf_scan.cu, a range of a tile table.  There the rows come in union tiles
+// of tile_m queries, each with its own table of 128-column tiles (first
+// column, and the end hi of the cell the tile starts in; columns at or past
+// hi never enter), and a CTA owns rows of one union tile only: row block
+// blockIdx.x % ceil(min(tile_m, m) / BM) of union tile blockIdx.x / that,
+// the rows past the union tile's end dead.  Split s walks entries
+// [bounds[s], bounds[s + 1]) of its union tile's table.
 #pragma once
 
 #include "gemm_tc.cuh"
@@ -96,32 +106,70 @@ constexpr size_t fused_smem_bytes(int K) {
          (kCap > kMaxK ? 0 : static_cast<size_t>(BM) * K * (sizeof(float) + sizeof(int)));
 }
 
-template <int BM, typename TB, bool kScaled, bool kMasked, int R, int kCap>
+// The tile table's walk: the table (first column, cell end) of each union
+// tile, table_stride entries a union tile, and the bounds of each split.
+struct TileTable {
+  const int2* table;
+  const int* bounds;  // [union tiles, splits + 1]
+  int table_stride;
+  int tile_m;
+};
+
+template <int BM, typename TB, bool kScaled, bool kMasked, int R, int kCap, bool kTable>
 __global__ void __launch_bounds__(tc::kThreads, 1)
     fused_knn_kernel(const float* __restrict__ fx, const TB* __restrict__ gy,
                      const float* __restrict__ gs, const unsigned* __restrict__ qm,
                      const float* __restrict__ hx, const float* __restrict__ hy,
                      float* __restrict__ out_v, int* __restrict__ out_i, int m, int n, int d,
                      int K, int n_real, int qm_stride, int exclude_self, int skip, float alpha,
-                     int fin, int tiles_per_split) {
+                     int fin, int tiles_per_split, TileTable tt) {
   using G = FusedGemm<BM, TB>;
   constexpr bool kInOut = kCap > kMaxK;  // the K-buffers are the output's rows
   extern __shared__ float4 smem4[];
   unsigned char* ring = ring_base(smem4);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * BM;
   const int split = blockIdx.y;
-  const int n_tiles = (n + kFusedBN - 1) / kFusedBN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
   const int kslices = (d + tc::kBK - 1) / tc::kBK;
+  // The CTA's rows [row0, row_end) and its range of tiles [t_begin, t_end):
+  // tile t starts at column col_of(t), and its columns at or past hi_of(t)
+  // never enter.
+  int row0, row_end, t_begin, t_end;
+  const int2* tiles = nullptr;
+  if constexpr (kTable) {
+    const int per_tile = (min(tt.tile_m, m) + BM - 1) / BM;
+    const int ut = blockIdx.x / per_tile;
+    row0 = ut * tt.tile_m + (blockIdx.x % per_tile) * BM;
+    row_end = min(m, (ut + 1) * tt.tile_m);
+    if (row0 >= row_end) return;  // a block past a short last union tile
+    const int* b = tt.bounds + static_cast<size_t>(ut) * (gridDim.y + 1) + split;
+    t_begin = b[0];
+    t_end = b[1];
+    tiles = tt.table + static_cast<size_t>(ut) * tt.table_stride;
+  } else {
+    row0 = blockIdx.x * BM;
+    row_end = m;
+    t_begin = split * tiles_per_split;
+    t_end = min((n + kFusedBN - 1) / kFusedBN, t_begin + tiles_per_split);
+  }
+  auto col_of = [&](int t) -> int {
+    if constexpr (kTable)
+      return tiles[t_begin + t].x;
+    else
+      return (t_begin + t) * kFusedBN;
+  };
+  auto hi_of = [&](int t) -> int {
+    if constexpr (kTable)
+      return tiles[t_begin + t].y;
+    else
+      return n_real;
+  };
   // Row r's K-buffer: in shared memory, or row row0 + r of split `split`
   // of the output.
   float* rv_all = kInOut ? out_v + (static_cast<size_t>(split) * m + row0) * K
                          : reinterpret_cast<float*>(ring + ring_bytes<G, R>() - 1024);
   int* ri_all = kInOut ? out_i + (static_cast<size_t>(split) * m + row0) * K
                        : reinterpret_cast<int*>(rv_all + BM * K);
-  const int buf_rows = kInOut ? min(BM, m - row0) : BM;
+  const int buf_rows = kInOut ? min(BM, row_end - row0) : BM;
 
   for (int i = tid; i < buf_rows * K; i += tc::kThreads) {
     rv_all[i] = CUDART_INF_F;
@@ -131,33 +179,33 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + G::row_of(2 * h);
-    hxr[h] = r < m ? hx[r] : 0.f;
+    hxr[h] = r < row_end ? hx[r] : 0.f;
   }
   __syncthreads();
 
   auto load = [&](int s, unsigned char* raw, bool in_place, int lt) {
-    const int col0 = (t_begin + s / kslices) * kFusedBN;
-    G::load(raw, in_place, lt, fx, m, gy, n, d, row0, col0, (s % kslices) * tc::kBK);
+    G::load(raw, in_place, lt, fx, row_end, gy, n, d, row0, col_of(s / kslices),
+            (s % kslices) * tc::kBK);
   };
   // Epilogue, in the reference's order (fused_knn.py _select):
   //   t = alpha * acc;  t *= gs[col] (with a scale);  finalize(t + hx + hy)
   // into the finished tile (tile_index), in the stage the last product read;
   // the tile's hy (and gs) lines are brought into L1 beside that product.
   auto pre = [&](int t) {
-    const int col = (t_begin + t) * kFusedBN + 32 * tid;
+    const int col = col_of(t) + 32 * tid;
     if (tid < kFusedBN / 32 && col < n) {
       tc::prefetch_l1(hy + col);
       if constexpr (kScaled) tc::prefetch_l1(gs + col);
     }
     if constexpr (kMasked) {  // and each row's four words of the tile's bitmap
-      const int col0 = (t_begin + t) * kFusedBN;
+      const int col0 = col_of(t);
       if (tid < BM && row0 + tid < m && col0 < n_real)
         tc::prefetch_l1(qm + static_cast<size_t>(row0 + tid) * qm_stride + col0 / 32);
     }
   };
   auto epi = [&](int t, float(&a)[G::kAcc], unsigned char* st) {
     float* tile = reinterpret_cast<float*>(st);
-    const int col0 = (t_begin + t) * kFusedBN;
+    const int col0 = col_of(t);
 #pragma unroll
     for (int j = 0; j < G::kAcc / 4; ++j) {
       const int c = G::col_of(4 * j);
@@ -193,21 +241,22 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   auto select = [&](int t, int kq, unsigned char* st) {
     if (kq != 0) return;
     const float* tile = reinterpret_cast<const float*>(st);
-    const int col0 = (t_begin + t) * kFusedBN;
+    const int col0 = col_of(t);
+    const int col_hi = hi_of(t);
     unsigned held[kHeld];
     if constexpr (kMasked) {
 #pragma unroll
       for (int h = 0; h < kHeld; ++h) {
         const int e = h * 32 + lane, b = e % 4;  // word b of the warp's row e / 4
         const int grow = row0 + warp + kSelWarps * (e / 4);
-        held[h] = grow < m && col0 + 32 * b < n_real
+        held[h] = grow < row_end && col0 + 32 * b < n_real
                       ? qm[static_cast<size_t>(grow) * qm_stride + col0 / 32 + b]
                       : 0u;
       }
     }
     for (int r = warp, rr = 0; r < BM; r += kSelWarps, ++rr) {
       const int grow = row0 + r;
-      if (grow >= m) break;
+      if (grow >= row_end) break;
       float* rv = rv_all + static_cast<size_t>(r) * K;
       int* ri = ri_all + static_cast<size_t>(r) * K;
       float kv = rv[K - 1];
@@ -215,7 +264,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
 #pragma unroll
       for (int b = 0; b < kFusedBN; b += 32) {
         const int c = col0 + b + lane;
-        bool valid = c < n_real && !(exclude_self && c == grow);
+        bool valid = c < col_hi && !(exclude_self && c == grow);
         if constexpr (kMasked) {
           const int e = rr * 4 + b / 32;  // this row's word b / 32, in lane e % 32
           const unsigned w = __shfl_sync(kFullMask, e < 32 ? held[0] : held[kHeld - 1], e % 32);
@@ -238,7 +287,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   if constexpr (kInOut) return;
   for (int r = warp; r < BM; r += tc::kConsumers / 32) {
     const int grow = row0 + r;
-    if (grow >= m) break;
+    if (grow >= row_end) break;
     const size_t base = (static_cast<size_t>(split) * m + grow) * K;
     for (int j = lane; j < K; j += 32) {
       out_v[base + j] = rv_all[r * K + j];
@@ -247,10 +296,11 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
   }
 }
 
-// Allow the kernel of (BM, TB, kScaled, kMasked) at width K its dynamic
-// shared memory; f(kernel, bytes), or an error if BM and K have no layout
-// that fits an SM (BM 128 takes K up to kWideMaxK, BM 64 up to kMaxSelectK).
-template <typename TB, bool kScaled, bool kMasked, typename F>
+// Allow the kernel of (BM, TB, kScaled, kMasked, kTable) at width K its
+// dynamic shared memory; f(kernel, bytes), or an error if BM and K have no
+// layout that fits an SM (BM 128 takes K up to kWideMaxK, BM 64 up to
+// kMaxSelectK).
+template <typename TB, bool kScaled, bool kMasked, bool kTable, typename F>
 int with_fused_kernel(int bm, int K, F&& f) {
   auto go = [&](auto kernel, size_t smem) -> int {
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -260,17 +310,31 @@ int with_fused_kernel(int bm, int K, F&& f) {
     return f(kernel, smem);
   };
   if (bm == 128 && K <= kWideMaxK)
-    return go(fused_knn_kernel<128, TB, kScaled, kMasked, 2, kMaxK>,
+    return go(fused_knn_kernel<128, TB, kScaled, kMasked, 2, kMaxK, kTable>,
               fused_smem_bytes<128, TB, 2, kMaxK>(K));
   if (bm != 64) return cudaErrorInvalidValue;
   if (K > kMaxK)
-    return go(fused_knn_kernel<64, TB, kScaled, kMasked, 2, kMaxSelectK>,
+    return go(fused_knn_kernel<64, TB, kScaled, kMasked, 2, kMaxSelectK, kTable>,
               fused_smem_bytes<64, TB, 2, kMaxSelectK>(K));
   if (fused_raw_stages(K) == 2)
-    return go(fused_knn_kernel<64, TB, kScaled, kMasked, 2, kMaxK>,
+    return go(fused_knn_kernel<64, TB, kScaled, kMasked, 2, kMaxK, kTable>,
               fused_smem_bytes<64, TB, 2, kMaxK>(K));
-  return go(fused_knn_kernel<64, TB, kScaled, kMasked, 0, kMaxK>,
+  return go(fused_knn_kernel<64, TB, kScaled, kMasked, 0, kMaxK, kTable>,
             fused_smem_bytes<64, TB, 0, kMaxK>(K));
+}
+
+// out[0] = CTAs resident per SM of `kernel` with `smem` bytes, out[1] =
+// database columns per tile, out[2] = the bytes.
+template <typename Kernel>
+int fused_report(Kernel kernel, size_t smem, int* out) {
+  int ctas = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, tc::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = ctas;
+  out[1] = kFusedBN;
+  out[2] = static_cast<int>(smem);
+  return 0;
 }
 
 // out[0] = CTAs resident per SM of the kernel at (bm, K, gy_dtype, scaled),
@@ -282,16 +346,8 @@ int fused_occupancy(int bm, int K, int gy_dtype, int scaled, int* out) {
   return dispatch_gy(gy_dtype, scaled != 0, [&](auto tb, auto sc) -> int {
     using TB = typename decltype(tb)::type;
     constexpr bool kS = decltype(sc)::value;
-    return with_fused_kernel<TB, kS, kMasked>(bm, K, [&](auto kernel, size_t smem) -> int {
-      int ctas = 0;
-      const cudaError_t err =
-          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, tc::kThreads, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      out[0] = ctas;
-      out[1] = kFusedBN;
-      out[2] = static_cast<int>(smem);
-      return 0;
-    });
+    return with_fused_kernel<TB, kS, kMasked, false>(
+        bm, K, [&](auto kernel, size_t smem) { return fused_report(kernel, smem, out); });
   });
 }
 
@@ -313,11 +369,11 @@ int fused_launch(const float* fx, const void* gy, const float* gs, const unsigne
   return dispatch_gy(gy_dtype, gs != nullptr, [&](auto tb, auto sc) -> int {
     using TB = typename decltype(tb)::type;
     constexpr bool kS = decltype(sc)::value;
-    return with_fused_kernel<TB, kS, kMasked>(bm, K, [&](auto kernel, size_t smem) -> int {
+    return with_fused_kernel<TB, kS, kMasked, false>(bm, K, [&](auto kernel, size_t smem) {
       const dim3 grid((m + bm - 1) / bm, splits);
       kernel<<<grid, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           fx, static_cast<const TB*>(gy), gs, qm, hx, hy, out_v, out_i, m, n, d, K, n_real,
-          qm_stride, exclude_self, threshold_skip, alpha, fin, tiles_per_split);
+          qm_stride, exclude_self, threshold_skip, alpha, fin, tiles_per_split, TileTable{});
       return static_cast<int>(cudaGetLastError());
     });
   });

@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(kCThreads)
   const int tx = tid % (kCBN / kCTN), ty = tid / (kCBN / kCTN);
   const int row0 = blockIdx.y * kCBM, col0 = blockIdx.x * kCBN;
   // A thread's rows (columns) come in two groups of four, kCBM / 2 apart,
-  // as in gemm.cuh: the float4 reads of a quarter-warp hit distinct banks.
+  // so that the float4 reads of a quarter-warp hit distinct banks.
   auto row_of = [&](int i) { return (i / 4) * (kCBM / 2) + ty * 4 + (i % 4); };
   auto col_of = [&](int j) { return (j / 4) * (kCBN / 2) + tx * 4 + (j % 4); };
 

@@ -31,6 +31,11 @@
 // (the table lookups are shared-memory loads, about one per add).  The codes
 // and hy of a row are read from device memory once, and from L2 by every
 // other CTA of the same union tile.
+//
+// K above 256 (up to kMaxSelectK, an IVF-PQ fetch widened by a filter's
+// exclusions) runs a wide instantiation of its own: the QB K-buffers would
+// not fit beside the LUTs (QB x 4096 x 8 bytes is 256 KB at QB 8), so they
+// are the rows of the kernel's own output, in device memory.
 #include <type_traits>
 
 #include "select.cuh"
@@ -42,14 +47,16 @@ constexpr int kPqThreads = 256, kPqTile = 128, kPqWarps = kPqThreads / 32;
 // Words per staged code row: enough for pq_m bytes, and odd.
 __host__ __device__ inline int code_words(int pq_m) { return ((pq_m + 3) / 4) | 1; }
 
-template <int QB>
+// The LUTs, the tile, the staged codes, and the K-buffers unless they are
+// the output's rows (kCap > kMaxK).
+template <int QB, int kCap>
 size_t pq_smem_bytes(int lut_floats, int pq_m, int K) {
   return sizeof(float) * (static_cast<size_t>(QB) * lut_floats + QB * kPqTile) +
          sizeof(unsigned) * static_cast<size_t>(kPqTile) * code_words(pq_m) +
-         static_cast<size_t>(QB) * K * (sizeof(float) + sizeof(int));
+         (kCap > kMaxK ? 0 : static_cast<size_t>(QB) * K * (sizeof(float) + sizeof(int)));
 }
 
-template <int QB>
+template <int QB, int kCap>
 __global__ void __launch_bounds__(kPqThreads)
     pq_scan_kernel(const int* __restrict__ probes, const int* __restrict__ extent,
                    const float* __restrict__ luts, const uint8_t* __restrict__ codes,
@@ -57,6 +64,7 @@ __global__ void __launch_bounds__(kPqThreads)
                    const float* __restrict__ hy, float* __restrict__ out_v,
                    int* __restrict__ out_i, int m, int pq_m, int ncodes, int S, int W, int K,
                    int cell_cap, int tile_m, int skip, int fin, int slots_per_split) {
+  constexpr bool kInOut = kCap > kMaxK;  // the K-buffers are the output's rows
   extern __shared__ float4 smem4[];
   __shared__ float hxs[QB];
   const int L = pq_m * ncodes;
@@ -64,11 +72,16 @@ __global__ void __launch_bounds__(kPqThreads)
   float* lut = reinterpret_cast<float*>(smem4);  // [QB][L]
   float* tile = lut + QB * L;                    // [QB][kPqTile]
   unsigned* cs = reinterpret_cast<unsigned*>(tile + QB * kPqTile);  // [kPqTile][cw]
-  float* rv = reinterpret_cast<float*>(cs + kPqTile * cw);          // [QB][K]
-  int* ri = reinterpret_cast<int*>(rv + QB * K);                    // [QB][K]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * QB;
   const int split = blockIdx.y;
+  // Row q's K-buffer at rv + q * K: in shared memory, or row row0 + q of
+  // split `split` of the output.
+  float* rv = kInOut ? out_v + (static_cast<size_t>(split) * m + row0) * K
+                     : reinterpret_cast<float*>(cs + kPqTile * cw);  // [QB][K]
+  int* ri = kInOut ? out_i + (static_cast<size_t>(split) * m + row0) * K
+                   : reinterpret_cast<int*>(rv + QB * K);  // [QB][K]
+  const int buf_rows = kInOut ? min(QB, m - row0) : QB;
   const int ncells = S / cell_cap;
   const int* plist = probes + static_cast<size_t>(row0 / tile_m) * W;
 
@@ -78,7 +91,7 @@ __global__ void __launch_bounds__(kPqThreads)
     const int q = i / L, r = row0 + q;
     lut[i] = r < m ? luts[static_cast<size_t>(r) * L + (i - q * L)] : 0.f;
   }
-  for (int i = tid; i < QB * K; i += kPqThreads) {
+  for (int i = tid; i < buf_rows * K; i += kPqThreads) {
     rv[i] = CUDART_INF_F;
     ri[i] = -1;
   }
@@ -149,14 +162,15 @@ __global__ void __launch_bounds__(kPqThreads)
 #pragma unroll
         for (int b = 0; b < kPqTile; b += 32) {
           const int s = b + lane;
-          warp_offer(rvq, riq, K, tile[q * kPqTile + s], col0 + s, s < ncol, skip != 0, kv,
-                     ki, lane);
+          warp_offer<kCap>(rvq, riq, K, tile[q * kPqTile + s], col0 + s, s < ncol, skip != 0,
+                           kv, ki, lane);
         }
       }
       __syncthreads();
     }
   }
 
+  if constexpr (kInOut) return;
   for (int q = warp; q < QB; q += kPqWarps) {
     const int r = row0 + q;
     if (r >= m) break;
@@ -169,39 +183,40 @@ __global__ void __launch_bounds__(kPqThreads)
 }
 
 // Allow the kernel its dynamic shared memory; the bytes, or 0 if too many.
-template <int QB>
+template <int QB, int kCap>
 size_t pq_prepare(int lut_floats, int pq_m, int K) {
-  const size_t smem = pq_smem_bytes<QB>(lut_floats, pq_m, K);
+  const size_t smem = pq_smem_bytes<QB, kCap>(lut_floats, pq_m, K);
   if (smem > 232448 - sizeof(float) * QB) return 0;  // the static hx block too
-  if (cudaFuncSetAttribute(pq_scan_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(pq_scan_kernel<QB, kCap>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return 0;
   return smem;
 }
 
-template <int QB>
+template <int QB, int kCap>
 int pq_occupancy(int lut_floats, int pq_m, int K, int* out) {
-  const size_t smem = pq_prepare<QB>(lut_floats, pq_m, K);
+  const size_t smem = pq_prepare<QB, kCap>(lut_floats, pq_m, K);
   out[0] = out[1] = 0;
   if (smem == 0) return 0;  // does not fit an SM: zero CTAs
   int ctas = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, pq_scan_kernel<QB>, kPqThreads, smem);
+      &ctas, pq_scan_kernel<QB, kCap>, kPqThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = ctas;
   out[1] = static_cast<int>(smem);
   return 0;
 }
 
-template <int QB>
+template <int QB, int kCap>
 int launch_pq(const int* probes, const int* extent, const float* luts, const uint8_t* codes,
               const float* qc, const float* hx, const float* hy, float* out_v, int* out_i,
               int m, int pq_m, int ncodes, int S, int W, int K, int cell_cap, int tile_m,
               int skip, int fin, int splits, int slots_per_split, cudaStream_t stream) {
-  const size_t smem = pq_prepare<QB>(pq_m * ncodes, pq_m, K);
+  const size_t smem = pq_prepare<QB, kCap>(pq_m * ncodes, pq_m, K);
   if (smem == 0) return cudaErrorInvalidValue;
   const dim3 grid((m + QB - 1) / QB, splits);
-  pq_scan_kernel<QB><<<grid, kPqThreads, smem, stream>>>(
+  pq_scan_kernel<QB, kCap><<<grid, kPqThreads, smem, stream>>>(
       probes, extent, luts, codes, qc, hx, hy, out_v, out_i, m, pq_m, ncodes, S, W, K,
       cell_cap, tile_m, skip, fin, slots_per_split);
   return static_cast<int>(cudaGetLastError());
@@ -226,10 +241,12 @@ int dispatch_qb(int qb, F&& f) {
 // out[1] = dynamic shared memory per CTA in bytes.
 extern "C" int pq_scan_occupancy(int qb, int lut_floats, int pq_m, int K, int* out) {
   using namespace repro;
-  if (lut_floats <= 0 || pq_m <= 0 || K <= 0 || K > kMaxK || (K & (K - 1)) != 0)
+  if (lut_floats <= 0 || pq_m <= 0 || K <= 0 || K > kMaxSelectK || (K & (K - 1)) != 0)
     return cudaErrorInvalidValue;
   return dispatch_qb(qb, [&](auto c) -> int {
-    return pq_occupancy<decltype(c)::value>(lut_floats, pq_m, K, out);
+    constexpr int kQB = decltype(c)::value;
+    return K <= kMaxK ? pq_occupancy<kQB, kMaxK>(lut_floats, pq_m, K, out)
+                      : pq_occupancy<kQB, kMaxSelectK>(lut_floats, pq_m, K, out);
   });
 }
 
@@ -246,16 +263,19 @@ extern "C" int pq_scan(const int* probes, const int* extent, const float* luts,
   using namespace repro;
   if ((qb != 1 && qb != 2 && qb != 4 && qb != 8) || extent == nullptr || m <= 0 || pq_m <= 0 ||
       ncodes < 2 || ncodes > 256 ||
-      (ncodes & (ncodes - 1)) != 0 || K <= 0 || K > kMaxK || (K & (K - 1)) != 0 ||
+      (ncodes & (ncodes - 1)) != 0 || K <= 0 || K > kMaxSelectK || (K & (K - 1)) != 0 ||
       cell_cap <= 0 || S <= 0 || S % cell_cap != 0 || W <= 0 || tile_m <= 0 ||
       (tile_m % qb != 0 && m > tile_m) || splits < 1 || slots_per_split < 1 ||
       (splits - 1) * slots_per_split >= W || splits * slots_per_split < W || splits > 65535 ||
       (pq_m % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 4 != 0))
     return cudaErrorInvalidValue;
   return dispatch_qb(qb, [&](auto c) -> int {
-    return launch_pq<decltype(c)::value>(probes, extent, luts, codes, qc, hx, hy, out_v, out_i,
-                                         m, pq_m, ncodes, S, W, K, cell_cap, tile_m,
-                                         threshold_skip, fin, splits, slots_per_split,
-                                         static_cast<cudaStream_t>(stream));
+    constexpr int kQB = decltype(c)::value;
+    auto go = [&](auto launch) {
+      return launch(probes, extent, luts, codes, qc, hx, hy, out_v, out_i, m, pq_m, ncodes, S,
+                    W, K, cell_cap, tile_m, threshold_skip, fin, splits, slots_per_split,
+                    static_cast<cudaStream_t>(stream));
+    };
+    return K <= kMaxK ? go(launch_pq<kQB, kMaxK>) : go(launch_pq<kQB, kMaxSelectK>);
   });
 }

@@ -19,8 +19,9 @@
 // The buffer may lie in shared or in device memory: the insertion reads the
 // entries it moves into registers, up to eight per lane (256 entries) at a
 // time, before it writes any, so that those reads are in flight at once.
-// kCap bounds K: the K <= 256 callers keep kMaxK, and the kernels that
-// select up to kMaxSelectK instantiate a wide copy.
+// kCap bounds K: every kernel keeps kMaxK for K <= 256 (buffers in shared
+// memory), and instantiates a wide copy, kCap = kMaxSelectK, whose buffers
+// are rows of its own output in device memory.
 #pragma once
 
 #include "common.cuh"
@@ -28,7 +29,7 @@
 namespace repro {
 
 constexpr int kMaxK = 256;
-constexpr int kMaxSelectK = 1024;  // the widest K fused_knn.cu and merge_partials.cu select
+constexpr int kMaxSelectK = 4096;  // the widest K every selection kernel takes on the card
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);

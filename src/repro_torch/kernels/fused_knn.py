@@ -3,8 +3,9 @@
 Replaces ``repro/kernels/fused_knn.py::fused_knn_pallas`` (body ``_kernel``).
 Source: ``csrc/fused_knn.cuh``, built as ``csrc/fused_knn.cu`` (unmasked)
 and ``csrc/fused_knn_masked.cu`` (with ``q_mask``), with
-``csrc/gemm_tc.cuh`` for the tile product and its walk (``kernels/scan.py`` for what the wrapper shares with
-``ivf_scan``) and ``csrc/select.cuh`` for the selection.  ``gy`` is fp32,
+``csrc/gemm_tc.cuh`` for the tile product and its walk (``kernels/scan.py``
+for what the wrapper shares with ``ivf_scan``, whose kernel is this one
+walking a tile table) and ``csrc/select.cuh`` for the selection.  ``gy`` is fp32,
 or a bf16 / int8 scan replica (``core.distances.quantize_rows``) whose int8
 rows carry a per-row ``gy_scale``: the kernel widens each element to fp32
 as it stages it, and folds the scale into the epilogue.
@@ -25,9 +26,9 @@ database tiles, keeping each row's K-buffer in shared memory.  When the query ti
 kernel (``merge_partials``) merges the partial sets; ``plan`` picks BM and
 the split from what the compiled kernel reports of its occupancy.
 
-K: up to ``MAX_SELECT_K`` = 1024 on the card.  Up to 256 a CTA keeps its
-rows' K-buffers in shared memory; K = 512 and 1024 keep them in the
-kernel's own ``[splits, m, K]`` output (``csrc/fused_knn.cu``).  A CPU
+K: up to ``MAX_SELECT_K`` = 4096 on the card.  Up to 256 a CTA keeps its
+rows' K-buffers in shared memory; K = 512 to 4096 keep them in the
+kernel's own ``[splits, m, K]`` output (``csrc/fused_knn.cuh``).  A CPU
 tensor serves any K.
 
 Result contract, the same as the reference's: per query the K =
@@ -47,14 +48,14 @@ import torch
 from repro_torch.core import topk as T
 from repro_torch.kernels import _backend as B
 from repro_torch.kernels import scan as SC
-from repro_torch.kernels.merge_partials import MAX_SELECT_K, merge_partials
+from repro_torch.kernels.merge_partials import merge_partials
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import MAX_K, sorted_prefix
+from repro_torch.kernels.scan import WIDE_MAX_K, block_rows  # noqa: F401 (the layout rule)
+from repro_torch.kernels.stream_topk import MAX_K, require_card_k, sorted_prefix
 
 LAUNCHES = 0
 MASKED_LAUNCHES = 0  # launches with a q_mask (counted in LAUNCHES too)
 WIDE_LAUNCHES = 0  # launches at K > 256, K-buffers in the output (in LAUNCHES too)
-WIDE_MAX_K = 32  # the widest K of the kernel's 128-row layout (csrc/fused_knn.cu kWideMaxK)
 _BIT = torch.arange(32, dtype=torch.int64)
 
 
@@ -102,7 +103,7 @@ def check_mask(q_mask, m: int, n: int) -> None:
     B.require(q_mask.dtype == torch.int32 and q_mask.dim() == 2
               and q_mask.shape[0] in (1, m) and q_mask.shape[1] >= mask_words(n)
               and q_mask.stride(1) == 1,
-              f"q_mask: want int32 [{m} or 1, >= {mask_words(n)}] packed words, got "
+              lambda: f"q_mask: want int32 [{m} or 1, >= {mask_words(n)}] packed words, got "
               f"{q_mask.dtype} {tuple(q_mask.shape)}")
 
 
@@ -131,13 +132,6 @@ def fused_knn_plain(fx, gy, hx, hy, k: int, *, alpha: float, finalize: str,
     if not vals:
         return sorted_prefix(torch.zeros((0, n), device=fx.device), K)
     return torch.cat(vals), torch.cat(idx)
-
-
-def block_rows(m: int, K: int) -> int:
-    """BM, the query rows of a CTA: 128 where the K-buffers leave the room
-    (K <= 32) and the batch fills them, else 64 (K-buffers in shared memory
-    up to K = 256, in the output above)."""
-    return 128 if (K <= WIDE_MAX_K and m > 64) else 64
 
 
 def plan(m: int, n: int, K: int, device: torch.device, gy_dtype=torch.float32,
@@ -176,14 +170,15 @@ def fused_knn_partials(fx, gy, hx, hy, k: int, *, distance_finalize: str, alpha:
     Dead database rows carry ``hy = +inf``.  ``q_mask``: the packed bitmap
     (``check_mask``) or None.  CPU tensors run the plain version, as one
     split, at any K; CUDA tensors launch the kernel (d % 4 == 0, K <=
-    ``MAX_SELECT_K``).
+    ``stream_topk.MAX_SELECT_K``).
     """
     global LAUNCHES, MASKED_LAUNCHES, WIDE_LAUNCHES
     m, d = fx.shape
     n = gy.shape[0]
     K = T.next_pow2(k)
-    B.require(distance_finalize in FINALIZE_CODES, f"unknown finalizer {distance_finalize!r}")
-    B.require(0 <= n_real <= n, f"n_real={n_real} outside [0, {n}]")
+    B.require(distance_finalize in FINALIZE_CODES,
+              lambda: f"unknown finalizer {distance_finalize!r}")
+    B.require(0 <= n_real <= n, lambda: f"n_real={n_real} outside [0, {n}]")
     SC.check_scan_operands(fx, gy, hx, hy, gy_scale)
     extra = [t for t in (gy_scale, q_mask) if t is not None]
     if q_mask is not None:
@@ -193,8 +188,7 @@ def fused_knn_partials(fx, gy, hx, hy, k: int, *, distance_finalize: str, alpha:
                                n_real=n_real, exclude_self=exclude_self, gy_scale=gy_scale,
                                q_mask=q_mask)
         return v[None], i[None]
-    B.require(K <= MAX_SELECT_K, f"K = next_pow2(k) = {K} exceeds the fused kernel's "
-              f"{MAX_SELECT_K} on the card")
+    require_card_k(K, "fused_knn")
     B.require_vec4(d, fx, gy)
     dev = fx.device
     if m == 0 or n == 0:

@@ -1,20 +1,23 @@
 """Merge of partial top-K sets, as a CUDA kernel.
 
-The second kernel of a split fused kNN call: when ``fused_knn.plan`` splits
-the database axis across CTAs (a serving batch has too few query tiles to
-fill the card), split s holds each row's K smallest of the s-th range of
-columns, and this kernel merges the S sets into one.  It is part of the
-port of ``repro/kernels/fused_knn.py::fused_knn_pallas``, whose one program
-walks the whole database axis; the JAX package's counterpart of the merge
-itself is ``core/topk.py::merge_many_sorted``.  Source:
-``csrc/merge_partials.cu``, selection in ``csrc/select.cuh``.
+The second kernel of a split scan: when ``fused_knn.plan`` (or the plan of
+``ivf_scan`` or ``pq_scan``) splits the scanned axis across CTAs (a serving
+batch has too few query tiles to fill the card), split s holds each row's K
+smallest of the s-th range of columns, and this kernel merges the S sets
+into one.  It is part of the port of
+``repro/kernels/fused_knn.py::fused_knn_pallas``, whose one program walks
+the whole database axis; the JAX package's counterpart of the merge itself
+is ``core/topk.py::merge_many_sorted``, a bitonic tree.  Source:
+``csrc/merge_partials.cu``.
 
-Bound on the H100: bytes (each partial entry is read at most once, each
-output written once).  One warp owns a row and keeps its K-buffer in shared
-memory; a list is read only until its first batch of 32 that does not beat
-the K-th entry.  K up to ``MAX_SELECT_K`` = 1024 on the card (K = 512 and
-1024 through the wide instantiation of the selection, four warps a block);
-a CPU tensor serves any power of 2.
+Bound on the H100: bytes (each partial entry read once, each output written
+once); a row is a few KB, so latency is what costs.  The kernel is a merge
+tree: a row's S lists are read at once, with coalesced loads, and merged
+pairwise in log2 S rounds, each a bitonic merge-and-truncate (one list
+reversed, the element-wise minimum, log2 K clean-up stages).  A warp owns a
+row where next_pow2(S) * K <= 512 entries, else a CTA; K up to
+``MAX_SELECT_K`` = 4096 on the card (at K = 4096 a CTA merges four lists a
+group, the running result one of them).  A CPU tensor serves any power of 2.
 
 Result contract: the K smallest of the union by (value, column), ascending,
 ``+inf`` slots carrying id ``-1``; since lower splits hold lower columns,
@@ -29,11 +32,10 @@ import torch
 
 from repro_torch.core import topk as T
 from repro_torch.kernels import _backend as B
-from repro_torch.kernels.stream_topk import MAX_K
+from repro_torch.kernels.stream_topk import MAX_K, require_card_k
 
 LAUNCHES = 0
-WIDE_LAUNCHES = 0  # launches at K > 256 (counted in LAUNCHES too)
-MAX_SELECT_K = 1024  # the widest K fused_knn and merge_partials select on the card
+WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
 
 
 def merge_partials_plain(part_v: torch.Tensor, part_i: torch.Tensor):
@@ -62,15 +64,15 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     global LAUNCHES, WIDE_LAUNCHES
-    B.require(part_v.dim() == 3, f"part_v: want [S, m, K], got {tuple(part_v.shape)}")
+    B.require(part_v.dim() == 3, lambda: f"part_v: want [S, m, K], got {tuple(part_v.shape)}")
     S, m, K = part_v.shape
-    B.require(K == T.next_pow2(K), f"K = {K}: want a power of 2")
+    B.require(K == T.next_pow2(K), lambda: f"K = {K}: want a power of 2")
     B.require_f32("part_v", part_v, (S, m, K))
-    B.require(part_i.dtype == torch.int32 and tuple(part_i.shape) == (S, m, K)
+    B.require(part_i.dtype == torch.int32 and part_i.shape == part_v.shape
               and part_i.is_contiguous(), "part_i: want contiguous int32 of part_v's shape")
     if not B.on_cuda(part_v, part_i):
         return merge_partials_plain(part_v, part_i)
-    B.require(K <= MAX_SELECT_K, f"K = {K} exceeds the merge kernel's {MAX_SELECT_K} on the card")
+    require_card_k(K, "merge_partials")
     vals = torch.empty((m, K), dtype=torch.float32, device=part_v.device)
     idx = torch.empty((m, K), dtype=torch.int32, device=part_v.device)
     if m == 0 or S == 0:

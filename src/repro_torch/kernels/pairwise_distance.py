@@ -55,7 +55,7 @@ def pairwise_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
     global LAUNCHES
     m, d = fx.shape
     n = gy.shape[0]
-    B.require(finalize in FINALIZE_CODES, f"unknown finalizer {finalize!r}")
+    B.require(finalize in FINALIZE_CODES, lambda: f"unknown finalizer {finalize!r}")
     for name, t, shape in (("fx", fx, (m, d)), ("gy", gy, (n, d)),
                            ("hx", hx, (m, 1)), ("hy", hy, (1, n))):
         B.require_f32(name, t, shape)
@@ -124,8 +124,8 @@ def pairwise_distance_cumulative(x, y, *, accumulate: str, finalize: str, init: 
     global CUMULATIVE_LAUNCHES
     m, d = x.shape
     n = y.shape[0]
-    B.require(accumulate in ACCUMULATE_CODES, f"unknown accumulator {accumulate!r}")
-    B.require(finalize in CUMULATIVE_FINALIZE_CODES, f"unknown finalizer {finalize!r}")
+    B.require(accumulate in ACCUMULATE_CODES, lambda: f"unknown accumulator {accumulate!r}")
+    B.require(finalize in CUMULATIVE_FINALIZE_CODES, lambda: f"unknown finalizer {finalize!r}")
     B.require_f32("x", x, (m, d))
     B.require_f32("y", y, (n, d))
     if not B.on_cuda(x, y):

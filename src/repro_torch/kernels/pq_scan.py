@@ -26,7 +26,10 @@ every CTA of a tile reads them again, from L2).  Each cell is walked to
 its extent (one past its last live slot), a slot that repeats its
 predecessor in the list is skipped, and the list is split across CTAs
 when the query blocks cannot fill the card (``merge_partials`` merges the
-partial sets, lower splits winning ties as in one pass).
+partial sets, lower splits winning ties as in one pass).  K up to
+``stream_topk.MAX_SELECT_K`` = 4096 on the card: past 256 the K-buffers
+are the output's rows, in device memory, since they do not fit beside the
+LUTs.
 
 Result contract, the same as the reference's: per query the K =
 next_pow2(k) smallest, by (value, packed slot), of the scores over the
@@ -50,9 +53,10 @@ from repro_torch.kernels import scan as SC
 from repro_torch.kernels.ivf_scan import live_slots
 from repro_torch.kernels.merge_partials import merge_partials
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import require_card_k, sorted_prefix
+from repro_torch.kernels.stream_topk import MAX_K, require_card_k, sorted_prefix
 
 LAUNCHES = 0
+WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
 MAX_QB = 8  # queries per CTA
 LUT_BUDGET = 96 * 1024  # bytes of LUTs per CTA: two or more CTAs per SM
 
@@ -118,7 +122,7 @@ def kernel_shape(device: torch.device, qb: int, lut_floats: int, pq_m: int,
         out = (ctypes.c_int * 2)()
         B.call("pq_scan", "pq_scan_occupancy", OCCUPANCY_ARGTYPES, device, qb, lut_floats,
                pq_m, K, out)
-        B.require(out[0] > 0, f"the pq_scan kernel does not fit an SM at QB={qb}, "
+        B.require(out[0] > 0, lambda: f"the pq_scan kernel does not fit an SM at QB={qb}, "
                   f"{lut_floats} LUT entries per query, K={K}")
         _SHAPES[key] = tuple(out)
     return _SHAPES[key]
@@ -155,22 +159,24 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
     the leading slots of each cell to scan.  CPU tensors run the plain
     version, as one split; CUDA tensors launch the kernel.
     """
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     m, L = luts.shape
     S, pq_m = codes.shape
     K = T.next_pow2(k)
-    B.require(distance_finalize in FINALIZE_CODES, f"unknown finalizer {distance_finalize!r}")
+    B.require(distance_finalize in FINALIZE_CODES,
+              lambda: f"unknown finalizer {distance_finalize!r}")
     B.require(2 <= ncodes <= 256 and ncodes & (ncodes - 1) == 0,
-              f"ncodes={ncodes}: want a power of 2 in [2, 256]")
-    B.require(L == pq_m * ncodes, f"luts: want [{m}, {pq_m} * {ncodes}], got {tuple(luts.shape)}")
-    B.require(cell_cap > 0 and S % cell_cap == 0, f"S={S} is not a multiple of {cell_cap}")
+              lambda: f"ncodes={ncodes}: want a power of 2 in [2, 256]")
+    B.require(L == pq_m * ncodes,
+              lambda: f"luts: want [{m}, {pq_m} * {ncodes}], got {tuple(luts.shape)}")
+    B.require(cell_cap > 0 and S % cell_cap == 0, lambda: f"S={S} is not a multiple of {cell_cap}")
     ncells = S // cell_cap
     B.require(codes.dtype == torch.uint8 and codes.is_contiguous(),
-              f"codes: want contiguous uint8 [S, pq_m], got {codes.dtype}")
+              lambda: f"codes: want contiguous uint8 [S, pq_m], got {codes.dtype}")
     B.require(probes.dtype == torch.int32 and probes.dim() == 2
               and probes.shape[0] == -(-m // tile_m) and probes.shape[1] > 0
               and probes.is_contiguous(),
-              f"probes: want contiguous int32 [{-(-m // tile_m)}, W], got "
+              lambda: f"probes: want contiguous int32 [{-(-m // tile_m)}, W], got "
               f"{probes.dtype} {tuple(probes.shape)}")
     for name, t, shape in (("luts", luts, (m, L)), ("hx", hx, (m, 1)), ("hy", hy, (1, S))):
         B.require_f32(name, t, shape)
@@ -178,7 +184,7 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
         B.require_f32("qc", qc, (m, ncells))
     B.require(cell_extent.dtype == torch.int32 and tuple(cell_extent.shape) == (ncells,)
               and cell_extent.is_contiguous(),
-              f"cell_extent: want contiguous int32 [{ncells}], got "
+              lambda: f"cell_extent: want contiguous int32 [{ncells}], got "
               f"{cell_extent.dtype} {tuple(cell_extent.shape)}")
     if not B.on_cuda(probes, luts, codes, hx, hy, cell_extent, *([] if qc is None else [qc])):
         v, i = pq_scan_plain(probes, luts, codes, hx, hy, k, cell_cap=cell_cap, ncodes=ncodes,
@@ -201,6 +207,7 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
              B.ptr(hx), B.ptr(hy), B.ptr(vals), B.ptr(idx), m, pq_m, ncodes, S, W, K,
              cell_cap, tile_m, int(skip), FINALIZE_CODES[distance_finalize], qb, splits, sps)
     LAUNCHES += 1
+    WIDE_LAUNCHES += K > MAX_K
     return vals, idx
 
 

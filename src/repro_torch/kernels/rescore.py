@@ -11,7 +11,9 @@ them to XLA.
 Bound on the H100: bytes (the gathered [m, Kp, d] block is read once, for
 2 FLOP a float).  One warp owns a query row, keeps the row's ``fx`` in
 shared memory and reads each candidate row as coalesced float4s, eight
-candidates in flight; a shuffle butterfly reduces each dot.
+candidates in flight; a shuffle butterfly reduces each dot.  K up to
+``stream_topk.MAX_SELECT_K`` = 4096 on the card: past 256 the K-buffer is
+the output's row, in device memory.
 
 Result contract: per row the K = next_pow2(k) smallest of
 ``finalize(alpha * <fx[i], cand[i, c]> + hx[i] + hy_cand[i, c])`` by
@@ -30,9 +32,10 @@ from repro_torch.core import topk as T
 from repro_torch.core.distances import FINALIZERS
 from repro_torch.kernels import _backend as B
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import require_card_k, sorted_prefix
+from repro_torch.kernels.stream_topk import MAX_K, require_card_k, sorted_prefix
 
 LAUNCHES = 0
+WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
 
 
 def rescore_topk_plain(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
@@ -54,13 +57,13 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
     ``fx`` [m, d], ``cand`` [m, Kp, d] (the gathered rows in ``gy`` form),
     ``hx`` [m, 1] and ``hy_cand`` [m, Kp] (``+inf`` on an empty slot), all
     fp32 and contiguous.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (d % 4 == 0).
+    launch the kernel (d % 4 == 0, K <= 4096).
     """
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     m, d = fx.shape
     Kp = cand.shape[1]
     K = T.next_pow2(k)
-    B.require(finalize in FINALIZE_CODES, f"unknown finalizer {finalize!r}")
+    B.require(finalize in FINALIZE_CODES, lambda: f"unknown finalizer {finalize!r}")
     for name, t, shape in (("fx", fx, (m, d)), ("cand", cand, (m, Kp, d)),
                            ("hx", hx, (m, 1)), ("hy_cand", hy_cand, (m, Kp))):
         B.require_f32(name, t, shape)
@@ -76,4 +79,5 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
              B.ptr(hx), B.ptr(hy_cand), B.ptr(vals), B.ptr(pos), m, Kp, d, K, float(alpha),
              FINALIZE_CODES[finalize])
     LAUNCHES += 1
+    WIDE_LAUNCHES += K > MAX_K
     return vals, pos

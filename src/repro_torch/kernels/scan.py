@@ -1,13 +1,14 @@
 """What the two scan kernels share: operand checks, the plain tile, the
 block and split plan, and the occupancy query.
 
-``csrc/fused_knn.cu`` walks contiguous 128-column tiles of the whole
-database (the walk of ``csrc/gemm_tc.cuh``), ``csrc/ivf_scan.cu`` the
-cells a probe list names (the walk of ``csrc/scan.cuh``); both fold the
-tiles into per-row K-buffers (``csrc/select.cuh``).  Each
-is compiled once per storage type of ``gy`` (fp32, bf16, int8) and per
-presence of the ``gy_scale`` operand; its C entry point takes the storage
-type as a code (``GY_CODES``) and the scale as a nullable pointer.
+Both are the kernel of ``csrc/fused_knn.cuh`` on the 3xTF32 product of
+``csrc/gemm_tc.cuh``: ``csrc/fused_knn.cu`` walks contiguous 128-column
+tiles of the whole database, ``csrc/ivf_scan.cu`` a table of the tiles of
+the cells a probe list names; both fold the tiles into per-row K-buffers
+(``csrc/select.cuh``).  Each is compiled once per storage type of ``gy``
+(fp32, bf16, int8) and per presence of the ``gy_scale`` operand; its C
+entry point takes the storage type as a code (``GY_CODES``, switched on in
+``csrc/scan.cuh``) and the scale as a nullable pointer.
 """
 from __future__ import annotations
 
@@ -41,19 +42,23 @@ def check_scan_operands(fx, gy, hx, hy, gy_scale) -> None:
     contiguous."""
     m, d = fx.shape
     n = gy.shape[0]
-    B.require(gy.dtype in GY_CODES, f"gy: want float32, bfloat16 or int8, got {gy.dtype}")
+    B.require(gy.dtype in GY_CODES, lambda: f"gy: want float32, bfloat16 or int8, got {gy.dtype}")
     B.require(tuple(gy.shape) == (n, d) and gy.is_contiguous(),
-              f"gy: want contiguous [{n}, {d}], got {tuple(gy.shape)}")
+              lambda: f"gy: want contiguous [{n}, {d}], got {tuple(gy.shape)}")
     for name, t, shape in (("fx", fx, (m, d)), ("hx", hx, (m, 1)), ("hy", hy, (1, n))):
         B.require_f32(name, t, shape)
     if gy_scale is not None:
         B.require_f32("gy_scale", gy_scale, (1, n))
 
 
+WIDE_MAX_K = 32  # the widest K of the scan kernel's 128-row layout (fused_knn.cuh kWideMaxK)
+
+
 def block_rows(m: int, K: int) -> int:
-    """BM: 128 query rows per CTA, or 64 where the K-buffers need the room
-    (K = 256) or the batch is small."""
-    return 128 if (K <= 128 and m > 64) else 64
+    """BM, the query rows of a CTA: 128 where the K-buffers leave the room
+    (K <= 32) and the batch fills them, else 64 (K-buffers in shared memory
+    up to K = 256, in the output above)."""
+    return 128 if (K <= WIDE_MAX_K and m > 64) else 64
 
 
 def split_plan(m: int, n: int, bm: int, tile_n: int, resident: int) -> tuple[int, int]:
@@ -83,6 +88,6 @@ def kernel_shape(library: str, device: torch.device, bm: int, K: int,
         out = (ctypes.c_int * 3)()
         B.call(library, f"{library}_occupancy", OCCUPANCY_ARGTYPES, device, bm, K,
                GY_CODES[gy_dtype], int(scaled), out)
-        B.require(out[0] > 0, f"the {library} kernel does not fit an SM at BM={bm}, K={K}")
+        B.require(out[0] > 0, lambda: f"the {library} kernel does not fit an SM at BM={bm}, K={K}")
         _SHAPES[key] = tuple(out)
     return _SHAPES[key]

@@ -9,6 +9,11 @@ compares).  One warp streams one row with coalesced loads and keeps the
 row's ascending K-buffer in shared memory; the threshold skip is a ballot
 over 32 candidates, uniform across the warp.
 
+K: up to ``MAX_SELECT_K`` = 4096 on the card, the cap of every selection
+kernel.  Up to ``MAX_K`` = 256 the K-buffer sits in shared memory; a wider
+K runs the kernel's wide instantiation, whose K-buffer is the output's row
+in device memory.  A CPU tensor serves any K.
+
 Result contract: the K = next_pow2(k) smallest of each row by (value,
 column), ascending, with ``+inf`` slots carrying id ``-1``.
 ``stream_topk_plain`` is that contract in plain PyTorch (a stable sort).
@@ -23,7 +28,12 @@ from repro_torch.core import topk as T
 from repro_torch.kernels import _backend as B
 
 LAUNCHES = 0
-MAX_K = 256  # the K-buffer of stream_topk, rescore_topk, ivf_scan and pq_scan on the card
+WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
+# The width of the shared-memory K-buffer (csrc/select.cuh kMaxK): past it a
+# kernel switches to its wide instantiation, K-buffers in device memory.
+MAX_K = 256
+# The widest K any selection kernel takes on the card (select.cuh kMaxSelectK).
+MAX_SELECT_K = 4096
 # The plain version sorts this many elements at a time, to bound its memory.
 _PLAIN_CHUNK = 1 << 27
 
@@ -47,12 +57,11 @@ def sorted_prefix(x: torch.Tensor, K: int):
 
 
 def require_card_k(K: int, kernel: str) -> None:
-    """Refuse a fetch width past ``MAX_K`` on the card, naming the limit: a
-    CPU tensor's plain version serves any K, and only ``fused_knn`` and
-    ``merge_partials`` select wider on the card (ROADMAP fault F1b)."""
-    B.require(K <= MAX_K, f"K = next_pow2(k) = {K} exceeds the {kernel} kernel's {MAX_K} on "
-              "the card (fault F1b: only fused_knn and merge_partials select up to 1024; "
-              "CPU tensors serve any K)")
+    """Refuse a fetch width past ``MAX_SELECT_K`` on the card, naming the
+    cap, which every selection kernel shares; a CPU tensor's plain version
+    serves any K."""
+    B.require(K <= MAX_SELECT_K, lambda: f"K = next_pow2(k) = {K} exceeds the {kernel} kernel's "
+              f"{MAX_SELECT_K} on the card (CPU tensors serve any K)")
 
 
 def stream_topk_plain(x: torch.Tensor, k: int):
@@ -70,9 +79,9 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
 
     Returns (values [m, K] fp32, ids [m, K] int32).  ``threshold_skip``
     (default on) changes the work, never the result.  CPU tensors run the
-    plain version at any K; CUDA tensors launch the kernel (K <= 256).
+    plain version at any K; CUDA tensors launch the kernel (K <= 4096).
     """
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     m, n = x.shape
     K = T.next_pow2(k)
     B.require_f32("x", x, (m, n))
@@ -87,4 +96,5 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
     B.launch("stream_topk", "stream_topk_f32", C_ARGTYPES, x.device,
              B.ptr(x), B.ptr(vals), B.ptr(idx), m, n, K, int(skip))
     LAUNCHES += 1
+    WIDE_LAUNCHES += K > MAX_K
     return vals, idx

@@ -330,16 +330,78 @@ def test_ivf_scan_kernel_matches_plain(cuda, scan_dtype, m, tile_m, cap, whole):
                                      gy_scale=gs))
 
 
-def test_ivf_scan_refuses_tiles_below_its_query_block(cuda):
-    """40 queries in union tiles of 16: no CTA of 64 rows fits one tile."""
-    fx = torch.randn(40, 16, device=cuda)
-    gy = torch.randn(256, 16, device=cuda)
-    probes = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="tile_m"):
-        IVS.ivf_scan(probes, fx, gy, torch.zeros(40, 1, device=cuda),
-                     torch.zeros(1, 256, device=cuda), 8, cell_cap=128, tile_m=16,
-                     cell_extent=torch.full((2,), 128, dtype=torch.int32, device=cuda),
-                     distance_finalize="identity", alpha=-1.0)
+def _ivf_case(cuda, m, tile_m, cap, scan_dtype, seed, ncells=24, d=36, width=4):
+    """A packed corpus with dead slots, random extents (some 0, some whole),
+    and union probe lists (ascending, duplicate padding) of random queries;
+    the scan's operands and the plain version's keywords."""
+    g = torch.Generator().manual_seed(seed)
+    extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32)
+    extent[torch.rand(ncells, generator=g) < 0.2] = 0
+    extent[torch.rand(ncells, generator=g) < 0.2] = cap
+    packed = torch.randn(ncells * cap, d, generator=g).to(cuda)
+    db_q = quantize_rows(packed, scan_dtype, distance="neg_dot")
+    live = (torch.rand(ncells * cap, generator=g) > 0.3).to(cuda)
+    q = torch.randn(m, d, generator=g).to(cuda)
+    fx, gy, gs, hx, hy, alpha = ops._scan_operands(q, db_q, "neg_dot", live)
+    cells = torch.randint(0, ncells, (-(-m // tile_m) * tile_m, width), generator=g,
+                          dtype=torch.int32).to(cuda)
+    from repro_torch.core.ivf import tile_probe_lists
+
+    probes = tile_probe_lists(cells, ncells, tile_m)
+    kw = dict(cell_cap=cap, tile_m=tile_m, alpha=alpha, gy_scale=gs,
+              cell_extent=extent.to(cuda))
+    return probes, fx, gy, gs, hx, hy, kw
+
+
+def _ivf_check(cuda, probes, fx, gy, gs, hx, hy, k, kw):
+    before = IVS.LAUNCHES
+    v, i = IVS.ivf_scan(probes, fx, gy, hx, hy, k, distance_finalize="identity", **kw)
+    torch.cuda.synchronize()
+    assert IVS.LAUNCHES == before + 1 and v.shape == (fx.shape[0], T.next_pow2(k))
+    pv, pi = IVS.ivf_scan_plain(probes, fx, gy, hx, hy, k, finalize="identity", **kw)
+    _masked_check(v, i, pv, pi, fx, gy, gs, hx, hy, kw["alpha"], fx.shape[1])
+
+
+@pytest.mark.parametrize("cap", [96, 200, 2048])
+@pytest.mark.parametrize("m,tile_m,width", [(40, 8, 4), (1024, 256, 32), (8, 8, 64)])
+@pytest.mark.parametrize("splits", [1, 8, 132])
+def test_tile_table_kernel_matches_plain(cuda, cap, m, tile_m, width, splits):
+    """The table the card builds equals tile_table's on every live entry,
+    and its split bounds split_bounds'; one launch."""
+    probes, fx, gy, gs, hx, hy, kw = _ivf_case(cuda, m, tile_m, cap, "float32", m + cap,
+                                               ncells=48, d=4, width=width)
+    before = IVS.TABLE_LAUNCHES
+    table, bounds = IVS.build_table(probes, kw["cell_extent"], cap, splits)
+    torch.cuda.synchronize()
+    assert IVS.TABLE_LAUNCHES == before + 1
+    want, counts = IVS.tile_table(probes.cpu(), kw["cell_extent"].cpu(), cap)
+    assert torch.equal(bounds.cpu(), IVS.split_bounds(counts, splits))
+    for t, c in enumerate(counts.tolist()):
+        assert torch.equal(table[t, :c].cpu(), want[t, :c])
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m,tile_m", [(40, 8), (13, 4), (200, 16)])
+def test_ivf_scan_serves_union_tiles_below_its_query_block(cuda, scan_dtype, m, tile_m):
+    """Union tiles of fewer queries than a CTA's 64 rows (ROADMAP F2): each
+    CTA takes one union tile's rows, the rest of its rows dead."""
+    probes, fx, gy, gs, hx, hy, kw = _ivf_case(cuda, m, tile_m, 200, scan_dtype, m + tile_m)
+    assert probes.shape[0] == -(-m // tile_m) > 1
+    _ivf_check(cuda, probes, fx, gy, gs, hx, hy, 10, kw)
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("cap", [96, 200, 640])
+@pytest.mark.parametrize("k", [1, 17, 100, -1])
+def test_ivf_scan_on_the_tile_table_matches_plain(cuda, scan_dtype, cap, k):
+    """The tile-table walk: ragged cells, cell_cap not a multiple of 128 (a
+    tile runs into the next cell, whose columns must not enter), zero
+    extents, duplicate padding, several union tiles of 8 queries and one
+    of 300, bf16 / int8 with its scale, K from 1 to cell_cap (k = -1)."""
+    k = cap if k < 0 else k
+    for m, tile_m in ((40, 8), (300, 512)):
+        probes, fx, gy, gs, hx, hy, kw = _ivf_case(cuda, m, tile_m, cap, scan_dtype, cap + k)
+        _ivf_check(cuda, probes, fx, gy, gs, hx, hy, k, kw)
 
 
 @pytest.mark.parametrize("kw", [dict(scan_dtype="int8"), dict(scan_dtype="bfloat16"),
@@ -736,31 +798,34 @@ def test_merge_kernel_wide_matches_plain_exactly(cuda, S, m, K):
 
 
 def test_card_refuses_k_past_the_narrow_kernels_buffer(cuda):
-    """ROADMAP F1b: stream_topk, rescore_topk, ivf_scan and pq_scan keep a
-    K-buffer of 256 on the card and refuse K = 512 there, naming the limit;
-    fused_knn and merge_partials refuse past 1024."""
-    x = torch.zeros((2, 600), device=cuda)
-    with pytest.raises(ValueError, match="F1b"):
-        ST.stream_topk(x, 300)
-    fx, gy, hx, hy, alpha = _operands("sqeuclidean", *_data("sqeuclidean", 4, 600, 8, 35), cuda)
-    with pytest.raises(ValueError, match="F1b"):
-        RS.rescore_topk(fx, gy[None].expand(4, 600, 8).contiguous(), hx,
-                        hy.expand(4, 600).contiguous(), 300, alpha=alpha, finalize="identity")
+    """Past the card's one cap, 4096 (ROADMAP F1b and F1c closed below it),
+    each of the six selection kernels refuses K = 8192, naming the cap,
+    and launches nothing."""
+    n = 9000
+    before = (ST.LAUNCHES, RS.LAUNCHES, IVS.LAUNCHES, PQS.LAUNCHES, FK.LAUNCHES, MP.LAUNCHES)
+    with pytest.raises(ValueError, match="4096"):
+        ST.stream_topk(torch.zeros((2, n), device=cuda), 5000)
+    fx, gy, hx, hy, alpha = _operands("sqeuclidean", *_data("sqeuclidean", 4, n, 8, 35), cuda)
+    with pytest.raises(ValueError, match="4096"):
+        RS.rescore_topk(fx, gy[None].expand(4, n, 8).contiguous(), hx,
+                        hy.expand(4, n).contiguous(), 5000, alpha=alpha, finalize="identity")
     probes = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    extent = torch.full((1,), 600, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="F1b"):
-        IVS.ivf_scan(probes, fx, gy, hx, hy, 300, cell_cap=600, tile_m=8, cell_extent=extent,
+    extent = torch.full((1,), n, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="4096"):
+        IVS.ivf_scan(probes, fx, gy, hx, hy, 5000, cell_cap=n, tile_m=8, cell_extent=extent,
                      distance_finalize="identity", alpha=alpha)
     luts = torch.zeros((4, 2 * 16), device=cuda)
-    codes = torch.zeros((600, 2), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="F1b"):
-        PQS.pq_scan(probes, luts, codes, hx, hy, 300, cell_cap=600, ncodes=16, tile_m=8,
+    codes = torch.zeros((n, 2), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4096"):
+        PQS.pq_scan(probes, luts, codes, hx, hy, 5000, cell_cap=n, ncodes=16, tile_m=8,
                     cell_extent=extent, distance_finalize="identity")
-    with pytest.raises(ValueError, match="1024"):
-        FK.fused_knn(fx, gy, hx, hy, 1025, distance_finalize="identity", alpha=alpha, n_real=600)
-    with pytest.raises(ValueError, match="1024"):
-        MP.merge_partials(torch.zeros((2, 4, 2048), device=cuda),
-                          torch.zeros((2, 4, 2048), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="4096"):
+        FK.fused_knn(fx, gy, hx, hy, 4097, distance_finalize="identity", alpha=alpha, n_real=n)
+    with pytest.raises(ValueError, match="4096"):
+        MP.merge_partials(torch.zeros((2, 4, 8192), device=cuda),
+                          torch.zeros((2, 4, 8192), dtype=torch.int32, device=cuda))
+    assert (ST.LAUNCHES, RS.LAUNCHES, IVS.LAUNCHES, PQS.LAUNCHES, FK.LAUNCHES,
+            MP.LAUNCHES) == before
 
 
 def test_filtered_index_on_card_matches_cpu_index(cuda):
@@ -787,3 +852,136 @@ def test_filtered_index_on_card_matches_cpu_index(cuda):
         a, b = idx["cpu"].search(q, 10, filter=f), idx["cuda"].search(q, 10, filter=f)
         torch.testing.assert_close(b.distances.cpu(), a.distances, rtol=1e-5, atol=1e-3)
         assert (b.ids.cpu() == a.ids).float().mean() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# Fetch widths up to the card's cap (4096) in all six selection kernels
+# ---------------------------------------------------------------------------
+
+WIDE_KS = [512, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("K", WIDE_KS)
+@pytest.mark.parametrize("skip", [True, False])
+def test_stream_topk_wide_k_matches_plain_exactly(cuda, K, skip):
+    x = torch.from_numpy(np.random.default_rng(K).integers(0, 300, (37, 9001)).astype(
+        np.float32)).to(cuda)  # many exact ties
+    before = ST.WIDE_LAUNCHES
+    v, i = ST.stream_topk(x, K - 3, threshold_skip=skip)
+    torch.cuda.synchronize()
+    assert ST.WIDE_LAUNCHES == before + 1 and v.shape == (37, K)
+    pv, pi = ST.stream_topk_plain(x, K - 3)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("K", WIDE_KS)
+def test_rescore_wide_k_matches_plain(cuda, K):
+    m, Kp, d = 9, K + 300, 32
+    g = torch.Generator().manual_seed(K)
+    fx = torch.randn(m, d, generator=g).to(cuda)
+    cand = torch.randn(m, Kp, d, generator=g).to(cuda)
+    hx = torch.randn(m, 1, generator=g).to(cuda)
+    hy = torch.randn(m, Kp, generator=g).abs().to(cuda)
+    hy[::2, -Kp // 3:] = T.POS_INF  # rows with fewer than K candidates end in empty slots
+    before = RS.WIDE_LAUNCHES
+    v, p = RS.rescore_topk(fx, cand, hx, hy, K, alpha=-2.0, finalize="identity")
+    torch.cuda.synchronize()
+    assert RS.WIDE_LAUNCHES == before + 1
+    pv, pp = RS.rescore_topk_plain(fx, cand, hx, hy, K, alpha=-2.0, finalize="identity")
+    check_topk(v, p, pv, pp, n=Kp, rtol=1e-5, atol=1e-4,
+               dist=lambda r, c: -2.0 * (fx[r] * cand[r, c]).sum(1) + hx[r, 0] + hy[r, c])
+
+
+@pytest.mark.parametrize("K", WIDE_KS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_wide_k_up_to_the_cap_matches_plain(cuda, K, masked):
+    m, n = 70, 20_011
+    x, y = _data("neg_dot", m, n, 36, K)
+    fx, gy, hx, hy, alpha = _operands("neg_dot", x, y, cuda)
+    words = None
+    if masked:
+        words = FK.pack_mask(torch.rand((m, n), generator=torch.Generator().manual_seed(K))
+                             < 0.4).to(cuda)
+    before = FK.WIDE_LAUNCHES
+    v, i = FK.fused_knn(fx, gy, hx, hy, K, distance_finalize="identity", alpha=alpha,
+                        n_real=n, q_mask=words)
+    torch.cuda.synchronize()
+    assert FK.WIDE_LAUNCHES == before + 1 and v.shape == (m, K)
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, K, alpha=alpha, finalize="identity", n_real=n,
+                                q_mask=words)
+    _masked_check(v, i, pv, pi, fx, gy, None, hx, hy, alpha, 36)
+
+
+@pytest.mark.parametrize("K", WIDE_KS)
+@pytest.mark.parametrize("scan_dtype", ["float32", "int8"])
+def test_ivf_scan_wide_k_matches_plain(cuda, K, scan_dtype):
+    """K up to cell_cap = 4096: the K-buffers in the output's rows."""
+    probes, fx, gy, gs, hx, hy, kw = _ivf_case(cuda, 40, 8, 4096, scan_dtype, K, ncells=12,
+                                               d=32, width=3)
+    before = IVS.WIDE_LAUNCHES
+    _ivf_check(cuda, probes, fx, gy, gs, hx, hy, K, kw)
+    assert IVS.WIDE_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("K", WIDE_KS)
+def test_pq_scan_wide_k_matches_plain(cuda, K):
+    """K up to cell_cap = 4096: the K-buffers in the output's rows, not
+    beside the LUTs."""
+    m, tile_m, cap, ncells, pq_m, ncodes = 24, 8, 4096, 8, 8, 16
+    g = torch.Generator().manual_seed(K)
+    S = ncells * cap
+    codes = torch.randint(0, ncodes, (S, pq_m), generator=g, dtype=torch.uint8).to(cuda)
+    luts = torch.randn(m, pq_m * ncodes, generator=g).to(cuda)
+    hx = torch.randn(m, 1, generator=g).to(cuda)
+    hy = torch.where(torch.rand(S, generator=g) > 0.3, torch.randn(S, generator=g),
+                     float("inf"))[None, :].to(cuda)
+    qc = torch.randn(m, ncells, generator=g).to(cuda)
+    extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32).to(cuda)
+    cells = torch.randint(0, ncells, (m, 3), generator=g, dtype=torch.int32).to(cuda)
+    from repro_torch.core.ivf import tile_probe_lists
+
+    probes = tile_probe_lists(cells, ncells, tile_m)
+    kw = dict(cell_cap=cap, ncodes=ncodes, tile_m=tile_m, cell_extent=extent, qc=qc)
+    before = PQS.WIDE_LAUNCHES
+    v, i = PQS.pq_scan(probes, luts, codes, hx, hy, K, distance_finalize="identity", **kw)
+    torch.cuda.synchronize()
+    assert PQS.WIDE_LAUNCHES == before + 1
+    pv, pi = PQS.pq_scan_plain(probes, luts, codes, hx, hy, K, finalize="identity", **kw)
+    lut3 = luts.reshape(m, pq_m, ncodes)
+
+    def adc(rows, cols):
+        s = lut3[rows[:, None], torch.arange(pq_m, device=cuda)[None, :],
+                 codes[cols].long()].sum(1)
+        return s + qc[rows, cols // cap] + hx[rows, 0] + hy[0, cols]
+
+    check_topk(v, i, pv, pi, n=S, rtol=1e-5, atol=1e-4, dist=adc)
+
+
+def _merge_case(S, m, K, seed):
+    """[S, m, K] ascending partial sets over ascending disjoint column
+    ranges, values from few integers (exact ties), a third of the upper half
+    +inf/-1."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randint(0, 40, (S, m, K), generator=g).float()
+    v[:, :, K // 2 :] = torch.where(torch.rand((S, m, K - K // 2), generator=g) < 0.3,
+                                    T.POS_INF, v[:, :, K // 2 :])
+    v = torch.sort(v, dim=2).values
+    cols = torch.sort(torch.randperm(4 * K, generator=g)[:K]).values
+    i = (torch.arange(S)[:, None, None] * 4 * K + cols).expand(S, m, K).int()
+    return v, torch.where(torch.isinf(v), -1, i).contiguous()
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 16, 33])
+@pytest.mark.parametrize("K", [2 ** e for e in range(13)])
+def test_merge_tree_matches_plain_exactly(cuda, S, K):
+    """The merge tree at every power of 2 up to the cap, on both paths (a
+    warp a row up to S' K = 512 entries, a CTA a row above, in groups where
+    the row exceeds 16,384 entries), with ties and empty slots."""
+    m = 300 if S * K <= 4096 else 5
+    v, i = _merge_case(S, m, K, S * 7 + K)
+    pv, pi = MP.merge_partials_plain(v, i)
+    before = MP.LAUNCHES
+    gv, gi = MP.merge_partials(v.to(cuda), i.to(cuda))
+    torch.cuda.synchronize()
+    assert MP.LAUNCHES == before + 1
+    assert torch.equal(gv.cpu(), pv) and torch.equal(gi.cpu(), pi)

@@ -319,6 +319,7 @@ def test_split_plan_covers_every_tile():
                                           (FK, "fused_knn_masked"),
                                           (FK, "fused_knn_masked_occupancy"),
                                           (IVS, "ivf_scan"), (IVS, "ivf_scan_occupancy"),
+                                          (IVS, "ivf_scan_table"),
                                           (RS, "rescore_f32"), (PQS, "pq_scan"),
                                           (PQS, "pq_scan_occupancy"),
                                           (PD, "pairwise_cumulative")])
@@ -346,6 +347,8 @@ def test_ctypes_signatures_match_the_cuda_sources(module, entry):
         argtypes = getattr(module, "OCCUPANCY_ARGTYPES", SC.OCCUPANCY_ARGTYPES)
     elif entry.endswith("_masked"):
         argtypes = module.MASKED_ARGTYPES
+    elif entry.endswith("_table"):
+        argtypes = module.TABLE_ARGTYPES
     else:
         argtypes = module.C_ARGTYPES
     assert [want[k] for k in kinds] == argtypes
