@@ -14,15 +14,17 @@ Phases (each one raises on a failed check; nothing is caught):
    it is reported at), against float64 brute force on sampled rows.
 3. The paper's two phases: rows 0..8191 against all 160,000 through the
    ``pairwise_distance`` kernel, then ``stream_topk``; held against phase 2's
-   result and each kernel against its plain version.  Then ``stream_topk``
-   at the card's cap, k = 4096, on rows 0..1023 of that matrix, equal to its
-   plain version.  Then the per-tile
+   result and each kernel against its plain version; ``stream_topk``'s stage
+   ring, CTAs per SM, shared memory and column splits reported.  Then
+   ``stream_topk`` at the card's cap, k = 4096, on rows 0..1023 of that
+   matrix, equal to its plain version.  Then the per-tile
    ``knn_allpairs(impl="kernel", symmetric=True)`` at n = 32,768.
 3b. The paper's two phases with the generic distance: rows 0..1023 against
    all 160,000 through ``pairwise_distance(cumulative=True)`` (the
    per-coordinate kernel, sqeuclidean) then ``stream_topk`` at k = 100; the
    matrix held against its plain version and against the matmul-form
-   kernel, the ids tie-aware against phase 2's.  Then hellinger and kl on
+   kernel, the ids tie-aware against phase 2's, and ``stream_topk`` on that
+   matrix equal to its plain version.  Then hellinger and kl on
    non-negative rows (``abs``, each row normalised to sum 1) at 1024 x
    16,384, each held against its plain version.
 4. Flat serving at the ``query_1m`` cell: 1,048,576 x 256 fp32 rows,
@@ -81,7 +83,11 @@ Phases (each one raises on a failed check; nothing is caught):
    id is served and the retrained replica meets the floor; a steady window
    of 50 batches; the ``pq_scan`` kernel held against its plain version at
    batches of 1024 and 8, its partial sets and the merge timed apart, its
-   bound counted from the live rows of each tile's cells.  The index
+   bound counted from the live rows of each tile's cells and its
+   shared-memory lookup floor beside it, its mode, QB, code ring, CTAs per
+   SM and shared memory reported; and at ``pq_m`` 256, 8 bits (a 256 KiB
+   table a query, walked in chunks: ROADMAP F2) on the same cells, 64
+   queries with drawn codes and tables, against its plain version.  The index
    carries tenant tags, and serves the filtered batch with 500 exclusions
    (the scan at K = min(4096, cell_cap)), gated as in phase 5.
 8. Filtered and multi-tenant serving (DESIGN.md §17) on phase 4's rows:
@@ -339,6 +345,17 @@ def ivf_pairs(torch, probes, live_per_cell, tile_m, m):
     return pairs, read, rows_per_tile
 
 
+def pq_shape(PQS, probes, m, pq_m, ncodes, K, dev, tile_m) -> dict:
+    """The pq_scan launch's plan: mode, QB, chunk, splits, CTAs, and CTAs
+    resident per SM and shared memory per CTA."""
+    pl = PQS.plan(probes, m, pq_m, ncodes, K, dev, tile_m)
+    per_sm, smem = PQS.kernel_shape(dev, pl.qb, pl.ring, pl.chunk, pq_m, ncodes, K)
+    return {"mode": "ring" if pl.ring else "generic", "qb": pl.qb, "chunk": pl.chunk,
+            "code_ring_units": PQS.RING_UNITS if pl.ring else 0, "splits": pl.splits,
+            "ctas": -(-m // pl.qb) * pl.splits, "ctas_per_sm": per_sm, "smem_bytes": smem,
+            "tile_m": tile_m}
+
+
 def hold_wide(torch, records):
     """Each recorded wide launch against its plain version on the same
     inputs: times (the kernel again, by CUDA events; the plain version
@@ -521,6 +538,7 @@ def phase_cumulative(torch, dev, run_path, x, res):
     """Phase 3b: the paper's two phases with the per-coordinate kernel."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_distance as PD
+    from repro_torch.kernels import stream_topk as ST
     from repro_torch.kernels.ref import check_topk
 
     m, k = 1024, 100
@@ -568,7 +586,18 @@ def phase_cumulative(torch, dev, run_path, x, res):
     bnd = bound_ms(1.0 * m * n * d * CUMULATIVE_OPS["sqeuclidean"],
                    (m + n) * d * 4 + m * n * 4)
     out["sqeuclidean"].update(bound_ms=bnd[0], bound_by=bnd[1])
-    del dm, tv, ti
+    # Phase 2 of this path: stream_topk on the per-coordinate matrix, held
+    # against its plain version exactly.
+    st_plain_ms, (sv, si) = time_plain(torch, lambda: ST.stream_topk_plain(dm, k))
+    check(torch.equal(tv, sv[:, :k]) and torch.equal(ti, si[:, :k]),
+          "3b: stream_topk kernel vs plain")
+    st_bnd = bound_ms(1.0 * m * n, m * n * 4 + m * K * 8)
+    out["sqeuclidean"]["stream_topk"] = {
+        "ms": out["sqeuclidean"]["stream_topk_ms"], "plain_ms": st_plain_ms,
+        "bound_ms": st_bnd[0], "bound_by": st_bnd[1], "max_abs_err": 0.0,
+        "library_ms": time_ms(torch, lambda: torch.topk(dm, k, dim=1, largest=False)),
+        "shape": f"{m} x {n}, k {k} (per-coordinate distances)"}
+    del dm, tv, ti, sv, si
 
     # Hellinger and KL on distributions: rows |x|, each normalised to sum 1.
     n2 = 16384
@@ -1250,15 +1279,46 @@ def phase_ivfpq(torch, dev, run_path, x):
         pairs, read, rows_per_tile = ivf_pairs(torch, probes, live_cnt, tile_m, m)
         bnd = bound_ms(1.0 * pairs * PQ_M, read * (PQ_M + 4) + luts.numel() * 4
                        + qc.numel() * 4 + m * 4 + m * K * 8)
-        pr, qb, splits, sps = PQS.plan(probes, m, luts.shape[1], PQ_M, K, dev)
         res[f"pq_scan_batch_{m}"] = {
             "ms": ms, "partials_ms": part_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
-            "vs_plain": cmp, "bound_ms": bnd[0], "bound_by": bnd[1], "rows_scored": pairs,
+            "vs_plain": cmp, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "lookup_floor_ms": PQS.lookup_floor_ms(pairs, PQ_M), "rows_scored": pairs,
             "rows_read": read, "live_rows_per_tile": rows_per_tile.tolist(),
-            "qb": qb, "splits": splits, "ctas": -(-m // qb) * splits,
-            "ctas_per_sm": PQS.kernel_shape(dev, qb, luts.shape[1], PQ_M, K)[0],
-            "tile_m": tile_m, "k_scan": k_scan}
+            **pq_shape(PQS, probes, m, PQ_M, cb.ncodes, K, dev, tile_m), "k_scan": k_scan}
         del probes, luts, cds, hx, hy, qc, outs, part_v, part_i, pv, pi, v, i
+    # ROADMAP F2: pq_m 256 at 8 bits (a 256 KiB table a query, past a CTA's
+    # shared memory) on the same cells and probes, 64 queries, codes and
+    # tables drawn from a seeded generator: the generic mode's chunks.
+    m, pq_big = 64, 256
+    g = torch.Generator(device=dev).manual_seed(256)
+    cq = probe_cells(q_t[:m], ivf.centroids, nprobe, distance="neg_dot")
+    probes, _, _, hx, hy, qc, tile_m, extent = ops.pq_scan_operands(
+        q_t[:m], cb, codes, cq, k_scan, cell_cap=ivf.cell_cap, centroids=ivf.centroids,
+        distance="neg_dot", packed_live=live_p)
+    cds = torch.randint(0, 256, (codes.codes.shape[0], pq_big), generator=g, device=dev,
+                        dtype=torch.uint8)
+    luts = torch.randn((m, pq_big * 256), generator=g, device=dev)
+    kw = dict(cell_cap=ivf.cell_cap, ncodes=256, tile_m=tile_m, cell_extent=extent, qc=qc)
+    outs = {}
+    ms = time_ms(torch, lambda: outs.__setitem__("k", PQS.pq_scan(
+        probes, luts, cds, hx, hy, k_scan, distance_finalize="identity", **kw)))
+    plain_ms, (pv, pi) = time_plain(torch, lambda: PQS.pq_scan_plain(
+        probes, luts, cds, hx, hy, k_scan, finalize="identity", **kw))
+    lut3 = luts.view(m, pq_big, 256)
+    sub = torch.arange(pq_big, device=dev)[None, :]
+    cmp = check_topk(*outs["k"], pv, pi, n=cds.shape[0], rtol=1e-5, atol=1e-3,
+                     dist=lambda r, c: lut3[r[:, None], sub, cds[c].long()].sum(1)
+                     + qc[r, c // ivf.cell_cap] + hx[r, 0] + hy[0, c])
+    pairs, read, _ = ivf_pairs(torch, probes, live_cnt, tile_m, m)
+    bnd = bound_ms(1.0 * pairs * pq_big, read * (pq_big + 4) + luts.numel() * 4
+                   + qc.numel() * 4 + m * 4 + m * K * 8)
+    res["pq_scan_pq_m256_batch_64"] = {
+        "ms": ms, "plain_ms": plain_ms, "vs_plain": cmp, "max_abs_err": cmp["max_abs_err"],
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "lookup_floor_ms": PQS.lookup_floor_ms(pairs, pq_big), "rows_scored": pairs,
+        **pq_shape(PQS, probes, m, pq_big, 256, K, dev, tile_m),
+        "shape": f"{m} queries, nprobe {nprobe}, pq_m {pq_big}, 8 bits, k {k_scan}"}
+    del probes, luts, cds, hx, hy, qc, outs, pv, pi, lut3
     # Kernel path and plain path of the whole query on the same 256 queries.
     main_ids = index._dev["main_mask"][1]
     vecs, ids = index._live_rows()
@@ -1564,6 +1624,7 @@ def main() -> int:
     from repro_torch.kernels.ref import check_topk, operand_distance
     from repro_torch.serving.engine import EngineConfig, QueryEngine
     from repro_torch.serving.index import RetrievalIndex
+    from repro_torch.core.topk import next_pow2 as T_next_pow2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1691,6 +1752,11 @@ def main() -> int:
     del sv, si
     st_lib_ms = time_ms(torch, lambda: torch.topk(dm, k, dim=1, largest=False))
     st_bound, st_by = bound_ms(1.0 * m2 * n, m2 * n * 4 + m2 * K * 8)
+    # The kernel's shape: the stage ring, CTAs an SM, shared memory, splits.
+    st_shape = {f"k{kk}": {**ST.kernel_shape(dev, T_next_pow2(kk)),
+                           "splits": ST.plan(rows, n, T_next_pow2(kk), dev)[0]}
+                for kk, rows in ((k, m2), (4096, 1024))}
+    say("stream_topk_shape", st_shape)
     # Phase 2 of the paper at the card's cap, k = 4096, on rows 0..1023.
     with WideLaunches(torch) as rec:
         _, counts = run_path("two_phase_1024x160k_k4096",
@@ -1906,7 +1972,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/stream_topk.py:88", "launches": launches["stream_topk"],
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
          "bound_by": st_by, "library_ms": st_lib_ms, "shape": "8192 x 160000, k 100",
-         "variants": wide["stream_topk"]},
+         "kernel_shape": st_shape, "variants": {**wide["stream_topk"], "k100_1024_rows": {
+             key: cum["sqeuclidean"]["stream_topk"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                 "shape")}}},
         {"name": "rescore_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rescore.cu",
          "replaces": "src/repro/kernels/rescore.py:65", "launches": launches["rescore_topk"],
@@ -1944,8 +2013,15 @@ def main() -> int:
          "bound_by": pq["pq_scan_batch_1024"]["bound_by"], "library_ms": None,
          "shape": f"1024 queries, tile_m 256, nprobe 8 of 4096 cells, pq_m {PQ_M}, "
                   f"nbits {PQ_NBITS}, k {pq['pq_scan_batch_1024']['k_scan']}",
+         "lookup_floor_ms": pq["pq_scan_batch_1024"]["lookup_floor_ms"],
+         "kernel_shape": {key: pq["pq_scan_batch_1024"][key] for key in (
+             "mode", "qb", "chunk", "code_ring_units", "splits", "ctas_per_sm", "smem_bytes")},
          "variants": {"batch_8": {key: pq["pq_scan_batch_8"][key] for key in (
-             "ms", "plain_ms", "bound_ms", "bound_by")}, **wide["pq_scan"]}},
+             "ms", "plain_ms", "bound_ms", "bound_by", "lookup_floor_ms")},
+             "pq_m256_batch_64": {key: pq["pq_scan_pq_m256_batch_64"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "lookup_floor_ms", "max_abs_err",
+                 "mode", "chunk", "ctas_per_sm", "smem_bytes", "shape")},
+             **wide["pq_scan"]}},
         {"name": "pairwise_cumulative", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pairwise_cumulative.cu",
          "replaces": "src/repro/kernels/pairwise_distance.py:134",

@@ -26,7 +26,18 @@ builds the kernels), five times by CUDA events:
 - ``merge_<S>x<m>x<K>``: the ``merge_partials`` kernel on random ascending
   partial sets at the serving batch's shape (16 x 1024 x 16) and at a
   filtered fetch's (8 x 1024 x 512), and beside it ``torch.topk`` over the
-  ``[m, S K]`` concatenation (``library_ms``).
+  ``[m, S K]`` concatenation (``library_ms``);
+- ``topk_<m>x160000_k<k>``: the ``stream_topk`` kernel (with its merge,
+  where it splits) on rows of the ``pairwise`` matrix, self excluded as in
+  ``chip_smoke.py`` phase 3: 8192 rows at k 100, 1024 rows at k 4096 and at
+  k 100 (phase 3b's shape), each beside ``torch.topk`` (``library_ms``);
+- ``pq_<m>`` and ``pq_1024_k2048``: the ``pq_scan`` kernel (with its merge)
+  at ``chip_smoke.py`` phase 7's shape (also by a CUDA graph, ``graph_ms``,
+  where the call can be captured), on phase 6's cells and an IVF-PQ
+  replica of them (``pq_m`` 32, 8 bits, residual, ``neg_dot``; codebooks
+  trained once by the first process, seeded 1, into ``build/ab_pq.pt``):
+  batches of 1024 and 8 queries at K' 128 (a fetch of 80, overfetch 8),
+  and 1024 at K 2048 (the fetch under 500 exclusions).
 
 Listing two trees as A B B A compares them within one run of this script,
 on one card, under one power limit.  The card's name and power limit head
@@ -47,7 +58,11 @@ ROOT = Path(__file__).resolve().parents[2]
 IVF_CASES = tuple(f"ivf_{sd}_{m}" for sd in ("float32", "int8") for m in (1024, 8))
 MERGE_SHAPES = ((16, 1024, 16), (8, 1024, 512))
 MERGE_CASES = tuple(f"merge_{s}x{m}x{k}" for s, m, k in MERGE_SHAPES)
-CASES = ("allpairs", "pairwise", "serving", *IVF_CASES, *MERGE_CASES)
+TOPK_SHAPES = ((8192, 100), (1024, 4096), (1024, 100))
+TOPK_CASES = tuple(f"topk_{m}x160000_k{k}" for m, k in TOPK_SHAPES)
+PQ_CASES = ("pq_1024", "pq_8", "pq_1024_k2048")
+LIBRARY_CASES = (*MERGE_CASES, *TOPK_CASES)
+CASES = ("allpairs", "pairwise", "serving", *IVF_CASES, *MERGE_CASES, *TOPK_CASES, *PQ_CASES)
 
 CHILD = r"""
 import json, statistics, sys, time
@@ -78,6 +93,27 @@ def timed(fn):
     return out, {"median_ms": statistics.median(times), "runs_ms": times, "first_call_s": first_s}
 
 
+# Device ms of one call: n calls captured in a CUDA graph and replayed, so
+# that the host's share drops out; None where a call cannot be captured (it
+# reads back from the card).
+def graph_ms(fn, n=10):
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        return timed(g.replay)[1]["median_ms"] / n
+    except Exception:
+        torch.cuda.synchronize()
+        return None
+
+
 report = {"src": sys.argv[1]}
 x = torch.from_numpy(random_vectors(160_000, 256, seed=0)).to("cuda")
 res, report["allpairs"] = timed(lambda: knn_allpairs(x, 100, impl="fused"))
@@ -87,7 +123,19 @@ fx, gy, hx, hy, alpha = ops._mxu_operands(x[:8192].contiguous(), x, "sqeuclidean
 out, report["pairwise"] = timed(
     lambda: PD.pairwise_distance(fx, gy, hx, hy, alpha=alpha, finalize="identity"))
 report["pairwise"]["argmin_checksum"] = int(out.argmin(1).long().sum())
-del out, fx, gy, hx, hy, x
+del fx, gy, hx, hy, x
+from repro_torch.kernels import stream_topk as ST
+
+out.diagonal().fill_(float("inf"))  # exclude self, as chip_smoke.py phase 3 does
+for m, k in ((8192, 100), (1024, 4096), (1024, 100)):
+    dm = out[:m]
+    key = f"topk_{m}x160000_k{k}"
+    (v, i), report[key] = timed(lambda: ST.stream_topk(dm, k))
+    report[key]["ids_checksum"] = int(i[:, :k].long().sum())
+    _, lib = timed(lambda: torch.topk(dm, k, dim=1, largest=False))
+    report[key]["library_ms"] = lib["median_ms"]
+    del v, i
+del out, dm
 db = torch.from_numpy(random_vectors(1 << 20, 256, seed=0)).to("cuda")
 fx, gy, hx, hy, alpha = ops._mxu_operands(db[:1024].contiguous(), db, "neg_dot")
 (v, i), report["serving"] = timed(lambda: FK.fused_knn(
@@ -119,7 +167,29 @@ for sd in ("float32", "int8"):
             distance_finalize="identity", alpha=alpha, gy_scale=gs, cell_extent=extent))
         report[key]["ids_checksum"] = int(i[:, :10].long().sum())
     del packed_q
-del db, cells, live, xc
+
+from repro_torch.core.knn import scan_width
+from repro_torch.core.pq import pq_from_arrays
+from repro_torch.kernels import pq_scan as PQS
+
+pcb, pcodes = pq_from_arrays({key: val.numpy() for key, val in torch.load(sys.argv[3]).items()},
+                             device="cuda")
+k_scan = scan_width(1 << 20, 10, 8)
+for m, k in ((1024, k_scan), (8, k_scan), (1024, min(2048, cells.cell_cap))):
+    cq = probe_cells(q[:m], cells.centroids, 8, distance="neg_dot")
+    probes, luts, cds, hx, hy, qc, tile_m, extent = ops.pq_scan_operands(
+        q[:m], pcb, pcodes, cq, k, cell_cap=cells.cell_cap, centroids=cells.centroids,
+        distance="neg_dot", packed_live=live)
+    key = f"pq_{m}" + ("_k2048" if k > k_scan else "")
+    (v, i), report[key] = timed(lambda: PQS.pq_scan(
+        probes, luts, cds, hx, hy, k, cell_cap=cells.cell_cap, ncodes=pcb.ncodes,
+        tile_m=tile_m, cell_extent=extent, qc=qc, distance_finalize="identity"))
+    report[key]["ids_checksum"] = int(i[:, :10].long().sum())
+    report[key]["graph_ms"] = graph_ms(lambda: PQS.pq_scan(
+        probes, luts, cds, hx, hy, k, cell_cap=cells.cell_cap, ncodes=pcb.ncodes,
+        tile_m=tile_m, cell_extent=extent, qc=qc, distance_finalize="identity"))
+    del probes, luts, cds, hx, hy, qc, v, i
+del db, cells, live, xc, pcb, pcodes
 
 g = torch.Generator().manual_seed(0)
 for S, m, K in ((16, 1024, 16), (8, 1024, 512)):
@@ -136,7 +206,8 @@ print(json.dumps(report))
 """
 
 # Trains phase 6's cells once (the k-means of chip_smoke.py, seeded 1) and
-# keeps the centroids and the assignment for the timing processes.
+# keeps the centroids and the assignment for the timing processes; then the
+# IVF-PQ replica of those cells (phase 7's pq_m 32, 8 bits, seeded 1).
 SETUP = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -150,6 +221,15 @@ db = torch.from_numpy(xc[: 1 << 20]).to("cuda")
 cent, assign = train_centroids(db, 4096, distance="neg_dot",
                                generator=torch.Generator().manual_seed(1))
 torch.save((cent.cpu(), assign.cpu()), sys.argv[2])
+
+from repro_torch.core.ivf import pack_cells
+from repro_torch.core.pq import encode_ivfpq, pq_to_arrays, train_ivfpq
+
+cells = pack_cells(db, cent, assign)
+cb = train_ivfpq(db, cells, 32, nbits=8, distance="neg_dot",
+                 generator=torch.Generator().manual_seed(1))
+arrays = pq_to_arrays(cb, encode_ivfpq(cb, cells, distance="neg_dot"))
+torch.save({key: torch.from_numpy(val) for key, val in arrays.items()}, sys.argv[3])
 """
 
 
@@ -161,17 +241,18 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card.splitlines()[0], flush=True)
     cells = ROOT / "build" / "ab_ivf_cells.pt"
-    if not cells.exists():
+    pq = ROOT / "build" / "ab_pq.pt"
+    if not (cells.exists() and pq.exists()):
         cells.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([sys.executable, "-c", SETUP, os.path.abspath(argv[1]), str(cells)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", SETUP, os.path.abspath(argv[1]), str(cells),
+                               str(pq)], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)
             return 1
     runs = []
     for src in argv[1:]:
-        proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(src), str(cells)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(src), str(cells),
+                               str(pq)], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)
             return 1
@@ -183,7 +264,7 @@ def main(argv: list[str]) -> int:
                for case in CASES}
     summary.update({f"{case}_library": {src: statistics.median(
         r[case]["library_ms"] for r in runs if r["src"] == src) for src in srcs}
-        for case in MERGE_CASES})
+        for case in LIBRARY_CASES})
     same = {case: len({json.dumps({k: v for k, v in r[case].items() if "checksum" in k})
                        for r in runs}) == 1 for case in CASES}
     report = {"card": card.splitlines()[0], "runs": runs, "median_ms_by_src": summary,

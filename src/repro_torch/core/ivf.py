@@ -93,11 +93,13 @@ def pack_cells(x, centroids, assign, *, cell_cap: int | None = None,
     ``MIN_CELL_CAP``.  Within a cell, rows keep their corpus order.  The
     permutation is computed on the host with numpy's stable argsort, as the
     reference computes it; the rows are then scattered into their slots on
-    ``device`` (default: the centroids'), so a packed copy many times the
-    corpus is never built on the host.
+    ``device``, so a packed copy many times the corpus is never built on the
+    host.  ``device`` defaults to where the centroids lie, else the rows, and
+    for numpy inputs to the card (``resolve_device("cuda")``).
     """
     if device is None:
-        device = centroids.device if isinstance(centroids, torch.Tensor) else "cpu"
+        lying = [t.device for t in (centroids, x) if isinstance(t, torch.Tensor)]
+        device = lying[0] if lying else resolve_device("cuda")
     centroids = _np(centroids).astype(np.float32, copy=False)
     assign = _np(assign).astype(np.int64)
     n, d = x.shape
@@ -135,12 +137,16 @@ def build_ivf(x, ncells: int, *, distance: str = "sqeuclidean", iters: int = 10,
               impl: str = "fused", cell_cap: int | None = None, device=None) -> IVFCells:
     """Train the coarse quantizer and pack the corpus: the build-time entry.
 
-    ``x`` is a tensor (trained where it lies) or a numpy array (trained on
-    ``device``, default the CPU).  The reference's ``seed`` is a
+    ``x`` is a tensor (trained where it lies unless ``device`` says
+    otherwise) or a numpy array (trained on ``device``, the card unless the
+    caller asks for the CPU).  The reference's ``seed`` is a
     ``torch.Generator`` or an ``init_perm`` here, as in ``train_centroids``.
     """
-    xt = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
-    xt = xt.to(device) if device is not None else xt
+    if isinstance(x, torch.Tensor):
+        xt = x if device is None else x.to(resolve_device(device))
+    else:
+        xt = torch.from_numpy(np.asarray(x, np.float32)).to(resolve_device(
+            "cuda" if device is None else device))
     cent, assign = train_centroids(xt, ncells, distance=distance, iters=iters,
                                    init_perm=init_perm, generator=generator, impl=impl)
     return pack_cells(xt, cent, assign, cell_cap=cell_cap, device=xt.device)

@@ -156,4 +156,260 @@ __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The staged bulk-merge selection (stream_topk.cu, pq_scan.cu).
+//
+// A list's K-buffer (K <= kMaxSelectK, ascending) lives in shared memory
+// beside a staging area of `cap` entries.  An entry is one 64-bit key that
+// orders as (value, column) does (staged_key), so a compare-exchange is two
+// 64-bit loads, a min and a max, and two stores, with no branch.  A
+// candidate that beats the buffer's K-th entry is appended to the staging
+// area, one shared atomic per warp and list for the candidates of a ballot;
+// nothing is inserted one at a time.  When the staging area nears full, or at
+// the end, the threads that own the lists flush them together: a bitonic
+// sort of the staged keys, then a bitonic merge-and-truncate into the buffer
+// (the element-wise minimum of the buffer and the reversed staged list is a
+// bitonic sequence holding exactly the K smallest of both, and log2 K
+// half-cleaner stages sort it), and the new K-th entry is read back.
+//
+// Exact: the K-th entry only falls between flushes, so a candidate that
+// does not beat a stale one cannot be among the final K; (value, column) is
+// a total order, so the result does not depend on the order the atomics
+// give the appends, and a column split merged afterwards keeps one pass's
+// tie rule.  Without the threshold skip every valid candidate is staged:
+// the same result, more flushes.
+// ---------------------------------------------------------------------------
+
+using Key = unsigned long long;
+
+// The key of (v, c): the float's bits made monotone in the high word (-0.0
+// folded into +0.0, as the compare treats them), the column's in the low
+// word with its sign bit flipped, so that an empty slot (+inf, -1) sorts
+// after every finite value and before every (+inf, c >= 0).
+__device__ __forceinline__ Key staged_key(float v, int c) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<Key>(hi) << 32) | (static_cast<unsigned>(c) ^ 0x80000000u);
+}
+__device__ __forceinline__ float staged_value(Key k) {
+  const unsigned hi = static_cast<unsigned>(k >> 32);
+  return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
+}
+__device__ __forceinline__ int staged_id(Key k) {
+  return static_cast<int>(static_cast<unsigned>(k) ^ 0x80000000u);
+}
+constexpr Key kEmptyKey = 0xff8000007fffffffull;  // staged_key(+inf, -1)
+constexpr Key kPadKey = ~0ull;                     // after every key
+
+// The staging area of a list: twice K, at least `floor` (room for the flush
+// period's appends beyond the flush threshold), at most kMaxSelectK.
+__host__ __device__ inline int staging_cap(int K, int floor) {
+  const int c = 2 * K < floor ? floor : 2 * K;
+  return c < kMaxSelectK ? c : kMaxSelectK;
+}
+
+// Append key `k` to the staging area `sk` with counter *cnt where `want`
+// holds; every lane of the warp calls it.  Returns the warp's appends.
+__device__ __forceinline__ int staged_append(Key* sk, int* cnt, Key k, bool want, int lane) {
+  const unsigned mask = __ballot_sync(kFullMask, want);
+  if (mask == 0) return 0;
+  const int n = __popc(mask);
+  int base = 0;
+  if (lane == 0) base = atomicAdd(cnt, n);
+  base = __shfl_sync(kFullMask, base, 0);
+  if (want) sk[base + __popc(mask & ((1u << lane) - 1u))] = k;
+  return n;
+}
+
+// Compare-exchange of slots a, b: the smaller to a when `up`, else to b.
+__device__ __forceinline__ void staged_cx(Key* k, int a, int b, bool up) {
+  const Key x = k[a], y = k[b];
+  const Key lo = x < y ? x : y, hi = x < y ? y : x;
+  k[a] = up ? lo : hi;
+  k[b] = up ? hi : lo;
+}
+
+// Shared scratch of a flush: the radix histogram and the selected bin.
+struct TrimScratch {
+  int hist[256];
+  Key kmin, kmax;
+  int bin, below, count, cursor;
+};
+
+constexpr int kTrimMin = 256;   // trim a staged list only when it holds more
+constexpr int kTrimStop = 64;   // stop narrowing once the K-th's bin holds at most this many
+
+// Drop from list l's staging area every key above a bound that the K-th
+// smallest of buffer and staging does not exceed, so that the sort that
+// follows has fewer keys.  The bound is found MSB first, 8 bits a pass (a
+// histogram of the keys still in range, the bin where the K-th falls, that
+// bin's range kept) until the bin holds at most kTrimStop keys, starting at
+// the byte where the smallest and the largest key first differ (the bytes
+// above it put every key in one bin); the staged keys at or below the bound
+// are compacted in place.  n[l] becomes their count.  T threads (a multiple
+// of 32, at most 256 * 32) take part; sync() orders the steps, the last one
+// included.
+template <int T, typename Sync>
+__device__ void staged_trim(const Key* bk, Key* sk, int* n, int l, int K, int cap, int t,
+                            Sync sync, TrimScratch* ws) {
+  const int lane = t & 31, total = K + n[l];
+  if (t == 0) {
+    ws->kmin = ~0ull;
+    ws->kmax = 0;
+  }
+  sync();
+  Key mn = ~0ull, mx = 0;
+  for (int j = t; j < total; j += T) {
+    const Key e = j < K ? bk[l * K + j] : sk[l * cap + j - K];
+    mn = min(mn, e);
+    mx = max(mx, e);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = min(mn, __shfl_xor_sync(kFullMask, mn, o));
+    mx = max(mx, __shfl_xor_sync(kFullMask, mx, o));
+  }
+  if (lane == 0) {
+    atomicMin(&ws->kmin, mn);
+    atomicMax(&ws->kmax, mx);
+  }
+  sync();
+  const Key diff = ws->kmin ^ ws->kmax;
+  const int top = diff == 0 ? 0 : (63 - __clzll(static_cast<long long>(diff))) / 8 * 8;
+  Key lo = top == 56 ? 0 : ws->kmin & ~((1ull << (top + 8)) - 1);
+  Key bound = top == 56 ? ~0ull : lo + ((1ull << (top + 8)) - 1);
+  int below = 0;
+  for (int shift = top;; shift -= 8) {
+    for (int i = t; i < 256; i += T) ws->hist[i] = 0;
+    sync();
+    for (int j = t; j < total; j += T) {
+      const Key e = j < K ? bk[l * K + j] : sk[l * cap + j - K];
+      if (e >= lo && e <= bound) atomicAdd(&ws->hist[(e >> shift) & 255], 1);
+    }
+    sync();
+    if (t < 32) {  // the bin that holds the K-th smallest
+      int h[8], sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += (h[i] = ws->hist[8 * lane + i]);
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFullMask, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int run = below + incl - sum;
+      if (run < K && run + sum >= K) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (run + h[i] >= K) {
+            ws->bin = 8 * lane + i;
+            ws->below = run;
+            ws->count = h[i];
+            break;
+          }
+          run += h[i];
+        }
+      }
+    }
+    if (t == 0) ws->cursor = 0;
+    sync();
+    lo += static_cast<Key>(ws->bin) << shift;
+    bound = lo + ((1ull << shift) - 1);
+    below = ws->below;
+    if (ws->count <= kTrimStop || shift == 0) break;
+  }
+  // Compact the staged keys at or below the bound in place, kHeld keys a
+  // thread at a time: a round's keys are all read before any is written,
+  // and its writes land below the end of the keys it read.
+  constexpr int kHeld = 4;
+  for (int j0 = 0; j0 < n[l]; j0 += kHeld * T) {
+    Key held[kHeld];
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int j = j0 + t + i * T;
+      held[i] = j < n[l] ? sk[l * cap + j] : kPadKey;
+    }
+    sync();
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      staged_append(sk + l * cap, &ws->cursor, held[i],
+                    held[i] <= bound && j0 + t + i * T < n[l], lane);
+    sync();
+  }
+  n[l] = ws->cursor;
+  sync();  // every thread has read the count before the scratch is reused
+}
+
+// Flush `nl` lists at once: list l's buffer at bk + l * K, its staging area
+// at sk + l * cap holding n[l] keys (reset to 0 on return).  T threads take
+// part; sync() orders the stages and is called last, so the buffers are
+// whole when it returns.  A list of more than kTrimMin staged keys is
+// trimmed first; the staged keys are then padded to P, the next power of 2
+// above the largest n[l], with kPadKey, which never enters a buffer.
+template <int T, typename Sync>
+__device__ void staged_flush(Key* bk, Key* sk, int* n, int nl, int K, int cap, int t,
+                             Sync sync, TrimScratch* ws) {
+  for (int l = 0; l < nl; ++l)
+    if (n[l] > kTrimMin) staged_trim<T>(bk, sk, n, l, K, cap, t, sync, ws);
+  int most = 0;
+  for (int l = 0; l < nl; ++l) most = max(most, n[l]);
+  int P = 1;
+  while (P < most) P <<= 1;
+  const int lp = __ffs(P) - 1, lk = __ffs(K) - 1;
+  for (int i = t; i < nl * P; i += T) {
+    const int l = i >> lp, j = i & (P - 1);
+    if (j >= n[l]) sk[l * cap + j] = kPadKey;
+  }
+  sync();
+  // Bitonic sort of each staged list, ascending.
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < nl * (P >> 1); i += T) {
+        const int l = i >> (lp - 1), w = i & ((P >> 1) - 1);
+        const int a = ((w & ~(stride - 1)) << 1) | (w & (stride - 1));
+        staged_cx(sk + l * cap, a, a + stride, (a & size) == 0);
+      }
+      sync();
+    }
+  }
+  // The minimum of buffer[j] and staged[K - 1 - j]: a bitonic sequence
+  // holding the K smallest of both.
+  for (int i = t; i < nl * K; i += T) {
+    const int l = i >> lk, b = K - 1 - (i & (K - 1));
+    if (b < P) bk[i] = min(bk[i], sk[l * cap + b]);
+  }
+  sync();
+  for (int dist = K >> 1; dist > 0; dist >>= 1) {
+    for (int i = t; i < nl * (K >> 1); i += T) {
+      const int l = i >> (lk - 1), w = i & ((K >> 1) - 1);
+      const int a = ((w & ~(dist - 1)) << 1) | (w & (dist - 1));
+      staged_cx(bk + l * K, a, a + dist, true);
+    }
+    sync();
+  }
+  for (int l = 0; l < nl; ++l) n[l] = 0;
+}
+
+// cp.async of 16 bytes (src_bytes of them read, the rest zero-filled) or of
+// 4, into shared memory; commit and wait on the groups.
+__device__ __forceinline__ void stage_copy16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void stage_copy4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace repro

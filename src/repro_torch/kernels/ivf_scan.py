@@ -81,16 +81,6 @@ def ivf_scan_plain(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: int
     return torch.cat(vals), torch.cat(idx)
 
 
-def live_slots(probes: torch.Tensor) -> int:
-    """The width W' such that every slot past it, in every tile's list,
-    repeats its predecessor: the kernel would skip them all.  (One read of
-    the lists on the host.)"""
-    fresh = torch.ones_like(probes, dtype=torch.bool)
-    fresh[:, 1:] = probes[:, 1:] != probes[:, :-1]
-    pos = torch.arange(probes.shape[1], device=probes.device)
-    return int(torch.where(fresh, pos, 0).max()) + 1
-
-
 def tile_table(probes: torch.Tensor, cell_extent: torch.Tensor,
                cell_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(table [nt, T, 2] int32, counts [nt] int32) of probe lists ``probes``

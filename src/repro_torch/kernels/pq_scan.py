@@ -11,25 +11,36 @@ probed cell c::
 
 The TPU has no per-lane gather, so the reference expands each code block
 to a one-hot operand and contracts it against the LUTs on the MXU.  A
-Hopper thread can gather, so here the query block's LUTs sit in shared
-memory and each thread sums its slot's ``pq_m`` entries.  One query's LUT
-is ``pq_m * ncodes * 4`` bytes (32 KiB at pq_m = 32, nbits = 8), so a CTA
-holds the LUTs of a few queries (``QB``, a power of two up to 8), not the
-reference's 256: several CTAs cover one union tile, and each walks that
-tile's whole probe list.  The codes are the replica's own row-major
-``[S, pq_m]`` array (the reference transposes them for its lane axis): a
-128-slot tile of a cell is one contiguous run of ``128 * pq_m`` bytes.
+Hopper lane can gather, so here the work is table lookups from shared
+memory.  A CTA of 16 warps holds the tables of ``QB`` queries (a power of
+two up to 8, from ``LUT_BUDGET``) and walks its union tile's probe list in
+units of 32 slots of one cell; warp w scores unit w of each stage of 16 for
+all QB queries, lane l slot l.  Two modes (``plan``):
 
-Bound on the H100: operations (``pq_m`` fp32 adds per (query, live row)
-pair; the codes and ``hy`` of a row are read once from device memory, but
-every CTA of a tile reads them again, from L2).  Each cell is walked to
-its extent (one past its last live slot), a slot that repeats its
-predecessor in the list is skipped, and the list is split across CTAs
-when the query blocks cannot fill the card (``merge_partials`` merges the
-partial sets, lower splits winning ties as in one pass).  K up to
-``stream_topk.MAX_SELECT_K`` = 4096 on the card: past 256 the K-buffers
-are the output's rows, in device memory, since they do not fit beside the
-LUTs.
+* ring mode (``pq_m`` a multiple of 32, the tables within the budget, the
+  codes aligned to 16 bytes): the tables transposed per block of 32
+  subspaces to ``[code][32]``, each lane reading subspace ``(l + t) mod 32``
+  at step t, so every lookup of a warp hits its own bank; each warp's codes
+  staged ahead by ``cp.async`` into a ring of three units;
+* generic mode (any other ``pq_m``, or a table past the budget, ROADMAP
+  F2): the tables as stored, in chunks of ``chunk`` subspaces that fit,
+  reloaded a stage at a time with the partial sums carried across chunks;
+  the codes read from device memory.  Any table size serves.
+
+The codes are the replica's own row-major ``[S, pq_m]`` array (the
+reference transposes them for its lane axis): a unit is one contiguous run
+of ``32 * pq_m`` bytes.  Selection is ``csrc/select.cuh``'s staged bulk
+merge: per query a K-buffer and a staging area in shared memory, for every
+K up to ``stream_topk.MAX_SELECT_K`` = 4096.
+
+Bound on the H100: the table lookups.  The operations bound counts ``pq_m``
+fp32 adds per (query, live row) pair at 67 TFLOP/s; the lookups are
+shared-memory loads, at best one 32-lane wavefront a cycle per SM
+(``lookup_floor_ms``).  Each cell is walked to its extent (one past its
+last live slot), a slot that repeats its predecessor in the list is
+skipped, and the list is split across CTAs when the query blocks cannot
+fill the card (``merge_partials`` merges the partial sets, lower splits
+winning ties as in one pass).
 
 Result contract, the same as the reference's: per query the K =
 next_pow2(k) smallest, by (value, packed slot), of the scores over the
@@ -43,6 +54,7 @@ PyTorch: per tile, gather the union's codes, look the LUTs up with
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -50,15 +62,19 @@ from repro_torch.core import topk as T
 from repro_torch.core.distances import FINALIZERS
 from repro_torch.kernels import _backend as B
 from repro_torch.kernels import scan as SC
-from repro_torch.kernels.ivf_scan import live_slots
 from repro_torch.kernels.merge_partials import merge_partials
 from repro_torch.kernels.pairwise_distance import FINALIZE_CODES
-from repro_torch.kernels.stream_topk import MAX_K, require_card_k, sorted_prefix
+from repro_torch.kernels.stream_topk import MAX_K, MAX_SELECT_K, require_card_k, sorted_prefix
 
 LAUNCHES = 0
 WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
 MAX_QB = 8  # queries per CTA
-LUT_BUDGET = 96 * 1024  # bytes of LUTs per CTA: two or more CTAs per SM
+LUT_BUDGET = 128 * 1024  # bytes of tables per CTA (one CTA an SM at pq_m 32, 8 bits)
+RING_UNITS = 3  # units of 32 slots in each warp's code ring (csrc/pq_scan.cu kPqRing)
+RING_BUDGET = 56 * 1024  # bytes of code rings per CTA, else generic mode
+WARPS = 16  # warps of a CTA (csrc/pq_scan.cu kPqWarps)
+STAGE_SLOTS = 32 * WARPS  # slots a stage: a unit of 32 a warp (kPqStage)
+SMEM_LIMIT = 232448 - 2048  # a CTA's shared memory, less the static arrays
 
 
 def adc_scores(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -108,41 +124,99 @@ def query_block(lut_floats: int) -> int:
     return qb
 
 
-# pq_scan_occupancy(qb, lut_floats, pq_m, K, out[2])
-OCCUPANCY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def staging_cap(K: int) -> int:
+    """A staging area's keys (csrc/select.cuh ``staging_cap``, floor
+    ``2 * STAGE_SLOTS``)."""
+    return min(MAX_SELECT_K, max(2 * STAGE_SLOTS, 2 * K))
+
+
+def smem_bytes(qb: int, ring: bool, chunk: int, pq_m: int, ncodes: int, K: int) -> int:
+    """Dynamic shared memory of a CTA (csrc/pq_scan.cu ``pq_smem_bytes``):
+    each warp's code ring, the QB table chunks, K-buffers and staging
+    areas."""
+    return ((WARPS * RING_UNITS * 32 * (pq_m + 4) if ring else 0) + 4 * qb * chunk * ncodes
+            + 8 * qb * (K + staging_cap(K)))
+
+
+class Plan(NamedTuple):
+    probes: torch.Tensor  # the probe lists, contiguous
+    qb: int               # queries a CTA
+    ring: bool            # ring mode (else generic)
+    chunk: int            # subspaces of a staged table chunk (pq_m: the whole table)
+    splits: int           # ranges of each tile's list, one CTA each
+    slots_per_split: int
+
+
+def kernel_mode(pq_m: int, ncodes: int, K: int, aligned: bool = True) -> tuple[int, bool, int]:
+    """(QB, ring mode, chunk) for tables of ``pq_m * ncodes`` entries.
+
+    A table within ``LUT_BUDGET`` is staged whole, QB of them as
+    ``query_block`` gives, halved while the CTA's shared memory exceeds
+    ``SMEM_LIMIT``; ring mode where ``pq_m`` is a multiple of 32, the ring
+    fits ``RING_BUDGET`` and the codes are aligned to 16 bytes.  A larger
+    table is staged in chunks, one query a CTA: the most subspaces (a
+    multiple of 4 where ``pq_m`` is) whose chunk fits the budget.
+    """
+    lut = pq_m * ncodes
+    if lut * 4 <= LUT_BUDGET:
+        ring = (pq_m % 32 == 0 and aligned
+                and WARPS * RING_UNITS * 32 * (pq_m + 4) <= RING_BUDGET)
+        qb = query_block(lut)
+        while qb > 1 and smem_bytes(qb, ring, pq_m, pq_m, ncodes, K) > SMEM_LIMIT:
+            qb //= 2
+        return qb, ring, pq_m
+    chunk = max(1, LUT_BUDGET // (4 * ncodes))
+    if pq_m % 4 == 0 and chunk >= 4:
+        chunk -= chunk % 4
+    return 1, False, min(chunk, pq_m)
+
+
+def lookup_floor_ms(pairs: int, pq_m: int, sm_count: int = 132, clock_hz: float = 1.98e9) -> float:
+    """The shared-memory floor of the lookups: ``pairs * pq_m`` loads, one
+    32-lane wavefront a cycle per SM (H100 SXM: 132 SMs at 1.98 GHz)."""
+    return pairs * pq_m / 32 / (sm_count * clock_hz) * 1e3
+
+
+# pq_scan_occupancy(qb, ring, chunk, pq_m, ncodes, K, out[2])
+OCCUPANCY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SHAPES: dict = {}
 
 
-def kernel_shape(device: torch.device, qb: int, lut_floats: int, pq_m: int,
-                 K: int) -> tuple[int, int]:
+def kernel_shape(device: torch.device, qb: int, ring: bool, chunk: int, pq_m: int,
+                 ncodes: int, K: int) -> tuple[int, int]:
     """(CTAs resident per SM, shared-memory bytes per CTA) of the kernel as
-    compiled for QB, from the CUDA occupancy calculator."""
-    key = (torch.device(device).index, qb, lut_floats, pq_m, K)
+    compiled for QB and the mode, from the CUDA occupancy calculator."""
+    key = (torch.device(device).index, qb, ring, chunk, pq_m, ncodes, K)
     if key not in _SHAPES:
         out = (ctypes.c_int * 2)()
-        B.call("pq_scan", "pq_scan_occupancy", OCCUPANCY_ARGTYPES, device, qb, lut_floats,
-               pq_m, K, out)
+        B.call("pq_scan", "pq_scan_occupancy", OCCUPANCY_ARGTYPES, device, qb, int(ring),
+               chunk, pq_m, ncodes, K, out)
         B.require(out[0] > 0, lambda: f"the pq_scan kernel does not fit an SM at QB={qb}, "
-                  f"{lut_floats} LUT entries per query, K={K}")
+                  f"ring {ring}, chunk {chunk} of pq_m {pq_m}, K={K}")
         _SHAPES[key] = tuple(out)
     return _SHAPES[key]
 
 
-def plan(probes, m: int, lut_floats: int, pq_m: int, K: int,
-         device: torch.device) -> tuple[torch.Tensor, int, int, int]:
-    """(the probe lists cut to their live width, QB, splits, slots per
-    split) of a launch over ``m`` queries."""
-    probes = probes[:, : live_slots(probes)].contiguous()
-    qb = query_block(lut_floats)
-    per_sm, _ = kernel_shape(device, qb, lut_floats, pq_m, K)
+def plan(probes, m: int, pq_m: int, ncodes: int, K: int, device: torch.device,
+         tile_m: int, aligned: bool = True) -> Plan:
+    """The launch over ``m`` queries: mode, QB (at most the largest power
+    of 2 dividing ``tile_m`` when the batch spans several union tiles), and
+    the split of each tile's list.  The lists are taken whole: the kernel
+    skips a repeated slot as cheaply as the host could cut it, and cutting
+    would read them back."""
+    probes = probes.contiguous()
+    qb, ring, chunk = kernel_mode(pq_m, ncodes, K, aligned)
+    if m > tile_m:
+        qb = min(qb, tile_m & -tile_m)
+    per_sm, _ = kernel_shape(device, qb, ring, chunk, pq_m, ncodes, K)
     splits, sps = SC.split_plan(m, probes.shape[1], qb, 1, per_sm * B.sm_count(device))
-    return probes, qb, splits, sps
+    return Plan(probes, qb, ring, chunk, splits, sps)
 
 
 # pq_scan(probes, extent, luts, codes, qc, hx, hy, out_v, out_i, m, pq_m, ncodes, S, W,
 #         K, cell_cap, tile_m, threshold_skip, finalize, qb, splits, slots_per_split,
-#         stream)
-C_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+#         ring, chunk, stream)
+C_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 
 
 def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncodes: int,
@@ -196,8 +270,9 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
     if m == 0:
         return (torch.full((1, 0, K), T.POS_INF, device=dev),
                 torch.full((1, 0, K), -1, dtype=torch.int32, device=dev))
-    B.require(codes.data_ptr() % 4 == 0, "codes must be aligned to 4 bytes")
-    probes, qb, splits, sps = plan(probes, m, L, pq_m, K, dev)
+    B.require(pq_m % 4 != 0 or codes.data_ptr() % 4 == 0, "codes must be aligned to 4 bytes")
+    pl = plan(probes, m, pq_m, ncodes, K, dev, tile_m, aligned=codes.data_ptr() % 16 == 0)
+    probes, splits = pl.probes, pl.splits
     W = probes.shape[1]
     skip = T.resolve_threshold_skip(threshold_skip, kernel=True)
     vals = torch.empty((splits, m, K), dtype=torch.float32, device=dev)
@@ -205,7 +280,8 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
     B.launch("pq_scan", "pq_scan", C_ARGTYPES, dev,
              B.ptr(probes), B.ptr(cell_extent), B.ptr(luts), B.ptr(codes), B.ptr(qc),
              B.ptr(hx), B.ptr(hy), B.ptr(vals), B.ptr(idx), m, pq_m, ncodes, S, W, K,
-             cell_cap, tile_m, int(skip), FINALIZE_CODES[distance_finalize], qb, splits, sps)
+             cell_cap, tile_m, int(skip), FINALIZE_CODES[distance_finalize], pl.qb, splits,
+             pl.slots_per_split, int(pl.ring), pl.chunk)
     LAUNCHES += 1
     WIDE_LAUNCHES += K > MAX_K
     return vals, idx

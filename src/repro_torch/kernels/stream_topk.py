@@ -2,17 +2,20 @@
 
 Replaces ``repro/kernels/stream_topk.py::stream_topk_pallas`` (bodies
 ``_kernel`` and ``_tile_reduce_topk``).  Source: ``csrc/stream_topk.cu``,
-selection in ``csrc/select.cuh``.
+selection in ``csrc/select.cuh`` (the staged bulk merge).
 
-Bound on the H100: bytes (each element of x is read once for a few
-compares).  One warp streams one row with coalesced loads and keeps the
-row's ascending K-buffer in shared memory; the threshold skip is a ballot
-over 32 candidates, uniform across the warp.
+Bound on the H100: bytes (each element of x is read once for a compare).
+A CTA streams a row through a ring of shared-memory stages filled by
+``cp.async`` and keeps the row's ascending K-buffer and a staging area in
+shared memory: a column that beats the K-th entry is staged, and the CTA
+sorts and merges the staging area into the buffer when it nears full.
+When the rows are too few to fill the card, each row's columns are split
+across CTAs (``plan``) and the partial sets merged by ``merge_partials``.
 
 K: up to ``MAX_SELECT_K`` = 4096 on the card, the cap of every selection
-kernel.  Up to ``MAX_K`` = 256 the K-buffer sits in shared memory; a wider
-K runs the kernel's wide instantiation, whose K-buffer is the output's row
-in device memory.  A CPU tensor serves any K.
+kernel, for one kernel at every K (``MAX_K`` = 256 is where the other
+selection kernels switch to their wide instantiation; ``WIDE_LAUNCHES``
+counts this kernel's launches past it).  A CPU tensor serves any K.
 
 Result contract: the K = next_pow2(k) smallest of each row by (value,
 column), ascending, with ``+inf`` slots carrying id ``-1``.
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.core import topk as T
 from repro_torch.kernels import _backend as B
+from repro_torch.kernels import scan as SC
 
 LAUNCHES = 0
 WIDE_LAUNCHES = 0  # launches at K > MAX_K (counted in LAUNCHES too)
@@ -69,9 +73,41 @@ def stream_topk_plain(x: torch.Tensor, k: int):
     return sorted_prefix(x, T.next_pow2(k))
 
 
-# stream_topk_f32(x, out_v, out_i, m, n, K, threshold_skip, stream)
-C_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# stream_topk_occupancy(K, out[4])
+OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
+# stream_topk_f32(x, out_v, out_i, m, n, K, threshold_skip, vec, splits, cols_per_split, stream)
+C_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+STAGE_COLS = 1024  # columns a stage of the ring (csrc/stream_topk.cu kStStage)
+_SHAPES: dict = {}
 
+
+def kernel_shape(device: torch.device, K: int) -> dict:
+    """The kernel as compiled for K: CTAs resident per SM, shared-memory
+    bytes per CTA, stages in the ring and bytes a stage, from the CUDA
+    occupancy calculator."""
+    key = (torch.device(device).index, K)
+    if key not in _SHAPES:
+        out = (ctypes.c_int * 4)()
+        B.call("stream_topk", "stream_topk_occupancy", OCCUPANCY_ARGTYPES, device, K, out)
+        B.require(out[0] > 0, lambda: f"the stream_topk kernel does not fit an SM at K={K}")
+        _SHAPES[key] = {"ctas_per_sm": out[0], "smem_bytes": out[1], "ring_stages": out[2],
+                        "stage_bytes": out[3]}
+    return _SHAPES[key]
+
+
+def split_columns(m: int, n: int, K: int, resident: int) -> tuple[int, int]:
+    """(splits, columns per split) of each row: the columns are split while
+    the rows cannot fill the card's ``resident`` CTAs, each split at least
+    max(8 stages, 2 K) columns, a whole number of stages."""
+    unit = max(8 * STAGE_COLS, 2 * K)
+    splits, per = SC.split_plan(m, n, 1, unit, resident)
+    return splits, per * unit
+
+
+def plan(m: int, n: int, K: int, device: torch.device) -> tuple[int, int]:
+    """(splits, columns per split) of a launch over ``[m, n]`` at K."""
+    ctas = kernel_shape(device, K)["ctas_per_sm"] * B.sm_count(device)
+    return split_columns(m, n, K, ctas)
 
 
 def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
@@ -79,7 +115,8 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
 
     Returns (values [m, K] fp32, ids [m, K] int32).  ``threshold_skip``
     (default on) changes the work, never the result.  CPU tensors run the
-    plain version at any K; CUDA tensors launch the kernel (K <= 4096).
+    plain version at any K; CUDA tensors launch the kernel (K <= 4096), and
+    the merge kernel where the columns were split.
     """
     global LAUNCHES, WIDE_LAUNCHES
     m, n = x.shape
@@ -89,12 +126,19 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
         return stream_topk_plain(x, k)
     require_card_k(K, "stream_topk")
     skip = T.resolve_threshold_skip(threshold_skip, kernel=True)
-    vals = torch.empty((m, K), dtype=torch.float32, device=x.device)
-    idx = torch.empty((m, K), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
-        return vals.fill_(T.POS_INF), idx.fill_(-1)
+        return (torch.full((m, K), T.POS_INF, device=x.device),
+                torch.full((m, K), -1, dtype=torch.int32, device=x.device))
+    splits, per = plan(m, n, K, x.device)
+    vals = torch.empty((splits, m, K), dtype=torch.float32, device=x.device)
+    idx = torch.empty((splits, m, K), dtype=torch.int32, device=x.device)
+    vec = n % 4 == 0 and x.data_ptr() % 16 == 0
     B.launch("stream_topk", "stream_topk_f32", C_ARGTYPES, x.device,
-             B.ptr(x), B.ptr(vals), B.ptr(idx), m, n, K, int(skip))
+             B.ptr(x), B.ptr(vals), B.ptr(idx), m, n, K, int(skip), int(vec), splits, per)
     LAUNCHES += 1
     WIDE_LAUNCHES += K > MAX_K
-    return vals, idx
+    if splits == 1:
+        return vals[0], idx[0]
+    from repro_torch.kernels.merge_partials import merge_partials  # it imports this module
+
+    return merge_partials(vals, idx)

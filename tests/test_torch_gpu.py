@@ -11,6 +11,9 @@ times the size of the operands' products); ids agree except where two
 distances are that close, and there the differing id's own distance,
 recomputed from the operands, must be the value it is reported at.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -98,6 +101,44 @@ def test_stream_topk_kernel_matches_plain_exactly(cuda, shape, k, skip):
     pv, pi = ST.stream_topk_plain(x, k)
     torch.testing.assert_close(v, pv, rtol=0, atol=0)
     torch.testing.assert_close(i, pi, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("K", [2 ** e for e in range(13)])
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("m,n", [(3, 50_003), (700, 3000)])
+def test_stream_topk_every_k_matches_plain_exactly(cuda, K, skip, m, n):
+    """K from 1 to the cap on values with many exact ties and some +inf,
+    rows too few to fill the card (the columns split, the splits merged)
+    and enough to fill it; an odd n takes the 4-byte copies."""
+    g = np.random.default_rng(K + m)
+    x = g.integers(0, 200, (m, n)).astype(np.float32)
+    x[g.random((m, n)) < 0.01] = np.inf
+    x = torch.from_numpy(x).to(cuda)
+    before = ST.LAUNCHES
+    v, i = ST.stream_topk(x, K, threshold_skip=skip)
+    torch.cuda.synchronize()
+    assert ST.LAUNCHES == before + 1
+    pv, pi = ST.stream_topk_plain(x, K)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    splits, per = ST.plan(m, n, K, cuda)
+    assert (splits > 1) == (m == 3) and per % ST.STAGE_COLS == 0
+    shape = ST.kernel_shape(cuda, K)
+    assert shape["ctas_per_sm"] >= 1 and shape["ring_stages"] * shape["stage_bytes"] > 0
+
+
+def test_stream_topk_all_inf_rows_and_unaligned_rows(cuda):
+    """All-+inf rows come back as (+inf, -1); a view whose rows are not
+    aligned to 16 bytes takes the 4-byte copies and gives the same sets."""
+    x = torch.randn(40, 5000, device=cuda)
+    x[3] = float("inf")
+    v, i = ST.stream_topk(x, 64)
+    assert torch.isinf(v[3]).all() and (i[3] == -1).all()
+    flat = torch.randn(40 * 5000 + 1, device=cuda)
+    y = flat[1:].view(40, 5000)  # contiguous, 4 bytes past a 16-byte boundary
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    vv, vi = ST.stream_topk(y, 64)
+    pv, pi = ST.stream_topk_plain(y, 64)
+    assert torch.equal(vv, pv) and torch.equal(vi, pi)
 
 
 def test_stream_topk_ties_follow_column_order(cuda):
@@ -458,15 +499,11 @@ def test_pairwise_cumulative_kernel_matches_plain(cuda, name, shape):
     torch.testing.assert_close(out.cpu(), via_ops, rtol=1e-5, atol=1e-5 * scale + 1e-6)
 
 
-@pytest.mark.parametrize("residual", [True, False])
-@pytest.mark.parametrize("pq_m,nbits", [(32, 8), (8, 4), (6, 4)])
-@pytest.mark.parametrize("m,tile_m,cap", [(8, 8, 128), (1024, 256, 256), (300, 256, 128)])
-def test_pq_scan_kernel_matches_plain(cuda, residual, pq_m, nbits, m, tile_m, cap):
-    """Random codes, tables, extents and dead slots: the kernel equals its
-    plain version, values to rounding and ids tie-aware, whether the probe
-    list is split across CTAs (a batch of 8) or not."""
-    ncells, ncodes, k = 64, 2 ** nbits, 40
-    g = torch.Generator().manual_seed(m + pq_m + cap)
+def _pq_case(cuda, m, tile_m, cap, pq_m, ncodes, residual, seed, ncells=64, width=4):
+    """Random codes, tables, extents, dead slots and probe lists."""
+    from repro_torch.core.ivf import tile_probe_lists
+
+    g = torch.Generator().manual_seed(seed)
     S = ncells * cap
     codes = torch.randint(0, ncodes, (S, pq_m), generator=g, dtype=torch.uint8).to(cuda)
     luts = torch.randn(m, pq_m * ncodes, generator=g).to(cuda)
@@ -476,19 +513,25 @@ def test_pq_scan_kernel_matches_plain(cuda, residual, pq_m, nbits, m, tile_m, ca
     qc = torch.randn(m, ncells, generator=g).to(cuda) if residual else None
     extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32).to(cuda)
     m_pad = -(-m // tile_m) * tile_m
-    cells = torch.randint(0, ncells, (m_pad, 4), generator=g, dtype=torch.int32).to(cuda)
-    from repro_torch.core.ivf import tile_probe_lists
-
+    cells = torch.randint(0, ncells, (m_pad, width), generator=g, dtype=torch.int32).to(cuda)
     probes = tile_probe_lists(cells, ncells, tile_m)
     kw = dict(cell_cap=cap, ncodes=ncodes, tile_m=tile_m, cell_extent=extent, qc=qc,
               distance_finalize="identity")
+    return probes, luts, codes, hx, hy, kw
+
+
+def _pq_check(cuda, probes, luts, codes, hx, hy, k, kw, skip=None):
+    """One launch (and its merge) against the plain version: values to
+    rounding, ids tie-aware, each differing id at its own ADC value."""
     before = PQS.LAUNCHES
-    v, i = PQS.pq_scan(probes, luts, codes, hx, hy, k, **kw)
+    v, i = PQS.pq_scan(probes, luts, codes, hx, hy, k, threshold_skip=skip, **kw)
     torch.cuda.synchronize()
     assert PQS.LAUNCHES == before + 1
-    pv, pi = PQS.pq_scan_plain(probes, luts, codes, hx, hy, k, cell_cap=cap, ncodes=ncodes,
-                               tile_m=tile_m, cell_extent=extent, finalize="identity", qc=qc)
-    lut3 = luts.reshape(m, pq_m, ncodes)
+    plain_kw = {key: val for key, val in kw.items() if key != "distance_finalize"}
+    pv, pi = PQS.pq_scan_plain(probes, luts, codes, hx, hy, k, finalize="identity", **plain_kw)
+    m, pq_m = luts.shape[0], codes.shape[1]
+    lut3 = luts.reshape(m, pq_m, kw["ncodes"])
+    qc, cap = kw["qc"], kw["cell_cap"]
 
     def adc(rows, cols):
         s = lut3[rows[:, None], torch.arange(pq_m, device=cuda)[None, :],
@@ -497,26 +540,57 @@ def test_pq_scan_kernel_matches_plain(cuda, residual, pq_m, nbits, m, tile_m, ca
             s = s + qc[rows, cols // cap]
         return s + hx[rows, 0] + hy[0, cols]
 
-    check_topk(v, i, pv, pi, n=S, rtol=1e-5, atol=1e-4, dist=adc)
-    _, qb, splits, _ = PQS.plan(probes, m, pq_m * ncodes, pq_m, T.next_pow2(k), cuda)
-    assert qb == PQS.query_block(pq_m * ncodes)
-    if m == 8:  # two CTAs of queries: the list is split to fill the card
-        assert splits > 1
-    if m == 1024 and pq_m == 32:  # 512 CTAs of two queries: no split
-        assert splits == 1
+    check_topk(v, i, pv, pi, n=codes.shape[0], rtol=1e-5, atol=1e-4, dist=adc)
 
 
-def test_pq_scan_refuses_a_lut_past_shared_memory(cuda):
-    """pq_m 256 at 8 bits: one query's table is 256 KiB, past a CTA's."""
-    m, pq_m, ncodes, cap = 4, 256, 256, 128
-    probes = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="does not fit"):
-        PQS.pq_scan(probes, torch.zeros(m, pq_m * ncodes, device=cuda),
-                    torch.zeros((cap, pq_m), dtype=torch.uint8, device=cuda),
-                    torch.zeros(m, 1, device=cuda), torch.zeros(1, cap, device=cuda), 8,
-                    cell_cap=cap, ncodes=ncodes, tile_m=8,
-                    cell_extent=torch.full((1,), cap, dtype=torch.int32, device=cuda),
-                    distance_finalize="identity")
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("pq_m,nbits", [(32, 8), (32, 4), (8, 8), (8, 4), (6, 8), (6, 4),
+                                        (256, 8), (256, 4)])
+@pytest.mark.parametrize("m,tile_m,cap", [(8, 8, 128), (1024, 256, 256), (300, 256, 128)])
+def test_pq_scan_kernel_matches_plain(cuda, residual, pq_m, nbits, m, tile_m, cap):
+    """Random codes, tables, extents and dead slots: the kernel equals its
+    plain version, values to rounding and ids tie-aware, in ring mode
+    (pq_m 32), generic mode (8, 6; 256 at 4 bits, whose ring would not fit)
+    and with the tables in chunks (256 at 8 bits), whether the probe list is
+    split across CTAs (a batch of 8) or not."""
+    ncodes, k = 2 ** nbits, 40
+    probes, luts, codes, hx, hy, kw = _pq_case(cuda, m, tile_m, cap, pq_m, ncodes, residual,
+                                               m + pq_m + cap)
+    _pq_check(cuda, probes, luts, codes, hx, hy, k, kw)
+    pl = PQS.plan(probes, m, pq_m, ncodes, T.next_pow2(k), cuda, tile_m)
+    qb, ring, chunk = PQS.kernel_mode(pq_m, ncodes, T.next_pow2(k))
+    assert (pl.qb, pl.ring, pl.chunk) == (min(qb, tile_m), ring, chunk)
+    assert pl.ring == (pq_m == 32)
+    assert (pl.chunk < pq_m) == (pq_m * ncodes * 4 > PQS.LUT_BUDGET)
+    if m == 8:  # one or two CTAs of queries: the list is split to fill the card
+        assert pl.splits > 1
+    if m == 1024 and pq_m * ncodes == 32 * 256:  # 512 CTAs of two queries: no split
+        assert pl.splits == 1
+
+
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("pq_m,K", [(32, 1), (32, 16), (32, 256), (32, 4096), (8, 1),
+                                    (8, 1024), (256, 64), (256, 2048)])
+def test_pq_scan_every_width_with_and_without_the_skip(cuda, skip, pq_m, K):
+    """K from 1 to the cap, the threshold skip on and off (every valid slot
+    staged: the same result), on a cell_cap of 4096 so that K fits a cell."""
+    probes, luts, codes, hx, hy, kw = _pq_case(cuda, 24, 8, 4096, pq_m, 256, K % 2 == 0,
+                                               K + pq_m, ncells=8, width=3)
+    _pq_check(cuda, probes, luts, codes, hx, hy, K, kw, skip=skip)
+
+
+def test_pq_scan_serves_a_table_past_shared_memory(cuda):
+    """pq_m 256 at 8 bits: one query's table is 256 KiB, past a CTA's shared
+    memory; the kernel walks it in chunks that fit and equals its plain
+    version (ROADMAP F2)."""
+    m, pq_m, ncodes = 40, 256, 256
+    probes, luts, codes, hx, hy, kw = _pq_case(cuda, m, 16, 256, pq_m, ncodes, True, 5)
+    pl = PQS.plan(probes, m, pq_m, ncodes, 16, cuda, 16)
+    assert (pl.qb, pl.ring) == (1, False) and pq_m * ncodes * 4 > PQS.LUT_BUDGET
+    assert pl.chunk * ncodes * 4 <= PQS.LUT_BUDGET and pl.chunk < pq_m
+    per_sm, smem = PQS.kernel_shape(cuda, pl.qb, pl.ring, pl.chunk, pq_m, ncodes, 16)
+    assert per_sm >= 1 and smem == PQS.smem_bytes(pl.qb, pl.ring, pl.chunk, pq_m, ncodes, 16)
+    _pq_check(cuda, probes, luts, codes, hx, hy, 10, kw)
 
 
 # The 3xTF32 wgmma tile product (csrc/gemm_tc.cuh) of pairwise_distance and
@@ -924,37 +998,15 @@ def test_ivf_scan_wide_k_matches_plain(cuda, K, scan_dtype):
 
 
 @pytest.mark.parametrize("K", WIDE_KS)
-def test_pq_scan_wide_k_matches_plain(cuda, K):
-    """K up to cell_cap = 4096: the K-buffers in the output's rows, not
-    beside the LUTs."""
-    m, tile_m, cap, ncells, pq_m, ncodes = 24, 8, 4096, 8, 8, 16
-    g = torch.Generator().manual_seed(K)
-    S = ncells * cap
-    codes = torch.randint(0, ncodes, (S, pq_m), generator=g, dtype=torch.uint8).to(cuda)
-    luts = torch.randn(m, pq_m * ncodes, generator=g).to(cuda)
-    hx = torch.randn(m, 1, generator=g).to(cuda)
-    hy = torch.where(torch.rand(S, generator=g) > 0.3, torch.randn(S, generator=g),
-                     float("inf"))[None, :].to(cuda)
-    qc = torch.randn(m, ncells, generator=g).to(cuda)
-    extent = torch.randint(0, cap + 1, (ncells,), generator=g, dtype=torch.int32).to(cuda)
-    cells = torch.randint(0, ncells, (m, 3), generator=g, dtype=torch.int32).to(cuda)
-    from repro_torch.core.ivf import tile_probe_lists
-
-    probes = tile_probe_lists(cells, ncells, tile_m)
-    kw = dict(cell_cap=cap, ncodes=ncodes, tile_m=tile_m, cell_extent=extent, qc=qc)
+@pytest.mark.parametrize("pq_m,ncodes", [(8, 16), (32, 256)])
+def test_pq_scan_wide_k_matches_plain(cuda, K, pq_m, ncodes):
+    """K up to cell_cap = 4096, generic and ring mode: the K-buffers and
+    their staging areas in shared memory beside the tables."""
+    probes, luts, codes, hx, hy, kw = _pq_case(cuda, 24, 8, 4096, pq_m, ncodes, True, K,
+                                               ncells=8, width=3)
     before = PQS.WIDE_LAUNCHES
-    v, i = PQS.pq_scan(probes, luts, codes, hx, hy, K, distance_finalize="identity", **kw)
-    torch.cuda.synchronize()
+    _pq_check(cuda, probes, luts, codes, hx, hy, K, kw)
     assert PQS.WIDE_LAUNCHES == before + 1
-    pv, pi = PQS.pq_scan_plain(probes, luts, codes, hx, hy, K, finalize="identity", **kw)
-    lut3 = luts.reshape(m, pq_m, ncodes)
-
-    def adc(rows, cols):
-        s = lut3[rows[:, None], torch.arange(pq_m, device=cuda)[None, :],
-                 codes[cols].long()].sum(1)
-        return s + qc[rows, cols // cap] + hx[rows, 0] + hy[0, cols]
-
-    check_topk(v, i, pv, pi, n=S, rtol=1e-5, atol=1e-4, dist=adc)
 
 
 def _merge_case(S, m, K, seed):
@@ -985,3 +1037,40 @@ def test_merge_tree_matches_plain_exactly(cuda, S, K):
     torch.cuda.synchronize()
     assert MP.LAUNCHES == before + 1
     assert torch.equal(gv.cpu(), pv) and torch.equal(gi.cpu(), pi)
+
+
+# ---------------------------------------------------------------------------
+# The kernels that keep select.cuh's one-at-a-time insertion compile as before
+# ---------------------------------------------------------------------------
+
+PTXAS_BASELINE = Path(__file__).with_name("ptxas_registers.json")
+
+
+def _ptxas_entries(log: str) -> dict:
+    """{entry function: {"registers": n, "spill": [stores, loads]}} of a
+    ``-Xptxas -v`` report."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                  r"spill loads", ln)):
+            cur["spill"] = [int(m.group(1)), int(m.group(2))]
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+@pytest.mark.parametrize("name", ["fused_knn", "fused_knn_masked", "ivf_scan", "rescore",
+                                  "merge_partials", "pairwise_distance", "pairwise_cumulative"])
+def test_ptxas_reports_of_the_other_kernels_are_unchanged(cuda, name):
+    """Each entry function of the libraries that do not use the staged bulk
+    merge compiles to the registers and spills recorded in
+    ``tests/ptxas_registers.json`` (the build of these sources before the
+    staged selection was added to ``select.cuh``, on the H100's CUDA 12.8)."""
+    B.build((name,))
+    got = _ptxas_entries(B.library_path(name).with_suffix(".log").read_text())
+    want = json.loads(PTXAS_BASELINE.read_text())[name]
+    assert got == want

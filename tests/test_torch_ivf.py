@@ -150,6 +150,31 @@ def test_ivf_from_arrays_runs_on_the_card_unless_asked_for_the_cpu(trained, monk
         PIVF.ivf_from_arrays(arrays)
 
 
+def test_build_ivf_and_pack_cells_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Numpy input lands on ``resolve_device``'s default, the card, as
+    ``ivf_from_arrays``'s does: without one both raise rather than train or
+    pack on the host.  Asked for the CPU they build there, the same cells;
+    a tensor stays where it lies."""
+    x = clustered_vectors(300, 8, n_clusters=4, seed=1)
+    kw = dict(iters=2, impl="torch")
+    asked = PIVF.build_ivf(x, 4, generator=torch.Generator().manual_seed(0), device="cpu", **kw)
+    lying = PIVF.build_ivf(torch.from_numpy(x), 4, generator=torch.Generator().manual_seed(0),
+                           **kw)
+    assert asked.packed.device.type == lying.packed.device.type == "cpu"
+    for field in PIVF.IVFCells._fields:
+        assert torch.equal(getattr(asked, field), getattr(lying, field)), field
+    cent, assign = PIVF.train_centroids(torch.from_numpy(x), 4, iters=2,
+                                        generator=torch.Generator().manual_seed(0))
+    assert PIVF.pack_cells(x, cent, assign).packed.device.type == "cpu"  # the centroids' device
+    assert PIVF.pack_cells(x, cent.numpy(), assign.numpy(),
+                           device="cpu").packed.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        PIVF.build_ivf(x, 4, **kw)
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        PIVF.pack_cells(x, cent.numpy(), assign.numpy())
+
+
 def test_packed_live_and_probe_cells_match_reference(trained):
     x, q, ivf, pivf = trained
     live = np.arange(700) % 5 != 0

@@ -27,6 +27,7 @@ from repro.core import knn as RK
 from repro.core import pq as RPQ
 from repro.data.synthetic import clustered_vectors
 from repro.kernels import ops as rops
+from repro.kernels.pq_scan import pq_scan_pallas
 from repro.serving import RetrievalIndex as RIndex
 from repro_torch import accounting
 from repro_torch.core import ivf as PIVF
@@ -267,11 +268,97 @@ def test_pq_scan_duplicates_extents_and_splits_keep_one_pass():
     assert torch.equal(mv, v) and torch.equal(mi, i)
     ev, ei = PQS.pq_scan(torch.ones((1, 2), dtype=torch.int32), luts, codes, hx, hy, 4, **kw)
     assert torch.isinf(ev).all() and (ei == -1).all()
-    assert PQS.query_block(32 * 256) == 2 and PQS.query_block(4 * 16) == 8
+    assert PQS.query_block(32 * 256) == 4 and PQS.query_block(4 * 16) == 8  # 128 KiB of tables
     with pytest.raises(ValueError, match="codes"):
         PQS.pq_scan(probes, luts, codes.int(), hx, hy, 10, **kw)
     with pytest.raises(ValueError, match="luts"):
         PQS.pq_scan(probes, luts[:, :-1].contiguous(), codes, hx, hy, 10, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The pq_scan kernel's lookups (csrc/pq_scan.cu), as torch functions
+# ---------------------------------------------------------------------------
+
+
+def ring_sums(luts, codes, ncodes, cell_cap):
+    """Ring mode's arithmetic, index for index: the tables staged by the
+    load loop's decomposition of the flat index (transposed per block of 32
+    subspaces to [code][32]); lane l = the slot's place in its unit of 32;
+    each block's 8 code words read rotated by l // 4 words and funnel-shifted
+    by l % 4 bytes, step t's code byte t of them and its subspace
+    (l + t) mod 32; the sum over blocks, then steps, in that order."""
+    m, L = luts.shape
+    S, pq_m = codes.shape
+    nblk, lg = pq_m // 32, ncodes.bit_length() - 1
+    i = torch.arange(m * L)
+    jj, rest = i & 31, i >> 5
+    c, bq = rest & (ncodes - 1), rest >> lg
+    blk, q = bq % nblk, bq // nblk
+    smem = luts[q, (blk * 32 + jj) * ncodes + c].view(m, L)
+    words = torch.from_numpy(codes.numpy().view("<u4").astype(np.int64))  # [S, pq_m / 4]
+    lane = (torch.arange(S) % cell_cap) % 32
+    a4, rot = 8 * (lane & 3), lane >> 2
+    acc = torch.zeros(m, S)
+    for b in range(nblk):
+        w = [words[torch.arange(S), b * 8 + ((k + rot) & 7)] for k in range(8)]
+        r8 = [(((w[(k + 1) & 7] << 32) | w[k]) >> a4) & 0xFFFFFFFF for k in range(8)]
+        for t in range(32):
+            code = (r8[t >> 2] >> (8 * (t & 3))) & 0xFF
+            idx = (code << 5) | ((lane + t) & 31)
+            acc = acc + smem[:, b * ncodes * 32 + idx]
+    return acc
+
+
+def generic_sums(luts, codes, ncodes, chunk):
+    """Generic mode's: the tables as stored, in chunks of ``chunk``
+    subspaces; the partial sums carried across chunks, subspaces in order."""
+    m = luts.shape[0]
+    S, pq_m = codes.shape
+    acc = torch.zeros(m, S)
+    for j0 in range(0, pq_m, chunk):
+        lut = luts[:, j0 * ncodes : (j0 + min(chunk, pq_m - j0)) * ncodes]
+        for j in range(min(chunk, pq_m - j0)):
+            acc = acc + lut[:, j * ncodes + codes[:, j0 + j].long()]
+    return acc
+
+
+@pytest.mark.parametrize("pq_m,nbits", [(32, 8), (32, 4), (8, 8), (8, 4), (6, 8), (6, 4),
+                                        (256, 8), (256, 4), (64, 8)])
+def test_kernel_lookups_match_adc_and_pallas(pq_m, nbits):
+    """The kernel's lookups in the mode ``plan`` gives (ring at pq_m 32;
+    generic at 64, 8 and 6; generic at 256, in chunks at 8 bits: ROADMAP
+    F2), held to rounding against ``adc_scores`` and, through a whole scan
+    of every cell, against the reference's ``pq_scan_pallas`` in interpret
+    mode: values to rounding, ids tie-aware."""
+    ncodes, m, cap, ncells, k = 2 ** nbits, 8, 32, 6, 10
+    g = np.random.default_rng(pq_m * 10 + nbits)
+    luts = g.standard_normal((m, pq_m * ncodes)).astype(np.float32)
+    codes = g.integers(0, ncodes, (ncells * cap, pq_m)).astype(np.uint8)
+    hx = g.standard_normal((m, 1)).astype(np.float32)
+    hy = g.standard_normal((1, ncells * cap)).astype(np.float32)
+    hy[0, g.random(ncells * cap) < 0.2] = np.inf
+    qc = g.standard_normal((m, ncells)).astype(np.float32)
+    lt, ct = torch.from_numpy(luts), torch.from_numpy(codes)
+    qb, ring, chunk = PQS.kernel_mode(pq_m, ncodes, 16)
+    assert ring == (pq_m == 32)  # the rings of 16 warps at pq_m 64 pass the budget
+    assert (chunk < pq_m) == (pq_m * ncodes * 4 > PQS.LUT_BUDGET)
+    sums = ring_sums(lt, ct, ncodes, cap) if ring else generic_sums(lt, ct, ncodes, chunk)
+    adc = PQS.adc_scores(lt.view(m, pq_m, ncodes), ct)
+    torch.testing.assert_close(sums, adc, rtol=1e-5, atol=1e-4)
+    scores = sums + torch.from_numpy(qc).repeat_interleave(cap, 1) + torch.from_numpy(hx) + \
+        torch.from_numpy(hy)
+    v, i = PQS.sorted_prefix(scores, 16)
+    probes = np.arange(ncells, dtype=np.int32)[None, :]
+    rv, ri = pq_scan_pallas(jnp.asarray(probes), jnp.asarray(luts), jnp.asarray(codes.T.copy()),
+                            jnp.asarray(hx), jnp.asarray(hy), k, cell_cap=cap, ncodes=ncodes,
+                            qc=jnp.asarray(qc), bm=m, interpret=True)
+    qct = torch.from_numpy(qc)
+
+    def dist(rows, cols):
+        return adc[rows, cols] + qct[rows, cols // cap] + torch.from_numpy(hx)[rows, 0] + \
+            torch.from_numpy(hy)[0, cols]
+
+    ref.check_topk(v, i.long(), _t(rv), _t(ri).long(), n=ncells * cap, dist=dist, **TOL)
 
 
 @pytest.mark.parametrize("residual", [True, False])

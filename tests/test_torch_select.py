@@ -6,6 +6,10 @@
 * ``merge_partials``'s merge tree (``csrc/merge_partials.cu``), written
   here as a torch function of the same network, against the plain merge
   (``merge_partials_plain``) and the JAX package's bitonic tree merge.
+* The staged bulk-merge selection of ``stream_topk`` and ``pq_scan``
+  (``csrc/select.cuh``), written here as a torch function of the same
+  network as ``csrc/stream_topk.cu`` drives it, against the plain version
+  and the JAX package's bitonic merge.
 * The card's cap on K, shared by the six selection kernels.
 
 Integer outputs and selected values are compared exactly: the network only
@@ -227,3 +231,208 @@ def test_card_cap_is_4096_for_every_selection_kernel():
     ST.require_card_k(4096, "stream_topk")
     with pytest.raises(ValueError, match="4096"):
         ST.require_card_k(8192, "pq_scan")
+
+
+# ---------------------------------------------------------------------------
+# The staged bulk-merge selection of stream_topk and pq_scan.
+# ---------------------------------------------------------------------------
+
+EMPTY_KEY = np.uint64(0xFF8000007FFFFFFF)  # select.cuh kEmptyKey: (+inf, -1)
+PAD_KEY = np.uint64(2 ** 64 - 1)  # kPadKey
+TRIM_MIN, TRIM_STOP = 256, 64  # kTrimMin, kTrimStop
+
+
+def staged_key(v, c):
+    """select.cuh ``staged_key`` in numpy: -0.0 folded into +0.0, the
+    float's bits made monotone in the high word, the column's with its sign
+    bit flipped in the low word."""
+    u = (np.asarray(v, np.float32) + np.float32(0.0)).view(np.uint32).astype(np.uint64)
+    hi = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    lo = (np.asarray(c, np.int32).view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
+
+
+def staged_decode(k):
+    """select.cuh ``staged_value`` and ``staged_id``."""
+    hi = (k >> np.uint64(32)).astype(np.uint32)
+    u = np.where(hi & 0x80000000, hi & 0x7FFFFFFF, ~hi)
+    return u.astype(np.uint32).view(np.float32), (k.astype(np.uint32) ^ np.uint32(
+        0x80000000)).view(np.int32)
+
+
+def _cx(k, lo, hi):
+    """Compare-exchange of slots lo, hi (index arrays): the smaller to lo."""
+    x, y = k[lo].copy(), k[hi].copy()
+    k[lo], k[hi] = np.minimum(x, y), np.maximum(x, y)
+
+
+def staged_trim(bk, staged, K):
+    """select.cuh ``staged_trim``: the bound, found MSB first 8 bits a pass
+    from the byte where the smallest and largest key first differ, of the
+    bin that holds the K-th smallest of buffer and staging, narrowed until
+    it holds at most kTrimStop keys; the staged keys at or below it."""
+    keys = np.concatenate([bk, staged])
+    diff = int(keys.min()) ^ int(keys.max())
+    top = 0 if diff == 0 else (diff.bit_length() - 1) // 8 * 8
+    span = (1 << (top + 8)) - 1
+    lo = np.uint64(int(keys.min()) & ~span & (2 ** 64 - 1))
+    bound, below = np.uint64(int(lo) + span), 0
+    for shift in range(top, -8, -8):
+        s = np.uint64(shift)
+        live = keys[(keys >= lo) & (keys <= bound)]
+        hist = np.bincount(((live >> s) & np.uint64(255)).astype(np.int64), minlength=256)
+        run = below + np.cumsum(hist)
+        b = int(np.argmax(run >= K))
+        below, count = int(run[b] - hist[b]), int(hist[b])
+        lo = lo + (np.uint64(b) << s)
+        bound = lo + ((np.uint64(1) << s) - np.uint64(1))
+        if count <= TRIM_STOP or shift == 0:
+            break
+    return staged[staged <= bound]
+
+
+def staged_flush(bk, staged, K):
+    """select.cuh ``staged_flush`` on one list: a trim past kTrimMin staged
+    keys, the staged keys padded to P = next_pow2(n) with kPadKey and
+    bitonic-sorted, then merged into the ascending buffer by the minimum of
+    buffer[j] and staged[K - 1 - j] and log2 K half-cleaner stages."""
+    if len(staged) > TRIM_MIN:
+        staged = staged_trim(bk, staged, K)
+    n = len(staged)
+    P = T.next_pow2(max(n, 1))
+    k = np.concatenate([staged, np.full(P - n, PAD_KEY, np.uint64)])
+    w = np.arange(P // 2)
+    size = 2
+    while size <= P:
+        stride = size // 2
+        while stride:
+            a = ((w & ~(stride - 1)) << 1) | (w & (stride - 1))
+            up = (a & size) == 0
+            _cx(k, np.where(up, a, a + stride), np.where(up, a + stride, a))
+            stride //= 2
+        size *= 2
+    j = np.arange(K)
+    b = K - 1 - j
+    ok = b < P
+    bk[j[ok]] = np.minimum(bk[j[ok]], k[b[ok]])
+    dist, w = K // 2, np.arange(K // 2)
+    while dist:
+        a = ((w & ~(dist - 1)) << 1) | (w & (dist - 1))
+        _cx(bk, a, a + dist)
+        dist //= 2
+
+
+def staged_select(x, K, *, skip=True, stage=1024, floor=2048, seed=0):
+    """csrc/stream_topk.cu's selection of each row of ``x``: stages of
+    ``stage`` columns; a column whose key beats the K-th entry as of the
+    last flush (all of them without the skip) is appended, in a shuffled
+    order (the order the atomics give is any); a flush when the staged count
+    exceeds cap - stage, and at the end."""
+    m, n = x.shape
+    cap = min(ST.MAX_SELECT_K, max(floor, 2 * K))
+    g = np.random.default_rng(seed)
+    out_v = torch.full((m, K), T.POS_INF)
+    out_i = torch.full((m, K), -1, dtype=torch.int32)
+    for r in range(m):
+        keys = staged_key(x[r].numpy(), np.arange(n, dtype=np.int32))
+        bk = np.full(K, EMPTY_KEY, np.uint64)
+        staged, kth = [], EMPTY_KEY
+        for c0 in range(0, n, stage):
+            kk = keys[c0 : c0 + stage]
+            staged.append(g.permutation(kk if not skip else kk[kk < kth]))
+            assert sum(map(len, staged)) <= cap
+            if sum(map(len, staged)) > cap - stage:
+                staged_flush(bk, np.concatenate(staged), K)
+                staged, kth = [], bk[K - 1]
+        if sum(map(len, staged)):
+            staged_flush(bk, np.concatenate(staged), K)
+        v, i = staged_decode(bk)
+        out_v[r], out_i[r] = torch.from_numpy(v.copy()), torch.from_numpy(i.copy())
+    return out_v, out_i
+
+
+def _tied_rows(m, n, seed, levels=50):
+    """Rows of few integer values (many exact ties), some +inf, one row all
+    +inf."""
+    g = np.random.default_rng(seed)
+    x = g.integers(0, levels, (m, n)).astype(np.float32)
+    x[g.random((m, n)) < 0.02] = np.inf
+    x[m - 1] = np.inf
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("K", [2 ** e for e in range(13)])
+@pytest.mark.parametrize("skip", [True, False])
+def test_staged_network_equals_the_plain_selection(K, skip):
+    """K from 1 to the cap, ties, +inf entries and an all-+inf row: the
+    staged network with a stale threshold and shuffled appends gives the
+    plain version's K smallest by (value, column), exactly."""
+    x = _tied_rows(3, 3 * K + 1500, K)
+    pv, pi = ST.stream_topk_plain(x, K)
+    sv, si = staged_select(x, K, skip=skip, seed=K)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+    assert (si[2] == -1).all() and torch.isinf(sv[2]).all()
+
+
+@pytest.mark.parametrize("K,stage,floor", [(16, 64, 128), (256, 128, 256), (4, 32, 64)])
+def test_staged_network_with_frequent_flushes(K, stage, floor):
+    """Small stages and staging areas force a flush every few stages (the
+    threshold stale across many of them): the same sets."""
+    x = _tied_rows(4, 5000, K + stage, levels=20)
+    pv, pi = ST.stream_topk_plain(x, K)
+    sv, si = staged_select(x, K, stage=stage, floor=floor, seed=1)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+
+
+@pytest.mark.parametrize("K", [1, 8, 64, 512, 4096])
+def test_staged_merge_matches_the_reference_bitonic_merge(K):
+    """The flush's merge of a sorted staging list into the buffer against
+    the JAX package's ``merge_topk_sorted`` where no values tie (at exact
+    ties its network may keep another column, ROADMAP "Exact ties")."""
+    g = np.random.default_rng(K)
+    a = np.sort(g.standard_normal(K).astype(np.float32))
+    b = np.sort(g.standard_normal(K).astype(np.float32))
+    ai = np.sort(g.choice(10 * K, K, replace=False)).astype(np.int32)
+    bi = np.sort(g.choice(10 * K, K, replace=False) + 10 * K).astype(np.int32)
+    bk = staged_key(a, ai)
+    perm = g.permutation(K)  # staged in any order
+    staged_flush(bk, staged_key(b, bi)[perm], K)
+    bv, bidx = staged_decode(bk)
+    rv, ri = RT.merge_topk_sorted(jnp.asarray(a), jnp.asarray(ai), jnp.asarray(b), jnp.asarray(bi))
+    np.testing.assert_array_equal(bv, np.asarray(rv))
+    np.testing.assert_array_equal(bidx, np.asarray(ri))
+
+
+@pytest.mark.parametrize("m,n,K,resident,want", [
+    (8, 160_000, 128, 660, (20, 8192)), (1024, 160_000, 4096, 264, (1, 163_840)),
+    (8192, 160_000, 128, 660, (1, 163_840)), (3, 50_003, 4096, 264, (7, 8192)),
+    (1, 5, 1, 660, (1, 8192))])
+def test_stream_topk_splits_columns_only_when_rows_cannot_fill_the_card(m, n, K, resident,
+                                                                        want):
+    """Each split a whole number of stages, at least max(8 stages, 2 K)
+    columns; no split once the rows fill the card's resident CTAs."""
+    splits, per = ST.split_columns(m, n, K, resident)
+    assert (splits, per) == want
+    assert per % ST.STAGE_COLS == 0 and (splits - 1) * per < n <= splits * per
+
+
+
+def test_staged_keys_order_as_value_then_column():
+    """Sorting by the 64-bit key is the (value, column) order of the plain
+    version, with ties, -0.0 beside +0.0, +-inf, the empty slot (+inf, -1)
+    after every finite entry and before (+inf, c >= 0), and the pad last;
+    a key decodes to its entry (-0.0 as +0.0, which compares equal)."""
+    g = np.random.default_rng(0)
+    v = np.concatenate([g.integers(-3, 4, 400).astype(np.float32) / 2,
+                        [0.0, -0.0, np.inf, -np.inf, np.inf, 1e-38, -1e-38, 3.4e38]]).astype(
+        np.float32)
+    c = g.permutation(len(v)).astype(np.int32)
+    c[-4] = -1  # one empty slot among the +inf entries
+    keys = staged_key(v, c)
+    order = np.argsort(keys, kind="stable")
+    want = sorted(range(len(v)), key=lambda j: (float(v[j]), int(c[j])))
+    assert order.tolist() == want
+    dv, di = staged_decode(keys)
+    assert np.array_equal(dv, v) and np.array_equal(di, c)  # -0.0 == 0.0 in the compare
+    assert int(staged_key(np.inf, -1)) == 0xFF8000007FFFFFFF  # kEmptyKey
+    assert int(staged_key(np.inf, 2 ** 31 - 1)) < 2 ** 64 - 1  # below kPadKey
