@@ -301,22 +301,34 @@ class WideLaunches:
         from repro_torch.kernels import rescore as RS
         from repro_torch.kernels import stream_topk as ST
 
-        # (kernel, module of its wrapper, wrapper, modules that import it by name)
-        self.targets = [("fused_knn", FK, "fused_knn_partials", []),
-                        ("ivf_scan", IVS, "ivf_scan_partials", []),
-                        ("pq_scan", PQS, "pq_scan_partials", []),
-                        ("rescore_topk", RS, "rescore_topk", []),
-                        ("merge_partials", MP, "merge_partials", [FK, IVS, PQS]),
-                        ("stream_topk", ST, "stream_topk", [])]
+        from repro_torch.core import topk as T
+        from repro_torch.kernels import ops
+
+        def wide_out(a, kw, out):
+            return out[0].shape[-1] > 256
+
+        def wide_k(a, kw, out):  # ops.rescore_operands(q, db, cand_idx, k, ...)
+            return T.next_pow2(a[3] if len(a) > 3 else kw["k"]) > 256
+
+        # (kernel, module of its wrapper, wrapper, modules that import it by
+        # name, whether a call is wide); "rescore_gather" is the rescore's
+        # gather, recorded to be timed beside the launch that follows it.
+        self.targets = [("fused_knn", FK, "fused_knn_partials", [], wide_out),
+                        ("ivf_scan", IVS, "ivf_scan_partials", [], wide_out),
+                        ("pq_scan", PQS, "pq_scan_partials", [], wide_out),
+                        ("rescore_gather", ops, "rescore_operands", [], wide_k),
+                        ("rescore_topk", RS, "rescore_topk", [], wide_out),
+                        ("merge_partials", MP, "merge_partials", [FK, IVS, PQS], wide_out),
+                        ("stream_topk", ST, "stream_topk", [], wide_out)]
         self.records, self.saved = [], []
 
     def __enter__(self):
-        for name, mod, attr, users in self.targets:
+        for name, mod, attr, users, wide in self.targets:
             orig = getattr(mod, attr)
 
-            def wrap(*a, _orig=orig, _name=name, **kw):
+            def wrap(*a, _orig=orig, _name=name, _wide=wide, **kw):
                 out = _orig(*a, **kw)
-                if out[0].shape[-1] > 256:
+                if _wide(a, kw, out):
                     self.records.append((_name, _orig, a, kw, out))
                 return out
 
@@ -372,8 +384,13 @@ def hold_wide(torch, records):
     from repro_torch.kernels import stream_topk as ST
     from repro_torch.kernels.ref import check_topk, operand_distance
 
-    out = {}
-    for name, fn, a, kw, (v, i) in records:
+    out, gather = {}, None
+    for name, fn, a, kw, res in records:
+        if name == "rescore_gather":  # timed beside the launch it feeds
+            gather = (fn, a, kw, res)
+            continue
+        v, i = res
+        more = {}  # what a kernel's entry adds: the rescore's plan and its gather's time
         arg = inspect.signature(fn).bind(*a, **kw)
         arg.apply_defaults()
         p = dict(arg.arguments)
@@ -409,6 +426,19 @@ def hold_wide(torch, records):
             bnd = bound_ms(2.0 * cand.numel(), (cand.numel() + fx.numel() + hx.numel()
                                                 + hy.numel()) * 4 + v.numel() * 8)
             shape = f"candidates {list(cand.shape)}, k {p['k']}"
+            qb, per_sm, smem = RS.kernel_shape(cand.device, cand.shape[1], cand.shape[2], K)
+            more["plan"] = {"rows_a_cta": qb, "ctas_per_sm": per_sm, "smem_bytes": smem}
+            if gather is not None and gather[3][1] is cand:
+                # the gather db[cand_idx] and its gy / hy maps (ops.rescore_operands):
+                # the [m, Kp, d] rows read and the block written, once each
+                g_fn, g_a, g_kw, _ = gather
+                db = g_a[1]
+                more["gather_ms"] = time_ms(torch, lambda: g_fn(*g_a, **g_kw))
+                more["gather_bound_ms"] = bound_ms(
+                    0.0, g_a[2].numel() * (db.shape[1] * db.element_size() + 4)
+                    + (cand.numel() + hy.numel()) * 4)[0]
+                more["gather_db_dtype"] = str(db.dtype)[6:]
+            gather = None
         elif name == "fused_knn":
             fx, gy, hx, hy, gs, qm = p["fx"], p["gy"], p["hx"], p["hy"], p["gy_scale"], p["q_mask"]
             plain_ms, (pv, pi) = time_plain(torch, lambda: FK.fused_knn_plain(
@@ -475,7 +505,7 @@ def hold_wide(torch, records):
         out.setdefault(name, []).append({
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "max_abs_err": cmp["max_abs_err"], "vs_plain": cmp, "library_ms": lib_ms, "K": K,
-            "shape": shape})
+            "shape": shape, **more})
     return out
 
 
@@ -761,8 +791,8 @@ def phase_two_stage(torch, dev, run_path):
             # candidate rows each, K 4096.
             cidx = torch.randint(0, nn, (128, 8192), generator=torch.Generator().manual_seed(32),
                                  dtype=torch.int32).to(dev)
-            w = ops.rescore_operands(qb[:128], vecs_t, cidx, 4096, distance="neg_dot")
             with WideLaunches(torch) as rec:
+                w = ops.rescore_operands(qb[:128], vecs_t, cidx, 4096, distance="neg_dot")
                 RS.rescore_topk(*w[:4], 4096, alpha=-1.0, finalize="identity")
             out[sd]["rescore_k4096"] = hold_wide(torch, rec.records)["rescore_topk"][0]
             del w, rec, cidx
@@ -1489,17 +1519,29 @@ def phase_filtered(torch, dev, run_path, db):
                                                                       bare.distances),
               "an all-True bitmap changed knn_query's result")
         # The index keeps nothing of a filter between searches; the
-        # "allow_fresh" window draws a new allow-list for every batch.
+        # "allow_fresh" window draws a new allow-list for every batch, and
+        # "tenant_exclude" serves each batch's tenants with 500 exclusions
+        # a query (its unfiltered top 5 and 495 drawn: K = 512).
         fresh = [np.sort(rng.choice(n, int(0.7 * n), replace=False)) for _ in range(5)]
+        excl = [np.concatenate([engine.search(batch(b)[0]).ids[:, :5].cpu().numpy(),
+                                rng.integers(0, n, (m, 495))], 1) for b in range(6)]
+
+        def window_filter(name, b, qt):
+            if name == "tenant":
+                return QueryFilter(tenant=qt)
+            if name == "tenant_exclude":
+                return QueryFilter(tenant=qt, exclude_ids=excl[b % 6])
+            return QueryFilter(allowed_ids=allow if name == "allow" else fresh[b % 5])
+
         steady = {}
-        for name in ("tenant", "allow", "allow_fresh"):
+        for name in ("tenant", "allow", "allow_fresh", "tenant_exclude"):
             eng = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
             for b in range(51):  # the first batch is tagged cold
                 q, qt = batch(b % 6)
-                eng.search(q, filter=QueryFilter(tenant=qt) if name == "tenant"
-                           else QueryFilter(allowed_ids=allow if name == "allow"
-                                            else fresh[b % 5]))
+                eng.search(q, filter=window_filter(name, b, qt))
             steady[name] = {**eng.meter.summary(), "p90_ms": eng.meter.latency_ms(90)}
+        check(F.exclusion_width(F.normalize(QueryFilter(tenant=batch(0)[1], exclude_ids=excl[0]),
+                                            m)) == 500, "the exclusion window's width")
         return out, steady
 
     (out, steady), counts = run_path("filtered_query_1m", serve)

@@ -31,6 +31,20 @@ builds the kernels), five times by CUDA events:
   where it splits) on rows of the ``pairwise`` matrix, self excluded as in
   ``chip_smoke.py`` phase 3: 8192 rows at k 100, 1024 rows at k 4096 and at
   k 100 (phase 3b's shape), each beside ``torch.topk`` (``library_ms``);
+- ``wide_k512_masked`` and ``wide_k2048_int8_masked``: the ``fused_knn``
+  kernel (with its merge) on the serving batch's queries and rows under
+  ``chip_smoke.py`` phase 8's tenant filter with 500 exclusions a query
+  (tags drawn with shares proportional to 1 / (t + 1), 8 tenants; 500
+  drawn columns cleared in each query's bitmap), at k 510 (K 512, the flat
+  tier) and k 2048 over the int8 replica (K' 2048, the two-stage tier),
+  each beside k 64 on the same operands (``wide_k64_*``: the same 64-row
+  walk with K-buffers in shared memory);
+- ``ivf_float32_1024_k2048``: ``ivf_scan`` as above at k 2048 (the IVF
+  tier's fetch under 500 exclusions);
+- ``rescore_<m>x<Kp>_k<k>``: the ``rescore_topk`` kernel on drawn
+  candidates, d 256, at the two-stage tier's shape (1024 x 64, k 10), a
+  filtered fetch's (1024 x 2048, k 510) and the card's cap (128 x 8192,
+  k 4096), also by a CUDA graph (``graph_ms``);
 - ``pq_<m>`` and ``pq_1024_k2048``: the ``pq_scan`` kernel (with its merge)
   at ``chip_smoke.py`` phase 7's shape (also by a CUDA graph, ``graph_ms``,
   where the call can be captured), on phase 6's cells and an IVF-PQ
@@ -61,8 +75,13 @@ MERGE_CASES = tuple(f"merge_{s}x{m}x{k}" for s, m, k in MERGE_SHAPES)
 TOPK_SHAPES = ((8192, 100), (1024, 4096), (1024, 100))
 TOPK_CASES = tuple(f"topk_{m}x160000_k{k}" for m, k in TOPK_SHAPES)
 PQ_CASES = ("pq_1024", "pq_8", "pq_1024_k2048")
+WIDE_CASES = ("wide_k64_masked", "wide_k512_masked", "wide_k64_int8_masked",
+              "wide_k2048_int8_masked", "ivf_float32_1024_k2048")
+RESCORE_SHAPES = ((1024, 64, 10), (1024, 2048, 510), (128, 8192, 4096))
+RESCORE_CASES = tuple(f"rescore_{m}x{kp}_k{k}" for m, kp, k in RESCORE_SHAPES)
 LIBRARY_CASES = (*MERGE_CASES, *TOPK_CASES)
-CASES = ("allpairs", "pairwise", "serving", *IVF_CASES, *MERGE_CASES, *TOPK_CASES, *PQ_CASES)
+CASES = ("allpairs", "pairwise", "serving", *IVF_CASES, *MERGE_CASES, *TOPK_CASES, *PQ_CASES,
+         *WIDE_CASES, *RESCORE_CASES)
 
 CHILD = r"""
 import json, statistics, sys, time
@@ -141,9 +160,44 @@ fx, gy, hx, hy, alpha = ops._mxu_operands(db[:1024].contiguous(), db, "neg_dot")
 (v, i), report["serving"] = timed(lambda: FK.fused_knn(
     fx, gy, hx, hy, 10, distance_finalize="identity", alpha=alpha, n_real=gy.shape[0]))
 report["serving"]["ids_checksum"] = int(i[:, :10].long().sum())
-del db, fx, gy, hx, hy, v, i
-
+del v, i
 from repro_torch.core.distances import quantize_rows
+
+gt = torch.Generator(device="cuda").manual_seed(22)
+share = 1.0 / torch.arange(1, 9, device="cuda")
+tags = torch.multinomial(share, db.shape[0], replacement=True, generator=gt)
+q_ten = torch.randint(0, 8, (1024,), device="cuda", generator=gt)
+allowed = tags[None, :] == q_ten[:, None]
+allowed.scatter_(1, torch.randint(0, db.shape[0], (1024, 500), device="cuda", generator=gt),
+                 False)
+words = FK.pack_mask(allowed)
+del allowed, tags
+q8 = quantize_rows(db, "int8", distance="neg_dot")
+for key, k, g_, gs_ in (("wide_k64_masked", 64, gy, None), ("wide_k512_masked", 510, gy, None),
+                        ("wide_k64_int8_masked", 64, q8.data, q8.scale.float()[None, :]),
+                        ("wide_k2048_int8_masked", 2048, q8.data, q8.scale.float()[None, :])):
+    (v, i), report[key] = timed(lambda: FK.fused_knn(
+        fx, g_, hx, hy, k, distance_finalize="identity", alpha=alpha, n_real=gy.shape[0],
+        gy_scale=gs_, q_mask=words))
+    report[key]["ids_checksum"] = int(i.long().sum())
+    del v, i
+del db, fx, gy, hx, hy, q8, words
+
+from repro_torch.kernels import rescore as RS
+
+for m, kp, k in ((1024, 64, 10), (1024, 2048, 510), (128, 8192, 4096)):
+    fx = torch.randn(m, 256, device="cuda", generator=gt)
+    cand = torch.randn(m, kp, 256, device="cuda", generator=gt)
+    hx = torch.randn(m, 1, device="cuda", generator=gt)
+    hy = torch.randn(m, kp, device="cuda", generator=gt).abs()
+    key = f"rescore_{m}x{kp}_k{k}"
+    (v, i), report[key] = timed(lambda: RS.rescore_topk(fx, cand, hx, hy, k, alpha=-2.0,
+                                                        finalize="identity"))
+    report[key]["ids_checksum"] = int(i.long().sum())
+    report[key]["graph_ms"] = graph_ms(lambda: RS.rescore_topk(fx, cand, hx, hy, k, alpha=-2.0,
+                                                               finalize="identity"))
+    del fx, cand, hx, hy, v, i
+
 from repro_torch.core.ivf import pack_cells, packed_live, probe_cells
 from repro_torch.data.synthetic import clustered_vectors
 from repro_torch.kernels import ivf_scan as IVS
@@ -156,14 +210,14 @@ cells = pack_cells(db, cent.to("cuda"), assign.to("cuda"))
 live = packed_live(cells)
 for sd in ("float32", "int8"):
     packed_q = quantize_rows(cells.packed, sd, distance="neg_dot")
-    for m in (1024, 8):
+    for m, k in ((1024, 64), (8, 64)) + (((1024, 2048),) if sd == "float32" else ()):
         cq = probe_cells(q[:m], cells.centroids, 8, distance="neg_dot")
         probes, fx, gy, gs, hx, hy, alpha, tile_m, extent = ops.ivf_scan_operands(
-            q[:m], packed_q, cq, 64, cell_cap=cells.cell_cap, distance="neg_dot",
+            q[:m], packed_q, cq, k, cell_cap=cells.cell_cap, distance="neg_dot",
             packed_live=live)
-        key = f"ivf_{sd}_{m}"
+        key = f"ivf_{sd}_{m}" + ("" if k == 64 else f"_k{k}")
         (v, i), report[key] = timed(lambda: IVS.ivf_scan(
-            probes, fx, gy, hx, hy, 64, cell_cap=cells.cell_cap, tile_m=tile_m,
+            probes, fx, gy, hx, hy, k, cell_cap=cells.cell_cap, tile_m=tile_m,
             distance_finalize="identity", alpha=alpha, gy_scale=gs, cell_extent=extent))
         report[key]["ids_checksum"] = int(i[:, :10].long().sum())
     del packed_q

@@ -48,12 +48,18 @@
 // made the all-pairs call slower: an insertion then reads them from L2.)
 // K = 512 to 4096 (a filtered search's k + E, a post-filter's widened
 // fetch, or the two-stage scan's overfetch of either) cannot stay beside the
-// stages: [64, 1024] entries are 512 KB.
+// stages: [64, 512] entries are already 256 KB.
 // Their K-buffers are the CTA's rows of its own output, out [splits, m, K],
-// in device memory, with the K-th entry in registers (select.cuh's wide
-// instantiation reads the entries an insertion moves all at once); R = 2,
-// 145 KB.  Under the threshold skip an insertion is rare once the first
-// tiles have filled a buffer.
+// in device memory, filled by select.cuh's staged flush into device memory:
+// R = 2 (145 KB for fp32 gy), and in the rest of the SM's shared memory a
+// staging area of kScap 64-bit keys a row (160 for fp32 gy, 192 bf16, 208
+// int8) with the row's count, fill and K-th key.  A column that beats the
+// row's K-th entry (+inf until K have entered) is appended with one ballot,
+// and nothing is inserted one at a time.  When a row's staging area cannot
+// take the next batch of 32 columns, and once at the end of the walk, the
+// warp that owns the row sorts the staged keys and merges them into the
+// row in one pass (warp_merge_into_row), warp-local, inside the product
+// pipeline; the row's first K candidates fill it in bulk.
 // The finished [BM, 128] tile needs no room of its own: the epilogue writes
 // it into the operand stage its last slice was multiplied from, and each
 // consumer warp folds its rows of it (select.cuh) while the tensor cores
@@ -98,12 +104,32 @@ static_assert(128 * kFusedBN * sizeof(float) <= FusedGemm<128, int8_t>::kStageBy
 // K-buffers of K = 256 leave no room.
 constexpr int fused_raw_stages(int K) { return K <= 128 ? 2 : 0; }
 
+// A row of the wide layout (K > kMaxK): its K-th key as of its last flush
+// (the empty key until K candidates have entered), its staged keys, and its
+// real entries in the output.
+struct WideRow {
+  Key kth;
+  int staged, fill;
+};
+
+// The wide layout's staging area, keys a row: what the SM's shared memory
+// holds beside its ring and the rows' state, in multiples of 16.
+template <int BM, typename TB>
+__host__ __device__ constexpr int wide_staging_cap() {
+  return static_cast<int>((kMaxSmem - ring_bytes<FusedGemm<BM, TB>, 2>() -
+                           BM * sizeof(WideRow)) /
+                          (BM * sizeof(Key))) /
+         16 * 16;
+}
+
 // kCap: the widest K the kernel takes.  kMaxK keeps the K-buffers in
-// shared memory; kMaxSelectK keeps them in the kernel's output.
+// shared memory; kMaxSelectK keeps them in the kernel's output and stages
+// in shared memory.
 template <int BM, typename TB, int R, int kCap>
 constexpr size_t fused_smem_bytes(int K) {
   return ring_bytes<FusedGemm<BM, TB>, R>() +
-         (kCap > kMaxK ? 0 : static_cast<size_t>(BM) * K * (sizeof(float) + sizeof(int)));
+         (kCap > kMaxK ? BM * (sizeof(WideRow) + sizeof(Key) * wide_staging_cap<BM, TB>())
+                       : static_cast<size_t>(BM) * K * (sizeof(float) + sizeof(int)));
 }
 
 // The tile table's walk: the table (first column, cell end) of each union
@@ -164,16 +190,20 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
       return n_real;
   };
   // Row r's K-buffer: in shared memory, or row row0 + r of split `split`
-  // of the output.
+  // of the output; past the ring, the wide layout's rows and staging areas.
   float* rv_all = kInOut ? out_v + (static_cast<size_t>(split) * m + row0) * K
                          : reinterpret_cast<float*>(ring + ring_bytes<G, R>() - 1024);
   int* ri_all = kInOut ? out_i + (static_cast<size_t>(split) * m + row0) * K
                        : reinterpret_cast<int*>(rv_all + BM * K);
-  const int buf_rows = kInOut ? min(BM, row_end - row0) : BM;
+  WideRow* wrows = reinterpret_cast<WideRow*>(ring + ring_bytes<G, R>() - 1024);
 
-  for (int i = tid; i < buf_rows * K; i += tc::kThreads) {
-    rv_all[i] = CUDART_INF_F;
-    ri_all[i] = -1;
+  if constexpr (kInOut) {
+    for (int i = tid; i < BM; i += tc::kThreads) wrows[i] = WideRow{kEmptyKey, 0, 0};
+  } else {
+    for (int i = tid; i < BM * K; i += tc::kThreads) {
+      rv_all[i] = CUDART_INF_F;
+      ri_all[i] = -1;
+    }
   }
   float hxr[2];  // this thread's two accumulator rows' hx
 #pragma unroll
@@ -270,8 +300,8 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
           const unsigned w = __shfl_sync(kFullMask, e < 32 ? held[0] : held[kHeld - 1], e % 32);
           valid = valid && ((w >> lane) & 1u);
         }
-        warp_offer<kCap>(rv, ri, K, tile[tile_index(r, b + lane)], c, valid, skip != 0, kv,
-                         ki, lane);
+        warp_offer(rv, ri, K, tile[tile_index(r, b + lane)], c, valid, skip != 0, kv, ki,
+                   lane);
       }
     }
   };
@@ -281,17 +311,99 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
     return;
   }
   tc::consumer_regs();
-  tc_multiply<G, R>(ring, t_end - t_begin, kslices, pre, epi, select);
 
-  // The CTA's rows' K-buffers, as split `split` of out [splits, m, K].
-  if constexpr (kInOut) return;
-  for (int r = warp; r < BM; r += tc::kConsumers / 32) {
-    const int grow = row0 + r;
-    if (grow >= row_end) break;
-    const size_t base = (static_cast<size_t>(split) * m + grow) * K;
-    for (int j = lane; j < K; j += 32) {
-      out_v[base + j] = rv_all[r * K + j];
-      out_i[base + j] = ri_all[r * K + j];
+  if constexpr (kInOut) {
+    // The wide layout: row r's staging area of kScap keys past the rows'
+    // state.  Tile t's columns are appended beside tile t + 1's first
+    // product; a row whose staging area cannot take a batch of 32 is
+    // flushed there, before the batch is held against its new K-th, and
+    // every row with staged keys once the walk ends.
+    constexpr int kScap = wide_staging_cap<BM, TB>();
+    static_assert(kScap >= 32, "a row stages a batch of 32 columns");
+    Key* wstage = reinterpret_cast<Key*>(wrows + BM);
+    auto flush = [&](int r, int ns) {  // row r's ns staged keys into its K-buffer
+      WideRow& w = wrows[r];
+      const int fill = w.fill;
+      Key* sk = wstage + r * kScap;
+      warp_sort_keys(sk, ns, lane);
+      warp_merge_into_row(rv_all + static_cast<size_t>(r) * K,
+                          ri_all + static_cast<size_t>(r) * K, K, fill, sk, ns, &w.kth, lane);
+      __syncwarp();
+      if (lane == 0) w.fill = min(K, fill + ns);
+      __syncwarp();
+    };
+    auto select_wide = [&](int t, int kq, unsigned char* st) {
+      if (kq != 0) return;
+      const float* tile = reinterpret_cast<const float*>(st);
+      const int col0 = col_of(t);
+      const int col_hi = hi_of(t);
+      // The bitmap's words and the column test repeat the narrow select's
+      // text on purpose: shared between the two, they changed the spills of
+      // the narrow kernels (tests/ptxas_registers.json).
+      unsigned held[kHeld];
+      if constexpr (kMasked) {
+#pragma unroll
+        for (int h = 0; h < kHeld; ++h) {
+          const int e = h * 32 + lane, b = e % 4;
+          const int grow = row0 + warp + kSelWarps * (e / 4);
+          held[h] = grow < row_end && col0 + 32 * b < n_real
+                        ? qm[static_cast<size_t>(grow) * qm_stride + col0 / 32 + b]
+                        : 0u;
+        }
+      }
+      for (int r = warp, rr = 0; r < BM; r += kSelWarps, ++rr) {
+        const int grow = row0 + r;
+        if (grow >= row_end) break;
+        WideRow& w = wrows[r];
+        Key* sk = wstage + r * kScap;
+        Key thr = skip ? w.kth : kEmptyKey;
+        int ns = w.staged;
+#pragma unroll
+        for (int b = 0; b < kFusedBN; b += 32) {
+          const int c = col0 + b + lane;
+          bool valid = c < col_hi && !(exclude_self && c == grow);
+          if constexpr (kMasked) {
+            const int e = rr * 4 + b / 32;
+            const unsigned wd =
+                __shfl_sync(kFullMask, e < 32 ? held[0] : held[kHeld - 1], e % 32);
+            valid = valid && ((wd >> lane) & 1u);
+          }
+          const Key key = staged_key(tile[tile_index(r, b + lane)], c);
+          unsigned mask = __ballot_sync(kFullMask, valid && key < thr);
+          if (ns + __popc(mask) > kScap) {  // full: flush, then hold the batch to the new K-th
+            flush(r, ns);
+            ns = 0;
+            thr = skip ? w.kth : kEmptyKey;
+            mask = __ballot_sync(kFullMask, valid && key < thr);
+          }
+          if ((mask >> lane) & 1u) sk[ns + __popc(mask & ((1u << lane) - 1u))] = key;
+          ns += __popc(mask);
+        }
+        __syncwarp();
+        if (lane == 0) w.staged = ns;
+      }
+      __syncwarp();
+    };
+    tc_multiply<G, R>(ring, t_end - t_begin, kslices, pre, epi, select_wide);
+    // The last flushes, and the empty slots past each row's entries.
+    for (int r = warp; r < BM && row0 + r < row_end; r += kSelWarps) {
+      if (wrows[r].staged > 0) flush(r, wrows[r].staged);
+      for (int j = wrows[r].fill + lane; j < K; j += 32) {
+        rv_all[static_cast<size_t>(r) * K + j] = CUDART_INF_F;
+        ri_all[static_cast<size_t>(r) * K + j] = -1;
+      }
+    }
+  } else {
+    tc_multiply<G, R>(ring, t_end - t_begin, kslices, pre, epi, select);
+    // The CTA's rows' K-buffers, as split `split` of out [splits, m, K].
+    for (int r = warp; r < BM; r += tc::kConsumers / 32) {
+      const int grow = row0 + r;
+      if (grow >= row_end) break;
+      const size_t base = (static_cast<size_t>(split) * m + grow) * K;
+      for (int j = lane; j < K; j += 32) {
+        out_v[base + j] = rv_all[r * K + j];
+        out_i[base + j] = ri_all[r * K + j];
+      }
     }
   }
 }

@@ -1,5 +1,4 @@
-// The selection shared by the kNN kernels: a per-row ascending K-buffer in
-// shared memory, owned by one warp.
+// The selection shared by the kNN kernels.
 //
 // Replaces, on the device, stream_topk.py::_tile_reduce_topk (the bitonic
 // reduce of a tile row to K) plus topk.merge_topk_sorted (the bitonic merge
@@ -7,7 +6,15 @@
 // network because it has no cheap per-lane control flow; a warp has it, so
 // here each candidate is first held against the buffer's K-th entry (the
 // paper's heap-top filter, one ballot for 32 candidates) and only the few
-// that beat it are inserted, each in O(K / 32) steps per lane.
+// that beat it are kept.  Three forms:
+//   * one-at-a-time insertion into a per-row ascending K-buffer in shared
+//     memory, owned by one warp (warp_offer; the scan kernels at K <= 256);
+//   * the staged bulk merge, K-buffers and staging areas in shared memory
+//     (staged_append, staged_flush; stream_topk, pq_scan and rescore at
+//     every K up to kMaxSelectK);
+//   * the same staging in shared memory flushed by one warp into a K-buffer
+//     that is a row of the kernel's output in device memory
+//     (warp_sort_keys, warp_merge_into_row; the scan kernels at K > 256).
 //
 // Result contract, the same as the reference's: the K smallest candidates by
 // (value, global column), ascending; an empty slot is (+inf, -1).  Since the
@@ -15,13 +22,6 @@
 // column does not displace it: the running buffer (earlier columns) wins a
 // tie, as in the reference merge, and a split of the columns into slices that
 // are merged afterwards gives the same set (lower slices win ties).
-//
-// The buffer may lie in shared or in device memory: the insertion reads the
-// entries it moves into registers, up to eight per lane (256 entries) at a
-// time, before it writes any, so that those reads are in flight at once.
-// kCap bounds K: every kernel keeps kMaxK for K <= 256 (buffers in shared
-// memory), and instantiates a wide copy, kCap = kMaxSelectK, whose buffers
-// are rows of its own output in device memory.
 #pragma once
 
 #include "common.cuh"
@@ -35,94 +35,39 @@ __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
 }
 
-// Fill a warp's buffer with empty slots.
-__device__ __forceinline__ void warp_init(float* rv, int* ri, int K, int lane) {
-  for (int j = lane; j < K; j += 32) {
-    rv[j] = CUDART_INF_F;
-    ri[j] = -1;
+// Insert (v, c) into the warp's ascending buffer in shared memory (K <=
+// kMaxK); a no-op if it is not among the K smallest.  Every lane of the warp
+// calls it with the same candidate; each lane holds the entries it moves,
+// all at once.
+__device__ __forceinline__ void warp_insert(float* rv, int* ri, int K, float v, int c,
+                                            int lane) {
+  int p = 0;  // entries strictly below (v, c): the insertion position
+#pragma unroll
+  for (int s = 0; s < kMaxK / 32; ++s) {
+    if (s * 32 < K) {
+      const int j = s * 32 + lane;
+      const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
+      p += __popc(__ballot_sync(kFullMask, lt));
+    }
+  }
+  if (p >= K) return;
+  float tv[kMaxK / 32];
+  int ti[kMaxK / 32];
+#pragma unroll
+  for (int s = 0; s < kMaxK / 32; ++s) {
+    const int j = s * 32 + lane;
+    if (s * 32 < K && j >= p && j < K - 1) {
+      tv[s] = rv[j];
+      ti[s] = ri[j];
+    }
   }
   __syncwarp();
-}
-
-// Insert (v, c) into the warp's ascending buffer (K <= kCap); a no-op if it
-// is not among the K smallest.  Every lane of the warp calls it with the same
-// candidate.  Up to K = 256 each lane holds the entries it moves, all at
-// once.  The wide copy holds eight chunks of 32 (256 entries) at a time: the
-// position is counted a group at a time until a group holds an entry not
-// below (v, c), and the entries at and after it move up one a group at a
-// time from the top, so that a group's writes land only on entries already
-// moved.
-template <int kCap = kMaxK>
-__device__ __forceinline__ void warp_insert(float* rv, int* ri, int K, float v,
-                                            int c, int lane) {
-  int p = 0;  // entries strictly below (v, c): the insertion position
-  if constexpr (kCap <= kMaxK) {
 #pragma unroll
-    for (int s = 0; s < kMaxK / 32; ++s) {
-      if (s * 32 < K) {
-        const int j = s * 32 + lane;
-        const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
-        p += __popc(__ballot_sync(kFullMask, lt));
-      }
-    }
-    if (p >= K) return;
-    float tv[kMaxK / 32];
-    int ti[kMaxK / 32];
-#pragma unroll
-    for (int s = 0; s < kMaxK / 32; ++s) {
-      const int j = s * 32 + lane;
-      if (s * 32 < K && j >= p && j < K - 1) {
-        tv[s] = rv[j];
-        ti[s] = ri[j];
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < kMaxK / 32; ++s) {
-      const int j = s * 32 + lane;
-      if (s * 32 < K && j >= p && j < K - 1) {
-        rv[j + 1] = tv[s];
-        ri[j + 1] = ti[s];
-      }
-    }
-  } else {
-    constexpr int kGroup = kMaxK / 32;
-    for (int g0 = 0; g0 < kCap / 32 && g0 * 32 < K; g0 += kGroup) {
-      int below = 0;
-#pragma unroll
-      for (int s = 0; s < kGroup; ++s) {
-        if ((g0 + s) * 32 < K) {
-          const int j = (g0 + s) * 32 + lane;
-          const bool lt = j < K && lex_less(rv[j], ri[j], v, c);
-          below += __popc(__ballot_sync(kFullMask, lt));
-        }
-      }
-      p += below;
-      if (below < kGroup * 32) break;  // the buffer is ascending: nothing later is below
-    }
-    if (p >= K) return;
-    for (int g0 = (K - 1) / 32 / kGroup * kGroup; g0 >= 0 && (g0 + kGroup) * 32 > p;
-         g0 -= kGroup) {
-      float tv[kGroup];
-      int ti[kGroup];
-#pragma unroll
-      for (int s = 0; s < kGroup; ++s) {
-        const int j = (g0 + s) * 32 + lane;
-        if ((g0 + s) * 32 < K && j >= p && j < K - 1) {
-          tv[s] = rv[j];
-          ti[s] = ri[j];
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int s = 0; s < kGroup; ++s) {
-        const int j = (g0 + s) * 32 + lane;
-        if ((g0 + s) * 32 < K && j >= p && j < K - 1) {
-          rv[j + 1] = tv[s];
-          ri[j + 1] = ti[s];
-        }
-      }
-      __syncwarp();
+  for (int s = 0; s < kMaxK / 32; ++s) {
+    const int j = s * 32 + lane;
+    if (s * 32 < K && j >= p && j < K - 1) {
+      rv[j + 1] = tv[s];
+      ri[j + 1] = ti[s];
     }
   }
   if (lane == 0) {
@@ -137,7 +82,6 @@ __device__ __forceinline__ void warp_insert(float* rv, int* ri, int K, float v,
 // in which none does costs one ballot and no branch is taken.  With it off,
 // every valid candidate goes through the insertion, which gives the same
 // buffer.  kv, ki hold the K-th entry and are kept current for all lanes.
-template <int kCap = kMaxK>
 __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
                                            int c, bool valid, bool skip,
                                            float& kv, int& ki, int lane) {
@@ -149,7 +93,7 @@ __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
     const float cv = __shfl_sync(kFullMask, v, src);
     const int cc = __shfl_sync(kFullMask, c, src);
     if (!skip || lex_less(cv, cc, kv, ki)) {
-      warp_insert<kCap>(rv, ri, K, cv, cc, lane);
+      warp_insert(rv, ri, K, cv, cc, lane);
       kv = rv[K - 1];
       ki = ri[K - 1];
     }
@@ -157,7 +101,7 @@ __device__ __forceinline__ void warp_offer(float* rv, int* ri, int K, float v,
 }
 
 // ---------------------------------------------------------------------------
-// The staged bulk-merge selection (stream_topk.cu, pq_scan.cu).
+// The staged bulk-merge selection (stream_topk.cu, pq_scan.cu, rescore.cu).
 //
 // A list's K-buffer (K <= kMaxSelectK, ascending) lives in shared memory
 // beside a staging area of `cap` entries.  An entry is one 64-bit key that
@@ -388,6 +332,141 @@ __device__ void staged_flush(Key* bk, Key* sk, int* n, int nl, int K, int cap, i
     sync();
   }
   for (int l = 0; l < nl; ++l) n[l] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// The staged flush into device memory (fused_knn.cuh at K > kMaxK): one
+// warp, one row, no CTA barrier, so that it can run inside the scan's
+// product pipeline.  The row's K-buffer is a row of the kernel's output,
+// values and ids apart, ascending, its first `fill` entries real and the
+// rest not yet written (they are (+inf, -1) once the walk ends); its
+// staging area of n distinct keys, each below the empty key, lies in
+// shared memory.  The flush sorts the staged keys in place, then merges
+// them into the row in one pass from the top down: each entry's new place
+// is its own place plus its rank in the other list (merge path), so an
+// entry that moves is read once and written once, and nothing is
+// overwritten before it is read.  Whatever lands at or past K is dropped:
+// that truncation is the flush's trim.
+// ---------------------------------------------------------------------------
+
+// Sort the n keys at k ascending, one warp: a bitonic network over P =
+// next_pow2(n) slots in which every compare-exchange puts the smaller key
+// first (the first step of each merge compares mirrored slots).  The slots at or past n are pads above every key that take no
+// room: a compare-exchange that reaches one leaves both slots as they are.
+__device__ __forceinline__ void warp_sort_keys(Key* k, int n, int lane) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int w = lane; w < P / 2; w += 32) {
+      const int o = w & ((size >> 1) - 1), base = (w - o) << 1;
+      if (base + size - 1 - o < n) staged_cx(k, base + o, base + size - 1 - o, true);
+    }
+    __syncwarp();
+    for (int stride = size >> 2; stride > 0; stride >>= 1) {
+      for (int w = lane; w < P / 2; w += 32) {
+        const int a = ((w & ~(stride - 1)) << 1) | (w & (stride - 1));
+        if (a + stride < n) staged_cx(k, a, a + stride, true);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+constexpr int kMergeRun = 8;  // consecutive entries of the row a lane holds in the merge
+
+// A lane's run of kMergeRun entries of a row, as loaded (16-byte loads: the
+// run starts at a multiple of 8), before they are made keys.
+struct MergeRun {
+  float4 v[kMergeRun / 4];
+  int4 i[kMergeRun / 4];
+};
+__device__ __forceinline__ void merge_run_load(MergeRun& m, const float* rv, const int* ri,
+                                               int j0) {
+  if (j0 < 0) return;  // below the row: never read
+#pragma unroll
+  for (int q = 0; q < kMergeRun / 4; ++q) {
+    m.v[q] = *reinterpret_cast<const float4*>(rv + j0 + 4 * q);
+    m.i[q] = *reinterpret_cast<const int4*>(ri + j0 + 4 * q);
+  }
+}
+
+// Merge the n ascending staged keys s (distinct from the row's entries,
+// each below the empty key) into the row (rv, ri) of width K whose first
+// `fill` entries are real, keeping the K smallest.  The warp takes the row
+// 32 * kMergeRun entries at a time from the top, lane l entries g0 + 8 l ..
+// + 7, the next group's loads in flight while a group is merged (they lie
+// below everything the group writes), and finds each entry's rank r among
+// the staged keys (a binary search for the first, then a walk up); entry j
+// moves to j + r.  Staged key t has as many entries below it as the group
+// has entries of rank at most t, plus g0: the lane whose first entry's
+// rank is the last at most t holds them, and t goes to t + that count.  A
+// group whose lowest entry has rank 0 is the last: below it nothing moves.
+// The lane that writes place K - 1 stores its key at *kth.
+__device__ __forceinline__ void warp_merge_into_row(float* __restrict__ rv, int* __restrict__ ri,
+                                                    int K, int fill, const Key* s, int n,
+                                                    Key* kth, int lane) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  constexpr int kGroup = 32 * kMergeRun;
+  int carry = n;  // the rank of the entry above the group: every staged key is below it
+  int g0 = ((fill + kMergeRun - 1) & ~(kMergeRun - 1)) - kGroup;
+  MergeRun next;
+  merge_run_load(next, rv, ri, g0 + kMergeRun * lane);
+  for (;; g0 -= kGroup) {
+    const int j0 = g0 + kMergeRun * lane;  // this lane's first entry
+    Key a[kMergeRun];
+#pragma unroll
+    for (int q = 0; q < kMergeRun / 4; ++q) {
+      const float v[4] = {next.v[q].x, next.v[q].y, next.v[q].z, next.v[q].w};
+      const int id[4] = {next.i[q].x, next.i[q].y, next.i[q].z, next.i[q].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 4 * q + e;
+        a[4 * q + e] = j < 0 ? 0 : j < fill ? staged_key(v[e], id[e]) : kEmptyKey;
+      }
+    }
+    merge_run_load(next, rv, ri, j0 - kGroup);  // the next group, below this one
+    int r[kMergeRun];
+    int pos = 0;
+    for (int step = P; step > 0; step >>= 1)
+      if (pos + step <= n && s[pos + step - 1] < a[0]) pos += step;
+    r[0] = pos;
+#pragma unroll
+    for (int e = 1; e < kMergeRun; ++e) {
+      while (pos < n && s[pos] < a[e]) ++pos;
+      r[e] = pos;
+    }
+    __syncwarp();  // the group is read before any of it is written
+#pragma unroll
+    for (int e = 0; e < kMergeRun; ++e) {
+      const int j = j0 + e, to = j + r[e];
+      if (j >= 0 && j < fill && r[e] > 0 && to < K) {
+        rv[to] = staged_value(a[e]);
+        ri[to] = staged_id(a[e]);
+        if (to == K - 1) *kth = a[e];
+      }
+    }
+    const int first = __shfl_sync(kFullMask, r[0], 0);
+    for (int t0 = first; t0 < carry; t0 += 32) {
+      const int t = t0 + lane;
+      int L = 0;  // the last lane whose first entry's rank is at most t
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(kFullMask, r[0], L + step) <= t) L += step;
+      int below = 0;
+#pragma unroll
+      for (int e = 0; e < kMergeRun; ++e) below += __shfl_sync(kFullMask, r[e], L) <= t;
+      const int to = t + g0 + kMergeRun * L + below;
+      if (t < carry && to < K) {
+        const Key k = s[t];
+        rv[to] = staged_value(k);
+        ri[to] = staged_id(k);
+        if (to == K - 1) *kth = k;
+      }
+    }
+    carry = first;
+    if (carry == 0) break;
+  }
 }
 
 // cp.async of 16 bytes (src_bytes of them read, the rest zero-filled) or of

@@ -28,8 +28,9 @@ the split from what the compiled kernel reports of its occupancy.
 
 K: up to ``MAX_SELECT_K`` = 4096 on the card.  Up to 256 a CTA keeps its
 rows' K-buffers in shared memory; K = 512 to 4096 keep them in the
-kernel's own ``[splits, m, K]`` output (``csrc/fused_knn.cuh``).  A CPU
-tensor serves any K.
+kernel's own ``[splits, m, K]`` output, fed by staging areas in shared
+memory that each row's warp sorts and merges into its row in one pass
+(``csrc/fused_knn.cuh``, ``csrc/select.cuh``).  A CPU tensor serves any K.
 
 Result contract, the same as the reference's: per query the K =
 next_pow2(k) smallest of ``finalize(alpha * (fx @ gy^T) * gy_scale + hx +

@@ -9,11 +9,13 @@ are kept.  Replaces ``repro/kernels/rescore.py::rescore_topk_pallas``
 them to XLA.
 
 Bound on the H100: bytes (the gathered [m, Kp, d] block is read once, for
-2 FLOP a float).  One warp owns a query row, keeps the row's ``fx`` in
-shared memory and reads each candidate row as coalesced float4s, eight
-candidates in flight; a shuffle butterfly reduces each dot.  K up to
-``stream_topk.MAX_SELECT_K`` = 4096 on the card: past 256 the K-buffer is
-the output's row, in device memory.
+2 FLOP a float).  A CTA of 8 warps takes ``qb`` query rows (``kernel_shape``:
+enough that every warp gets 32 candidates a stage, as many as shared memory
+holds); each warp streams its candidates' rows through a ``cp.async`` ring
+in shared memory, 32 rows by 32 floats a slot, and lane j dots candidate j
+in fp32.  The selection is the staged bulk merge of ``csrc/select.cuh`` at
+every K up to ``stream_topk.MAX_SELECT_K`` = 4096: each row's K-buffer and
+staging area lie in shared memory, one kernel for every K.
 
 Result contract: per row the K = next_pow2(k) smallest of
 ``finalize(alpha * <fx[i], cand[i, c]> + hx[i] + hy_cand[i, c])`` by
@@ -49,6 +51,21 @@ def rescore_topk_plain(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize:
 #             finalize, stream)
 C_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# rescore_occupancy(Kp, d, K, out[3])
+OCCUPANCY_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SHAPES: dict = {}
+
+
+def kernel_shape(device: torch.device, Kp: int, d: int, K: int) -> tuple[int, int, int]:
+    """(query rows a CTA takes, CTAs resident per SM, shared-memory bytes
+    per CTA) of the kernel for candidates [*, Kp, d] at width K."""
+    dev = torch.device(device)
+    key = (dev.index, Kp, d, K)
+    if key not in _SHAPES:
+        out = (ctypes.c_int * 3)()
+        B.call("rescore", "rescore_occupancy", OCCUPANCY_ARGTYPES, dev, Kp, d, K, out)
+        _SHAPES[key] = tuple(out)
+    return _SHAPES[key]
 
 
 def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):

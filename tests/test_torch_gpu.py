@@ -1009,6 +1009,68 @@ def test_pq_scan_wide_k_matches_plain(cuda, K, pq_m, ncodes):
     assert PQS.WIDE_LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("K", WIDE_KS)
+@pytest.mark.parametrize("skip", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_wide_k_with_every_column_entering(cuda, K, skip, masked):
+    """Values that fall along each row (gy zero, hy descending): every
+    column beats the K-th, so every tile flushes every row; with a bitmap,
+    some rows allowed fewer than K columns end in (+inf, -1) slots."""
+    m, n, d = 70, 3 * K + 1000, 16
+    g = torch.Generator().manual_seed(K + masked)
+    fx = torch.randn(m, d, generator=g).to(cuda)
+    gy = torch.zeros(n, d, device=cuda)
+    hx = torch.randn(m, 1, generator=g).to(cuda)
+    hy = torch.linspace(1.0, -1.0, n)[None, :].contiguous().to(cuda)
+    words = None
+    if masked:
+        allowed = torch.rand((m, n), generator=g) < 0.9
+        allowed[::5] = False
+        for r in range(0, m, 5):
+            allowed[r, torch.randperm(n, generator=g)[: K // 3]] = True
+        words = FK.pack_mask(allowed).to(cuda)
+    v, i = FK.fused_knn(fx, gy, hx, hy, K, distance_finalize="identity", alpha=-2.0,
+                        n_real=n, q_mask=words, threshold_skip=skip)
+    torch.cuda.synchronize()
+    pv, pi = FK.fused_knn_plain(fx, gy, hx, hy, K, alpha=-2.0, finalize="identity", n_real=n,
+                                q_mask=words)
+    _masked_check(v, i, pv, pi, fx, gy, None, hx, hy, -2.0, d)
+    if masked:
+        assert (i[::5, K // 3 :] == -1).all() and torch.isinf(v[::5, K // 3 :]).all()
+
+
+@pytest.mark.parametrize("m,tile_m", [(40, 8), (45, 16), (100, 32), (64, 64)])
+@pytest.mark.parametrize("scan_dtype", ["float32", "int8"])
+def test_ivf_scan_wide_k_on_union_tiles_below_the_query_block(cuda, m, tile_m, scan_dtype):
+    """K 2048 with union tiles of fewer than 64 queries (and a short last
+    one): the dead rows past each union tile take nothing."""
+    probes, fx, gy, gs, hx, hy, kw = _ivf_case(cuda, m, tile_m, 4096, scan_dtype, m + tile_m,
+                                               ncells=10, d=32, width=3)
+    before = IVS.WIDE_LAUNCHES
+    _ivf_check(cuda, probes, fx, gy, gs, hx, hy, 2048, kw)
+    assert IVS.WIDE_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("K", [2 ** e for e in range(13)])
+@pytest.mark.parametrize("m,d", [(3, 36), (130, 128)])
+def test_rescore_every_width_with_empty_slots_and_unaligned_candidates(cuda, K, m, d):
+    """One kernel for every K from 1 to the cap: Kp not a multiple of 32,
+    empty slots, rows with fewer live candidates than K, ties."""
+    Kp = K + 37 if K >= 64 else 3 * K + 5
+    g = torch.Generator().manual_seed(K * 7 + m)
+    fx = torch.randn(m, d, generator=g).to(cuda)
+    cand = torch.randn(m, Kp, d, generator=g).round().to(cuda)  # integer dots: exact ties
+    hx = torch.zeros(m, 1, device=cuda)
+    hy = torch.randint(0, 4, (m, Kp), generator=g).float().to(cuda)
+    hy[::2, Kp // 3 :] = T.POS_INF
+    hy[1::7] = T.POS_INF  # rows with no live candidate
+    v, p = RS.rescore_topk(fx.round(), cand, hx, hy, K, alpha=-2.0, finalize="identity")
+    torch.cuda.synchronize()
+    pv, pp = RS.rescore_topk_plain(fx.round(), cand, hx, hy, K, alpha=-2.0,
+                                   finalize="identity")
+    assert torch.equal(v, pv) and torch.equal(p, pp)  # integer values: exact, ties by position
+
+
 def _merge_case(S, m, K, seed):
     """[S, m, K] ascending partial sets over ascending disjoint column
     ranges, values from few integers (exact ties), a third of the upper half
@@ -1040,7 +1102,7 @@ def test_merge_tree_matches_plain_exactly(cuda, S, K):
 
 
 # ---------------------------------------------------------------------------
-# The kernels that keep select.cuh's one-at-a-time insertion compile as before
+# The kernels whose selection this tree did not rewrite compile as before
 # ---------------------------------------------------------------------------
 
 PTXAS_BASELINE = Path(__file__).with_name("ptxas_registers.json")
@@ -1066,10 +1128,13 @@ def _ptxas_entries(log: str) -> dict:
 @pytest.mark.parametrize("name", ["fused_knn", "fused_knn_masked", "ivf_scan", "rescore",
                                   "merge_partials", "pairwise_distance", "pairwise_cumulative"])
 def test_ptxas_reports_of_the_other_kernels_are_unchanged(cuda, name):
-    """Each entry function of the libraries that do not use the staged bulk
-    merge compiles to the registers and spills recorded in
-    ``tests/ptxas_registers.json`` (the build of these sources before the
-    staged selection was added to ``select.cuh``, on the H100's CUDA 12.8)."""
+    """Each entry function of these libraries compiles to the registers and
+    spills recorded in ``tests/ptxas_registers.json`` (on the H100's CUDA
+    12.8): the scan kernels at K <= 256, ``merge_partials`` and the two
+    pairwise libraries as built before the staged selection was added to
+    ``select.cuh``; the scan kernels' K > 256 instantiations (``Li4096E``)
+    and ``rescore`` as rewritten onto it.  A change to ``select.cuh`` or
+    ``gemm_tc.cuh`` must leave every entry as it is."""
     B.build((name,))
     got = _ptxas_entries(B.library_path(name).with_suffix(".log").read_text())
     want = json.loads(PTXAS_BASELINE.read_text())[name]

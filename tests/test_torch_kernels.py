@@ -321,7 +321,8 @@ def test_split_plan_covers_every_tile():
                                           (FK, "fused_knn_masked_occupancy"),
                                           (IVS, "ivf_scan"), (IVS, "ivf_scan_occupancy"),
                                           (IVS, "ivf_scan_table"),
-                                          (RS, "rescore_f32"), (PQS, "pq_scan"),
+                                          (RS, "rescore_f32"), (RS, "rescore_occupancy"),
+                                          (PQS, "pq_scan"),
                                           (PQS, "pq_scan_occupancy"),
                                           (PD, "pairwise_cumulative")])
 def test_ctypes_signatures_match_the_cuda_sources(module, entry):

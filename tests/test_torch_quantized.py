@@ -159,6 +159,26 @@ def test_rescore_topk_matches_pallas(distance, Kp):
     np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
 
 
+@pytest.mark.parametrize("distance", ["sqeuclidean", "neg_dot"])
+def test_rescore_topk_past_256_matches_pallas(distance):
+    """k 300 (K 512) over 1000 candidates a row, padded to Kp 1024, with
+    empty slots and a row left fewer than K live ones: the fetch width of a
+    filtered rescore (k + E past 256)."""
+    g = np.random.default_rng(7)
+    y, x = _rows(1500, 8, 8), _rows(5, 8, 9)
+    cand = np.stack([g.permutation(1500)[:1000] for _ in range(5)]).astype(np.int32)
+    cand[::2, -40:] = -1
+    cand[3, 250:] = -1
+    want = rops.rescore_topk(jnp.asarray(x), jnp.asarray(y), jnp.asarray(cand), 300,
+                             distance=distance, bm=8, bd=8)
+    got = ops.rescore_topk(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(cand),
+                           300, distance=distance)
+    assert got.indices.shape == (5, 300)
+    _check(got.distances, got.indices, want.distances, want.indices, 1500)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    assert (got.indices.numpy()[3, 250:] == -1).all()
+
+
 @pytest.mark.parametrize("impl,rimpl", [("torch", "jnp"), ("fused", "fused")])
 def test_rescore_handles_empty_slots_and_k_wider_than_candidates(impl, rimpl):
     y, x = _rows(50, 8, 5), _rows(4, 8, 6)

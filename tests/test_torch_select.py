@@ -6,10 +6,14 @@
 * ``merge_partials``'s merge tree (``csrc/merge_partials.cu``), written
   here as a torch function of the same network, against the plain merge
   (``merge_partials_plain``) and the JAX package's bitonic tree merge.
-* The staged bulk-merge selection of ``stream_topk`` and ``pq_scan``
-  (``csrc/select.cuh``), written here as a torch function of the same
-  network as ``csrc/stream_topk.cu`` drives it, against the plain version
-  and the JAX package's bitonic merge.
+* The staged bulk-merge selection of ``stream_topk``, ``pq_scan`` and
+  ``rescore`` (``csrc/select.cuh``), written here as a torch function of
+  the same network as ``csrc/stream_topk.cu`` drives it, against the plain
+  version and the JAX package's bitonic merge.
+* The scan kernel's wide selection (``csrc/fused_knn.cuh`` at K > 256): the
+  same staging, flushed by one warp into a row of device memory
+  (``warp_sort_keys``, ``warp_merge_into_row``), modelled in numpy down to
+  its index arithmetic, against the plain version.
 * The card's cap on K, shared by the six selection kernels.
 
 Integer outputs and selected values are compared exactly: the network only
@@ -436,3 +440,171 @@ def test_staged_keys_order_as_value_then_column():
     assert np.array_equal(dv, v) and np.array_equal(di, c)  # -0.0 == 0.0 in the compare
     assert int(staged_key(np.inf, -1)) == 0xFF8000007FFFFFFF  # kEmptyKey
     assert int(staged_key(np.inf, 2 ** 31 - 1)) < 2 ** 64 - 1  # below kPadKey
+
+
+# ---------------------------------------------------------------------------
+# The wide scan's flush into a row of device memory (select.cuh
+# warp_sort_keys, warp_merge_into_row), as fused_knn.cuh drives it.
+# ---------------------------------------------------------------------------
+
+MERGE_RUN = 8  # select.cuh kMergeRun: consecutive entries a lane holds
+
+
+def warp_sort_keys(k, n):
+    """``warp_sort_keys`` on k[:n] in place: a bitonic network over P =
+    next_pow2(n) slots, every compare-exchange ascending (the first step of
+    each merge mirrored); one that reaches a slot at or past n is skipped,
+    as if a pad above every key stood there."""
+    P = T.next_pow2(max(n, 1))
+    w = np.arange(P // 2)
+    size = 2
+    while size <= P:
+        o = w & (size // 2 - 1)
+        base = (w - o) << 1
+        a, b = base + o, base + size - 1 - o
+        ok = b < n
+        _cx(k, a[ok], b[ok])
+        stride = size // 4
+        while stride:
+            a = ((w & ~(stride - 1)) << 1) | (w & (stride - 1))
+            ok = a + stride < n
+            _cx(k, a[ok], a[ok] + stride)
+            stride //= 2
+        size *= 2
+
+
+def warp_merge_into_row(row, K, fill, s):
+    """``warp_merge_into_row``: the ascending staged keys ``s`` merged into
+    ``row`` (K keys, the first ``fill`` real), top-down 256 entries at a
+    time, lane l holding entries g0 + 8 l .. + 7 (the next group read before
+    this one is written); entry j moves to j + its rank among the staged
+    keys, staged key t to t + g0 + 8 L + (lane L's entries of rank <= t), L
+    the last lane whose first entry's rank is <= t.  Asserts that no place
+    is read after this flush wrote it and that no place is written twice.
+    Returns the key written at K - 1, or None."""
+    n = len(s)
+    group = 32 * MERGE_RUN
+    written, kth = set(), None
+    carry = n
+    g0 = -(-fill // MERGE_RUN) * MERGE_RUN - group
+    while True:
+        j = g0 + np.arange(group)  # lane l: j[8 l : 8 l + 8]
+        real = (j >= 0) & (j < fill)
+        assert not written & set(j[j >= 0].tolist()), "read after write"
+        a = np.where(real, row[np.clip(j, 0, K - 1)], np.where(j < 0, np.uint64(0), EMPTY_KEY))
+        r = np.searchsorted(s, a, side="left")  # staged keys below each entry
+        for jj, rr, aa, ok in zip(j, r, a, real):
+            to = jj + rr
+            if ok and rr > 0 and to < K:
+                assert to not in written
+                written.add(int(to))
+                row[to] = aa
+                kth = aa if to == K - 1 else kth
+        lane_r = r.reshape(32, MERGE_RUN)
+        first = int(lane_r[0, 0])
+        for t in range(first, carry):
+            L = int(np.searchsorted(lane_r[:, 0], t, side="right")) - 1
+            to = t + g0 + MERGE_RUN * L + int((lane_r[L] <= t).sum())
+            if to < K:
+                assert to not in written
+                written.add(int(to))
+                row[to] = s[t]
+                kth = s[t] if to == K - 1 else kth
+        carry = first
+        if carry == 0:
+            return kth
+        g0 -= group
+
+
+def wide_select(x, K, *, skip=True, cap=160, allowed=None, seed=0):
+    """csrc/fused_knn.cuh's wide selection of each row of ``x``, a batch of
+    32 columns at a time: a column that is allowed and beats the row's K-th
+    key as of its last flush (the empty key until K have entered; without
+    the skip, any finite value) is appended in a shuffled order; a row whose
+    staging area cannot take a batch's keys is flushed (sort, merge) and the
+    batch held against the new K-th; every row with staged keys is flushed
+    at the end, and the places past the row's fill end empty."""
+    m, n = x.shape
+    g = np.random.default_rng(seed)
+    out_v = torch.full((m, K), T.POS_INF)
+    out_i = torch.full((m, K), -1, dtype=torch.int32)
+    for r in range(m):
+        keys = staged_key(x[r].numpy(), np.arange(n, dtype=np.int32))
+        ok = np.ones(n, bool) if allowed is None else allowed[r]
+        row = np.full(K, 0xDEAD, np.uint64)  # not written until the walk ends: any bits
+        kth, fill, staged = EMPTY_KEY, 0, np.zeros(0, np.uint64)
+
+        def flush():
+            nonlocal kth, fill, staged
+            st = staged.copy()
+            warp_sort_keys(st, len(st))
+            assert np.array_equal(st, np.sort(staged))
+            got = warp_merge_into_row(row, K, fill, st)
+            kth = got if got is not None else kth
+            fill = min(K, fill + len(st))
+            staged = np.zeros(0, np.uint64)
+
+        for c0 in range(0, n, 32):
+            kk, good = keys[c0 : c0 + 32], ok[c0 : c0 + 32]
+            want = good & (kk < (kth if skip else EMPTY_KEY))
+            if len(staged) + want.sum() > cap:
+                flush()
+                want = good & (kk < (kth if skip else EMPTY_KEY))
+            staged = np.concatenate([staged, g.permutation(kk[want])])
+        if len(staged):
+            flush()
+        row[fill:] = EMPTY_KEY
+        v, i = staged_decode(row)
+        out_v[r], out_i[r] = torch.from_numpy(v.copy()), torch.from_numpy(i.copy())
+    return out_v, out_i
+
+
+def _wide_rows(m, n, K, seed):
+    """Tied rows (+inf entries, an all-+inf row), one of them descending so
+    that every column enters and every tile flushes; and an allow-mask that
+    leaves one row fewer than K columns and excludes some everywhere."""
+    x = _tied_rows(m, n, seed, levels=40)
+    x[0] = torch.arange(n, 0, -1, dtype=torch.float32)
+    g = np.random.default_rng(seed + 1)
+    allowed = g.random((m, n)) < 0.9
+    allowed[1] = False
+    allowed[1, g.choice(n, K // 3, replace=False)] = True
+    return x, allowed
+
+
+@pytest.mark.parametrize("K", [512, 1024, 2048, 4096])
+@pytest.mark.parametrize("skip", [True, False])
+def test_wide_flush_into_device_rows_equals_the_plain_selection(K, skip):
+    """The warp's sort and top-down rank merge, at every wide K, with ties,
+    +inf entries, an all-+inf row, a descending row, excluded columns and a
+    row allowed fewer than K columns: exactly the plain version's K
+    smallest by (value, column), (+inf, -1) in the slots left empty."""
+    n = 3 * K + 700
+    x, allowed = _wide_rows(4, n, K, K)
+    masked = torch.where(torch.from_numpy(allowed), x, T.POS_INF)
+    pv, pi = ST.stream_topk_plain(masked, K)
+    sv, si = wide_select(x, K, skip=skip, allowed=allowed, seed=K)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+    assert (si[1, K // 3 :] == -1).all() and (si[3] == -1).all()
+
+
+@pytest.mark.parametrize("K,cap", [(512, 32), (1024, 63), (4096, 208)])
+def test_wide_flush_with_frequent_flushes(K, cap):
+    """Staging areas that hold one or two batches flush every batch or two
+    (the threshold stale across none of them): the same sets."""
+    x, allowed = _wide_rows(3, 2 * K + 333, K, K + cap)
+    masked = torch.where(torch.from_numpy(allowed), x, T.POS_INF)
+    pv, pi = ST.stream_topk_plain(masked, K)
+    sv, si = wide_select(x, K, cap=cap, allowed=allowed, seed=cap)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 31, 33, 100, 160, 208, 256])
+def test_warp_sort_with_pads_that_take_no_room(n):
+    """The ascending network over next_pow2(n) slots, the ones past n
+    skipped: any n sorts."""
+    k = staged_key(np.random.default_rng(n).integers(0, 9, n).astype(np.float32),
+                   np.random.default_rng(n + 1).permutation(n).astype(np.int32))
+    want = np.sort(k)
+    warp_sort_keys(k, n)
+    assert np.array_equal(k, want)
