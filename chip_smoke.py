@@ -108,9 +108,35 @@ Phases (each one raises on a failed check; nothing is caught):
    plain version.  Phase 6's fp32 IVF index carries tags of the same kind,
    and one tenant-filtered batch of 1024 there must serve no id of another
    tenant; its recall against the filtered brute force is reported.
+9. Snapshots and the crash-safe lifecycle (DESIGN.md §12, §16) on phase 7's
+   IVF-PQ index and phase 5's int8 index, each churned again (1% of the
+   main rows deleted, 8,192 rows upserted into the delta, 1,024 of them
+   twice), under ``build/phase9`` (the free disk printed first; removed at
+   the end).  9a: each index searched on a fixed batch of 1024 and saved
+   (file bytes and save time printed), then restored in a fresh process on
+   the card with ``kmeans.lloyd`` a tripwire (``launch/snapshot_check.py``):
+   values and ids bit-identical; the restore time (read, CRC, upload) beside
+   the build time of the state it restores (phase 7's k-means, packing, PQ
+   training and encoding; the int8 replica's quantization).  9b: the int8
+   index under ``LifecycleIndex``, 1,000 fsync-acked single-row upserts and
+   deletes (ack p50/p99), a torn half-frame at the journal's tail, recovery
+   in a fresh process (``launch/lifecycle_check.py``): every acked record
+   replayed, only the torn bytes dropped, the search bit-identical.  9c: the
+   IVF-PQ index under ``LifecycleIndex``; ``compact()`` trains the next
+   epoch in a worker thread on its own stream while ``QueryEngine`` serves
+   batches of 1024 (p50/p90/max before, while the worker trains, while it
+   writes the next image, after), and a few acked writes land in the
+   window; the handoff at a batch boundary; gates: k-means never on the
+   serving thread, the handed-off epoch's search bit-identical to a
+   synchronous compact and first search of a copy of the state, and an
+   fp32 scan of its cells at nprobe = ncells equal to brute force over the
+   live main rows.  Peak device memory with both epochs on the card, the
+   training seconds, and the worker's launches (its own tally) apart from
+   the serving thread's.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after.  The line before the last is ``{"kernels": [...]}``: per
+read just after; a background worker's launches (phase 9) go to its own
+tally, never to those counts.  The line before the last is ``{"kernels": [...]}``: per
 kernel its launches, max |difference| against its plain version, its time,
 the plain version's time, the least time the card could take (bytes over
 3.35 TB/s or operations over the peak rate, whichever is larger) and, where
@@ -151,8 +177,12 @@ IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M ro
 N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
 # fp32 operations per (pair, coordinate) of the cumulative accumulators
-# (csrc/pairwise_cumulative.cu); roots and logarithms are per element.
-CUMULATIVE_OPS = {"sqeuclidean": 3, "neg_dot": 2, "hellinger": 3, "kl": 3}
+# (csrc/pairwise_cumulative.cu), counted by the fp32 pipe's slots: an FFMA
+# is one instruction and two operations at the 67 TFLOP/s peak, and an FADD
+# or FSUB beside it takes a slot of its own, so it counts as two too.  acc + (a - b)^2, acc + (sqrt a - sqrt b)^2 and acc + p (log p -
+# log q) are each an FSUB and an FFMA (four); acc + a b one FFMA (two).
+# Roots and logarithms are per element.
+CUMULATIVE_OPS = {"sqeuclidean": 4, "neg_dot": 2, "hellinger": 4, "kl": 4}
 REPORT: dict = {}
 
 
@@ -691,6 +721,7 @@ def phase_two_stage(torch, dev, run_path):
 
     k_scan = scan_width(n, k, 4)
     out = {"k_scan": k_scan}
+    kept = None  # the int8 index, for phase 9
     fx32, gy32, _, hx32, hy32, _ = ops._scan_operands(qb, db_t, "neg_dot")
     kw32 = dict(distance_finalize="identity", alpha=-1.0, n_real=n)
     out["float32"] = {
@@ -796,10 +827,11 @@ def phase_two_stage(torch, dev, run_path):
                 RS.rescore_topk(*w[:4], 4096, alpha=-1.0, finalize="identity")
             out[sd]["rescore_k4096"] = hold_wide(torch, rec.records)["rescore_topk"][0]
             del w, rec, cidx
+            kept = index
         del index, engine, fx, gy, gs, hx, hy, parts, part_v, part_i, pv, pi
         torch.cuda.empty_cache()
     say("two_stage_batch_1024", out)
-    return out
+    return out, kept, queries
 
 
 def union_widths(torch, probes, ncells):
@@ -1173,6 +1205,7 @@ def phase_ivfpq(torch, dev, run_path, x):
     codes = step("encoding_s", lambda: encode_ivfpq(cb, cells, distance="neg_dot"))
     drawn = quality(cells, cb, codes)
     say("ivfpq_kmeanspp_start", drawn)
+    res_build = dict(times)
     say("ivfpq_build", {**times, "ncells": ncells, "cell_cap": cells.cell_cap,
                         "packed_slots": cells.packed.shape[0],
                         "pq_replica_bytes": codes.codes.numel() + codes.hy.numel() * 4
@@ -1360,6 +1393,7 @@ def phase_ivfpq(torch, dev, run_path, x):
                         impl=impl, overfetch=8, db_live=live)
         recs[impl] = recall_at(torch, main_ids[r.indices.clamp(min=0).long()], want)
     res["recall_at_10_256q"] = recs
+    res["build"] = res_build
     res["fused_knn_encode"] = fused_enc
     res["start"] = {"uniform": uniform, "kmeanspp": drawn}
     say("ivfpq_kernels", {key: val for key, val in res.items() if key.startswith(("pq_", "rec"))})
@@ -1368,9 +1402,9 @@ def phase_ivfpq(torch, dev, run_path, x):
     check(rec8 >= 0.85 and rec8_churn >= 0.85,
           f"ivfpq: served recall@10 at overfetch 8 {rec8}, after churn {rec8_churn} < 0.85")
     check(min(recs.values()) >= 0.85, f"ivfpq: recall@10 on 256 queries {recs} < 0.85")
-    del index, engine, ivf, cb, codes, vecs_t, live, live_p
+    del engine, ivf, cb, codes, vecs_t, live, live_p
     torch.cuda.empty_cache()
-    return res
+    return res, index
 
 
 def phase_filtered(torch, dev, run_path, db):
@@ -1642,6 +1676,280 @@ def phase_filtered(torch, dev, run_path, db):
     del index, engine, fx, gy, hx, hy, words, outs, part_v, part_i, pv, pi, mv, mi
     torch.cuda.empty_cache()
     return res
+
+
+def host_twin(RetrievalIndex, idx):
+    """A new index with ``idx``'s host state (segments, ids, liveness, tags,
+    epoch) and nothing on the card: what a synchronous compact of that state
+    would start from."""
+    twin = RetrievalIndex(idx.dim, **idx.config_kwargs())
+    for name in ("_main_vecs", "_main_ids", "_main_live", "_main_tenant", "_delta_vecs",
+                 "_delta_ids", "_delta_live", "_delta_tenant"):
+        setattr(twin, name, getattr(idx, name).copy())
+    twin._delta_n, twin._main_epoch = idx._delta_n, idx._main_epoch
+    twin._loc, twin._version = dict(idx._loc), dict(idx._version)
+    return twin
+
+
+def phase_persistence(torch, dev, run_path, held, pq_build, pq_queries, int8_queries):
+    """Phase 9: snapshots and the crash-safe lifecycle at query_1m, on
+    phase 7's IVF-PQ index and phase 5's int8 two-stage index, taken out of
+    ``held`` (so that the old epoch's device state can go at the handoff)."""
+    import shutil
+    import threading
+
+    import repro_torch.core.ivf as IV
+    import repro_torch.core.kmeans as KM
+    import repro_torch.core.pq as PQ
+    import repro_torch.serving.index as IX
+    import repro_torch.serving.lifecycle as L
+    import repro_torch.serving.snapshot as SS
+    from repro_torch.accounting import ServingMeter
+    from repro_torch.core.distances import quantize_rows
+    from repro_torch.core.knn import ivf_query
+    from repro_torch.kernels.ref import check_topk
+    from repro_torch.launch import lifecycle_check as LC
+    from repro_torch.launch import snapshot_check as SN
+    from repro_torch.serving import LifecycleConfig, LifecycleIndex
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.index import RetrievalIndex
+
+    k, d, new_base = 10, 256, 1 << 21  # new ids start past every id of phases 5-7
+    pq_index, int8_index = held.pop("ivfpq"), held.pop("int8")
+    root = os.path.join(HERE, "build", "phase9")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    # The IVF-PQ image holds the fp32 cell-packed rows: ncells x cell_cap x d x 4.
+    image_bytes = (pq_index._dev["main_ivf"].packed.numel() * 4
+                   + len(pq_index._main_vecs) * (d * 4 + 9))
+    say("persistence_disk", {"path": root, "total_bytes": disk.total, "free_bytes": disk.free,
+                             "ivfpq_image_bytes_estimate": image_bytes})
+    check(disk.free > 2.5 * image_bytes,
+          f"phase 9: {disk.free} bytes free, the IVF-PQ images need {2.5 * image_bytes}")
+
+    # 9a. Snapshot round trip: churn, save, restore in a fresh process.
+    def churn(idx, seed, rows):
+        rng = np.random.default_rng(seed)
+        live_main = idx._main_ids[idx._main_live]
+        idx.delete(rng.choice(live_main, len(idx._main_ids) // 100, replace=False))
+        new = np.arange(new_base, new_base + 8192)
+        idx.upsert(new, rows(rng, 8192))
+        idx.upsert(new[:1024], rows(rng, 1024))  # a dead and a live delta row under one id
+
+    def near_main(idx):
+        return lambda rng, m: (idx._main_vecs[rng.choice(len(idx._main_vecs), m)]
+                               + 0.05 * rng.standard_normal((m, d)).astype(np.float32))
+
+    def gauss(rng, m):
+        return rng.standard_normal((m, d)).astype(np.float32) / np.sqrt(d)
+
+    def round_trip(label, idx, q, rows, build_s):
+        churn(idx, 91, rows)
+        snap = os.path.join(root, f"snapshot_{label}")
+        res = idx.search(q, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.save(snap)
+        save_s = time.perf_counter() - t0
+        expected = snap + ".expected.npz"
+        np.savez(expected, q=q, v=res.distances.cpu().numpy(), i=res.ids.cpu().numpy(), k=k)
+        files = {f: os.path.getsize(os.path.join(snap, f)) for f in sorted(os.listdir(snap))}
+        if build_s is None:  # the int8 tier's derived state is its replica
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quantize_rows(idx._dev["main_vecs"], "int8", distance="neg_dot")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = SN.run_fresh(SN._RESTORE_SNIPPET, snap, expected, str(dev))
+        fresh_s = time.perf_counter() - t0
+        check(got["bit_identical"] and got["live_rows"] == len(idx),
+              f"9a {label}: fresh restore {got}")
+        shutil.rmtree(snap)
+        return {"live_rows": len(idx), "delta_rows": int(idx._delta_n), "file_bytes": files,
+                "total_bytes": sum(files.values()), "save_s": save_s,
+                "restore_s": got["restore_s"], "fresh_process_s": fresh_s, "build_s": build_s,
+                "build_split": pq_build if label == "ivfpq" else {"int8_replica_s": build_s},
+                "bit_identical": True}
+
+    out = {"snapshot_ivfpq": round_trip("ivfpq", pq_index, pq_queries[:1024],
+                                        near_main(pq_index), sum(pq_build.values())),
+           "snapshot_int8": round_trip("int8", int8_index, int8_queries[:1024], gauss, None)}
+    for label in ("ivfpq", "int8"):
+        say(f"persistence_snapshot_{label}", out[f"snapshot_{label}"])
+
+    # 9b. WAL and crash recovery on the int8 index: 1,000 fsync-acked
+    # single-row writes, a torn half-frame, recovery in a fresh process.
+    snap = os.path.join(root, "wal_int8")
+    meter = ServingMeter()
+    t0 = time.perf_counter()
+    lc = LifecycleIndex.attach(int8_index, LifecycleConfig(snapshot_dir=snap), meter=meter)
+    attach_s = time.perf_counter() - t0
+    rng = np.random.default_rng(92)
+    live = np.fromiter(lc.index._loc, np.int64, len(lc.index._loc))
+    victims = rng.choice(live, 500, replace=False)
+    for j in range(500):
+        target = new_base + 8192 + j if j % 2 else int(victims[(j + 250) % 500])
+        lc.upsert([target], gauss(rng, 1))
+        lc.delete([int(victims[j])])
+    expected = LC.crash(lc, snap, int8_queries[:1024], k, acked=1000)
+    t0 = time.perf_counter()
+    got = SN.run_fresh(LC._RECOVER_SNIPPET, snap, expected, str(dev))
+    fresh_s = time.perf_counter() - t0
+    check(got["tail_records"] == 1000 and got["torn_bytes"] == len(LC.TORN)
+          and got["bit_identical"], f"9b: recovery {got}")
+    out["wal_int8"] = {"attach_s": attach_s, "acks": meter.summary()["wal_records"],
+                       "wal_bytes": meter.summary()["wal_bytes"],
+                       "ack_mean_ms": meter.summary()["wal_fsync_ms"],
+                       "ack_p50_ms": meter.wal_ack_ms(50), "ack_p99_ms": meter.wal_ack_ms(99),
+                       "ack_max_ms": meter.wal_ack_ms(100), "recover": got,
+                       "fresh_process_s": fresh_s}
+    say("persistence_wal_int8", out["wal_int8"])
+    shutil.rmtree(snap)
+    del lc, int8_index
+    torch.cuda.empty_cache()
+
+    # 9c. Background handoff while serving, on the IVF-PQ index.
+    snap = os.path.join(root, "lifecycle_ivfpq")
+    t0 = time.perf_counter()
+    lc = LifecycleIndex.attach(pq_index, LifecycleConfig(snapshot_dir=snap))
+    attach_s = time.perf_counter() - t0
+    del pq_index
+    meters = {w: ServingMeter() for w in ("before", "training", "imaging", "after")}
+    engine = QueryEngine(lc, EngineConfig(k=k, min_batch=8, max_batch=1024),
+                         meter=meters["before"])
+    batches = [pq_queries[b * 1024 : (b + 1) * 1024] for b in range(8)]
+    rng = np.random.default_rng(93)
+    mutations = [("upsert", (np.arange(new_base + 9000, new_base + 9016),
+                             near_main(lc.index)(rng, 16))),
+                 ("delete", (rng.choice(lc.index._main_ids, 16, replace=False),)),
+                 ("upsert", (lc.index._main_ids[:8], near_main(lc.index)(rng, 8)))]
+    real_lloyd, on_serving, in_worker = KM.lloyd, [], []
+
+    def guarded(*a, **kw):  # k-means must run in the worker only
+        if threading.current_thread() is threading.main_thread():
+            on_serving.append(1)
+            raise AssertionError("9c: kmeans.lloyd entered on the serving thread")
+        in_worker.append(1)
+        return real_lloyd(*a, **kw)
+
+    # The lifecycle's stages, traced: each call's span, the serving thread's
+    # tagged, to set beside the window's slowest batches (timed here with
+    # the engine's batch-boundary hook, where the swap runs, which the
+    # meter leaves out).
+    spans, traced = [], [(IX, "build_ivf"), (IX, "build_ivfpq"), (IX, "_tensor"),
+                         (IV, "ivf_to_arrays"), (PQ, "pq_to_arrays"), (SS, "_npz_atomic"),
+                         (SS, "_file_stamp"), (L, "_replace_dir"), (L, "checkpoint_journal"),
+                         (L, "read_journal"), (L, "replay_record"), (lc, "_finish_handoff")]
+    originals = [getattr(mod, name) for mod, name in traced]
+
+    def tracer(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                serving = threading.current_thread() is threading.main_thread()
+                spans.append(("serving:" * serving + name, t0, time.perf_counter()))
+        return call
+
+    def window():
+        for b in range(21):  # the first batch is tagged cold
+            engine.search(batches[b % 8])
+        twin = host_twin(RetrievalIndex, lc.index)
+        epoch0 = lc.stats()["epoch"]
+        KM.lloyd = guarded
+        for (mod, name), fn in zip(traced, originals):
+            setattr(mod, name, tracer(name, fn))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            lc.compact()
+            for op, args in mutations:  # acked during the window, replayed onto N+1
+                getattr(lc, op)(*args)
+            b, slow = 0, []
+            while lc.handoff_pending:
+                p = lc._pending
+                engine.meter = meters["training" if "train_s" not in p.out else "imaging"]
+                tb = time.perf_counter()
+                engine.search(batches[b % 8])
+                slow.append((time.perf_counter() - tb, tb))
+                b += 1
+            window_s, window_batches = time.perf_counter() - t0, b
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            KM.lloyd = real_lloyd
+            for (mod, name), fn in zip(traced, originals):
+                setattr(mod, name, fn)
+            del lc._finish_handoff  # the method again, not the traced copy
+        slowest = [{"ms": dt * 1e3, "at_s": tb - t0,
+                    "stages": sorted({n for n, s0, s1 in spans if s0 < tb + dt and s1 > tb})}
+                   for dt, tb in sorted(slow, reverse=True)[:8]]
+        stages = {}
+        for n, s0, s1 in spans:
+            stages[n] = stages.get(n, 0.0) + (s1 - s0)
+        engine.meter = meters["after"]
+        for b in range(21):
+            engine.search(batches[b % 8])
+        check(not on_serving and in_worker, f"9c: k-means calls {len(on_serving)} on the "
+              f"serving thread, {len(in_worker)} in the worker")
+        check(lc.stats()["epoch"] == epoch0 + 1, f"9c: epoch {lc.stats()}")
+        return twin, {"window_s": window_s, "window_batches": window_batches,
+                      "peak_allocated_bytes": peak, "slowest_batches": slowest,
+                      "stage_s": stages}
+
+    (twin, info), counts = run_path("lifecycle_handoff_ivfpq", window)
+    for name in ("fused_knn", "pq_scan", "rescore_topk"):
+        check(counts[name] > 0, f"9c: {name} never launched on the serving thread: {counts}")
+    worker = lc.stats()["worker_launches"]
+    check(worker.get("fused_knn.LAUNCHES", 0) > 0, f"9c: the worker launched no kernel {worker}")
+    # Gate: the handed-off epoch serves what a synchronous compact and first
+    # search of the same state serve, bit for bit, on the card (ROADMAP F3).
+    qfix = pq_queries[:1024]
+    got = lc.search(qfix, k)
+    twin.compact()
+    for op, args in mutations:
+        getattr(twin, op)(*args)
+    t0 = time.perf_counter()
+    want = twin.search(qfix, k)
+    torch.cuda.synchronize()
+    sync_first_search_s = time.perf_counter() - t0
+    check(torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances),
+          "9c: the handed-off epoch differs from a synchronous compact")
+    del twin, want
+    torch.cuda.empty_cache()
+    # Gate: the handed-off cells hold every live main row: an fp32 scan of
+    # them at nprobe = ncells equals brute force over the live main rows.
+    new = lc.index
+    vecs_t, live_t, ids_t = new._device_state()["main"]
+    cells = new._dev["main_ivf"]
+    q64 = torch.from_numpy(pq_queries[:64]).to(dev)
+    r = ivf_query(q64, vecs_t, cells, k, nprobe=cells.ncells, distance="neg_dot",
+                  db_live=live_t)
+    rows = torch.nonzero(live_t).flatten()
+    bv, bi = brute_topk(torch, q64, vecs_t[rows], 16)
+    full_probe = check_topk(r.distances, r.indices.long(), bv[:, :k], rows[bi[:, :k].long()],
+                            n=vecs_t.shape[0], rtol=1e-5, atol=1e-3,
+                            dist=lambda rr, c: -(q64[rr] * vecs_t[c]).sum(1))
+    vecs, ids = new._live_rows()
+    qt = torch.from_numpy(qfix).to(dev)
+    truth = torch.from_numpy(ids).to(dev)[true_ids(torch, qt, torch.from_numpy(vecs).to(dev), k)]
+    summ = {w: {**m.summary(), "p90_ms": m.latency_ms(90), "max_ms": m.latency_ms(100)}
+            for w, m in meters.items()}
+    out["handoff_ivfpq"] = {
+        "attach_s": attach_s, **info, "train_s": lc.stats()["last_train_s"],
+        "windows": summ, "serving_launches": counts, "worker_launches": worker,
+        "sync_compact_first_search_s": sync_first_search_s, "bit_identical_to_sync": True,
+        "full_probe_vs_brute": full_probe, "recall_at_10_after": recall_at(torch, got.ids, truth),
+        "rows": len(new), "delta_rows": int(new._delta_n)}
+    say("persistence_handoff_ivfpq", out["handoff_ivfpq"])
+    lc.close()
+    del lc, new, vecs_t, live_t, ids_t, cells
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1947,10 +2255,16 @@ def main() -> int:
 
     # 5. Two-stage quantized serving; 6. IVF and 7. IVF-PQ serving, on one
     # clustered dataset, the last 8,192 rows the queries.
-    ts = phase_two_stage(torch, dev, run_path)
+    ts, int8_index, int8_queries = phase_two_stage(torch, dev, run_path)
     xc = clustered_vectors(QUERY_ROWS + 8192, d, n_clusters=4096, seed=0)
     ivf = phase_ivf(torch, dev, run_path, xc)
-    pq = phase_ivfpq(torch, dev, run_path, xc)
+    pq, pq_index = phase_ivfpq(torch, dev, run_path, xc)
+
+    # 9. Snapshots and the crash-safe lifecycle on phase 7's and phase 5's indexes.
+    held = {"ivfpq": pq_index, "int8": int8_index}
+    del pq_index, int8_index
+    phase_persistence(torch, dev, run_path, held, pq["build"], xc[QUERY_ROWS:], int8_queries)
+    del xc
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]

@@ -1,9 +1,10 @@
 """Serving accounting: the per-batch latency meter of the query engine, and
 the bytes model of the scan.
 
-Port of ``repro/accounting.py``: ``ServingMeter`` (the batch samples and
-their summary; the shard, WAL and handoff counters come with those tiers)
-and ``scan_bytes_per_query`` for the flat, quantized, IVF and IVF-PQ scans.
+Port of ``repro/accounting.py``: ``ServingMeter`` (the batch samples, the
+lifecycle's WAL and handoff counters, and their summary; the shard counters
+come with that tier) and ``scan_bytes_per_query`` for the flat, quantized,
+IVF and IVF-PQ scans.
 """
 from __future__ import annotations
 
@@ -60,14 +61,19 @@ def scan_bytes_per_query(n_rows: int, d: int, *, scan_dtype: str = "float32", k:
             "total": centroids + scan + epilogue + rescore}
 
 
-def device_clock(device: torch.device) -> float:
-    """Host seconds, read after the device's queued work has finished.
+def stream_clock(device: torch.device) -> float:
+    """Host seconds, read after the calling thread's current stream on
+    ``device`` has finished its queued work, and no other stream's.
 
     Kernels are asynchronous: without the synchronise, a timer around a
-    search would measure the enqueue, not the search.
+    search would measure the enqueue, not the search.  The engine times its
+    batches with this clock, so a batch is charged with the work it queued
+    and not with kernels that another thread (the lifecycle's background
+    retrain, on its own stream) has in flight on the same card.  With one
+    stream in use it reads what a whole-device synchronise would.
     """
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     return time.perf_counter()
 
 
@@ -81,6 +87,12 @@ class ServingMeter:
         self._sizes: list[int] = []
         self._secs: list[float] = []
         self._compile_secs: list[float] = []
+        # Lifecycle accounting (DESIGN.md §16): fsync-acked WAL appends
+        # [records, bytes, seconds] and each ack's seconds; the background
+        # retrain's training seconds per handoff.
+        self._wal: list = [0, 0, 0.0]
+        self._wal_secs: list[float] = []
+        self._handoffs: list[float] = []
 
     def record(self, batch_size: int, seconds: float, *, compile_batch: bool = False) -> None:
         """One batch; ``compile_batch`` keeps a cold shape out of the stats."""
@@ -89,6 +101,21 @@ class ServingMeter:
             return
         self._sizes.append(int(batch_size))
         self._secs.append(float(seconds))
+
+    def record_wal(self, records: int, nbytes: int, seconds: float) -> None:
+        """One fsync-acked WAL append (``serving.lifecycle``'s durability path)."""
+        self._wal[0] += int(records)
+        self._wal[1] += int(nbytes)
+        self._wal[2] += float(seconds)
+        self._wal_secs.append(float(seconds))
+
+    def record_handoff(self, train_seconds: float) -> None:
+        """One background-retrain epoch handed off at a batch boundary."""
+        self._handoffs.append(float(train_seconds))
+
+    def wal_ack_ms(self, pct: float) -> float:
+        """Nearest-rank percentile (0-100) of one WAL ack's seconds, in ms."""
+        return _percentile_ms(self._wal_secs, pct)
 
     @property
     def n_batches(self) -> int:
@@ -100,18 +127,14 @@ class ServingMeter:
 
     def latency_ms(self, pct: float) -> float:
         """Nearest-rank percentile (0-100) of per-batch wall latency, in ms."""
-        if not self._secs:
-            return float("nan")
-        xs = sorted(self._secs)
-        rank = min(len(xs) - 1, max(0, int(round(pct / 100.0 * (len(xs) - 1)))))
-        return xs[rank] * 1e3
+        return _percentile_ms(self._secs, pct)
 
     def qps(self) -> float:
         total = sum(self._secs)
         return self.n_queries / total if total > 0 else float("nan")
 
     def summary(self) -> dict:
-        return {
+        out = {
             "batches": self.n_batches,
             "queries": self.n_queries,
             "qps": self.qps(),
@@ -122,3 +145,20 @@ class ServingMeter:
             "compile_batches": len(self._compile_secs),
             "compile_s": sum(self._compile_secs),
         }
+        if self._wal[0]:
+            out["wal_records"] = self._wal[0]
+            out["wal_bytes"] = self._wal[1]
+            out["wal_fsync_ms"] = self._wal[2] / self._wal[0] * 1e3
+        if self._handoffs:
+            out["handoffs"] = len(self._handoffs)
+            out["handoff_train_s"] = sum(self._handoffs)
+        return out
+
+
+def _percentile_ms(secs: list[float], pct: float) -> float:
+    """Nearest-rank percentile (0-100) of ``secs``, in ms; nan when empty."""
+    if not secs:
+        return float("nan")
+    xs = sorted(secs)
+    rank = min(len(xs) - 1, max(0, int(round(pct / 100.0 * (len(xs) - 1)))))
+    return xs[rank] * 1e3

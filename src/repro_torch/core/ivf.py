@@ -35,6 +35,16 @@ Tensor = torch.Tensor
 # multiple of the scan's 128-column tile).
 MIN_CELL_CAP = 128
 
+# Copies between host memory and the card go a block of rows at a time, at
+# most this many bytes, through a pinned staging buffer: CUDA runs copies
+# from or to pageable memory one after the other, so one multi-GB
+# copy (a snapshot's packed rows, in the lifecycle's background worker) held
+# a serving batch's 1 MiB query upload for its whole length (2.0 s for
+# 4 GiB), and pageable blocks still for about 44 ms a batch; through pinned
+# blocks a batch takes its own time (src/repro_torch/lifecycle_probe.py,
+# PERF.md).
+_COPY_BYTES = 1 << 25
+
 
 class IVFCells(NamedTuple):
     """A trained coarse quantizer and the cell-packed corpus, as tensors on
@@ -82,7 +92,42 @@ def train_centroids(x: Tensor, ncells: int, *, distance: str = "sqeuclidean",
 
 
 def _np(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """``a`` as a host numpy array; from the card in blocks (``_copy_rows``)."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if a.device.type == "cpu":
+        return a.numpy()
+    out = torch.empty(a.shape, dtype=a.dtype)
+    _copy_rows(out, a)
+    return out.numpy()
+
+
+def _copy_rows(dst: Tensor, src: Tensor) -> None:
+    """``dst.copy_(src)``, a block of leading rows of at most ``_COPY_BYTES``
+    at a time; between the host and the card each block goes through one
+    pinned staging buffer, on the calling thread's current stream."""
+    if src.dim() == 0 or src.numel() == 0:
+        dst.copy_(src)
+        return
+    step = max(1, _COPY_BYTES // (src[0].numel() * src.element_size()))
+    card = next((t.device for t in (src, dst) if t.device.type == "cuda"), None)
+    if card is None or src.device.type == dst.device.type:
+        for r in range(0, src.shape[0], step):
+            dst[r : r + step].copy_(src[r : r + step])
+        return
+    stage = torch.empty((min(step, src.shape[0]), *src.shape[1:]), dtype=src.dtype,
+                        pin_memory=True)
+    stream = torch.cuda.current_stream(card)
+    for r in range(0, src.shape[0], step):
+        n = min(step, src.shape[0] - r)
+        if src.device.type == "cuda":
+            stage[:n].copy_(src[r : r + n], non_blocking=True)
+            stream.synchronize()
+            dst[r : r + n].copy_(stage[:n])
+        else:
+            stage[:n].copy_(src[r : r + n])
+            dst[r : r + n].copy_(stage[:n], non_blocking=True)
+            stream.synchronize()  # the stage is written again next block
 
 
 def pack_cells(x, centroids, assign, *, cell_cap: int | None = None,
@@ -126,10 +171,16 @@ def pack_cells(x, centroids, assign, *, cell_cap: int | None = None,
 
 
 def _tensor(a: np.ndarray, device) -> Tensor:
-    """``a`` on ``device``; torch needs a writable array, so a read-only one
-    is copied."""
-    return torch.from_numpy(a if a.flags.writeable and a.flags.c_contiguous
-                            else np.array(a, order="C")).to(device)
+    """``a`` on ``device`` (to the card in blocks, ``_copy_rows``); torch
+    needs a writable array, so a read-only one is copied."""
+    t = torch.from_numpy(a if a.flags.writeable and a.flags.c_contiguous
+                         else np.array(a, order="C"))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    _copy_rows(out, t)
+    return out
 
 
 def build_ivf(x, ncells: int, *, distance: str = "sqeuclidean", iters: int = 10,

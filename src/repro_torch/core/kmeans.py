@@ -3,10 +3,21 @@
 PyTorch port of ``repro/core/kmeans.py::lloyd``, the coarse quantizer's
 trainer.  The assignment step is a kNN problem (k = 1 over the centroid
 set), so it runs on the repo's own solver (``knn_query``, by default the
-fused kernel); re-centring is an ``index_add_`` mean, and an empty cluster
-keeps its centroid, so a rebuild from the same start gives the same
-quantizer.  Rows come pre-mapped into the space to cluster in; the
+fused kernel); re-centring is a per-cluster mean, and an empty cluster
+keeps its centroid.  Rows come pre-mapped into the space to cluster in; the
 clustering is by squared euclidean distance there.
+
+Training is deterministic on every device: the same rows and start give
+the same centroids bit for bit, so a rebuild of one epoch trains the same
+cells and codes.  On the card that rules out the obvious primitives, whose
+floating-point sums run in an order set by the hardware's timing:
+``index_add_`` (atomic adds) and the 1-D ``cumsum`` (a single-pass scan),
+both listed by torch as nondeterministic on CUDA.  So a cluster's sum is a
+segmented sum over the rows sorted stably by cluster
+(``torch.segment_reduce``: each segment summed in order by one thread;
+``cluster_sums``), which on the CPU is the sequential ``index_add_`` bit
+for bit; and k-means++'s inverse CDF is a prefix sum in a fixed order
+(``_ordered_cumsum``).
 
 The reference draws its start from ``jax.random.permutation``, which torch
 cannot replay.  So the start is either given (``init_perm``, e.g. the
@@ -50,13 +61,49 @@ def lloyd(g: Tensor, k: int, *, iters: int = 10, init_perm: Tensor | None = None
     def assign_to(cent):
         return knn_query(g, cent, 1, distance="sqeuclidean", impl=impl).indices[:, 0].long()
 
-    ones = torch.ones(n, dtype=torch.float32, device=g.device)
     for _ in range(iters):
         a = assign_to(cent)
-        sums = torch.zeros_like(cent).index_add_(0, a, g)
-        cnt = torch.zeros(k, dtype=torch.float32, device=g.device).index_add_(0, a, ones)
+        sums, cnt = cluster_sums(g, a, k)
+        cnt = cnt.float()
         cent = torch.where(cnt[:, None] > 0, sums / torch.clamp_min(cnt[:, None], 1.0), cent)
     return cent, assign_to(cent).to(torch.int32)
+
+
+_PIECE = 64  # rows a thread sums in the first pass of ``cluster_sums`` on the card
+
+
+def cluster_sums(g: Tensor, a: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """(sums [k, d] fp32, counts [k] int64) of the rows ``g`` [n, d] per
+    cluster ``a`` [n], in an order fixed by ``a`` alone (module docstring):
+    the rows sorted stably by cluster, then summed a segment at a time.  An
+    empty cluster sums to 0.
+
+    On the CPU each cluster is one segment, summed in row order, which is
+    ``index_add_``'s order.  On the card one thread sums one segment, so a
+    few large clusters (PQ's 256 codewords over a million rows) would leave
+    the card idle: each cluster is cut into pieces of ``_PIECE`` rows, the
+    pieces summed, then each cluster's pieces in order.
+    """
+    cnt = torch.bincount(a, minlength=k)
+    rows = g[torch.argsort(a, stable=True)]
+    if g.device.type != "cuda":
+        return torch.segment_reduce(rows, "sum", lengths=cnt, axis=0), cnt
+    return _piecewise_sums(rows, cnt), cnt
+
+
+def _piecewise_sums(rows: Tensor, cnt: Tensor) -> Tensor:
+    """Segment sums of ``rows`` [n, d] (segments of ``cnt`` rows, in order):
+    each segment cut into pieces of ``_PIECE`` rows, the pieces summed, then
+    each segment's pieces in order."""
+    pieces = (cnt + _PIECE - 1) // _PIECE
+    n_pieces = int(pieces.sum())
+    seg = torch.repeat_interleave(torch.arange(len(cnt), device=rows.device), pieces,
+                                  output_size=n_pieces)
+    first = torch.cumsum(pieces, 0) - pieces  # integers: exact in any order
+    j = torch.arange(n_pieces, device=rows.device) - first[seg]
+    piece_len = torch.clamp(cnt[seg] - j * _PIECE, max=_PIECE)
+    partial = torch.segment_reduce(rows, "sum", lengths=piece_len, axis=0)
+    return torch.segment_reduce(partial, "sum", lengths=pieces, axis=0)
 
 
 def kmeanspp_rows(g: Tensor, k: int, generator: torch.Generator | None = None) -> Tensor:
@@ -67,7 +114,8 @@ def kmeanspp_rows(g: Tensor, k: int, generator: torch.Generator | None = None) -
     The uniforms come from ``generator`` (a CPU generator) up front; each
     draw is an inverse-CDF lookup on ``g``'s device, so a start on the card
     never waits on the host.  Distances use ``|x|^2 - 2 x.c + |c|^2``, one
-    matrix-vector product a draw, clamped at 0.
+    matrix-vector product a draw, clamped at 0; the CDF is a float64 prefix
+    sum in a fixed order (``_ordered_cumsum``).
     """
     n = g.shape[0]
     u = torch.rand(k, generator=generator, dtype=torch.float64)
@@ -78,6 +126,30 @@ def kmeanspp_rows(g: Tensor, k: int, generator: torch.Generator | None = None) -
     for j in range(1, k):
         c = rows[j - 1]
         d2 = torch.minimum(d2, torch.clamp_min(sq - 2.0 * (g @ g[c]) + sq[c], 0.0))
-        cdf = torch.cumsum(d2, 0, dtype=torch.float64)
+        cdf = _ordered_cumsum(d2.double())
         rows[j] = torch.searchsorted(cdf, (cdf[-1] * float(u[j])).reshape(1)).clamp_(max=n - 1)[0]
     return rows
+
+
+_SCAN_ROWS = 1024
+
+
+def _ordered_cumsum(x: Tensor) -> Tensor:
+    """Inclusive prefix sum of the 1-D ``x``, summed in an order fixed by its
+    length alone, on any device.
+
+    A scan along the last dimension of a 2-D tensor runs each row in a fixed
+    order; a 1-D CUDA ``cumsum`` does not.  So ``x`` is laid out as
+    ``_SCAN_ROWS`` rows (zero padded), each row scanned, and the row totals,
+    scanned as the first of two rows, added to the rows after them.
+    """
+    n = x.numel()
+    width = max(1, -(-n // _SCAN_ROWS))
+    buf = x.new_zeros(_SCAN_ROWS * width)
+    buf[:n] = x
+    rows = buf.view(_SCAN_ROWS, width).cumsum(1)
+    totals = x.new_zeros(2, _SCAN_ROWS)
+    totals[0] = rows[:, -1]
+    base = totals.cumsum(1)[0]
+    rows[1:] += base[:-1, None]
+    return rows.reshape(-1)[:n]

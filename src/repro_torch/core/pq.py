@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.core.distances import get_distance, gy_rows
 from repro_torch.core.ivf import _np, _tensor
-from repro_torch.core.kmeans import lloyd
+from repro_torch.core import kmeans
 from repro_torch.kernels._backend import resolve_device
 
 Tensor = torch.Tensor
@@ -100,9 +100,9 @@ def train_pq(rows: Tensor, m: int, *, nbits: int = 8, iters: int = 10,
         raise ValueError(f"want one initial permutation per subspace ({m}), "
                          f"got {len(init_perms)}")
     subs = rows.float().reshape(n, m, d // m)
-    cbs = [lloyd(subs[:, j].contiguous(), ncodes, iters=iters,
-                 init_perm=None if init_perms is None else init_perms[j],
-                 generator=generator, impl=impl)[0] for j in range(m)]
+    cbs = [kmeans.lloyd(subs[:, j].contiguous(), ncodes, iters=iters,
+                        init_perm=None if init_perms is None else init_perms[j],
+                        generator=generator, impl=impl)[0] for j in range(m)]
     return PQCodebook(torch.stack(cbs))
 
 

@@ -14,13 +14,31 @@ Every C entry point takes its pointers and its stream as ``void*`` and
 returns a CUDA error code (``cudaGetLastError()`` after a launch); ``call``
 and ``launch`` raise on a non-zero code.  This module imports nothing of
 the package.
+
+Calls into one library are serialized across threads.  An entry point sets
+its kernel's shared-memory limit for the launch's width and then launches;
+the limit is the kernel's, not the launch's, so two threads launching one
+kernel at two widths (the lifecycle's background k-means at K 1 beside a
+serving batch's probe at K 8) could interleave the two steps and launch
+past the limit the other thread set: ``invalid argument`` (seen on the
+card, PERF.md).  A call only enqueues, so the other thread waits
+microseconds.
+
+Launch counts: each wrapper counts its launches (``count_launch``) in its
+module's counters (``LAUNCHES`` and its variants), which the serving
+thread's callers zero and read.  A thread that launches beside it (the
+lifecycle's background retrain) opens a ``launch_tally`` first; its
+launches then go to its own tally, never to the module counters, so the
+two never mix and no counter is written from two threads.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -37,7 +55,9 @@ KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "fused_knn_ma
                   "merge_partials", "rescore", "ivf_scan", "pq_scan", "pairwise_cumulative")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CALLS: dict[str, threading.Lock] = {}  # one a library: its calls, one at a time
 _LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +190,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
+            _CALLS[name] = threading.Lock()
             _LIBS[name] = lib
         return lib
 
@@ -185,11 +206,12 @@ def call(name: str, entry: str, argtypes: list, device: torch.device, *args) -> 
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    if device.index is None or device.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(device):
+    with _CALLS[name]:
+        if device.index is None or device.index == torch.cuda.current_device():
             err = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args)
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err}: {msg}")
@@ -198,6 +220,34 @@ def call(name: str, entry: str, argtypes: list, device: torch.device, *args) -> 
 def launch(name: str, entry: str, argtypes: list, device: torch.device, *args) -> None:
     """``call``, with ``device``'s current stream as the last argument."""
     call(name, entry, argtypes, device, *args, torch.cuda.current_stream(device).cuda_stream)
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Count the calling thread's kernel launches apart from the module
+    counters while the block runs; yields the tally, a dict
+    ``{"<wrapper module>.<counter>": count}`` filled as launches happen."""
+    tally: dict[str, int] = {}
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = outer
+
+
+def count_launch(module: str, **counts: int) -> None:
+    """Add one launch's ``counts`` (counter name -> increment) to the calling
+    thread's tally if it holds one, else to the counters of the wrapper
+    module named ``module``."""
+    tally = getattr(_TALLY, "counts", None)
+    short = module.rsplit(".", 1)[-1]
+    for name, n in counts.items():
+        if tally is None:
+            mod = sys.modules[module]
+            setattr(mod, name, getattr(mod, name) + int(n))
+        else:
+            tally[f"{short}.{name}"] = tally.get(f"{short}.{name}", 0) + int(n)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -173,7 +173,6 @@ def fused_knn_partials(fx, gy, hx, hy, k: int, *, distance_finalize: str, alpha:
     split, at any K; CUDA tensors launch the kernel (d % 4 == 0, K <=
     ``stream_topk.MAX_SELECT_K``).
     """
-    global LAUNCHES, MASKED_LAUNCHES, WIDE_LAUNCHES
     m, d = fx.shape
     n = gy.shape[0]
     K = T.next_pow2(k)
@@ -212,9 +211,7 @@ def fused_knn_partials(fx, gy, hx, hy, k: int, *, distance_finalize: str, alpha:
         B.launch("fused_knn", "fused_knn", C_ARGTYPES, dev,
                  B.ptr(fx), B.ptr(gy), B.ptr(gy_scale), B.ptr(hx), B.ptr(hy), B.ptr(vals),
                  B.ptr(idx), m, n, d, K, n_real, int(exclude_self), *tail)
-    LAUNCHES += 1
-    MASKED_LAUNCHES += masked
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, MASKED_LAUNCHES=masked, WIDE_LAUNCHES=K > MAX_K)
     return vals, idx
 
 

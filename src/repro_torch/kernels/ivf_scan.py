@@ -135,7 +135,6 @@ def build_table(probes, cell_extent, cell_cap: int,
     ceil(cell_cap / 128) (the entries past each row's count are not
     written, and no split reaches them); CPU tensors run the plain
     versions."""
-    global TABLE_LAUNCHES
     if not B.on_cuda(probes, cell_extent):
         table, counts = tile_table(probes, cell_extent, cell_cap)
         return table, split_bounds(counts, splits)
@@ -147,7 +146,7 @@ def build_table(probes, cell_extent, cell_cap: int,
     B.launch("ivf_scan", "ivf_scan_table", TABLE_ARGTYPES, probes.device, B.ptr(probes),
              B.ptr(cell_extent), B.ptr(table), B.ptr(bounds), nt, W, ncells, cell_cap, width,
              splits)
-    TABLE_LAUNCHES += 1
+    B.count_launch(__name__, TABLE_LAUNCHES=1)
     return table, bounds
 
 
@@ -187,7 +186,6 @@ def ivf_scan_partials(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: 
     run the plain version, as one split; CUDA tensors launch the kernel
     (d % 4 == 0).
     """
-    global LAUNCHES, WIDE_LAUNCHES
     m, d = fx.shape
     S = gy.shape[0]
     K = T.next_pow2(k)
@@ -226,8 +224,7 @@ def ivf_scan_partials(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: 
              B.ptr(hx), B.ptr(hy), B.ptr(vals), B.ptr(idx), m, d, S, table.shape[1], K, tile_m,
              int(skip), float(alpha), FINALIZE_CODES[distance_finalize],
              SC.GY_CODES[gy.dtype], bm, splits)
-    LAUNCHES += 1
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, WIDE_LAUNCHES=K > MAX_K)
     return vals, idx
 
 

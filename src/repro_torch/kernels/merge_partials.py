@@ -63,7 +63,6 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    global LAUNCHES, WIDE_LAUNCHES
     B.require(part_v.dim() == 3, lambda: f"part_v: want [S, m, K], got {tuple(part_v.shape)}")
     S, m, K = part_v.shape
     B.require(K == T.next_pow2(K), lambda: f"K = {K}: want a power of 2")
@@ -79,6 +78,5 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
         return vals.fill_(T.POS_INF), idx.fill_(-1)
     B.launch("merge_partials", "merge_partials_f32", C_ARGTYPES, part_v.device,
              B.ptr(part_v), B.ptr(part_i), B.ptr(vals), B.ptr(idx), m, S, K)
-    LAUNCHES += 1
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, WIDE_LAUNCHES=K > MAX_K)
     return vals, idx

@@ -52,7 +52,6 @@ def pairwise_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
     contiguous; ``finalize`` is ``"identity"`` or ``"sqrt"``.  CPU tensors
     run the plain version; CUDA tensors launch the kernel (d % 4 == 0).
     """
-    global LAUNCHES
     m, d = fx.shape
     n = gy.shape[0]
     B.require(finalize in FINALIZE_CODES, lambda: f"unknown finalizer {finalize!r}")
@@ -66,7 +65,7 @@ def pairwise_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
     B.launch("pairwise_distance", "pairwise_distance_f32", C_ARGTYPES, fx.device,
              B.ptr(fx), B.ptr(gy), B.ptr(hx), B.ptr(hy), B.ptr(out), m, n, d,
              float(alpha), FINALIZE_CODES[finalize])
-    LAUNCHES += 1
+    B.count_launch(__name__, LAUNCHES=1)
     return out
 
 
@@ -121,7 +120,6 @@ def pairwise_distance_cumulative(x, y, *, accumulate: str, finalize: str, init: 
     thread folds an 8 x 8 register tile one coordinate at a time, the
     paper's own phase-1 design; ragged edges are masked in the kernel.
     """
-    global CUMULATIVE_LAUNCHES
     m, d = x.shape
     n = y.shape[0]
     B.require(accumulate in ACCUMULATE_CODES, lambda: f"unknown accumulator {accumulate!r}")
@@ -138,5 +136,5 @@ def pairwise_distance_cumulative(x, y, *, accumulate: str, finalize: str, init: 
     B.launch("pairwise_cumulative", "pairwise_cumulative", CUMULATIVE_ARGTYPES, x.device,
              B.ptr(x), B.ptr(y), B.ptr(out), m, n, d, ACCUMULATE_CODES[accumulate],
              CUMULATIVE_FINALIZE_CODES[finalize], float(init))
-    CUMULATIVE_LAUNCHES += 1
+    B.count_launch(__name__, CUMULATIVE_LAUNCHES=1)
     return out

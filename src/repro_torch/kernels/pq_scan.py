@@ -233,7 +233,6 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
     the leading slots of each cell to scan.  CPU tensors run the plain
     version, as one split; CUDA tensors launch the kernel.
     """
-    global LAUNCHES, WIDE_LAUNCHES
     m, L = luts.shape
     S, pq_m = codes.shape
     K = T.next_pow2(k)
@@ -282,8 +281,7 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
              B.ptr(hx), B.ptr(hy), B.ptr(vals), B.ptr(idx), m, pq_m, ncodes, S, W, K,
              cell_cap, tile_m, int(skip), FINALIZE_CODES[distance_finalize], pl.qb, splits,
              pl.slots_per_split, int(pl.ring), pl.chunk)
-    LAUNCHES += 1
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, WIDE_LAUNCHES=K > MAX_K)
     return vals, idx
 
 

@@ -76,7 +76,6 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
     fp32 and contiguous.  CPU tensors run the plain version; CUDA tensors
     launch the kernel (d % 4 == 0, K <= 4096).
     """
-    global LAUNCHES, WIDE_LAUNCHES
     m, d = fx.shape
     Kp = cand.shape[1]
     K = T.next_pow2(k)
@@ -95,6 +94,5 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
     B.launch("rescore", "rescore_f32", C_ARGTYPES, fx.device, B.ptr(fx), B.ptr(cand),
              B.ptr(hx), B.ptr(hy_cand), B.ptr(vals), B.ptr(pos), m, Kp, d, K, float(alpha),
              FINALIZE_CODES[finalize])
-    LAUNCHES += 1
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, WIDE_LAUNCHES=K > MAX_K)
     return vals, pos

@@ -118,7 +118,6 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
     plain version at any K; CUDA tensors launch the kernel (K <= 4096), and
     the merge kernel where the columns were split.
     """
-    global LAUNCHES, WIDE_LAUNCHES
     m, n = x.shape
     K = T.next_pow2(k)
     B.require_f32("x", x, (m, n))
@@ -135,8 +134,7 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
     vec = n % 4 == 0 and x.data_ptr() % 16 == 0
     B.launch("stream_topk", "stream_topk_f32", C_ARGTYPES, x.device,
              B.ptr(x), B.ptr(vals), B.ptr(idx), m, n, K, int(skip), int(vec), splits, per)
-    LAUNCHES += 1
-    WIDE_LAUNCHES += K > MAX_K
+    B.count_launch(__name__, LAUNCHES=1, WIDE_LAUNCHES=K > MAX_K)
     if splits == 1:
         return vals[0], idx[0]
     from repro_torch.kernels.merge_partials import merge_partials  # it imports this module

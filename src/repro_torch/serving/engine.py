@@ -11,10 +11,15 @@ set of shapes:
 * **micro-batch queue**: ``submit()`` enqueues (request_id, vector) pairs,
   ``flush()`` drains them in one padded batch.
 * **metering**: each batch is timed from before the search to after the
-  device has finished it (``accounting.device_clock``) and recorded in a
-  ``ServingMeter``; the first batch at a shape is tagged as a compile batch,
-  as in the reference, so that steady-state p50/p99/qps stay clean (here
-  it carries the kernels' first build and load).
+  serving stream has finished it (``accounting.stream_clock``: work that a
+  background retrain has in flight on another stream is not the batch's)
+  and recorded in a ``ServingMeter``; the first batch at a shape is tagged
+  as a compile batch, as in the reference, so that steady-state p50/p99/qps
+  stay clean (here it carries the kernels' first build and load).
+* **batch boundary**: an index with a ``before_batch`` hook (the crash-safe
+  lifecycle, ``serving.lifecycle``) has it called at the top of every
+  ``search``, before anything is read of the index: a ready background
+  epoch swaps in there, never inside a batch.
 """
 from __future__ import annotations
 
@@ -80,6 +85,9 @@ class QueryEngine:
         their results are sliced off.
         """
         k = self.cfg.k if k is None else int(k)
+        hook = getattr(self.index, "before_batch", None)
+        if hook is not None:
+            hook()
         q = np.asarray(queries, np.float32)
         assert q.ndim == 2, q.shape
         if len(q) == 0:
@@ -112,12 +120,12 @@ class QueryEngine:
         cold = shape_key not in self._seen_shapes
         self._seen_shapes.add(shape_key)
         device = self.index.device
-        t0 = accounting.device_clock(device)
+        t0 = accounting.stream_clock(device)
         if f is None:
             res = self.index.search(qp, k)
         else:
             res = self.index.search(qp, k, filter=F.pad_rows(f, mp))
-        self.meter.record(m, accounting.device_clock(device) - t0, compile_batch=cold)
+        self.meter.record(m, accounting.stream_clock(device) - t0, compile_batch=cold)
         return SearchResult(res.distances[:m], res.ids[:m])
 
     # -- micro-batch queue --------------------------------------------------

@@ -53,8 +53,11 @@ scanned candidates ("post"); exclusions are dropped by external id on the
 merged candidates, at a fetch widened by their count.  A trivially-true
 filter runs the unfiltered code.
 
-Mesh sharding and snapshots come with later slices of the port and raise
-here.
+Snapshots (``save`` / ``restore``, ``serving.snapshot``) are the
+reference's on-disk format; the crash-safe lifecycle around the index
+(``serving.lifecycle``) trains each new epoch off the serving thread, and
+``_forbid_sync_train`` makes a search that would train instead raise.
+Mesh sharding comes with a later slice of the port and raises here.
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ import torch
 
 from repro_torch.core import topk as T
 from repro_torch.core.distances import QUANTIZABLE, canonical_scan_dtype, quantize_rows
-from repro_torch.core.ivf import IVFCells, build_ivf
+from repro_torch.core.ivf import IVFCells, _tensor, build_ivf
 from repro_torch.core.knn import (
     _mask_excluded_rows,
     ivf_query,
@@ -178,8 +181,9 @@ class RetrievalIndex:
     scan).  ``pq_m`` / ``pq_nbits``: the IVF-PQ tier (needs ``ivf_cells >
     0``; ``pq_m`` divides ``dim``; codes of ``pq_nbits`` <= 8 bits, a byte
     each).  k-means (cells and codebooks) is seeded from the main epoch,
-    through a ``torch.Generator``, so a rebuild of one epoch trains the same
-    cells and codes.
+    through a ``torch.Generator``, and is deterministic on every device
+    (``core.kmeans``), so a rebuild of one epoch trains the same cells and
+    codes, bit for bit, on the card too.
     """
 
     def __init__(self, dim: int, *, distance: str = "sqeuclidean",
@@ -224,6 +228,9 @@ class RetrievalIndex:
         self._version = {"main": 0, "delta": 0}
         self._dev_version: dict[str, object] = {}
         self._dev: dict[str, object] = {}
+        # The lifecycle's tripwire (DESIGN.md §16): when set, a search that
+        # would train IVF/PQ on the serving thread raises instead.
+        self._forbid_sync_train = False
 
     # -- construction -------------------------------------------------------
 
@@ -310,12 +317,28 @@ class RetrievalIndex:
             idx._install_ivf(IVFCells(*(t.to(idx.device) for t in ivf)), pq)
         return idx
 
-    def save(self, directory: str, **kw) -> str:
-        _unported("save")
+    def save(self, directory: str, *, include_replicas: bool = True,
+             extra: dict | None = None, wal: bool = False) -> str:
+        """Snapshot the index under ``directory`` (``serving.snapshot``):
+        versioned, atomic, CRC-stamped, in the reference's format.
+        ``include_replicas=False`` leaves out the scalar scan replicas (a
+        restore recomputes them); trained IVF/PQ state is always saved.
+        ``extra`` rides in the manifest verbatim; ``wal=True`` stamps the
+        journal as a verified prefix for ``lifecycle.WalWriter``."""
+        from repro_torch.serving.snapshot import save_index
+
+        return save_index(self, directory, include_replicas=include_replicas, extra=extra,
+                          wal=wal)
 
     @classmethod
-    def restore(cls, directory: str, **kw) -> "RetrievalIndex":
-        _unported("restore")
+    def restore(cls, directory: str, *, device="cuda", mesh=None,
+                impl: str | None = None) -> "RetrievalIndex":
+        """An index from a snapshot of either package, on ``device``, with no
+        training; a mismatch raises ``serving.snapshot.SnapshotError``, and a
+        search is bit-identical to the source's on the same device."""
+        from repro_torch.serving.snapshot import restore_index
+
+        return restore_index(directory, device=device, mesh=mesh, impl=impl)
 
     def _check_ids(self, ids, vectors) -> np.ndarray:
         ids = np.asarray(ids, np.int64)
@@ -419,6 +442,15 @@ class RetrievalIndex:
         return np.concatenate([self._main_tenant[self._main_live],
                                self._delta_tenant[:n][self._delta_live[:n]]])
 
+    def config_kwargs(self) -> dict:
+        """Constructor keywords that reproduce this index's search config:
+        ``RetrievalIndex(self.dim, **idx.config_kwargs())`` scans alike.  The
+        lifecycle builds each background epoch with them."""
+        return {"distance": self.distance, "impl": self.impl, "device": self.device,
+                "scan_dtype": self.scan_dtype, "overfetch": self.overfetch,
+                "ivf_cells": self.ivf_cells, "nprobe": self.nprobe, "pq_m": self.pq_m,
+                "pq_nbits": self.pq_nbits}
+
     def compact(self) -> None:
         """Re-pack live rows into a fresh immutable main segment."""
         vecs, ids = self._live_rows()
@@ -459,8 +491,7 @@ class RetrievalIndex:
         keyed on the main epoch too.
         """
         dev = self.device
-        self._upload("main_vecs", self._main_epoch,
-                     lambda: torch.from_numpy(self._main_vecs).to(dev))
+        self._upload("main_vecs", self._main_epoch, lambda: _tensor(self._main_vecs, dev))
         self._upload("main_mask", self._version["main"], lambda: (
             torch.from_numpy(self._main_live).to(dev),
             torch.from_numpy(self._main_ids).to(dev)))
@@ -471,6 +502,7 @@ class RetrievalIndex:
             self._upload("main_q", self._main_epoch, lambda: quantize_rows(
                 self._dev["main_vecs"], self.scan_dtype, distance=self.distance))
         if self._use_ivf() and self._dev_version.get("main_ivf") != self._main_epoch:
+            self._check_may_train()
             # The stale epoch's cells go before the new ones are built: the
             # cell-packed copy can be many times the corpus (pow2 cell_cap).
             for key in ("main_ivf", "main_ivf_q", "main_pq"):
@@ -488,14 +520,23 @@ class RetrievalIndex:
         here), which then replaces the scan replica."""
         self._dev["main_ivf"] = ivf
         if self._use_pq():
-            self._dev["main_pq"] = pq if pq is not None else build_ivfpq(
-                self._dev["main_vecs"], ivf, self.pq_m, nbits=self.pq_nbits,
-                distance=self.distance, impl=self.impl,
-                generator=torch.Generator().manual_seed(self._main_epoch))
+            if pq is None:
+                self._check_may_train()
+                pq = build_ivfpq(self._dev["main_vecs"], ivf, self.pq_m, nbits=self.pq_nbits,
+                                 distance=self.distance, impl=self.impl,
+                                 generator=torch.Generator().manual_seed(self._main_epoch))
+            self._dev["main_pq"] = pq
         else:
             self._dev["main_ivf_q"] = quantize_rows(ivf.packed, self.scan_dtype,
                                                     distance=self.distance)
         self._dev_version["main_ivf"] = self._main_epoch
+
+    def _check_may_train(self) -> None:
+        if self._forbid_sync_train:
+            raise RuntimeError(
+                f"synchronous IVF/PQ training tripwire: epoch {self._main_epoch} has no "
+                f"trained structure and _forbid_sync_train is set — the lifecycle layer "
+                f"must train it in the background worker (serving.lifecycle, DESIGN.md §16)")
 
     def _use_ivf(self) -> bool:
         return bool(self.ivf_cells) and self._effective_ncells() > 0

@@ -1102,6 +1102,200 @@ def test_merge_tree_matches_plain_exactly(cuda, S, K):
 
 
 # ---------------------------------------------------------------------------
+# k-means on the card, snapshots and the lifecycle (ROADMAP F3)
+# ---------------------------------------------------------------------------
+
+
+def _clustered(n, d, seed):
+    g = np.random.default_rng(seed)
+    centres = g.standard_normal((64, d)).astype(np.float32) * 4
+    return (centres[g.integers(0, 64, n)] + g.standard_normal((n, d))).astype(np.float32)
+
+
+def test_ivf_and_pq_builds_are_byte_equal_twice_on_the_card(cuda):
+    """F3: two trainings of one epoch from one seed give the same bytes:
+    centroids, packed rows, both permutations, counts, codebooks, codes and
+    hy.  An ``index_add_`` re-centring (atomic adds, their order set by the
+    hardware) gives ulp-different centroids from run to run at this size."""
+    from repro_torch.core.ivf import build_ivf, ivf_to_arrays
+    from repro_torch.core.pq import build_ivfpq, pq_to_arrays
+
+    x = torch.from_numpy(_clustered(1 << 17, 64, 0)).to(cuda)
+    runs = []
+    for _ in range(2):
+        cells = build_ivf(x, 256, distance="neg_dot", generator=torch.Generator().manual_seed(3))
+        cb, codes = build_ivfpq(x, cells, 8, distance="neg_dot",
+                                generator=torch.Generator().manual_seed(3))
+        runs.append({**ivf_to_arrays(cells), **pq_to_arrays(cb, codes)})
+    for key, a in runs[0].items():
+        assert a.tobytes() == runs[1][key].tobytes(), key
+
+
+_TIERS = {"flat": {}, "int8": {"scan_dtype": "int8"}, "bf16": {"scan_dtype": "bfloat16"},
+          "ivf": {"ivf_cells": 64, "nprobe": 8},
+          "ivfpq": {"ivf_cells": 64, "nprobe": 8, "pq_m": 16}}
+
+
+def _served(kw, n=1 << 15, d=64, seed=1, **more):
+    """An index on the card with churn, and queries."""
+    from repro_torch.serving import RetrievalIndex
+
+    g = np.random.default_rng(seed)
+    idx = RetrievalIndex.build(np.arange(n), _clustered(n, d, seed), distance="neg_dot",
+                               **kw, **more)
+    idx.delete(np.arange(0, n, 97))
+    idx.upsert(np.arange(n, n + 300), g.standard_normal((300, d)).astype(np.float32))
+    idx.upsert(np.arange(n, n + 20), g.standard_normal((20, d)).astype(np.float32))
+    return idx, g.standard_normal((256, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("tier", list(_TIERS))
+def test_snapshot_round_trip_on_the_card_is_bit_identical(cuda, tier, tmp_path):
+    from repro_torch.serving import RetrievalIndex
+
+    idx, q = _served(_TIERS[tier], device=cuda)
+    want = idx.search(q, 10)
+    idx.save(str(tmp_path / "snap"))
+    got = RetrievalIndex.restore(str(tmp_path / "snap"), device=cuda).search(q, 10)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances)
+
+
+def _handoff_and_twin(cuda, tier, snap, hook=None):
+    """A lifecycle whose background compact is handed off, and the result of
+    a synchronous compact and first search of the same state."""
+    from repro_torch.serving import LifecycleConfig, LifecycleIndex
+
+    idx, q = _served(_TIERS[tier], device=cuda)
+    twin, _ = _served(_TIERS[tier], device=cuda)
+    idx.search(q, 10)
+    lc = LifecycleIndex.attach(idx, LifecycleConfig(snapshot_dir=snap))
+    twin.compact()
+    want = twin.search(q, 10)
+    if hook is not None:
+        hook()
+    lc.compact(wait=True)
+    return lc, q, want
+
+
+@pytest.mark.parametrize("tier", list(_TIERS))
+def test_background_handoff_on_the_card_equals_a_synchronous_compact(cuda, tier, tmp_path):
+    """The worker trains on its own stream while the default stream is
+    free; its epoch serves bit for bit what a synchronous compact trains
+    (k-means deterministic on the card, F3)."""
+    lc, q, want = _handoff_and_twin(cuda, tier, str(tmp_path / "snap"))
+    got = lc.search(q, 10)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances)
+    assert lc.stats()["handoffs"] == 1
+    lc.close()
+
+
+def test_the_swap_waits_for_the_workers_last_kernel(cuda, tmp_path, monkeypatch):
+    """The worker's last kernels are still in flight at the swap: its cells
+    are zeroed, then restored behind a ~1 s sleep on the worker's stream.
+    The serving stream must wait for them: a search that read the cells
+    early would see the zeros."""
+    import threading
+
+    from repro_torch.serving import lifecycle as L
+
+    real, pending = L.save_index, []
+
+    def slow_save(new, *a, **kw):
+        out = real(new, *a, **kw)
+        if threading.current_thread() is not threading.main_thread():
+            cells = new._dev["main_ivf"]
+            keep = [t.clone() for t in (cells.centroids, cells.packed)]
+            for t in (cells.centroids, cells.packed):
+                t.zero_()
+            torch.cuda._sleep(2_000_000_000)
+            for t, k in zip((cells.centroids, cells.packed), keep):
+                t.copy_(k)
+            done = torch.cuda.Event()
+            done.record()
+            pending.append(done)
+        return out
+
+    def arm():
+        monkeypatch.setattr(L, "save_index", slow_save)
+
+    lc, q, want = _handoff_and_twin(cuda, "ivf", str(tmp_path / "snap"), hook=arm)
+    assert pending and not pending[0].query(), "the worker's last kernel had already finished"
+    got = lc.search(q, 10)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances)
+    lc.close()
+
+
+@pytest.mark.parametrize("shape,dtype", [((1000, 7), torch.float32), ((4097,), torch.int32),
+                                         ((33, 3, 5), torch.uint8), ((3, 8), torch.int16)])
+def test_host_copies_in_pinned_blocks_keep_every_byte(cuda, monkeypatch, shape, dtype):
+    """``core.ivf._np`` / ``_tensor``: to and from the card a block of rows
+    at a time through a pinned stage (blocks of 64 bytes here)."""
+    from repro_torch.core import ivf as IV
+
+    monkeypatch.setattr(IV, "_COPY_BYTES", 64)
+    host = np.random.default_rng(0).integers(0, 100, size=shape).astype(
+        torch.empty(0, dtype=dtype).numpy().dtype)
+    on_card = IV._tensor(host, cuda)
+    assert on_card.device.type == "cuda"
+    assert np.array_equal(on_card.cpu().numpy(), host)
+    assert np.array_equal(IV._np(on_card), host)
+
+
+def test_two_threads_launch_one_kernel_at_two_widths(cuda):
+    """The lifecycle's worker and the serving thread launch the fused kernel
+    at once at different widths (k-means at K 1, a probe at K 8): a C entry
+    point sets the kernel's shared-memory limit and then launches, so the
+    two threads' calls must not interleave (``_backend`` serializes a
+    library's calls; interleaved, a launch fails with ``invalid argument``).
+    K 1 and K 32 over 256 queries run one instantiation (BM 128) at two
+    shared-memory sizes.  Each thread on its own stream, thousands of
+    launches; every result equals the one-thread result."""
+    import threading
+
+    g = np.random.default_rng(7)
+    q = torch.from_numpy(g.standard_normal((256, 64)).astype(np.float32)).to(cuda)
+    db = torch.from_numpy(g.standard_normal((8192, 64)).astype(np.float32)).to(cuda)
+    widths = (1, 32)
+    assert {FK.plan(256, 8192, k, cuda)[0] for k in widths} == {128}
+    want = {k: ops.fused_knn(q, db, k) for k in widths}
+    errors, bad = [], []
+
+    def work(k):
+        stream = torch.cuda.Stream(cuda)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(3000):
+                    got = ops.fused_knn(q, db, k)
+                stream.synchronize()
+                if not (torch.equal(got.indices, want[k].indices)
+                        and torch.equal(got.distances, want[k].distances)):
+                    bad.append(k)
+        except RuntimeError as e:  # reported below
+            errors.append(str(e))
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in widths]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert not bad
+
+
+def test_worker_launches_are_counted_apart_on_the_card(cuda, tmp_path):
+    """The worker's kernels go to its tally, the serving thread's to the
+    wrappers' counters."""
+    lc, q, _ = _handoff_and_twin(cuda, "ivfpq", str(tmp_path / "snap"))
+    before = FK.LAUNCHES
+    lc.search(q, 10)
+    assert FK.LAUNCHES > before
+    tally = lc.stats()["worker_launches"]
+    assert tally.get("fused_knn.LAUNCHES", 0) > 0, tally
+    lc.close()
+
+
+# ---------------------------------------------------------------------------
 # The kernels whose selection this tree did not rewrite compile as before
 # ---------------------------------------------------------------------------
 

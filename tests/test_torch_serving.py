@@ -133,14 +133,17 @@ def test_serving_meter_matches_reference_statistics():
         assert rs[key] == pytest.approx(ps[key])
 
 
-def test_unported_knobs_raise():
+def test_unported_knobs_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         RetrievalIndex(8, mesh=object(), **CPU)
     with pytest.raises(ValueError):  # IVF-PQ needs its coarse quantizer
         RetrievalIndex(8, pq_m=4, **CPU)
     idx = RetrievalIndex.build(np.arange(4), np.ones((4, 8), np.float32), **CPU)
+    # Snapshots are served (tests/test_torch_snapshot.py); a mesh is not,
+    # on a restore either.
+    idx.save(str(tmp_path / "snap"))
     with pytest.raises(NotImplementedError):
-        idx.save("unused")
+        RetrievalIndex.restore(str(tmp_path / "snap"), mesh=object(), **CPU)
     # Tenants and filters are served (tests/test_torch_filters.py).
     from repro_torch.serving.filters import QueryFilter
 
