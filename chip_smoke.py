@@ -134,6 +134,35 @@ Phases (each one raises on a failed check; nothing is caught):
    training seconds, and the worker's launches (its own tally) apart from
    the serving thread's.
 
+10. The multi-device core (``core.distributed`` over a ``launch.mesh.Mesh``)
+   with four positions: on four cards where the machine has them, else all
+   four on the one card, each on its own stream (so no time here is a
+   scaling figure).  10a: the ring at ``allpairs_160k`` (phase 2's x, k
+   100, ``impl="kernel"``: ``pairwise_distance`` tiles walked in blocks of
+   8,192 columns, ``stream_topk`` on each side), ids tie-aware equal to
+   phase 2's fused result, values within its tolerance; then the bf16 wire,
+   recall@100 printed.  10b: the paper's triangle on the same x, gsize
+   20,096 by ``configs/base.py``'s rule (n padded to 160,768), gated as
+   10a.  10c: the ``query_1m`` cell, 8,192 queries over 1,048,576 rows, k
+   100, on a (1, 4) mesh: the fused scan per shard and the butterfly, ids
+   tie-aware equal to the single-device ``knn_query``; then the int8
+   two-stage with the bf16 wire, recall@100 at least 0.9.  10d: the
+   ``RetrievalIndex`` on that mesh at 1,048,576 x 256 (neg_dot, k 10, phase
+   8's tenant tags), churned (1% deleted, 8,192 rows upserted into the
+   delta), 20 batches of 1024 through ``QueryEngine``, exact against a
+   brute force of the live rows, one tenant-filtered batch serving no id of
+   another tenant; then IVF fp32 (4,096 cells, 1,024 a shard) on phase 6's
+   rows, recall@10 at nprobe 8 at least 0.9 and, at nprobe = ncells, equal
+   to brute force, and IVF-PQ (``pq_m`` 32 on the same cells, overfetch 8):
+   the sharded scorer on an fp32 wire at recall@10 at least 0.85, and the
+   index, whose merge ships bf16 values as the reference's does, at least
+   0.85 counting as hits the ids within one bf16 rounding of the exact 10th
+   distance (its id-for-id recall printed beside it).  Each sub-phase prints its time, its launches
+   and the peak memory; phase 10 must launch ``pairwise_distance``,
+   ``stream_topk``, ``fused_knn``, ``rescore_topk``, ``ivf_scan`` and
+   ``pq_scan``, and each kernel's entry in the ``kernels`` line carries its
+   phase 10 launches (``launches_phase10``).
+
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
 tally, never to those counts.  The line before the last is ``{"kernels": [...]}``: per
@@ -175,6 +204,7 @@ PRODUCT = "wgmma 3xTF32 (gemm_tc.cuh)"  # the tile product of the matmul-form ke
 QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
 N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
+MESH_QUERIES = 8192  # phase 10c: the query_1m cell's m (src/repro/configs/base.py:489)
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
 # fp32 operations per (pair, coordinate) of the cumulative accumulators
 # (csrc/pairwise_cumulative.cu), counted by the fp32 pipe's slots: an FFMA
@@ -273,10 +303,14 @@ def brute_topk(torch, q, vecs, K, chunk=256):
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
-def recall_at(torch, got_ids, want_ids) -> float:
-    """Share of the true k nearest ids that the result holds, over all rows."""
-    hits = (got_ids.long()[:, :, None] == want_ids.long()[:, None, :]).any(1).sum()
-    return float(hits) / want_ids.numel()
+def recall_at(torch, got_ids, want_ids, chunk=8192) -> float:
+    """Share of the true k nearest ids that the result holds, over all rows
+    (a chunk of rows at a time: k 100 over 160,000 rows would hold 1.6 G
+    comparisons at once)."""
+    hits = sum(float((got_ids[r : r + chunk].long()[:, :, None]
+                      == want_ids[r : r + chunk].long()[:, None, :]).any(1).sum())
+               for r in range(0, len(want_ids), chunk))
+    return hits / want_ids.numel()
 
 
 def true_ids(torch, q, vecs, k, chunk=1024):
@@ -1952,6 +1986,257 @@ def phase_persistence(torch, dev, run_path, held, pq_build, pq_queries, int8_que
     return out
 
 
+def phase_mesh(torch, dev, run_path, allpairs, xc):
+    """10. The multi-device core (``core.distributed`` over a
+    ``launch.mesh.Mesh``) with four positions: on four cards where the
+    machine has them, else all four on the one card, each on its own
+    stream.  ``allpairs``: phase 2's x and result, on the host.  Each
+    sub-phase's time by CUDA events, its launches and the peak memory."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.distances import quantize_rows
+    from repro_torch.core.knn import knn_query
+    from repro_torch.core.pq import build_ivfpq
+    from repro_torch.data.synthetic import random_vectors
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.filters import QueryFilter
+    from repro_torch.serving.index import RetrievalIndex
+
+    ndev = torch.cuda.device_count()
+    devices = [torch.device("cuda", p) for p in range(4)] if ndev >= 4 else [dev] * 4
+    ring_mesh = make_mesh((4,), ("ring",), devices=devices)
+    q_mesh = make_mesh((1, 4), ("data", "model"), devices=devices)
+    t_phase = time.perf_counter()
+    out = {"devices": [str(d) for d in devices], "launches": {}}
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def sub(label, fn):
+        """``fn`` through ``run_path`` (its launches), timed by CUDA events,
+        with the peak device memory of the run."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (res, counts), ms = timed(lambda: run_path(label, fn))
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res, {"ms": ms, "launches": {k: v for k, v in counts.items() if v},
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # 10a. The ring at allpairs_160k, against phase 2's fused all-pairs.
+    x_h, want_v_h, want_i_h = allpairs
+    n, k = x_h.shape[0], want_i_h.shape[1]
+    x = x_h.to(dev)
+    want_v, want_i = want_v_h.to(dev), want_i_h.to(dev)
+    dist = operand_distance(*ops._mxu_operands(x, x, "sqeuclidean")[:4], alpha=-2.0,
+                            finalize="identity")
+    ring = D.make_ring_allpairs(ring_mesh, k=k, impl="kernel")
+    res, st = sub("mesh_ring_allpairs_160k", lambda: ring(x, n))
+    for name in ("pairwise_distance", "stream_topk"):
+        check(st["launches"].get(name, 0) > 0, f"10a: {name} never launched: {st}")
+    runs = [st["ms"]] + [timed(lambda: ring(x, n))[1] for _ in range(2)]
+    cmp = check_topk(res.distances, res.indices, want_v, want_i, n=n, rtol=1e-5, atol=2e-3,
+                     dist=dist)
+    out["ring"] = {**st, "runs_ms": runs, "median_ms": statistics.median(runs),
+                   "vs_phase2": cmp, "col_chunk": D.COL_CHUNK}
+    say("mesh_ring_allpairs_160k", out["ring"])
+    ring16 = D.make_ring_allpairs(ring_mesh, k=k, impl="kernel", wire_dtype=torch.bfloat16)
+    res16, st16 = sub("mesh_ring_allpairs_160k_bf16", lambda: ring16(x, n))
+    out["ring_bf16"] = {**st16, "recall_at_100": recall_at(torch, res16.indices, want_i),
+                        "max_abs_err_vs_phase2": float((res16.distances - want_v).abs().max())}
+    say("mesh_ring_allpairs_160k_bf16", out["ring_bf16"])
+    del res, res16
+
+    # 10b. The paper's triangle: gsize by configs/base.py's rule, n padded.
+    gsize = -(-(-(-n // 8)) // 128) * 128  # pad_to(ceil(n / 2P), 128), P = 4
+    xp = D.pad_rows_to(x, gsize)
+    tri = D.make_triangle_allpairs(ring_mesh, k=k, gsize=gsize, impl="kernel")
+    res, st = sub("mesh_triangle_allpairs_160k", lambda: tri(xp, n))
+    for name in ("pairwise_distance", "stream_topk"):
+        check(st["launches"].get(name, 0) > 0, f"10b: {name} never launched: {st}")
+    out["triangle"] = {**st, "gsize": gsize, "n_pad": xp.shape[0],
+                       "vs_phase2": check_topk(res.distances, res.indices, want_v, want_i, n=n,
+                                               rtol=1e-5, atol=2e-3, dist=dist)}
+    say("mesh_triangle_allpairs_160k", out["triangle"])
+    del res, x, xp, want_v, want_i, dist
+    torch.cuda.empty_cache()
+
+    # 10c. The sharded query at query_1m: queries replicated, rows over four.
+    n4, m = QUERY_ROWS, MESH_QUERIES
+    db = torch.from_numpy(random_vectors(n4, 256, seed=1)).to(dev)
+    q = torch.from_numpy(random_vectors(m, 256, seed=2)).to(dev)
+    single, single_ms = timed(lambda: knn_query(q, db, k))
+    fn = D.make_query_sharded(q_mesh, query_axis="data", db_axis="model", k=k, impl="fused")
+    res, st = sub("mesh_query_1m", lambda: fn(q, db, n4))
+    check(st["launches"].get("fused_knn", 0) >= 4, f"10c: fused_knn launches: {st}")
+    runs = [st["ms"]] + [timed(lambda: fn(q, db, n4))[1] for _ in range(2)]
+    qdist = operand_distance(*ops._mxu_operands(q, db, "sqeuclidean")[:4], alpha=-2.0,
+                             finalize="identity")
+    out["query"] = {**st, "runs_ms": runs, "median_ms": statistics.median(runs),
+                    "single_device_ms": single_ms, "queries": m, "rows": n4,
+                    "vs_single_device": check_topk(res.distances, res.indices, single.distances,
+                                                   single.indices, n=n4, rtol=1e-5, atol=2e-3,
+                                                   dist=qdist)}
+    say("mesh_query_1m", out["query"])
+    db_q = quantize_rows(db, "int8")
+    fn8 = D.make_query_sharded(q_mesh, query_axis="data", db_axis="model", k=k, impl="fused",
+                               scan_dtype="int8", wire_dtype=torch.bfloat16)
+    res8, st8 = sub("mesh_query_1m_int8", lambda: fn8(q, db, n4, None, db_q))
+    for name in ("fused_knn", "rescore_topk"):
+        check(st8["launches"].get(name, 0) > 0, f"10c int8: {name} never launched: {st8}")
+    rec = recall_at(torch, res8.indices, single.indices)
+    check(rec >= 0.9, f"10c int8 two-stage on the mesh: recall@{k} {rec} < 0.9")
+    out["query_int8"] = {**st8, "recall_at_100": rec,
+                         "k_scan": D.scan_width(n4 // 4, k, 4)}
+    say("mesh_query_1m_int8", out["query_int8"])
+    del db, q, single, res, res8, db_q, qdist
+    torch.cuda.empty_cache()
+
+    # 10d. The index on the mesh: flat at query_1m (neg_dot, k 10), churned.
+    k4 = 10
+    db_np = random_vectors(n4, 256, seed=1)
+    tags = tenant_tags(n4, seed=8)
+    idx = RetrievalIndex.build(np.arange(n4), db_np, distance="neg_dot", impl="fused",
+                               device="cuda", mesh=q_mesh, tenants=tags)
+    del db_np
+    rng = np.random.default_rng(4)
+    idx.delete(rng.choice(n4, n4 // 100, replace=False))
+    idx.upsert(np.arange(n4, n4 + 8192), random_vectors(8192, 256, seed=3),
+               tenants=tenant_tags(8192, seed=9))
+    engine = QueryEngine(idx, EngineConfig(k=k4, min_batch=8, max_batch=1024))
+    qs = [random_vectors(1024, 256, seed=300 + b) for b in range(21)]
+
+    def serve():
+        for b in qs:  # the first batch is tagged cold
+            engine.search(b)
+        return engine.meter
+
+    meter, st = sub("mesh_index_flat", serve)
+    for name in ("fused_knn", "merge_partials"):
+        check(st["launches"].get(name, 0) > 0, f"10d flat: {name} never launched: {st}")
+    vecs, ids = idx._live_rows()
+    vt = torch.from_numpy(vecs).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev).long()
+    qt = torch.from_numpy(qs[0][:64]).to(dev)
+    bv, bi = brute_topk(torch, qt, vt, 16)
+    pos = torch.full((int(ids_t.max()) + 1,), -1, dtype=torch.long, device=dev)
+    pos[ids_t] = torch.arange(len(ids_t), device=dev)
+    got = idx.search(qs[0][:64], k4)
+    flat_cmp = check_topk(got.distances, got.ids.long(), bv[:, :k4], ids_t[bi[:, :k4].long()],
+                          n=len(pos), rtol=1e-5, atol=1e-3,
+                          dist=lambda r, e: -(qt[r] * vt[pos[e]]).sum(1))
+    qten = np.random.default_rng(10).integers(0, N_TENANTS, 1024).astype(np.int32)
+    fgot, fst = sub("mesh_index_flat_tenant", lambda: idx.search(qs[1], k4,
+                                                                 filter=QueryFilter(tenant=qten)))
+    tag_of = np.full(int(ids.max()) + 1, -1, np.int64)
+    tag_of[ids] = idx._live_tenants()
+    gi = fgot.ids.cpu().numpy()
+    check(bool(((tag_of[gi.clip(0)] == qten[:, None]) | (gi < 0)).all()),
+          "10d: the mesh index served an id of another tenant")
+    out["index_flat"] = {**st, **meter.summary(), "p90_ms": meter.latency_ms(90),
+                         "vs_brute_force": flat_cmp,
+                         "live": len(idx), "tenant_batch": {
+                             **fst, "empty_slots": int((fgot.ids < 0).sum())}}
+    say("mesh_index_flat", out["index_flat"])
+    del idx, engine, vt, ids_t, qt, pos, got, fgot
+    torch.cuda.empty_cache()
+
+    # IVF fp32 (4096 cells, 1,024 a shard) and IVF-PQ (pq_m 32) on phase 6's rows.
+    xm, cq = xc[:QUERY_ROWS], xc[QUERY_ROWS : QUERY_ROWS + 1024]
+    ivf_idx = RetrievalIndex.build(np.arange(QUERY_ROWS), xm, distance="neg_dot", impl="fused",
+                                   device="cuda", ivf_cells=IVF_CELLS, nprobe=8, mesh=q_mesh)
+    t0 = time.perf_counter()
+    ivf_idx._device_state()
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t0
+    cells = ivf_idx._dev["main_ivf"]
+    check(cells.ncells == IVF_CELLS, f"10d: {cells.ncells} cells")
+    vt = ivf_idx._dev["main_vecs"]
+    truth = true_ids(torch, torch.from_numpy(cq).to(dev), vt, k4)
+    ivf_engine = QueryEngine(ivf_idx, EngineConfig(k=k4, min_batch=8, max_batch=1024))
+
+    def serve_ivf():
+        for _ in range(11):
+            got = ivf_engine.search(cq)
+        return got
+
+    got, st = sub("mesh_index_ivf", serve_ivf)
+    for name in ("ivf_scan", "rescore_topk"):
+        check(st["launches"].get(name, 0) > 0, f"10d ivf: {name} never launched: {st}")
+    rec = recall_at(torch, got.ids, truth)
+    check(rec >= 0.9, f"10d ivf nprobe 8 on the mesh: recall@10 {rec} < 0.9")
+    ivf_idx.nprobe = IVF_CELLS
+    qt = torch.from_numpy(cq[:256]).to(dev)
+    full = ivf_idx.search(cq[:256], k4)
+    bv, bi = brute_topk(torch, qt, vt, 16)
+    full_cmp = check_topk(full.distances, full.ids.long(), bv[:, :k4], bi[:, :k4], n=QUERY_ROWS,
+                          rtol=1e-5, atol=1e-3, dist=neg_dot_distance(qt, vt))
+    out["index_ivf"] = {**st, **ivf_engine.meter.summary(), "recall_at_10": rec,
+                        "build_s": ivf_build_s, "cell_cap": cells.cell_cap,
+                        "full_probe_vs_brute_force": full_cmp}
+    say("mesh_index_ivf", out["index_ivf"])
+    t0 = time.perf_counter()
+    pq = build_ivfpq(vt, cells, PQ_M, nbits=PQ_NBITS, distance="neg_dot",
+                     generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    pq_build_s = time.perf_counter() - t0
+    pq_idx = RetrievalIndex.from_arrays(
+        xm, np.arange(QUERY_ROWS), np.ones(QUERY_ROWS, bool), np.zeros((0, 256), np.float32),
+        np.zeros(0, np.int32), np.zeros(0, bool), 0, distance="neg_dot", impl="fused",
+        device="cuda", ivf=cells, pq=pq, overfetch=8, nprobe=8, mesh=q_mesh)
+    del ivf_idx, ivf_engine
+    pq_engine = QueryEngine(pq_idx, EngineConfig(k=k4, min_batch=8, max_batch=1024))
+
+    def serve_pq():
+        for _ in range(11):
+            got = pq_engine.search(cq)
+        return got
+
+    got, st = sub("mesh_index_ivfpq", serve_pq)
+    for name in ("pq_scan", "rescore_topk"):
+        check(st["launches"].get(name, 0) > 0, f"10d ivfpq: {name} never launched: {st}")
+    # The index's IVF-PQ merge ships bf16 values, as the reference's does
+    # (src/repro/serving/index.py:937): at neg_dot values near 250 a bf16
+    # step is 1-2 while neighbours lie 0.01-0.5 apart, so the wire ties them
+    # and the merge keeps positions, not the nearest.  Its contract is
+    # near-optimality: an id counts if it is a true top-10 id or its exact
+    # distance is within one bf16 rounding of the exact 10th.  The scorer
+    # itself, on an fp32 wire over the same shards, is held to the recall
+    # floor id for id.
+    qt = torch.from_numpy(cq).to(dev)
+    kth = -torch.topk(qt @ vt.T, k4, dim=1).values[:, -1:]
+    exact_d = -(qt[:, None, :] * vt[got.ids.long().clamp(min=0)]).sum(2)
+    near = (got.ids >= 0) & (exact_d <= kth + kth.abs() * 2.0 ** -8 + 1e-3)
+    hit = (got.ids.long()[:, :, None] == truth.long()[:, None, :]).any(2)
+    rec, rec_wire = recall_at(torch, got.ids, truth), float((hit | near).float().mean())
+    check(rec_wire >= 0.85, f"10d ivf-pq overfetch 8 on the mesh: recall@10 with the bf16 "
+                            f"wire's ties {rec_wire} < 0.85 (id for id {rec})")
+    fp32_wire = D.make_ivfpq_query_sharded(
+        q_mesh, query_axis="data", db_axis="model", k=16, nprobe=8, cell_cap=cells.cell_cap,
+        distance="neg_dot", overfetch=8)
+    live_p = pq_idx._dev["main_ivf_live"]
+    res32 = fp32_wire(qt, cells.centroids, *pq, cells.packed, cells.row_of_slot, live_p)
+    rec32 = recall_at(torch, res32.indices[:, :k4], truth)
+    check(rec32 >= 0.85, f"10d ivf-pq overfetch 8, fp32 wire: recall@10 {rec32} < 0.85")
+    out["index_ivfpq"] = {**st, **pq_engine.meter.summary(), "recall_at_10": rec,
+                          "recall_at_10_wire_ties": rec_wire, "recall_at_10_fp32_wire": rec32,
+                          "pq_build_s": pq_build_s}
+    say("mesh_index_ivfpq", out["index_ivfpq"])
+    del pq_idx, pq_engine, cells, pq, vt, truth, got, full
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("mesh_phase", {"seconds": out["phase_s"], "devices": out["devices"],
+                       "launches": out["launches"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2128,6 +2413,7 @@ def main() -> int:
 
     # 3b. The paper's two phases with the per-coordinate kernel.
     cum = phase_cumulative(torch, dev, run_path, x, res)
+    allpairs_host = (x.cpu(), res.distances.cpu(), res.indices.cpu())  # phase 10's reference
     del x, xq, x3, res, fx, gy, hx, hy, fq, gq, hxq, hyq, pd_args, dist
     torch.cuda.empty_cache()
 
@@ -2264,7 +2550,15 @@ def main() -> int:
     held = {"ivfpq": pq_index, "int8": int8_index}
     del pq_index, int8_index
     phase_persistence(torch, dev, run_path, held, pq["build"], xc[QUERY_ROWS:], int8_queries)
-    del xc
+    torch.cuda.empty_cache()
+
+    # 10. The multi-device core on four positions: ring, triangle, the
+    # sharded query and the index on the mesh.
+    mesh_launches = phase_mesh(torch, dev, run_path, allpairs_host, xc)["launches"]
+    del xc, allpairs_host
+    for name in ("pairwise_distance", "stream_topk", "fused_knn", "rescore_topk", "ivf_scan",
+                 "pq_scan"):
+        check(mesh_launches.get(name, 0) > 0, f"phase 10 never launched {name}: {mesh_launches}")
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
@@ -2391,6 +2685,8 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "shape")}
              for name in ("hellinger", "kl")}},
     ]
+    for entry in kernels:
+        entry["launches_phase10"] = mesh_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

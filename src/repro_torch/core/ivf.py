@@ -16,7 +16,8 @@ scan kernel is ``kernels/ivf_scan.py``; the query pipeline is
   the reference's bit for bit.
 * ``tile_probe_lists``: per tile of ``bm`` queries, the ascending union of
   their probed cells, padded by repeating the last one.  Every query of the
-  tile scans the whole union, a superset of its own probes.
+  tile scans the whole union, a superset of its own probes.  Probes outside
+  the cell range (another shard's cells) are dropped.
 """
 from __future__ import annotations
 
@@ -265,20 +266,43 @@ def probe_cells(queries: Tensor, centroids: Tensor, nprobe: int, *,
     return knn_query(queries, centroids, nprobe, distance=distance, impl=impl).indices
 
 
+def shortlist(queries: Tensor, centroids: Tensor, nprobe: int, *,
+              distance: str = "sqeuclidean", impl: str = "fused") -> Tensor:
+    """The cells each query probes [m, min(nprobe, ncells)], as a set: every
+    consumer takes it as one, so where ``nprobe`` covers every cell they are
+    taken in order without a kNN over the centroids, else ``probe_cells``."""
+    ncells = centroids.shape[0]
+    if nprobe >= ncells:
+        cells = torch.arange(ncells, dtype=torch.int32, device=queries.device)
+        return cells.expand(queries.shape[0], ncells)
+    return probe_cells(queries, centroids, nprobe, distance=distance, impl=impl)
+
+
 def tile_probe_lists(cells: Tensor, ncells: int, bm: int) -> Tensor:
     """Per-query-tile union probe lists [m/bm, W] int32, W = min(ncells,
     bm * nprobe): the tile's distinct probed cells ascending, padded out to
-    W by repeating the last one.  ``cells`` [m, nprobe] with m % bm == 0."""
+    W by repeating the last one.  ``cells`` [m, nprobe] with m % bm == 0.
+
+    A probe outside ``[0, ncells)`` names no cell here and is dropped: on a
+    mesh, a shard takes the global shortlist shifted by its first cell
+    (``core.distributed``), so the cells other shards own fall outside its
+    range.  A tile left with no probe gets a list of -1, which the scans
+    read as no cell: its rows come back +inf / -1.
+    """
     m, nprobe = cells.shape
     assert m % bm == 0, (m, bm)
     nt = m // bm
     W = min(ncells, bm * nprobe)
-    present = torch.zeros((nt, ncells), dtype=torch.bool, device=cells.device)
-    present.scatter_(1, cells.reshape(nt, bm * nprobe).long(), True)
+    c = cells.reshape(nt, bm * nprobe).long()
+    ok = (c >= 0) & (c < ncells)
+    present = torch.zeros((nt, ncells + 1), dtype=torch.bool, device=cells.device)
+    present.scatter_(1, torch.where(ok, c, ncells), True)  # column ncells: dropped probes
+    present = present[:, :ncells]
     ids = torch.arange(ncells, device=cells.device)
     # Present cells first, ascending; absent cells after them.
     order = torch.argsort(torch.where(present, ids, ncells + ids), dim=1)[:, :W]
-    n_present = present.sum(1)  # >= 1 always
+    n_present = present.sum(1)
     last = order.gather(1, (n_present[:, None] - 1).clamp(0, W - 1))
     real = torch.arange(W, device=cells.device)[None, :] < n_present[:, None]
-    return torch.where(real, order, last).to(torch.int32)
+    lists = torch.where(real, order, last)
+    return torch.where(n_present[:, None] > 0, lists, -1).to(torch.int32)

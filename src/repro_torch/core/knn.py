@@ -468,11 +468,7 @@ def ivf_query(queries: Tensor, database: Tensor, ivf, k: int, *, nprobe: int = 8
         check_mask(q_allowed, queries.shape[0], n)
     k = min(k, n)
     ncells, cap = ivf.ncells, ivf.cell_cap
-    if nprobe >= ncells:
-        cells = torch.arange(ncells, dtype=torch.int32, device=queries.device)
-        cells = cells.expand(queries.shape[0], ncells)
-    else:
-        cells = IVF.probe_cells(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
+    cells = IVF.shortlist(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
     live_p = IVF.packed_live(ivf, db_live)
     k_scan = scan_width(n, k, overfetch)
     if impl == "fused":
@@ -544,11 +540,7 @@ def ivfpq_query(queries: Tensor, database: Tensor, ivf, pq_cb, pq_codes, k: int,
         check_mask(q_allowed, queries.shape[0], n)
     k = min(k, n)
     ncells, cap = ivf.ncells, ivf.cell_cap
-    if nprobe >= ncells:
-        cells = torch.arange(ncells, dtype=torch.int32, device=queries.device)
-        cells = cells.expand(queries.shape[0], ncells)
-    else:
-        cells = IVF.probe_cells(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
+    cells = IVF.shortlist(queries, ivf.centroids, nprobe, distance=distance, impl=impl)
     live_p = IVF.packed_live(ivf, db_live)
     k_scan = scan_width(n, k, overfetch)
     if impl == "fused":

@@ -62,6 +62,7 @@ def ivf_scan_plain(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: int
     vals, idx = [], []
     for t in range(-(-m // tile_m)):
         cells = torch.unique_consecutive(probes[t]).long()  # the list, duplicates skipped
+        cells = cells[(cells >= 0) & (cells < cell_extent.shape[0])]  # a slot naming no cell
         cols = cells[:, None] * cell_cap + lane
         cols = cols[lane[None, :] < cell_extent[cells].long()[:, None]]  # ascending slots
         cols = torch.cat([cols.reshape(-1), cols.new_full((1,), -1)])  # -1: the empty id

@@ -57,7 +57,17 @@ Snapshots (``save`` / ``restore``, ``serving.snapshot``) are the
 reference's on-disk format; the crash-safe lifecycle around the index
 (``serving.lifecycle``) trains each new epoch off the serving thread, and
 ``_forbid_sync_train`` makes a search that would train instead raise.
-Mesh sharding comes with a later slice of the port and raises here.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``; DESIGN.md §1, §8) the
+main segment is scored by ``core.distributed``'s sharded scorers: queries
+over ``query_axis``, the main rows (or their cell blocks) over ``db_axis``,
+tombstones as the shards' live masks before the butterfly merge.  The main
+rows are padded to a multiple of the db axis' size, the padding dead; the
+IVF cell count rounds down to a multiple of it, so cell blocks never
+straddle shards.  The delta is scored on ``device``, and the two segments
+merge there.  Filters are always post-filtered on a mesh, as the
+reference's are: the sharded scorers take no per-query bitmap, and their
+rows meet the filter's packed words before they are externalized.
 """
 from __future__ import annotations
 
@@ -79,6 +89,7 @@ from repro_torch.core.knn import (
 from repro_torch.core.pq import PQCodebook, PQCodes, _check_pq_geometry, build_ivfpq
 from repro_torch.kernels._backend import resolve_device
 from repro_torch.kernels.fused_knn import mask_bits_at, pack_mask
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serving import filters as F
 
 Tensor = torch.Tensor
@@ -165,16 +176,14 @@ def _merge_candidates(av, ai, bv, bi, *, k):
     return T.finalize_topk(mv, mi, k)
 
 
-def _unported(name: str):
-    raise NotImplementedError(f"{name} is not ported yet: the single-device flat, "
-                              "quantized, IVF and IVF-PQ index only")
-
-
 class RetrievalIndex:
     """Mutable kNN index over (id, vector) rows.  See module docstring.
 
     ``impl``: ``"fused"`` (default), ``"kernel"`` or ``"torch"``, forwarded
-    to the per-segment scorers.  ``device``: where the segments live.
+    to the per-segment scorers.  ``device``: where the segments live, and
+    where results come back.  ``mesh`` / ``db_axis`` / ``query_axis``: the
+    sharded main segment (module docstring); the mesh is runtime state,
+    never saved.
     ``scan_dtype`` / ``overfetch``: the two-stage tier ("float32" is the
     exact flat scan).  ``ivf_cells`` / ``nprobe``: the IVF tier (0 cells is
     off; ``nprobe >= ivf_cells`` probes every cell, exact with a float32
@@ -189,10 +198,17 @@ class RetrievalIndex:
     def __init__(self, dim: int, *, distance: str = "sqeuclidean",
                  impl: str = "fused", device="cuda", scan_dtype: str = "float32",
                  overfetch: int = 4, ivf_cells: int = 0, nprobe: int = 8, pq_m: int = 0,
-                 pq_nbits: int = 8, mesh=None):
-        if mesh is not None:
-            _unported("mesh")
+                 pq_nbits: int = 8, mesh=None, db_axis: str = "model",
+                 query_axis: str = "data"):
         self.dim = int(dim)
+        self.mesh = mesh
+        self.db_axis = db_axis
+        self.query_axis = query_axis
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            mesh.axes((db_axis, query_axis))  # both must name axes of the mesh
         self.distance = distance
         self.impl = impl
         self.device = resolve_device(device)
@@ -259,8 +275,8 @@ class RetrievalIndex:
                     impl: str = "fused", device="cuda", ivf: IVFCells | None = None,
                     pq: tuple[PQCodebook, PQCodes] | None = None,
                     scan_dtype: str = "float32", overfetch: int = 4,
-                    nprobe: int = 8, main_tenant=None,
-                    delta_tenant=None) -> "RetrievalIndex":
+                    nprobe: int = 8, main_tenant=None, delta_tenant=None, mesh=None,
+                    db_axis: str = "model", query_axis: str = "data") -> "RetrievalIndex":
         """An index with exactly this segment state (e.g. the reference's).
 
         Arrays are numpy: the main segment's rows, external ids and live
@@ -273,7 +289,9 @@ class RetrievalIndex:
         codes) replica of those cells' packed rows, with residual codes
         (e.g. the reference's, through ``core.pq.pq_from_arrays``); the
         index then serves the IVF-PQ tier with it, ``pq_m`` and
-        ``pq_nbits`` taken from its codebook.
+        ``pq_nbits`` taken from its codebook.  ``mesh`` / ``db_axis`` /
+        ``query_axis`` as the constructor takes them; on a mesh the cells
+        must be the count the index derives (a multiple of the db axis).
         """
         main_vecs = np.ascontiguousarray(main_vecs, np.float32)
         if pq is not None and ivf is None:
@@ -282,7 +300,7 @@ class RetrievalIndex:
         idx = cls(main_vecs.shape[1], distance=distance, impl=impl, device=device,
                   scan_dtype=scan_dtype, overfetch=overfetch,
                   ivf_cells=0 if ivf is None else ivf.ncells, nprobe=nprobe, pq_m=pq_m,
-                  pq_nbits=pq_nbits)
+                  pq_nbits=pq_nbits, mesh=mesh, db_axis=db_axis, query_axis=query_axis)
         idx._main_vecs = main_vecs
         idx._main_ids = np.asarray(main_ids, np.int32).copy()
         idx._main_live = np.asarray(main_live, bool).copy()
@@ -307,6 +325,9 @@ class RetrievalIndex:
             if ivf.slot_of_row.shape[0] != len(main_vecs):
                 raise ValueError(f"the cells cover {ivf.slot_of_row.shape[0]} rows, the main "
                                  f"segment has {len(main_vecs)}")
+            if mesh is not None and ivf.ncells != idx._effective_ncells():
+                raise ValueError(f"{ivf.ncells} cells on a mesh whose db axis derives "
+                                 f"{idx._effective_ncells()}: cell blocks cannot be resharded")
             if pq is not None:
                 if pq[1].codes.shape[0] != ivf.packed.shape[0] or not idx._use_pq():
                     raise ValueError(f"the PQ replica codes {pq[1].codes.shape[0]} slots; the "
@@ -331,14 +352,16 @@ class RetrievalIndex:
                           wal=wal)
 
     @classmethod
-    def restore(cls, directory: str, *, device="cuda", mesh=None,
-                impl: str | None = None) -> "RetrievalIndex":
-        """An index from a snapshot of either package, on ``device``, with no
-        training; a mismatch raises ``serving.snapshot.SnapshotError``, and a
-        search is bit-identical to the source's on the same device."""
+    def restore(cls, directory: str, *, device="cuda", mesh=None, db_axis: str = "model",
+                query_axis: str = "data", impl: str | None = None) -> "RetrievalIndex":
+        """An index from a snapshot of either package, on ``device`` (and
+        ``mesh``), with no training; a mismatch raises
+        ``serving.snapshot.SnapshotError``, and a search is bit-identical to
+        the source's on the same device."""
         from repro_torch.serving.snapshot import restore_index
 
-        return restore_index(directory, device=device, mesh=mesh, impl=impl)
+        return restore_index(directory, device=device, mesh=mesh, db_axis=db_axis,
+                             query_axis=query_axis, impl=impl)
 
     def _check_ids(self, ids, vectors) -> np.ndarray:
         ids = np.asarray(ids, np.int64)
@@ -550,11 +573,17 @@ class RetrievalIndex:
 
     def _effective_ncells(self) -> int:
         """``ivf_cells`` clamped so that a cell expects at least ~4 rows; 0
-        (the flat scan) for an empty main segment."""
+        (the flat scan) for an empty main segment.  On a mesh the count
+        rounds down to a multiple of the db axis' size, so cell blocks shard
+        evenly; 0 there (fewer than ~4 P rows) means the flat scan."""
         n = len(self._main_vecs)
         if n == 0:
             return 0
-        return max(1, min(self.ivf_cells, n // 4 or 1))
+        ncells = max(1, min(self.ivf_cells, n // 4 or 1))
+        if self.mesh is not None:
+            P = int(self.mesh.shape[self.db_axis])
+            ncells = (ncells // P) * P
+        return ncells
 
     def effective_nprobe(self) -> int:
         """``nprobe`` clamped to the trained cell count: a larger value means
@@ -638,6 +667,8 @@ class RetrievalIndex:
         E = F.exclusion_width(f)
         s = self._selectivity(f, dev, in_allowed)
         mode = F.resolve_mode(f.mode, s)
+        if self.mesh is not None:
+            mode = "post"  # the sharded scorers take no per-query bitmap
         k_fetch = k + E
         if mode == "post":
             k_fetch = max(k_fetch, F.widen(k, s) + E)
@@ -752,6 +783,8 @@ class RetrievalIndex:
         """Top-``k_out`` live candidates of the main segment, by its tier;
         ``allowed`` / ``post`` as ``_segment_candidates`` takes them."""
         vecs, live, ids = dev["main"]
+        if self.mesh is not None:
+            return self._main_candidates_sharded(q, k_out, dev, allowed)
         if not self._use_ivf() and self.scan_dtype == "float32":
             return _segment_candidates(q, vecs, live, ids, allowed, k_out=k_out,
                                        distance=self.distance, impl=self.impl, post=post)
@@ -767,3 +800,64 @@ class RetrievalIndex:
         else:
             vals, idx = two_stage_query(q, vecs, self._dev["main_q"], k_out, **kw)
         return _scored(vals, idx, ids, k_out, allowed if post else None)
+
+    def _main_candidates_sharded(self, q, k_out: int, dev: dict, allowed=None):
+        """Score the main segment over the mesh (``core.distributed``).
+
+        Tombstones shard over ``db_axis`` beside the rows, so dead rows are
+        +inf before the butterfly merge and its payload stays ``k_out`` a
+        row.  The flat tier pads the rows to a multiple of the db axis
+        (kept per main epoch, the padded live mask per main version); with
+        a quantized ``scan_dtype`` each shard scans its slice of the padded
+        replica (kept per (epoch, padded size)) and rescores, and the merge
+        wire is bf16.  The IVF and IVF-PQ tiers shard the cell-packed
+        arrays; the live mask rides the packing (kept per main version and
+        epoch); IVF-PQ's wire is bf16, as the reference's.  ``allowed``,
+        the filter's packed words, is always applied after the scorer.
+        """
+        from repro_torch.core import distributed as KD
+        from repro_torch.core.ivf import packed_live
+
+        _, live, ids = dev["main"]
+        P_q = int(self.mesh.shape[self.query_axis])
+        m = q.shape[0]
+        qp = KD.pad_rows_to(q, P_q)
+        common = dict(query_axis=self.query_axis, db_axis=self.db_axis, k=k_out,
+                      distance=self.distance, impl=self.impl, overfetch=self.overfetch)
+        quant = self.scan_dtype != "float32"
+        if self._use_ivf():
+            ivf = self._dev["main_ivf"]
+            self._upload("main_ivf_live", (self._version["main"], self._main_epoch),
+                         lambda: packed_live(ivf, live))
+            live_p = self._dev["main_ivf_live"]
+            nprobe = self.effective_nprobe()
+            if self._use_pq():
+                fn = KD.make_ivfpq_query_sharded(self.mesh, nprobe=nprobe,
+                                                 cell_cap=ivf.cell_cap,
+                                                 wire_dtype=torch.bfloat16, **common)
+                vals, idx = fn(qp, ivf.centroids, *self._dev["main_pq"], ivf.packed,
+                               ivf.row_of_slot, live_p)
+            else:
+                fn = KD.make_ivf_query_sharded(self.mesh, nprobe=nprobe, cell_cap=ivf.cell_cap,
+                                               scan_dtype=self.scan_dtype,
+                                               wire_dtype=torch.bfloat16 if quant else None,
+                                               **common)
+                vals, idx = fn(qp, ivf.centroids, ivf.packed, ivf.row_of_slot, live_p,
+                               self._dev["main_ivf_q"])
+        else:
+            n = len(self._main_vecs)
+            n_pad = n + (-n) % int(self.mesh.shape[self.db_axis])
+            self._upload("main_padded", (self._main_epoch, n_pad), lambda: KD.pad_rows_to(
+                dev["main"][0], int(self.mesh.shape[self.db_axis])))
+            self._upload("main_padded_live", (self._version["main"], n_pad),
+                         lambda: torch.cat([live, live.new_zeros(n_pad - n)]))
+            db_q = None
+            if quant:
+                self._upload("main_padded_q", (self._main_epoch, n_pad), lambda: quantize_rows(
+                    self._dev["main_padded"], self.scan_dtype, distance=self.distance))
+                db_q = self._dev["main_padded_q"]
+            fn = KD.make_query_sharded(self.mesh, scan_dtype=self.scan_dtype,
+                                       wire_dtype=torch.bfloat16 if quant else None, **common)
+            vals, idx = fn(qp, self._dev["main_padded"], n, self._dev["main_padded_live"],
+                           db_q)
+        return _scored(vals[:m], idx[:m], ids, k_out, allowed)

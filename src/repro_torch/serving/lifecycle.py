@@ -215,7 +215,12 @@ class LifecycleIndex:
     def attach(cls, idx, config: LifecycleConfig, *, meter=None) -> "LifecycleIndex":
         """Write the initial full WAL image of ``idx`` and start journaling.
         ``idx`` trains here if it has not yet (an admin path, not a query):
-        from the first ack on, no search trains synchronously."""
+        from the first ack on, no search trains synchronously.  A
+        mesh-sharded index is refused, as the reference refuses it: the
+        shard fleet has its own persistence tier (DESIGN.md §13)."""
+        if idx.mesh is not None:
+            raise ValueError("LifecycleIndex does not manage mesh-sharded indexes; the "
+                             "shard fleet has its own persistence tier (DESIGN.md §13)")
         _reap_stale(config.snapshot_dir)
         save_index(idx, config.snapshot_dir, wal=True, extra=config.extra,
                    include_replicas=config.include_replicas)

@@ -430,12 +430,16 @@ def replay_record(idx, tag: bytes, rec: dict) -> None:
         raise SnapshotError(f"unknown journal record tag {tag!r}")
 
 
-def restore_index(directory: str, *, device="cuda", mesh=None, impl: str | None = None,
+def restore_index(directory: str, *, device="cuda", mesh=None, db_axis: str = "model",
+                  query_axis: str = "data", impl: str | None = None,
                   recovery: dict | None = None):
     """Rebuild a ``RetrievalIndex`` from a snapshot on ``device`` (the card
     unless the caller asks for the CPU), with no training.
 
-    ``mesh`` raises, as the index's does.  ``impl`` overrides the scorer
+    ``mesh`` (runtime state, never saved) serves the restored index
+    sharded over ``db_axis``; a mesh whose db axis derives another cell
+    count than the snapshot trained raises, since a cell layout cannot be
+    resharded without retraining.  ``impl`` overrides the scorer
     (``torch``/``kernel``/``fused``); by default the manifest's, mapped
     from the reference's names.  ``recovery``, when given, is filled with
     what the journal replay saw (stamped, valid and torn bytes; prefix and
@@ -452,7 +456,8 @@ def restore_index(directory: str, *, device="cuda", mesh=None, impl: str | None 
         stored = manifest.get("impl", "jnp")
         _expect(stored in IMPL_FROM_REFERENCE, f"unknown scorer impl {stored!r} in manifest")
         impl = IMPL_FROM_REFERENCE[stored]
-    idx = RetrievalIndex(dim, impl=impl, device=device, mesh=mesh, **cfg)
+    idx = RetrievalIndex(dim, impl=impl, device=device, mesh=mesh, db_axis=db_axis,
+                         query_axis=query_axis, **cfg)
 
     with np.load(os.path.join(directory, _MAIN)) as z:
         vecs, ids, live = z["vecs"], z["ids"], z["live"]
@@ -541,7 +546,7 @@ def _preload_trained(idx, directory: str, manifest: dict) -> None:
                 f"IVF permutation covers {ivf.slot_of_row.shape[0]} rows, main has "
                 f"{len(idx._main_vecs)}")
         _expect(ivf.ncells == idx._effective_ncells(),
-                f"snapshot trained {ivf.ncells} cells; this config derives "
+                f"snapshot trained {ivf.ncells} cells; this config/mesh derives "
                 f"{idx._effective_ncells()} — a cell layout cannot be resharded without "
                 f"retraining")
         idx._dev["main_ivf"] = ivf

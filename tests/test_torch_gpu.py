@@ -1333,3 +1333,171 @@ def test_ptxas_reports_of_the_other_kernels_are_unchanged(cuda, name):
     got = _ptxas_entries(B.library_path(name).with_suffix(".log").read_text())
     want = json.loads(PTXAS_BASELINE.read_text())[name]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The multi-device core with four positions on one card (core.distributed
+# over launch.mesh): each path against the single-device path on the card.
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(cuda, shape, names, streams=True):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, names, devices=[cuda] * int(np.prod(shape)), streams=streams)
+
+
+def _sq_dist(a, b):
+    return lambda r, c: ((a[r].double() - b[c].double()) ** 2).sum(1).float()
+
+
+@pytest.mark.parametrize("maker", ["ring", "triangle"])
+def test_mesh_allpairs_on_four_positions_of_one_card(cuda, monkeypatch, maker):
+    """Ring and triangle over four positions on the card, tiles walked in
+    blocks of 512 columns, against the single-device fused all-pairs: the
+    tiles go through ``pairwise_distance`` and each side's selection through
+    ``stream_topk``."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.knn import knn_allpairs
+
+    monkeypatch.setattr(D, "COL_CHUNK", 512)
+    n, k = 3000, 16
+    x = torch.from_numpy(_clustered(n, 64, 5)).to(cuda)
+    mesh = _card_mesh(cuda, (4,), ("ring",))
+    before = PD.LAUNCHES, ST.LAUNCHES
+    if maker == "ring":
+        got = D.make_ring_allpairs(mesh, k=k)(D.pad_rows_to(x, 4), n)
+    else:
+        xp = D.pad_rows_to(x, 4 * 256)
+        got = D.make_triangle_allpairs(mesh, k=k, gsize=256)(xp, n)
+    torch.cuda.synchronize()
+    assert PD.LAUNCHES > before[0] and ST.LAUNCHES > before[1]
+    want = knn_allpairs(x, k, impl="fused")
+    check_topk(got.distances, got.indices.long(), want.distances, want.indices.long(), n=n,
+               rtol=1e-5, atol=2e-3, dist=_sq_dist(x, x))
+
+
+@pytest.mark.parametrize("tier", ["fp32", "int8", "ivf", "ivfpq"])
+def test_mesh_queries_on_four_positions_of_one_card(cuda, tier):
+    """The sharded flat, two-stage, IVF and IVF-PQ queries over a (1, 4)
+    mesh on the card against the single-device query of the same rows:
+    exact tiers tie-aware equal, the compressed ones at their recall."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import knn as K
+    from repro_torch.core.ivf import build_ivf, packed_live
+    from repro_torch.core.pq import build_ivfpq
+
+    n, d, k = 1 << 14, 64, 10
+    db = torch.from_numpy(_clustered(n, d, 7)).to(cuda)
+    q = db[:512] + 0.1 * torch.randn(512, d, generator=torch.Generator().manual_seed(8)).to(cuda)
+    live = torch.ones(n, dtype=torch.bool, device=cuda)
+    live[::13] = False
+    mesh = _card_mesh(cuda, (1, 4), ("data", "model"))
+    axes = dict(query_axis="data", db_axis="model", k=k)
+    exact = K.knn_query(q, db, k, db_live=live)
+    counts = {m: m.LAUNCHES for m in (FK, RS, IVS, PQS)}
+    if tier in ("fp32", "int8"):
+        fn = D.make_query_sharded(mesh, scan_dtype="float32" if tier == "fp32" else "int8",
+                                  wire_dtype=None if tier == "fp32" else torch.bfloat16, **axes)
+        got = fn(q, db, n, live)
+        used = (FK,) if tier == "fp32" else (FK, RS)
+    else:
+        cells = build_ivf(db, 64, generator=torch.Generator().manual_seed(1))
+        lp = packed_live(cells, live)
+        if tier == "ivf":
+            fn = D.make_ivf_query_sharded(mesh, nprobe=64, cell_cap=cells.cell_cap, **axes)
+            got = fn(q, cells.centroids, cells.packed, cells.row_of_slot, lp)
+            used = (IVS, RS)
+        else:
+            cb, codes = build_ivfpq(db, cells, 16, generator=torch.Generator().manual_seed(1))
+            fn = D.make_ivfpq_query_sharded(mesh, nprobe=8, cell_cap=cells.cell_cap,
+                                            overfetch=8, wire_dtype=torch.bfloat16, **axes)
+            got = fn(q, cells.centroids, cb, codes, cells.packed, cells.row_of_slot, lp)
+            used = (PQS, RS)
+    torch.cuda.synchronize()
+    assert all(m.LAUNCHES > counts[m] for m in used)
+    if tier in ("fp32", "ivf"):  # exact: nprobe covers every cell
+        check_topk(got.distances, got.indices.long(), exact.distances, exact.indices.long(),
+                   n=n, rtol=1e-5, atol=2e-3, dist=_sq_dist(q, db))
+    else:
+        hits = (got.indices[:, :, None] == exact.indices[:, None, :]).any(2).float().mean()
+        assert float(hits) >= 0.85, (tier, float(hits))
+
+
+@pytest.mark.parametrize("kind", ["ivf", "pq"])
+def test_a_query_tile_with_no_probe_of_the_shard_on_the_card(cuda, kind):
+    """Probes another shard owns (negative or past this shard's cells):
+    the tile that has none scans nothing and comes back +inf / -1; the
+    other tile is the plain version's."""
+    g = torch.Generator().manual_seed(0)
+    ncells, cap, d, m = 8, 128, 32, 128
+    packed = torch.randn(ncells * cap, d, generator=g)
+    q = torch.randn(m, d, generator=g)
+    cells = torch.randint(-12, 0, (m, 4), generator=g, dtype=torch.int32)
+    cells[:64, 1] = torch.randint(ncells, 20, (64,), generator=g, dtype=torch.int32)
+    cells[64:, 0] = torch.randint(0, ncells, (64,), generator=g, dtype=torch.int32)
+    if kind == "ivf":
+        def run(dev):
+            return ops.ivf_scan(q.to(dev), packed.to(dev), cells.to(dev), 16, cell_cap=cap,
+                                tile_m=64)
+    else:
+        from repro_torch.core.pq import PQCodebook, PQCodes
+
+        cb = PQCodebook(torch.randn(32, 256, 1, generator=g))
+        codes = PQCodes(torch.randint(0, 256, (ncells * cap, 32), generator=g,
+                                      dtype=torch.uint8), torch.randn(ncells * cap, generator=g))
+
+        def run(dev):
+            return ops.pq_scan(q.to(dev), PQCodebook(cb.codebooks.to(dev)),
+                               PQCodes(*(t.to(dev) for t in codes)), cells.to(dev), 16,
+                               cell_cap=cap, tile_m=64)
+    got, want = run(cuda), run(torch.device("cpu"))
+    assert bool(torch.isinf(got.distances[:64]).all()) and bool((got.indices[:64] == -1).all())
+    assert torch.equal(got.indices.cpu(), want.indices)
+    torch.testing.assert_close(got.distances.cpu(), want.distances, rtol=1e-5, atol=1e-4)
+
+
+def test_mesh_positions_on_four_streams_or_one_give_equal_ids(cuda):
+    """The same ring and sharded query with each position on its own stream
+    and with all four on the caller's: a copy that did not wait for its
+    source's stream would read a heap not yet written."""
+    from repro_torch.core import distributed as D
+
+    x = torch.from_numpy(_clustered(4096, 64, 9)).to(cuda)
+    q = x[:256] + 0.01
+    out = []
+    for streams in (True, False):
+        mesh = _card_mesh(cuda, (4,), ("ring",), streams=streams)
+        ring = D.make_ring_allpairs(mesh, k=32)(x, 4096)
+        qmesh = _card_mesh(cuda, (1, 4), ("data", "model"), streams=streams)
+        qs = D.make_query_sharded(qmesh, query_axis="data", db_axis="model", k=32)(q, x, 4096)
+        torch.cuda.synchronize()
+        out.append((ring.indices, qs.indices))
+    assert all(s is not None for s in _card_mesh(cuda, (4,), ("ring",)).streams)
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def test_mesh_index_on_the_card_matches_the_local_index(cuda):
+    from repro_torch.serving import RetrievalIndex
+
+    idx, q = _served({}, device=cuda, mesh=_card_mesh(cuda, (1, 4), ("data", "model")))
+    local, _ = _served({}, device=cuda)
+    got, want = idx.search(q, 10), local.search(q, 10)
+    assert torch.equal(got.ids, want.ids)
+    torch.testing.assert_close(got.distances, want.distances, rtol=1e-5, atol=1e-4)
+
+
+def test_a_failed_launch_on_a_mesh_raises(cuda, monkeypatch):
+    """Positions on the card launch the kernels or raise: nothing runs the
+    plain version instead."""
+    from repro_torch.core import distributed as D
+
+    x = torch.from_numpy(_clustered(1024, 64, 3)).to(cuda)
+    mesh = _card_mesh(cuda, (4,), ("ring",))
+
+    def refuse(*a, **k):
+        raise RuntimeError("pairwise_distance: CUDA error 1: (simulated)")
+
+    monkeypatch.setattr(PD, "pairwise_distance", refuse)
+    with pytest.raises(RuntimeError, match="simulated"):
+        D.make_ring_allpairs(mesh, k=8)(x, 1024)

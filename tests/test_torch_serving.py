@@ -134,15 +134,16 @@ def test_serving_meter_matches_reference_statistics():
 
 
 def test_unported_knobs_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
+    # A mesh is served (the mesh cases below), but only the port's own
+    # launch.mesh.Mesh, on a restore too.
+    with pytest.raises(TypeError, match="Mesh"):
         RetrievalIndex(8, mesh=object(), **CPU)
     with pytest.raises(ValueError):  # IVF-PQ needs its coarse quantizer
         RetrievalIndex(8, pq_m=4, **CPU)
     idx = RetrievalIndex.build(np.arange(4), np.ones((4, 8), np.float32), **CPU)
-    # Snapshots are served (tests/test_torch_snapshot.py); a mesh is not,
-    # on a restore either.
+    # Snapshots are served (tests/test_torch_snapshot.py).
     idx.save(str(tmp_path / "snap"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         RetrievalIndex.restore(str(tmp_path / "snap"), mesh=object(), **CPU)
     # Tenants and filters are served (tests/test_torch_filters.py).
     from repro_torch.serving.filters import QueryFilter
@@ -153,3 +154,175 @@ def test_unported_knobs_raise(tmp_path):
     assert QueryEngine(idx).search(q, 2, filter=QueryFilter(tenant=1)).ids.tolist() == [[9, -1]]
     with pytest.raises(ValueError):
         idx.search(q, 2, filter=QueryFilter(mode="sideways"))
+
+
+# ---------------------------------------------------------------------------
+# The index on a mesh: the reference runs once for the file (one subprocess
+# with 8 forced host devices, as tests/test_serving.py's mesh case), its
+# segment state, trained cells and codes carried into the port through
+# from_arrays; the port serves them on a (2, 4) mesh of CPU positions.
+# ---------------------------------------------------------------------------
+
+MESH_REFERENCE = """
+import sys
+import numpy as np, jax
+from repro.core.ivf import ivf_to_arrays
+from repro.data.synthetic import clustered_vectors
+from repro.serving import RetrievalIndex
+
+mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+out = {}
+rng = np.random.default_rng(0)
+d, n = 16, 512
+flat_vecs = rng.standard_normal((n, d)).astype(np.float32)
+clu_vecs = clustered_vectors(n, d, n_clusters=16, seed=1)
+fresh = rng.standard_normal((40, d)).astype(np.float32)
+q = rng.standard_normal((10, d)).astype(np.float32)
+cq = clustered_vectors(10, d, n_clusters=16, seed=2)
+out["q"], out["cq"] = q, cq
+cases = {"flat": (flat_vecs, {}), "int8": (flat_vecs, {"scan_dtype": "int8"}),
+         "ivf_full": (clu_vecs, {"ivf_cells": 16, "nprobe": 10 ** 6}),
+         "ivf_int8": (clu_vecs, {"ivf_cells": 16, "nprobe": 6, "scan_dtype": "int8"}),
+         "ivfpq": (clu_vecs, {"ivf_cells": 16, "nprobe": 8, "pq_m": 4})}
+for name, (vecs, kw) in cases.items():
+    idx = RetrievalIndex.build(np.arange(n), vecs, mesh=mesh, **kw)
+    idx.delete(np.arange(0, n, 7))
+    idx.insert(np.arange(9000, 9040), fresh)
+    res = idx.search(cq if "ivf" in name else q, 9)
+    out[name + ".v"], out[name + ".i"] = np.asarray(res.distances), np.asarray(res.ids)
+    for key in ("_main_vecs", "_main_ids", "_main_live", "_delta_vecs", "_delta_ids",
+                "_delta_live"):
+        out[f"{name}.{key}"] = getattr(idx, key)
+    out[f"{name}._delta_n"] = np.asarray(idx._delta_n)
+    if "ivf" in name:
+        for key, val in ivf_to_arrays(idx._dev["main_ivf"]).items():
+            out[f"{name}.ivf.{key}"] = val
+    if name == "ivfpq":
+        cb, codes = idx._dev["main_pq"]
+        out["ivfpq.pq.codebooks"] = np.asarray(cb.codebooks)
+        out["ivfpq.pq.codes"], out["ivfpq.pq.hy"] = np.asarray(codes.codes), np.asarray(codes.hy)
+np.savez(sys.argv[1], **out)
+print("OK")
+"""
+
+MESH_CASES = {"flat": {}, "int8": {"scan_dtype": "int8"},
+              "ivf_full": {"nprobe": 10 ** 6}, "ivf_int8": {"nprobe": 6, "scan_dtype": "int8"},
+              "ivfpq": {"nprobe": 8}}
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(tmp_path_factory):
+    from conftest import run_with_devices
+
+    path = tmp_path_factory.mktemp("serving_mesh") / "reference.npz"
+    run_with_devices(f"import sys\nsys.argv = ['', {str(path)!r}]\n" + MESH_REFERENCE)
+    with np.load(path) as z:
+        return {key: z[key] for key in z.files}
+
+
+def _cpu_mesh(shape=(2, 4)):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), devices=[torch.device("cpu")] * int(np.prod(shape)))
+
+
+def _carry_mesh(R, name, impl, mesh):
+    """The reference's churned index ``name``, in the port on ``mesh``."""
+    from repro_torch.core.ivf import ivf_from_arrays
+    from repro_torch.core.pq import pq_from_arrays
+
+    pre = name + "."
+    st = {key: R[pre + key] for key in ("_main_vecs", "_main_ids", "_main_live", "_delta_vecs",
+                                        "_delta_ids", "_delta_live")}
+    ivf = pq = None
+    if "ivf" in name:
+        ivf = ivf_from_arrays({k[len(pre) + 4:]: R[k] for k in R if k.startswith(pre + "ivf.")},
+                              **CPU)
+    if name == "ivfpq":
+        pq = pq_from_arrays({k[len(pre) + 3:]: R[k] for k in R if k.startswith(pre + "pq.")},
+                            **CPU)
+    return RetrievalIndex.from_arrays(
+        st["_main_vecs"], st["_main_ids"], st["_main_live"], st["_delta_vecs"],
+        st["_delta_ids"], st["_delta_live"], int(R[pre + "_delta_n"]), impl=impl, ivf=ivf,
+        pq=pq, mesh=mesh, **MESH_CASES[name], **CPU)
+
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_index_on_a_mesh_matches_reference(mesh_ref, name):
+    """The index's flat, int8, IVF (full probe; pruned int8) and IVF-PQ
+    mesh paths, tombstones and a delta included, against the reference's
+    on the same mesh shape: ids equal except at near-ties, values at 1e-5
+    (the bf16 wire's, where the tier ships one, within one bf16 rounding)."""
+    from repro_torch.kernels import ref
+
+    R = mesh_ref
+    idx = _carry_mesh(R, name, "torch", _cpu_mesh())
+    q = R["cq" if "ivf" in name else "q"]
+    got = idx.search(q, 9)
+    live_vecs, live_ids = idx._live_rows()
+    pos = {int(i): r for r, i in enumerate(live_ids)}
+    qt, vt = torch.from_numpy(q), torch.from_numpy(live_vecs)
+
+    def dist(rows, ids):  # an external id's distance, recomputed from the live rows
+        r = torch.tensor([pos[int(i)] for i in ids])
+        return ((qt[rows].double() - vt[r].double()) ** 2).sum(1).float()
+
+    wire = name in ("int8", "ivf_int8", "ivfpq")
+    ref.check_topk(got.distances, got.ids.long(), torch.from_numpy(R[name + ".v"]),
+                   torch.from_numpy(R[name + ".i"]).long(), n=10_000, dist=dist,
+                   rtol=2.0 ** -8 if wire else 1e-5, atol=1e-5)
+    assert not np.isin(got.ids.numpy(), np.arange(0, 512, 7)).any()
+
+
+@pytest.mark.parametrize("name", ["flat", "ivf_full"])
+def test_index_on_a_mesh_fused_equals_the_local_index(mesh_ref, name):
+    """The kernel route on the mesh (``fused_knn`` or ``ivf_scan``, the
+    rescore, the butterfly) serves the exact tiers as the local index does."""
+    R = mesh_ref
+    q = R["cq" if "ivf" in name else "q"]
+    got = _carry_mesh(R, name, "fused", _cpu_mesh()).search(q, 9)
+    want = _carry_mesh(R, name, "fused", None).search(q, 9)
+    np.testing.assert_array_equal(got.ids.numpy(), want.ids.numpy())
+    np.testing.assert_allclose(got.distances.numpy(), want.distances.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_index_on_a_mesh_post_filters_tenants():
+    """Filters are post-filtered on a mesh (the sharded scorers take no
+    bitmap): no id of another tenant, and the local index's post mode."""
+    from repro_torch.serving.filters import QueryFilter
+
+    g = np.random.default_rng(3)
+    vecs = g.standard_normal((512, 16)).astype(np.float32)
+    tenants = np.arange(512) % 3
+    q = g.standard_normal((10, 16)).astype(np.float32)
+    mesh_idx = RetrievalIndex.build(np.arange(512), vecs, tenants=tenants, mesh=_cpu_mesh(),
+                                    **CPU)
+    local = RetrievalIndex.build(np.arange(512), vecs, tenants=tenants, **CPU)
+    for idx in (mesh_idx, local):
+        idx.delete(np.arange(0, 512, 11))
+    f = QueryFilter(tenant=np.full(10, 1))
+    got = mesh_idx.search(q, 8, filter=f)
+    assert bool(((got.ids < 0) | (got.ids % 3 == 1)).all())
+    want = local.search(q, 8, filter=QueryFilter(tenant=np.full(10, 1), mode="post"))
+    np.testing.assert_array_equal(got.ids.numpy(), want.ids.numpy())
+
+
+def test_mesh_ivf_cells_round_to_the_db_axis():
+    from repro_torch.data.synthetic import clustered_vectors
+
+    vecs = clustered_vectors(400, 8, n_clusters=8, seed=0)
+    idx = RetrievalIndex(8, ivf_cells=30, mesh=_cpu_mesh((1, 4)), **CPU)
+    assert idx._effective_ncells() == 0  # an empty main: the flat scan
+    idx = RetrievalIndex.build(np.arange(400), vecs, ivf_cells=30, mesh=_cpu_mesh((1, 4)), **CPU)
+    assert idx._effective_ncells() == 28
+    small = RetrievalIndex.build(np.arange(12), vecs[:12], ivf_cells=30,
+                                 mesh=_cpu_mesh((1, 4)), **CPU)
+    assert small._effective_ncells() == 0 and not small._use_ivf()
+    assert small.search(vecs[:2], 3).ids[:, 0].tolist() == [0, 1]
+    idx._device_state()  # trains the 28 cells
+    with pytest.raises(ValueError, match="resharded"):  # 28 cells over 3 shards
+        RetrievalIndex.from_arrays(
+            vecs, np.arange(400), np.ones(400, bool), np.zeros((0, 8), np.float32),
+            np.zeros(0, np.int32), np.zeros(0, bool), 0, ivf=idx._dev["main_ivf"],
+            mesh=_cpu_mesh((1, 3)), **CPU)

@@ -68,6 +68,12 @@ def _port(kw, **more):
     return _churned_index(kw, **CPU, **more)
 
 
+def _cpu_mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), devices=[torch.device("cpu")] * int(np.prod(shape)))
+
+
 def _assert_bit_identical(a, b):
     assert torch.equal(a.ids, b.ids)
     assert torch.equal(a.distances, b.distances)
@@ -314,11 +320,102 @@ def test_fresh_process_restore_bit_identical(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
-    """Mesh sharding is not ported: a restore onto one raises, as the
-    index's constructor does."""
-    _, snap = _saved(tmp_path, "ivf")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        RetrievalIndex.restore(snap, mesh=object(), **CPU)
+    """A cell layout cannot be resharded: a restore onto a mesh whose db
+    axis derives another cell count than the image trained (16 cells over 3
+    shards: 15) raises, and one that divides it serves the same results
+    (with the queries unsharded, so each query tile scans the union of the
+    same probes as on one device)."""
+    idx, snap = _saved(tmp_path, "ivf")
+    with pytest.raises(SnapshotError, match="resharded"):
+        RetrievalIndex.restore(snap, mesh=_cpu_mesh((1, 3)), **CPU)
+    q = np.random.default_rng(5).standard_normal((8, 32)).astype(np.float32)
+    got = RetrievalIndex.restore(snap, mesh=_cpu_mesh((1, 4)), **CPU).search(q, 10)
+    want = idx.search(q, 10)
+    np.testing.assert_array_equal(got.ids.numpy(), want.ids.numpy())
+    np.testing.assert_allclose(got.distances.numpy(), want.distances.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+MESH_REFERENCE = """
+import sys, json
+import numpy as np, jax
+from repro.serving import RetrievalIndex, SnapshotError
+
+port_snap, ref_snap, ivf_snap, out_path = sys.argv[1:5]
+mesh = jax.make_mesh((1, 8), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+out = {}
+try:  # the port's image: 20 cells, which 8 shards cannot hold
+    RetrievalIndex.restore(port_snap, mesh=mesh)
+    out["port_image_raised"] = ""
+except SnapshotError as e:
+    out["port_image_raised"] = str(e)
+rng = np.random.default_rng(0)
+RetrievalIndex.build(np.arange(2048), rng.standard_normal((2048, 32)).astype(np.float32),
+                     ivf_cells=20, nprobe=4, impl="jnp").save(ref_snap)
+# An image that 8 shards can hold (16 cells), restored onto the mesh and searched.
+rng = np.random.default_rng(1)
+vecs = rng.standard_normal((1024, 32)).astype(np.float32)
+idx = RetrievalIndex.build(np.arange(1024), vecs, ivf_cells=16, nprobe=4, impl="jnp")
+idx.delete(np.arange(0, 1024, 13))
+idx.upsert(np.arange(1024, 1072), rng.standard_normal((48, 32)).astype(np.float32))
+q = rng.standard_normal((8, 32)).astype(np.float32)
+idx.search(q, 10)
+idx.save(ivf_snap)
+res = RetrievalIndex.restore(ivf_snap, mesh=mesh).search(q, 10)
+vecs, ids = idx._live_rows()
+np.savez(out_path, q=q, v=np.asarray(res.distances), i=np.asarray(res.ids), vecs=vecs, ids=ids)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_ref(tmp_path_factory):
+    """The reference's side of the mesh restores, from one subprocess with
+    8 forced host devices: it restores the port's 20-cell image onto its
+    (1, 8) mesh, and saves its own 20-cell image and a 16-cell one, which
+    it restores onto that mesh and searches."""
+    from conftest import run_with_devices
+
+    base = tmp_path_factory.mktemp("snapshot_mesh")
+    port_snap = str(base / "port20")
+    _saved_port = _churned_index(dict(ivf_cells=20, nprobe=4), n=2048, **_PKW)[0]
+    assert _saved_port._effective_ncells() == 20
+    _saved_port.save(port_snap)
+    paths = [port_snap, str(base / "ref20"), str(base / "ref16"), str(base / "out.npz")]
+    stdout = run_with_devices(f"import sys\nsys.argv = [''] + {paths!r}\n" + MESH_REFERENCE)
+    with np.load(paths[3]) as z:
+        return dict(json.loads(stdout.strip().splitlines()[-1]), snaps=paths[:3],
+                    **{key: z[key] for key in z.files})
+
+
+def test_restore_onto_an_incompatible_mesh_raises_both_ways(mesh_ref):
+    """20 trained cells on a (1, 8) mesh, which derives 16: the reference
+    refuses the port's image, and the port the reference's, with the
+    reference's message."""
+    assert "resharded" in mesh_ref["port_image_raised"]
+    with pytest.raises(SnapshotError, match="resharded"):
+        RetrievalIndex.restore(mesh_ref["snaps"][1], mesh=_cpu_mesh((1, 8)), **CPU)
+
+
+def test_reference_image_restored_onto_a_mesh_matches_reference(mesh_ref):
+    """The reference's 16-cell image, restored by each package onto a
+    (1, 8) mesh and searched (the reference's scorer, ``jnp`` -> ``torch``):
+    ids equal except at near-ties, values at 1e-5."""
+    from repro_torch.kernels import ref
+
+    idx = RetrievalIndex.restore(mesh_ref["snaps"][2], mesh=_cpu_mesh((1, 8)), **CPU)
+    assert idx.impl == "torch" and idx._dev["main_ivf"].ncells == 16
+    got = idx.search(mesh_ref["q"], 10)
+    qt, vt = torch.from_numpy(mesh_ref["q"]), torch.from_numpy(mesh_ref["vecs"])
+    row = {int(i): r for r, i in enumerate(mesh_ref["ids"])}
+
+    def dist(rows, ids):
+        r = torch.tensor([row[int(i)] for i in ids])
+        return ((qt[rows].double() - vt[r].double()) ** 2).sum(1).float()
+
+    ref.check_topk(got.distances, got.ids.long(), torch.from_numpy(mesh_ref["v"]),
+                   torch.from_numpy(mesh_ref["i"]).long(), n=1072, dist=dist, rtol=1e-5,
+                   atol=1e-5)
 
 
 def test_engine_rebind_resets_compile_tracking(tmp_path):
