@@ -162,6 +162,25 @@ Phases (each one raises on a failed check; nothing is caught):
    ``stream_topk``, ``fused_knn``, ``rescore_topk``, ``ivf_scan`` and
    ``pq_scan``, and each kernel's entry in the ``kernels`` line carries its
    phase 10 launches (``launches_phase10``).
+11. The shard fleet (``serving.shards``, ``transport``, ``supervisor``) at
+   ``query_1m`` on one card: phase 10's IVF-PQ cells and codes cut into 4
+   shard images of 1,024 cells under ``build/phase11`` (a fleet manifest
+   of 2 replicas; the free disk printed first, the root removed at the
+   end).  11a: the in-process fleet, recall@10 at least 0.85 against brute
+   force on a fixed batch of 1024, coverage all ones, bit for bit the
+   (1, 4)-mesh scorer over the same cells, codes and live slots; 50 warm
+   batches through ``QueryEngine``.  11b: 4 x 2 worker processes on the
+   card (spawn and HELLO seconds, the card's memory), bit for bit the
+   in-process fleet on the fp32 and the bf16 wire, one batch's frame
+   bytes beside ``rpc_bytes_per_batch``, 50 warm batches.  11c: a SIGKILL
+   mid-batch and one replica of every shard killed between batches (bit
+   for bit the healthy result), their respawn into probation and back to
+   healthy, both replicas of shard 1 dead under ``"partial"`` (coverage
+   < 1, the flat sort of the surviving shards' runs) and ``"refuse"``
+   (``ShardUnavailableError``), and a drain that leaves no worker
+   process.  Phase 11 must launch ``fused_knn``, ``pq_scan`` and
+   ``rescore_topk`` (the router's process; each worker launches its own),
+   and each kernel's entry carries ``launches_phase11``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -2229,6 +2248,7 @@ def phase_mesh(torch, dev, run_path, allpairs, xc):
                           "recall_at_10_wire_ties": rec_wire, "recall_at_10_fp32_wire": rec32,
                           "pq_build_s": pq_build_s}
     say("mesh_index_ivfpq", out["index_ivfpq"])
+    out["fleet_state"] = (cells, pq)  # phase 11 cuts these cells and codes into shards
     del pq_idx, pq_engine, cells, pq, vt, truth, got, full
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2236,6 +2256,250 @@ def phase_mesh(torch, dev, run_path, allpairs, xc):
                        "launches": out["launches"]})
     return out
 
+
+
+def phase_fleet(torch, dev, run_path, cells, pq, xc, compare):
+    """11. The shard fleet (``serving.shards``, ``transport``, ``supervisor``)
+    at query_1m on one card: phase 10's IVF-PQ cells and codes (4,096 cells,
+    ``pq_m`` 32, nprobe 8, overfetch 8, neg_dot, k 10) in an index, cut into
+    4 shard images of 1,024 cells under ``build/phase11`` with a fleet
+    manifest of 2 replicas.  11a: the in-process fleet (R = 1): recall@10
+    against brute force, full coverage, and bit for bit the (1, 4)-mesh
+    scorer over the same cells, codes and live slots; 50 warm batches
+    through ``QueryEngine``.  11b: 4 x 2 worker processes, each its own
+    CUDA context on the card: spawn and HELLO seconds, the card's memory,
+    bit for bit the in-process fleet on the fp32 and the bf16 wire, the
+    frames' bytes beside ``rpc_bytes_per_batch``, 50 warm batches.  11c: a
+    SIGKILL mid-batch and one replica of every shard killed between batches
+    (results bit for bit healthy), the respawn into probation and back to
+    healthy, both replicas of one shard dead under ``"partial"`` (coverage
+    < 1, the flat sort of the surviving shards' runs) and ``"refuse"``
+    (``ShardUnavailableError``), and a drain that leaves no worker process.
+    Every position shares the one card: no time here is a scaling figure."""
+    import shutil
+
+    from repro_torch.accounting import ServingMeter, rpc_bytes_per_batch, shard_bytes_per_query
+    from repro_torch.core import distributed as D
+    from repro_torch.core.ivf import packed_live
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import transport as TR
+    from repro_torch.serving.engine import EngineConfig, QueryEngine
+    from repro_torch.serving.faults import FaultPolicy, FaultyWorker
+    from repro_torch.serving.health import HealthState
+    from repro_torch.serving.index import RetrievalIndex
+    from repro_torch.serving.shards import ShardRouter, ShardUnavailableError, load_fleet
+    from repro_torch.serving.snapshot import save_shards
+    from repro_torch.serving.supervisor import SupervisorConfig
+
+    k, n_shards, replicas = 10, 4, 2
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "compare": compare}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res, {name: c for name, c in counts.items() if c}
+
+    def same(a, b, what):
+        check(torch.equal(a.ids.to(dev), b.ids.to(dev))
+              and torch.equal(a.distances.to(dev), b.distances.to(dev)),
+              f"11: {what}: results differ")
+
+    xm, qs = xc[:QUERY_ROWS], xc[QUERY_ROWS:]
+    batches = [qs[b * 1024 : (b + 1) * 1024] for b in range(len(qs) // 1024)]
+    qfix = torch.from_numpy(batches[0]).to(dev)
+    index = RetrievalIndex.from_arrays(
+        xm, np.arange(QUERY_ROWS), np.ones(QUERY_ROWS, bool), np.zeros((0, 256), np.float32),
+        np.zeros(0, np.int32), np.zeros(0, bool), 0, distance="neg_dot", impl="fused",
+        device=dev, ivf=cells, pq=pq, overfetch=8, nprobe=8)
+    vt, live, main_ids = index._device_state()["main"]
+    truth = main_ids[true_ids(torch, qfix, vt, k)]
+    root = os.path.join(HERE, "build", "phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    image_bytes = cells.packed.numel() * 4 + pq[1].codes.numel() + cells.packed.shape[0] * 9
+    say("fleet_disk", {"path": root, "total_bytes": disk.total, "free_bytes": disk.free,
+                       "images_bytes_estimate": image_bytes})
+    check(disk.free > 2 * image_bytes,
+          f"phase 11: {disk.free} bytes free, the shard images need {2 * image_bytes}")
+    t0 = time.perf_counter()
+    save_shards(index, os.path.join(root, "fleet"), n_shards, replicas=replicas)
+    save_s = time.perf_counter() - t0
+    fleet_root = os.path.join(root, "fleet")
+    files = {os.path.relpath(os.path.join(dp, f), fleet_root):
+             os.path.getsize(os.path.join(dp, f))
+             for dp, _, fs in os.walk(fleet_root) for f in fs}
+    out["save"] = {"seconds": save_s, "bytes": sum(files.values()), "files": files}
+    say("fleet_save", out["save"])
+
+    # 11a. The in-process fleet, one replica a shard.
+    t0 = time.perf_counter()
+    inproc = load_fleet(fleet_root, replicas=1, device=dev, meter=ServingMeter())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    base, st = counted("fleet_inproc_batch", lambda: inproc.search(qfix, k))
+    for name in ("fused_knn", "pq_scan", "rescore_topk"):
+        check(st.get(name, 0) > 0, f"11a: {name} never launched: {st}")
+    rec = recall_at(torch, base.ids, truth)
+    check(rec >= 0.85, f"11a: the in-process fleet's recall@10 {rec} < 0.85")
+    check(bool(np.all(base.coverage == 1.0)), "11a: coverage below 1 on a healthy fleet")
+    check(all(s in ("ok", "skipped") for _, s in base.shard_status),
+          f"11a: shard status {base.shard_status}")
+    mesh = make_mesh((1, 4), ("data", "model"), devices=[dev] * 4)
+    scorer = D.make_ivfpq_query_sharded(mesh, query_axis="data", db_axis="model", k=k,
+                                        nprobe=8, cell_cap=cells.cell_cap, distance="neg_dot",
+                                        overfetch=8)
+    res = scorer(qfix, cells.centroids, *pq, cells.packed, cells.row_of_slot,
+                 packed_live(cells, live))
+    ids = torch.where(res.indices >= 0, main_ids[res.indices.clamp(min=0).long()], -1)
+    check(torch.equal(base.ids, ids) and torch.equal(base.distances, res.distances),
+          "11a: the in-process fleet differs from the (1, 4)-mesh scorer")
+    cell_cap, ncells = cells.cell_cap, cells.ncells
+    del mesh, scorer, res, ids, cells, pq
+    engine = QueryEngine(inproc, EngineConfig(k=k, min_batch=8, max_batch=1024))
+
+    def window(eng):
+        for b in range(51):  # the first batch is tagged cold
+            eng.search(batches[b % len(batches)])
+        return eng.meter
+
+    meter, st = counted("fleet_inproc_steady", lambda: window(engine))
+    # Each dispatch's seconds, by the router's failover wrapper (host clock).
+    dispatch = {key: w["mean_ms"] for key, w in inproc.meter.shard_summary()["workers"].items()}
+    out["inproc"] = {"load_s": load_s, "recall_at_10": rec, "launches": st,
+                     "dispatch_mean_ms": dispatch,
+                     "equals_mesh_scorer": True, **meter.summary(),
+                     "p90_ms": meter.latency_ms(90), "cell_cap": cell_cap,
+                     "shard_bytes_model": shard_bytes_per_query(
+                         QUERY_ROWS, 256, n_shards, ncells=ncells, nprobe=8, pq_m=PQ_M,
+                         k=k, overfetch=8, wire_bytes_per_value=4)}
+    say("fleet_inproc", out["inproc"])
+    del index, vt, live, engine
+    torch.cuda.empty_cache()
+
+    # 11b. The process fleet: 4 shards x 2 replicas, each a worker process.
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    router = load_fleet(fleet_root, workers="proc", device=dev, meter=ServingMeter(),
+                        supervisor_cfg=SupervisorConfig(heartbeat_s=600.0))
+    spawn_s = time.perf_counter() - t0
+    sup = router.supervisor
+    pids = {w.key: w.pid for w in sup.workers}  # every worker process, respawns added below
+    try:
+        free1, _ = torch.cuda.mem_get_info()
+        got, st = counted("fleet_proc_batch", lambda: router.search(qfix, k))
+        same(got, base, "the proc fleet against the in-process fleet (fp32 wire)")
+        want16 = ShardRouter(inproc.workers, wire_dtype="bfloat16").search(qfix, k)
+        for w in sup.workers:
+            w.wire_dtype = "bfloat16"
+        got16 = ShardRouter(sup.workers, wire_dtype="bfloat16").search(qfix, k)
+        for w in sup.workers:
+            w.wire_dtype = None
+        same(got16, want16, "the proc fleet against the in-process fleet (bf16 wire)")
+        req = len(TR.pack_frame(TR.F_QUERY, {"seq": 1, "k": k}, {"q": batches[0]}))
+        rep = {wire: len(TR.pack_frame(TR.F_RESULT, {"seq": 1}, TR.encode_result(
+            base.distances.new_zeros((1024, 16)), base.ids.new_zeros((1024, 16)),
+            wire_dtype=wire))) for wire in (None, "bfloat16")}
+        dispatched = sum(s == "ok" for _, s in got.shard_status)
+        engine = QueryEngine(router, EngineConfig(k=k, min_batch=8, max_batch=1024))
+        meter, st_w = counted("fleet_proc_steady", lambda: window(engine))
+        out["proc"] = {
+            "workers": len(sup.workers), "spawn_s": spawn_s,
+            "dispatch_mean_ms": {key: w["mean_ms"] for key, w in
+                                 router.meter.shard_summary()["workers"].items()},
+            "hello_s": {w.key: w.spawn_s for w in sup.workers},
+            "card_used_gb_before": (total - free0) / 1e9,
+            "card_used_gb_after_spawn": (total - free1) / 1e9,
+            "workers_card_gb": (free0 - free1) / 1e9, "launches_parent": {**st, **st_w},
+            "frames_per_batch": {"dispatched": dispatched, "query_bytes": req,
+                                 "result_bytes_fp32": rep[None],
+                                 "result_bytes_bf16": rep["bfloat16"],
+                                 "batch_bytes_fp32": dispatched * (req + rep[None])},
+            "rpc_bytes_per_batch": rpc_bytes_per_batch(1024, 256, k=k,
+                                                       shards_dispatched=dispatched),
+            **meter.summary(), "p90_ms": meter.latency_ms(90),
+            "equals_inproc_fp32": True, "equals_inproc_bf16": True}
+        say("fleet_proc", out["proc"])
+
+        # 11c. Faults on real processes.  A SIGKILL mid-batch: replica 0 of
+        # shard 0 dies inside its call, and the router fails over.
+        r0 = {w.spec.shard_id: w for w in sup.workers if w.spec.replica == 0}
+        mid = ShardRouter([FaultyWorker(w, FaultPolicy.kill_at(0)) if w is r0[0] else w
+                           for w in sup.workers])
+        same(mid.search(qfix, k), base, "a SIGKILL mid-batch")
+        # Between batches: replica 0 of every other shard, SIGKILLed.
+        for sid in range(1, n_shards):
+            r0[sid].kill()
+        after, st = counted("fleet_proc_one_replica_dead", lambda: ShardRouter(
+            sup.workers).search(qfix, k))
+        same(after, base, "one replica of every shard dead")
+        check(not any(w.alive for w in r0.values()), "11c: a killed worker is alive")
+        healer = ShardRouter(sup.workers)
+        t0 = time.perf_counter()
+        respawned = sup.poll(healer.health)
+        respawn_s = time.perf_counter() - t0
+        check(sorted(respawned) == sorted(w.key for w in r0.values()),
+              f"11c: respawned {respawned}")
+        check(all(healer.health.state(w.key) is HealthState.PROBATION for w in r0.values()),
+              "11c: a respawned worker did not re-enter as probation")
+        trial = ShardRouter(list(r0.values()))
+        trial.health = healer.health
+        same(trial.search(qfix, k), base, "the respawned replicas")
+        check(all(healer.health.state(w.key) is HealthState.HEALTHY for w in r0.values()),
+              "11c: a respawned worker did not return to healthy")
+        out["faults"] = {"respawn_s": respawn_s,
+                         "respawn_hello_s": {w.key: w.spawn_s for w in r0.values()},
+                         "new_pids": all(w.pid != pids[w.key] for w in r0.values())}
+        pids.update({f"{w.key}-respawned": w.pid for w in r0.values()})
+        # Both replicas of shard 1 dead.
+        for w in sup.workers:
+            if w.spec.shard_id == 1:
+                w.kill()
+        part = ShardRouter(sup.workers, degraded="partial").search(qfix, k)
+        check(dict(part.shard_status)[1] == "failed", f"11c: status {part.shard_status}")
+        check(float(part.coverage.min()) < 1.0, "11c: full coverage with a shard dead")
+        alive = [inproc.workers[g[0]].topk(qfix, k) for g in inproc.groups
+                 if inproc.workers[g[0]].spec.shard_id != 1]
+        vals = torch.cat([r.distances for r in alive], 1)
+        order = torch.sort(vals, dim=1, stable=True).indices[:, :k]
+        check(torch.equal(part.distances, vals.gather(1, order))
+              and torch.equal(part.ids, torch.cat([r.indices for r in alive], 1).gather(1, order)),
+              "11c: partial result is not the flat sort of the surviving shards' runs")
+        try:
+            ShardRouter(sup.workers, degraded="refuse").search(qfix, k)
+            check(False, "11c: refuse served with a shard dead")
+        except ShardUnavailableError as e:
+            lo, hi = inproc.workers[inproc.groups[1][0]].spec[2:4]
+            check(e.shard_ids == (1,) and e.cells and all(lo <= c < hi for c in e.cells),
+                  f"11c: ShardUnavailableError carries {e.shard_ids} / {e.cells}")
+        out["faults"].update({"partial_coverage_min": float(part.coverage.min()),
+                              "partial_coverage_mean": float(part.coverage.mean()),
+                              "refuse_raised": True})
+    finally:
+        procs = [w._proc for w in sup.workers if w._proc is not None]
+        t0 = time.perf_counter()
+        sup.shutdown(drain=True)
+        drain_s = time.perf_counter() - t0
+    left = []
+    for pid in set(pids.values()):
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    check(not left, f"11c: worker processes left after shutdown: {left}")
+    out["faults"].update({"drain_s": drain_s, "exit_codes": [p.returncode for p in procs],
+                          "pids_checked": len(set(pids.values()))})
+    say("fleet_faults", out["faults"])
+    del inproc, router, base, got, got16, want16, part, alive, qfix, truth, main_ids
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("fleet_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    return out
 
 def main() -> int:
     import torch
@@ -2554,11 +2818,21 @@ def main() -> int:
 
     # 10. The multi-device core on four positions: ring, triangle, the
     # sharded query and the index on the mesh.
-    mesh_launches = phase_mesh(torch, dev, run_path, allpairs_host, xc)["launches"]
-    del xc, allpairs_host
+    mesh = phase_mesh(torch, dev, run_path, allpairs_host, xc)
+    mesh_launches = mesh["launches"]
+    del allpairs_host
     for name in ("pairwise_distance", "stream_topk", "fused_knn", "rescore_topk", "ivf_scan",
                  "pq_scan"):
         check(mesh_launches.get(name, 0) > 0, f"phase 10 never launched {name}: {mesh_launches}")
+
+    # 11. The shard fleet at query_1m: in process, then eight worker
+    # processes, then their faults, on phase 10's cells and codes.
+    fleet_launches = phase_fleet(torch, dev, run_path, *mesh.pop("fleet_state"), xc, {
+        "phase7_one_card_p50_ms": pq["steady"]["p50_ms"],
+        "phase10d_mesh_p50_ms": mesh["index_ivfpq"]["p50_ms"]})["launches"]
+    del xc, mesh
+    for name in ("fused_knn", "pq_scan", "rescore_topk"):
+        check(fleet_launches.get(name, 0) > 0, f"phase 11 never launched {name}: {fleet_launches}")
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
@@ -2687,6 +2961,7 @@ def main() -> int:
     ]
     for entry in kernels:
         entry["launches_phase10"] = mesh_launches.get(entry["name"], 0)
+        entry["launches_phase11"] = fleet_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

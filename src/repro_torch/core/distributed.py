@@ -405,6 +405,79 @@ def _externalize_slots(vals, idx, row_of_slot, K):
     return _pad_to(vals, idx, K)
 
 
+def ivf_shard_topk(q: Tensor, centroids: Tensor, packed: Tensor, slot_ids: Tensor,
+                   live: Tensor, scan_db=None, *, k: int, nprobe: int, cell_lo: int,
+                   cell_cap: int, distance: str = "sqeuclidean", impl: str = "fused",
+                   scan_dtype: str = "float32", pq_cb=None, residual: bool = True,
+                   overfetch: int = 4, threshold_skip: bool | None = None):
+    """One shard's sorted [m, next_pow2(k)] (values, ids) over its cells.
+
+    The per-position body of the sharded IVF and IVF-PQ queries, and the
+    whole local query of a shard worker (``serving.shards.ShardWorker``):
+    the shard owns the global cells ``[cell_lo, cell_lo + ncells_loc)``,
+    ``packed`` [ncells_loc * cell_cap, d] its fp32 slot rows.  It computes
+    the GLOBAL shortlist (``centroids`` are the replicated coarse table),
+    keeps the probes of its own cells (``cells - cell_lo``: another shard's
+    cell matches nothing, and a query tile with no local probe scans
+    nothing), scans ``scan_db`` for K' = scan_width candidates, rescores
+    them exactly against ``packed`` and maps slots through ``slot_ids``
+    (-1 kept): corpus rows on a mesh, external ids in a worker.
+
+    ``scan_db``: the slot rows' ``QuantizedRows`` replica (None: quantized
+    here to ``scan_dtype``, or ``packed`` itself for a float32 fused scan),
+    or, with ``pq_cb``, their ``PQCodes`` (ADC, the residual cross term
+    against the shard's own slice of ``centroids`` when ``residual``).
+    ``impl="fused"`` runs ``ivf_scan`` / ``pq_scan`` (fetch width capped at
+    ``cell_cap``), the other impls the plain per-query probe mask.
+    ``live``: bool [S_loc], pad slots and tombstones dead.
+    """
+    from repro_torch.core.pq import pq_cell_bias
+
+    _check_impl(impl)
+    S_loc = packed.shape[0]
+    if S_loc % cell_cap:
+        raise ValueError(f"a shard of {S_loc} slots is not whole cells of {cell_cap}")
+    ncells_loc = S_loc // cell_cap
+    k_loc = min(k, S_loc)
+    local_cells = IVF.shortlist(q, centroids, nprobe, distance=distance, impl=impl) - cell_lo
+    k_scan = scan_width(S_loc, k_loc, overfetch)
+    if pq_cb is not None:
+        cent_local = centroids[cell_lo : cell_lo + ncells_loc]
+        if impl == "fused":
+            cand = kops.pq_scan(q, pq_cb, scan_db, local_cells, min(k_scan, cell_cap),
+                                cell_cap=cell_cap, centroids=cent_local if residual else None,
+                                distance=distance, packed_live=live,
+                                threshold_skip=threshold_skip).indices
+        else:
+            cbias = pq_cell_bias(q, cent_local, distance=distance) if residual else None
+            cand = quantized_scan(q, scan_db, k_scan, distance=distance, db_live=live,
+                                  probed=_probed_mask(local_cells, ncells_loc),
+                                  cell_cap=cell_cap, pq_codebook=pq_cb, cell_bias=cbias,
+                                  threshold_skip=threshold_skip).indices
+    elif impl == "fused":
+        if scan_db is None:
+            scan_db = (packed if scan_dtype == "float32" else
+                       quantize_rows(packed, scan_dtype, distance=distance))
+        cand = kops.ivf_scan(q, scan_db, local_cells, min(k_scan, cell_cap),
+                             cell_cap=cell_cap, distance=distance, packed_live=live,
+                             threshold_skip=threshold_skip).indices
+    else:
+        if scan_db is None:
+            scan_db = quantize_rows(packed, scan_dtype, distance=distance)
+        cand = quantized_scan(q, scan_db, k_scan, distance=distance, db_live=live,
+                              probed=_probed_mask(local_cells, ncells_loc),
+                              cell_cap=cell_cap, threshold_skip=threshold_skip).indices
+    v, i = rescore(q, packed, cand, k_loc, distance=distance,
+                   impl="fused" if impl == "fused" else "torch")
+    return _externalize_slots(v, i, slot_ids, T.next_pow2(k))
+
+
+def _shard_live(ros: Tensor, live_parts: list | None, p: int) -> Tensor:
+    """A mesh shard's live slots: pad slots are dead by construction."""
+    live = ros >= 0
+    return live if live_parts is None else live & live_parts[p]
+
+
 def ivf_query_sharded_shard(mesh, pos: Sequence[int], q_parts: list, cent_parts: list,
                             packed_parts: list, ros_parts: list, live_parts: list | None = None,
                             packed_q_parts: list | None = None, *, k: int, nprobe: int,
@@ -413,50 +486,22 @@ def ivf_query_sharded_shard(mesh, pos: Sequence[int], q_parts: list, cent_parts:
                             threshold_skip: bool | None = None):
     """IVF serving path: centroids replicated, cell blocks row-sharded.
 
-    Shard p owns global cells ``[p * ncells_loc, (p + 1) * ncells_loc)``.
-    Each position computes the GLOBAL shortlist (the centroids are
-    replicated), keeps the probes of its own cells (``local_cells = cells -
-    p * ncells_loc``; another shard's cell matches nothing, and a query tile
-    with no local probe scans nothing), scans its slice of the replica
-    (``ivf_scan`` with ``impl="fused"``, the plain probe mask otherwise),
-    rescores its candidates exactly against its fp32 slice, maps them to
-    GLOBAL corpus rows through its ``row_of_slot`` slice, and the butterfly
-    merges K exact (value, row) pairs a query row.
+    Shard p owns global cells ``[p * ncells_loc, (p + 1) * ncells_loc)``
+    and runs ``ivf_shard_topk`` on them (its slots mapped to GLOBAL corpus
+    rows through its ``row_of_slot`` slice); the butterfly merges K exact
+    (value, row) pairs a query row.
     """
     _check_impl(impl)
-    P = len(pos)
-    K = T.next_pow2(k)
     vals, idx = [], []
-    for p in range(P):
+    for p in range(len(pos)):
         with mesh.on(pos[p]):
-            q, packed, ros = q_parts[p], packed_parts[p], ros_parts[p]
-            S_loc = packed.shape[0]
-            if S_loc % cell_cap:
-                raise ValueError(f"a shard of {S_loc} slots is not whole cells of {cell_cap}")
-            ncells_loc = S_loc // cell_cap
-            k_loc = min(k, S_loc)
-            local_cells = IVF.shortlist(q, cent_parts[p], nprobe, distance=distance, impl=impl) - p * ncells_loc
-            live = ros >= 0  # pad slots are dead by construction
-            if live_parts is not None:
-                live = live & live_parts[p]
-            k_scan = scan_width(S_loc, k_loc, overfetch)
-            scan_db = None if packed_q_parts is None else packed_q_parts[p]
-            if impl == "fused":
-                if scan_db is None:
-                    scan_db = (packed if scan_dtype == "float32" else
-                               quantize_rows(packed, scan_dtype, distance=distance))
-                cand = kops.ivf_scan(q, scan_db, local_cells, min(k_scan, cell_cap),
-                                     cell_cap=cell_cap, distance=distance, packed_live=live,
-                                     threshold_skip=threshold_skip).indices
-            else:
-                if scan_db is None:
-                    scan_db = quantize_rows(packed, scan_dtype, distance=distance)
-                cand = quantized_scan(q, scan_db, k_scan, distance=distance, db_live=live,
-                                      probed=_probed_mask(local_cells, ncells_loc),
-                                      cell_cap=cell_cap, threshold_skip=threshold_skip).indices
-            v, i = rescore(q, packed, cand, k_loc, distance=distance,
-                           impl="fused" if impl == "fused" else "torch")
-            v, i = _externalize_slots(v, i, ros, K)
+            packed, ros = packed_parts[p], ros_parts[p]
+            v, i = ivf_shard_topk(
+                q_parts[p], cent_parts[p], packed, ros, _shard_live(ros, live_parts, p),
+                None if packed_q_parts is None else packed_q_parts[p], k=k, nprobe=nprobe,
+                cell_lo=p * (packed.shape[0] // cell_cap), cell_cap=cell_cap,
+                distance=distance, impl=impl, scan_dtype=scan_dtype, overfetch=overfetch,
+                threshold_skip=threshold_skip)
             vals.append(v)
             idx.append(i)
     vals, idx = tree_merge_topk(mesh, pos, vals, idx, wire_dtype=wire_dtype)
@@ -470,47 +515,20 @@ def ivfpq_query_sharded_shard(mesh, pos: Sequence[int], q_parts: list, cent_part
                               impl: str = "fused", overfetch: int = 4, wire_dtype=None,
                               threshold_skip: bool | None = None, residual: bool = True):
     """IVF-PQ serving path: codebook and centroids replicated, code blocks
-    row-sharded, with ``ivf_query_sharded_shard``'s contract: the global
-    shortlist, the shard's probes ADC-scanned over its code rows
-    (``pq_scan`` with ``impl="fused"``; the residual cross term against its
-    own slice of the centroids), the exact local rescore, global rows, the
-    butterfly merge."""
-    from repro_torch.core.pq import pq_cell_bias
-
+    row-sharded, with ``ivf_query_sharded_shard``'s contract: each shard's
+    probes ADC-scanned over its code rows (``ivf_shard_topk`` with its
+    codebook), the exact local rescore, global rows, the butterfly merge."""
     _check_impl(impl)
-    P = len(pos)
-    K = T.next_pow2(k)
     vals, idx = [], []
-    for p in range(P):
+    for p in range(len(pos)):
         with mesh.on(pos[p]):
-            q, packed, ros, codes = q_parts[p], packed_parts[p], ros_parts[p], codes_parts[p]
-            S_loc = packed.shape[0]
-            if S_loc % cell_cap:
-                raise ValueError(f"a shard of {S_loc} slots is not whole cells of {cell_cap}")
-            ncells_loc = S_loc // cell_cap
-            k_loc = min(k, S_loc)
-            cent = cent_parts[p]
-            local_cells = IVF.shortlist(q, cent, nprobe, distance=distance, impl=impl) - p * ncells_loc
-            cent_local = cent[p * ncells_loc : (p + 1) * ncells_loc]
-            live = ros >= 0
-            if live_parts is not None:
-                live = live & live_parts[p]
-            k_scan = scan_width(S_loc, k_loc, overfetch)
-            if impl == "fused":
-                cand = kops.pq_scan(q, cb_parts[p], codes, local_cells, min(k_scan, cell_cap),
-                                    cell_cap=cell_cap,
-                                    centroids=cent_local if residual else None,
-                                    distance=distance, packed_live=live,
-                                    threshold_skip=threshold_skip).indices
-            else:
-                cbias = pq_cell_bias(q, cent_local, distance=distance) if residual else None
-                cand = quantized_scan(q, codes, k_scan, distance=distance, db_live=live,
-                                      probed=_probed_mask(local_cells, ncells_loc),
-                                      cell_cap=cell_cap, pq_codebook=cb_parts[p],
-                                      cell_bias=cbias, threshold_skip=threshold_skip).indices
-            v, i = rescore(q, packed, cand, k_loc, distance=distance,
-                           impl="fused" if impl == "fused" else "torch")
-            v, i = _externalize_slots(v, i, ros, K)
+            packed, ros = packed_parts[p], ros_parts[p]
+            v, i = ivf_shard_topk(
+                q_parts[p], cent_parts[p], packed, ros, _shard_live(ros, live_parts, p),
+                codes_parts[p], k=k, nprobe=nprobe,
+                cell_lo=p * (packed.shape[0] // cell_cap), cell_cap=cell_cap,
+                distance=distance, impl=impl, pq_cb=cb_parts[p], residual=residual,
+                overfetch=overfetch, threshold_skip=threshold_skip)
             vals.append(v)
             idx.append(i)
     vals, idx = tree_merge_topk(mesh, pos, vals, idx, wire_dtype=wire_dtype)

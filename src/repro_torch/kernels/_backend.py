@@ -8,7 +8,11 @@ library with a plain C interface, loaded with ``ctypes``.  The library name
 carries a hash of the sources, so an edited kernel is rebuilt and a stale
 library is never loaded.  ``build()`` starts one ``nvcc`` per source, all
 at once, and waits for them; a failed build raises.  Outputs go to
-``build/repro_torch/`` at the root of the checkout.
+``build/repro_torch/`` at the root of the checkout.  Processes that start
+together (a fleet's workers) build each library once: ``build()`` holds an
+exclusive ``flock`` on ``build/repro_torch/.build.lock`` from its check for
+the library to the rename of the new one, so a second process waits and
+then finds the library, and no two compilers write one ``.log``.
 
 Every C entry point takes its pointers and its stream as ``void*`` and
 returns a CUDA error code (``cudaGetLastError()`` after a launch); ``call``
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -54,6 +59,7 @@ NVCC_FLAGS = (
 KERNEL_SOURCES = ("pairwise_distance", "stream_topk", "fused_knn", "fused_knn_masked",
                   "merge_partials", "rescore", "ivf_scan", "pq_scan", "pairwise_cumulative")
 
+BUILT: list[str] = []  # the libraries this process compiled, in order
 _LIBS: dict[str, ctypes.CDLL] = {}
 _CALLS: dict[str, threading.Lock] = {}  # one a library: its calls, one at a time
 _LOCK = threading.Lock()
@@ -147,32 +153,35 @@ def _nvcc() -> str:
 def build(names=KERNEL_SOURCES) -> float:
     """Compile every library in ``names`` that is not built yet, in parallel.
 
-    Returns the wall seconds spent.  The compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills) is kept beside each library as
-    ``<name>-<hash>.log``.
+    Returns the wall seconds spent, the wait for another process's build
+    included.  The compiler's report (``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside each library as ``<name>-<hash>.log``.
     """
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        log = open(out.with_suffix(".log"), "w")
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-        jobs.append((name, proc, tmp, out, log))
-    failed = []
-    for name, proc, tmp, out, log in jobs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(f"{name} (rc {rc}, see {out.with_suffix('.log')}):\n"
-                          + out.with_suffix(".log").read_text()[-4000:])
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        jobs = []
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            log = open(out.with_suffix(".log"), "w")
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            jobs.append((name, proc, tmp, out, log))
+        failed = []
+        for name, proc, tmp, out, log in jobs:
+            rc = proc.wait()
+            log.close()
+            if rc == 0:
+                os.replace(tmp, out)
+                BUILT.append(name)
+            else:
+                failed.append(f"{name} (rc {rc}, see {out.with_suffix('.log')}):\n"
+                              + out.with_suffix(".log").read_text()[-4000:])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0

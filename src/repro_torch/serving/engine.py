@@ -16,6 +16,9 @@ set of shapes:
   and recorded in a ``ServingMeter``; the first batch at a shape is tagged
   as a compile batch, as in the reference, so that steady-state p50/p99/qps
   stay clean (here it carries the kernels' first build and load).
+* **shard fleets**: a ``serving.shards.ShardRouter`` has the same surface;
+  its per-query ``coverage`` is padded, chunked and concatenated with the
+  rows, and its per-shard status folds worst-wins over the chunks.
 * **batch boundary**: an index with a ``before_batch`` hook (the crash-safe
   lifecycle, ``serving.lifecycle``) has it called at the top of every
   ``search``, before anything is read of the index: a ready background
@@ -95,13 +98,26 @@ class QueryEngine:
             return SearchResult(torch.zeros((0, k), device=dev),
                                 torch.zeros((0, k), dtype=torch.int32, device=dev))
         f = F.normalize(filter, len(q)) if filter is not None else None
-        out_v, out_i = [], []
+        out_v, out_i, out_c, out_s = [], [], [], []
         for s in range(0, len(q), self.cfg.max_batch):
             chunk = q[s : s + self.cfg.max_batch]
             r = self._search_padded(chunk, k, F.slice_rows(f, s, s + len(chunk)))
             out_v.append(r.distances)
             out_i.append(r.ids)
-        return SearchResult(torch.cat(out_v), torch.cat(out_i))
+            if r.coverage is not None:
+                out_c.append(r.coverage)
+            if r.shard_status is not None:
+                out_s.append(r.shard_status)
+        # A shard fleet's accounting rides along: per-query coverage
+        # concatenates chunk by chunk, per-shard status folds worst-wins.
+        coverage = np.concatenate(out_c) if len(out_c) == len(out_v) else None
+        status = None
+        if out_s:
+            from repro_torch.serving.shards import merge_shard_status
+
+            status = merge_shard_status(out_s)
+        return SearchResult(torch.cat(out_v), torch.cat(out_i), coverage=coverage,
+                            shard_status=status)
 
     def _search_padded(self, chunk: np.ndarray, k: int, f=None) -> SearchResult:
         m = len(chunk)
@@ -126,7 +142,9 @@ class QueryEngine:
         else:
             res = self.index.search(qp, k, filter=F.pad_rows(f, mp))
         self.meter.record(m, accounting.stream_clock(device) - t0, compile_batch=cold)
-        return SearchResult(res.distances[:m], res.ids[:m])
+        cov = None if res.coverage is None else res.coverage[:m]
+        return SearchResult(res.distances[:m], res.ids[:m], coverage=cov,
+                            shard_status=res.shard_status)
 
     # -- micro-batch queue --------------------------------------------------
 

@@ -100,6 +100,11 @@ _MIN_DELTA_CAP = 64
 class SearchResult(NamedTuple):
     distances: Tensor  # [m, k] ascending
     ids: Tensor  # [m, k] int32 external ids, -1 past the live count
+    # Fault-tolerance accounting (DESIGN.md §14), set by ``ShardRouter``
+    # (all ones on a healthy fleet); None on the single-host paths, so the
+    # two-field construction and unpacking elsewhere keep working.
+    coverage: np.ndarray | None = None  # [m] fraction of probed cells served
+    shard_status: tuple | None = None  # ((shard_id, "ok|skipped|failed"), ...)
 
 
 def _externalize(vals, idx, ids, k_out):

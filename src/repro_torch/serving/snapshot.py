@@ -58,8 +58,12 @@ The port's side of the format:
   ``torch``/``kernel``/``fused`` as ``jnp``/``pallas``/``fused`` and reads
   them back the other way (``IMPL_TO_REFERENCE``).
 
-The per-shard images of the reference (``save_shards`` ... ``restore_shard``)
-come with ``serving/shards.py``.
+Per-shard images (``save_shards``, ``restore_shard``, DESIGN.md §13) are the
+reference's too, byte for byte: ``<root>/shard-NNN/`` each with
+``shard.npz`` (``centroids``, ``packed``, ``ids``, ``live``), ``pq.npz``
+under IVF-PQ and a manifest with ``shard`` and ``parent`` blocks, and a
+root ``fleet.json``; a fleet written by either package restores in the
+other.
 """
 from __future__ import annotations
 
@@ -449,7 +453,9 @@ def restore_index(directory: str, *, device="cuda", mesh=None, db_axis: str = "m
 
     manifest = read_manifest(directory)
     _expect("shard" not in manifest,
-            f"{directory} is a per-shard image; shard images are not ported yet")
+            f"{directory} is a per-shard image (shard "
+            f"{manifest.get('shard', {}).get('shard_id')}); restore it with "
+            f"restore_shard(), not restore_index()")
     cfg = dict(manifest["config"])
     dim = cfg.pop("dim")
     if impl is None:
@@ -579,3 +585,224 @@ def _preload_trained(idx, directory: str, manifest: dict) -> None:
                 f"flat replica shape {tuple(q.data.shape)} != {idx._main_vecs.shape}")
         idx._dev["main_q"] = q
         idx._dev_version["main_q"] = idx._main_epoch
+
+
+# -- per-shard images (DESIGN.md §13 Shard-routed serving) -------------------
+#
+# A shard image is the cell-range slice of the packed main segment one
+# ``serving.shards.ShardWorker`` serves: its slot range of packed rows,
+# external ids and liveness (tombstones baked through the packing
+# permutation), the GLOBAL centroids (the replicated coarse quantizer), and,
+# under IVF-PQ, the codebook plus the local code slice.  Each shard directory
+# is self-contained: a worker restores from its own manifest with no
+# training and no knowledge of its siblings.  The manifest's ``parent``
+# block fingerprints the source index, so the router refuses to assemble
+# shards of different parents into one fleet.
+
+_SHARD = "shard.npz"
+_SHARD_DIR_FMT = "shard-{:03d}"
+_FLEET = "fleet.json"
+
+
+def parent_fingerprint(idx) -> str:
+    """CRC32 identity of the parent index a shard image was cut from: the
+    search-determining config, the epoch, and the corpus identity (centroid
+    and external-id bytes), as the reference computes it, so that the two
+    packages fingerprint one index alike."""
+    idx._device_state()
+    ivf = idx._dev["main_ivf"]
+    crc = zlib.crc32(json.dumps(config_signature(idx), sort_keys=True).encode())
+    crc = zlib.crc32(str((int(idx._main_epoch), len(idx._main_vecs))).encode(), crc)
+    crc = zlib.crc32(np.ascontiguousarray(_np(ivf.centroids), np.float32).tobytes(), crc)
+    crc = zlib.crc32(np.ascontiguousarray(idx._main_ids).tobytes(), crc)
+    return f"{crc:08x}"
+
+
+def save_shards(idx, directory: str, n_shards: int, *, replicas: int = 1,
+                extra: dict | None = None) -> list[str]:
+    """Cut ``idx``'s packed main segment into ``n_shards`` shard images.
+
+    Writes ``<directory>/shard-000 ... shard-NNN``, one self-contained image
+    per contiguous cell range (``serving.shards.plan_shards``), atomically
+    for the whole fleet (tmp + rename, as ``save_index``), plus a root
+    ``fleet.json`` recording the partition arity, the replication factor and
+    the parent fingerprint.  Replication is a routing property: each range
+    is stored once and ``load_fleet`` restores ``replicas`` workers of it.
+    Each shard's slice comes off the card on its own, so the host holds one
+    shard at a time.  Returns the shard directories in shard-id order.
+
+    Needs an IVF index with an empty delta (``compact()`` first): the delta
+    has no cell structure.
+    """
+    from repro_torch.core.ivf import packed_live
+    from repro_torch.core.pq import PQCodes, pq_to_arrays
+    from repro_torch.serving.shards import plan_shards
+
+    _expect(idx._use_ivf(),
+            "cell-range sharding needs an IVF index (ivf_cells > 0 and a main segment "
+            "large enough to train cells)")
+    _expect(idx._delta_n == 0,
+            f"index holds {idx._delta_n} uncompacted delta rows — a shard image covers "
+            f"the packed main segment only; compact() first")
+    _expect(replicas >= 1, f"need replicas >= 1, got {replicas}")
+    dev = idx._device_state()
+    ivf = idx._dev["main_ivf"]
+    ncells, cap = ivf.ncells, ivf.cell_cap
+    specs = plan_shards(ncells, n_shards)
+    centroids = _np(ivf.centroids).astype(np.float32)
+    live_slots = packed_live(ivf, dev["main"][1])
+    ros = ivf.row_of_slot
+    ids_main = dev["main"][2]
+    ids_of_slot = torch.where(ros >= 0, ids_main[ros.clamp(0, max(len(idx._main_ids) - 1, 0))
+                                                 .long()], -1).to(torch.int32)
+    use_pq = idx._use_pq()
+    if use_pq:
+        cb, codes = idx._dev["main_pq"]
+    fp = parent_fingerprint(idx)
+
+    tmp = directory.rstrip("/") + f".tmp-{os.getpid()}"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    for spec in specs:
+        sd = os.path.join(tmp, _SHARD_DIR_FMT.format(spec.shard_id))
+        os.makedirs(sd)
+        sl = slice(spec.cell_lo * cap, spec.cell_hi * cap)
+        files: dict[str, dict] = {}
+        _npz_atomic(os.path.join(sd, _SHARD), {
+            "centroids": centroids, "packed": _np(ivf.packed[sl]).astype(np.float32),
+            "ids": _np(ids_of_slot[sl]), "live": _np(live_slots[sl]),
+        })
+        files[_SHARD] = _file_stamp(os.path.join(sd, _SHARD))
+        if use_pq:
+            _npz_atomic(os.path.join(sd, _PQ),
+                        pq_to_arrays(cb, PQCodes(codes.codes[sl], codes.hy[sl])))
+            files[_PQ] = _file_stamp(os.path.join(sd, _PQ))
+        manifest = {
+            "format_version": FORMAT_VERSION,
+            "config": config_signature(idx),
+            "impl": IMPL_TO_REFERENCE[idx.impl],
+            "shard": {"shard_id": spec.shard_id, "n_shards": n_shards,
+                      "cell_lo": spec.cell_lo, "cell_hi": spec.cell_hi,
+                      "cell_cap": int(cap), "ncells": int(ncells), "pq": bool(use_pq)},
+            "parent": {"fingerprint": fp, "main_epoch": int(idx._main_epoch),
+                       "rows_main": len(idx._main_vecs)},
+            "extra": dict(extra) if extra else {},
+            "files": files,
+            "complete": True,
+        }
+        with open(os.path.join(sd, _MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+            _sync(f)
+    # The fleet manifest LAST: a root without one is either unreplicated or torn.
+    with open(os.path.join(tmp, _FLEET), "w") as f:
+        json.dump({"format_version": FORMAT_VERSION, "n_shards": int(n_shards),
+                   "replicas": int(replicas), "parent_fingerprint": fp, "complete": True},
+                  f, indent=1)
+        _sync(f)
+    _replace_dir(directory, tmp)
+    return [os.path.join(directory, _SHARD_DIR_FMT.format(s.shard_id)) for s in specs]
+
+
+def read_fleet_manifest(directory: str) -> dict:
+    """The root ``fleet.json`` of a ``save_shards`` directory.  A root
+    without one (older, or assembled by hand) loads as an unreplicated
+    fleet; a present manifest that is torn, version-skewed or disagrees with
+    the shard images raises ``SnapshotError``."""
+    path = os.path.join(directory, _FLEET)
+    if not os.path.exists(path):
+        return {"n_shards": len(shard_dirs(directory)), "replicas": 1}
+    try:
+        with open(path) as f:
+            manifest = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise SnapshotError(f"unreadable fleet manifest {path}: {e}") from e
+    _expect(bool(manifest.get("complete")), f"incomplete fleet manifest (torn save?) at "
+                                            f"{directory}")
+    ver = manifest.get("format_version")
+    _expect(ver in SUPPORTED_VERSIONS,
+            f"fleet format_version {ver} not in supported {SUPPORTED_VERSIONS}")
+    n_found = len(shard_dirs(directory))
+    _expect(int(manifest.get("n_shards", -1)) == n_found,
+            f"fleet manifest says {manifest.get('n_shards')} shards, root holds {n_found} "
+            f"shard-* images — torn fleet")
+    return manifest
+
+
+def shard_dirs(directory: str) -> list[str]:
+    """The shard image directories under a ``save_shards`` root, id-sorted."""
+    try:
+        names = sorted(n for n in os.listdir(directory) if n.startswith("shard-"))
+    except OSError as e:
+        raise SnapshotError(f"unreadable shard root {directory}: {e}") from e
+    _expect(bool(names), f"no shard-* images under {directory}")
+    return [os.path.join(directory, n) for n in names]
+
+
+def read_shard_manifest(shard_dir: str, *, verify: bool = True) -> dict:
+    """``read_manifest`` of one shard image, which must BE a shard image."""
+    manifest = read_manifest(shard_dir, verify=verify)
+    _expect("shard" in manifest,
+            f"{shard_dir} is a whole-index snapshot, not a per-shard image; restore it "
+            f"with restore_index()")
+    return manifest
+
+
+def restore_shard(shard_dir: str, *, impl: str | None = None, device="cuda"):
+    """Rebuild one ``ShardWorker`` from its image on ``device`` (the card
+    unless the caller asks for the CPU), with no training.
+
+    Loads the shard's slice plus the replicated quantizer; the scalar scan
+    replica is the deterministic ``quantize_rows`` map, as in
+    ``restore_index``.  Geometry that disagrees with the manifest raises
+    ``SnapshotError`` before anything serves.  ``impl`` overrides the
+    scorer; by default the manifest's, mapped from the reference's names.
+    """
+    from repro_torch.core.pq import pq_from_arrays
+    from repro_torch.serving.shards import ShardSpec, ShardWorker
+
+    manifest = read_shard_manifest(shard_dir)
+    cfg = dict(manifest["config"])
+    sh = manifest["shard"]
+    spec = ShardSpec(int(sh["shard_id"]), int(sh["n_shards"]), int(sh["cell_lo"]),
+                     int(sh["cell_hi"]))
+    cap, ncells = int(sh["cell_cap"]), int(sh["ncells"])
+    dim = cfg["dim"]
+    _expect(0 <= spec.cell_lo < spec.cell_hi <= ncells,
+            f"shard cell range [{spec.cell_lo}, {spec.cell_hi}) outside [0, {ncells})")
+    _expect(spec.n_shards >= 1 and 0 <= spec.shard_id < spec.n_shards,
+            f"shard id {spec.shard_id} outside 0..{spec.n_shards - 1}")
+    if impl is None:
+        stored = manifest.get("impl", "jnp")
+        _expect(stored in IMPL_FROM_REFERENCE, f"unknown scorer impl {stored!r} in manifest")
+        impl = IMPL_FROM_REFERENCE[stored]
+    n_slots = spec.ncells_local * cap
+    with np.load(os.path.join(shard_dir, _SHARD)) as z:
+        centroids, packed = z["centroids"], z["packed"]
+        ids, live = z["ids"], z["live"]
+    _expect(centroids.shape == (ncells, dim),
+            f"shard centroids shape {centroids.shape} != ({ncells}, {dim})")
+    _expect(packed.shape == (n_slots, dim) and packed.dtype == np.float32,
+            f"shard packed shape/dtype {packed.shape} {packed.dtype} != ({n_slots}, {dim}) "
+            f"float32")
+    _expect(ids.shape == (n_slots,) and live.shape == (n_slots,) and live.dtype == bool,
+            f"shard ids/live mismatch: {ids.shape} {live.shape} {live.dtype} vs {n_slots} "
+            f"slots")
+    pq_cb = pq_codes = None
+    if sh.get("pq"):
+        _expect(_PQ in manifest["files"], "shard manifest configures PQ but has no pq.npz")
+        with np.load(os.path.join(shard_dir, _PQ)) as z:
+            pq_cb, pq_codes = pq_from_arrays({k: z[k] for k in z.files}, device=device)
+        _expect(pq_cb.m == cfg["pq_m"] and pq_cb.ncodes == 2 ** cfg["pq_nbits"],
+                f"shard PQ geometry ({pq_cb.m}, {pq_cb.ncodes}) != configured "
+                f"({cfg['pq_m']}, {2 ** cfg['pq_nbits']})")
+        _expect(pq_codes.codes.shape[0] == n_slots,
+                f"shard PQ codes cover {pq_codes.codes.shape[0]} slots, shard has {n_slots}")
+    else:
+        _expect(_PQ not in manifest["files"],
+                "shard carries pq.npz but its manifest says pq=false")
+    return ShardWorker(
+        spec, centroids=_tensor(centroids, device), packed=_tensor(packed, device),
+        ids_of_slot=_tensor(ids.astype(np.int32), device), live=_tensor(live, device),
+        config=cfg, parent=dict(manifest.get("parent", {})), pq_cb=pq_cb, pq_codes=pq_codes,
+        extra=dict(manifest.get("extra", {})), impl=impl, device=device)

@@ -420,12 +420,14 @@ def test_tenants_ride_compaction_and_from_arrays():
         delta_tenant=ref._delta_tenant, **CPU)
     want = ref.search(q, 6, filter=RQueryFilter(**f))
     for port in (idx, carried):
-        _same(*port.search(q, 6, filter=QueryFilter(**f)), want.distances, want.ids)
+        got = port.search(q, 6, filter=QueryFilter(**f))
+        _same(got.distances, got.ids, want.distances, want.ids)
     for i in (ref, idx):
         i.compact()
     np.testing.assert_array_equal(idx._main_tenant, ref._main_tenant)
     want = ref.search(q, 6, filter=RQueryFilter(**f))
-    _same(*idx.search(q, 6, filter=QueryFilter(**f)), want.distances, want.ids)
+    got = idx.search(q, 6, filter=QueryFilter(**f))
+    _same(got.distances, got.ids, want.distances, want.ids)
 
 
 def test_index_selectivity_is_counted_for_each_search():

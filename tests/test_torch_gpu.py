@@ -12,6 +12,7 @@ distances are that close, and there the differing id's own distance,
 recomputed from the operands, must be the value it is reported at.
 """
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -1501,3 +1502,116 @@ def test_a_failed_launch_on_a_mesh_raises(cuda, monkeypatch):
     monkeypatch.setattr(PD, "pairwise_distance", refuse)
     with pytest.raises(RuntimeError, match="simulated"):
         D.make_ring_allpairs(mesh, k=8)(x, 1024)
+
+
+# ---------------------------------------------------------------------------
+# The shard fleet on the card: in process and in worker processes
+# ---------------------------------------------------------------------------
+
+_FLEET_EXHAUSTIVE = dict(ivf_cells=16, nprobe=16, pq_m=8, overfetch=128)
+
+
+def _fleet_root(cuda, root, **kw):
+    """The reference tests' shape (n 2048, d 32, 16 cells) on the card, cut
+    into 2 shards with a manifest of 2 replicas."""
+    from repro_torch.serving import RetrievalIndex, save_shards
+
+    x = _clustered(2048, 32, seed=7)
+    q = _clustered(24, 32, seed=9)
+    idx = RetrievalIndex.build(np.arange(2048), x, device=cuda, **kw)
+    save_shards(idx, root, 2, replicas=2)
+    return idx, q, x
+
+
+def test_fleets_on_the_card_equal_the_index_exhaustive(cuda, tmp_path):
+    """In the exhaustive regime the in-process fleet and a fleet of four
+    worker processes on the card return the index's search bit for bit."""
+    from repro_torch.serving import load_fleet
+
+    root = str(tmp_path / "fleet")
+    idx, q, _ = _fleet_root(cuda, root, **_FLEET_EXHAUSTIVE)
+    want = idx.search(q, 10)
+    inproc = load_fleet(root, device=cuda)
+    got = inproc.search(q, 10)
+    assert got.ids.device.type == "cuda" and np.all(got.coverage == 1.0)
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances)
+    proc = load_fleet(root, workers="proc", device=cuda)
+    try:
+        assert all(w.alive and w.device.type == "cuda" for w in proc.supervisor.workers)
+        got = proc.search(q, 10)
+        assert torch.equal(got.ids, want.ids) and torch.equal(got.distances, want.distances)
+    finally:
+        procs = [w._proc for w in proc.supervisor.workers]
+        proc.supervisor.shutdown(drain=True)
+    assert [p.wait(timeout=30) for p in procs] == [0] * len(procs)
+
+
+@pytest.mark.parametrize("tier", ["pq", "int8"])
+def test_a_shard_worker_launches_its_kernels_on_the_card(cuda, tier, tmp_path):
+    """The worker's query runs the tier's scan kernel and the rescore kernel
+    (its own tally), and equals the plain body on the same image."""
+    from repro_torch.serving import restore_shard
+    from repro_torch.serving.snapshot import shard_dirs
+
+    kw = dict(ivf_cells=16, nprobe=8, overfetch=4, **({"pq_m": 8} if tier == "pq"
+                                                      else {"scan_dtype": "int8"}))
+    root = str(tmp_path / tier)
+    _, q, x = _fleet_root(cuda, root, **kw)
+    w = restore_shard(shard_dirs(root)[1], device=cuda)
+    q = torch.from_numpy(q).to(cuda)
+    with B.launch_tally() as tally:
+        got = w.topk(q, 10)
+        torch.cuda.synchronize()
+    scan = "pq_scan.LAUNCHES" if tier == "pq" else "ivf_scan.LAUNCHES"
+    assert tally.get(scan, 0) > 0 and tally.get("rescore.LAUNCHES", 0) > 0, tally
+    assert tally.get("fused_knn.LAUNCHES", 0) > 0, tally  # the worker's shortlist
+    host = restore_shard(shard_dirs(root)[1], device="cpu")
+    want = host.topk(q.cpu(), 10)
+    qh, xh = q.cpu(), torch.from_numpy(x)
+    check_topk(got.distances.cpu(), got.indices.cpu().long(), want.distances,
+               want.indices.long(), n=2048, rtol=1e-5, atol=1e-4,
+               dist=lambda r, c: ((qh[r] - xh[c]) ** 2).sum(1))
+
+
+def test_the_bf16_result_leg_built_on_the_card_is_the_hosts(cuda):
+    from repro_torch.serving import transport as TR
+
+    g = torch.Generator().manual_seed(0)
+    vals = torch.sort(torch.randn((256, 64), generator=g) * 300, dim=1).values
+    vals[:, -3:] = float("inf")
+    ids = torch.randint(0, 1 << 20, (256, 64), generator=g, dtype=torch.int32)
+    card = TR.pack_frame(TR.F_RESULT, {"seq": 3}, TR.encode_result(
+        vals.to(cuda), ids.to(cuda), wire_dtype="bfloat16"))
+    host = TR.pack_frame(TR.F_RESULT, {"seq": 3}, TR.encode_result(
+        vals, ids, wire_dtype="bfloat16"))
+    assert card == host
+
+
+def test_processes_that_start_cold_build_each_library_once(cuda, tmp_path):
+    """Two processes build the same libraries into an empty build directory
+    at once: the file lock lets one compile each library and the other find
+    it built, and each library has one compiler log."""
+    import shutil
+    import subprocess
+    import sys
+
+    src = Path(B.__file__).resolve().parents[2]
+    shutil.copytree(src / "repro_torch", tmp_path / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    names = ("merge_partials", "rescore")
+    code = ("import json; from repro_torch.kernels import _backend as B; "
+            f"B.build({names!r}); print(json.dumps(B.BUILT))")
+    env = {**os.environ, "PYTHONPATH": str(tmp_path / "src")}
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    built = []
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0
+        built += json.loads(out.strip().splitlines()[-1])
+    assert sorted(built) == sorted(names), built
+    build_dir = tmp_path / "build" / "repro_torch"
+    for name in names:
+        assert len(list(build_dir.glob(f"{name}-*.so"))) == 1
+        logs = list(build_dir.glob(f"{name}-*.log"))
+        assert len(logs) == 1 and "registers" in logs[0].read_text()
