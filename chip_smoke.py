@@ -181,6 +181,20 @@ Phases (each one raises on a failed check; nothing is caught):
    process.  Phase 11 must launch ``fused_knn``, ``pq_scan`` and
    ``rescore_topk`` (the router's process; each worker launches its own),
    and each kernel's entry carries ``launches_phase11``.
+12. The two-tower retrieval service (``serving.service``) at the full width
+   of ``configs/two_tower.py::full_config()``: 11.12 x 10^9 parameters
+   (44.5 GB of tables) drawn on the card from a seed, the towers held on
+   1,024 rows of each tower (every table's last row among them) against a
+   CPU computation of the same rows; 10^6 items (the arch's
+   ``retrieval_cand`` cell) embedded and served with ``serving_defaults()``:
+   12b the flat service, one user and batches of 1024 (half repeat users)
+   each equal to a brute force of the live corpus through an ingest, a
+   delete of 1%, a compact and an exclusion batch, a steady window, the
+   params fingerprint and a save and restore; 12c IVF-PQ at phase 7's
+   settings (no deleted id served, recall@10 reported) and a full-probe fp32
+   IVF service equal to brute force.  Phase 12 must launch ``fused_knn``,
+   ``merge_partials``, ``pq_scan`` and ``rescore_topk``, and each kernel's
+   entry carries ``launches_phase12``; the peak device memory is printed.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -224,6 +238,9 @@ QUERY_ROWS = 1 << 20  # the query_1m cell (src/repro/configs/base.py:489)
 IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M rows
 N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
 MESH_QUERIES = 8192  # phase 10c: the query_1m cell's m (src/repro/configs/base.py:489)
+SERVICE_ITEMS = 1_000_000  # phase 12: the two-tower retrieval_cand cell (configs/base.py:354-356)
+SERVICE_STEADY = 50  # phase 12b: batches of 1024 users in the steady window
+SERVICE_CONFIG = None  # phase 12's towers: None is configs/two_tower.py::full_config()
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
 # fp32 operations per (pair, coordinate) of the cumulative accumulators
 # (csrc/pairwise_cumulative.cu), counted by the fp32 pipe's slots: an FFMA
@@ -2501,6 +2518,327 @@ def phase_fleet(torch, dev, run_path, cells, pq, xc, compare):
     say("fleet_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
     return out
 
+
+def phase_service(torch, dev, run_path):
+    """12. The two-tower retrieval service (``serving.service``) at the full
+    width of ``configs/two_tower.py::full_config()`` on the card: 11.12 x
+    10^9 parameters (44.5 GB of tables) drawn from a seed, the item corpus
+    the arch's ``retrieval_cand`` cell (10^6 candidates), served with its
+    ``serving_defaults()``.  12a: the state, and the towers on 1,024 item
+    and 1,024 user rows against a CPU computation of the same rows (each
+    table's last row among them), atol 1e-5; the largest table's tail drawn,
+    not zeros or a copy.  12b: the flat service: the item sweep timed apart
+    from ``build_corpus``; one user (the cell's batch), then batches of 1024
+    users, half of them repeat users, each list equal to a brute force over
+    the live corpus embeddings (ids tie-aware, scores within 1e-5), through
+    an ingest of 8,192 items, a delete of 1% and a compact; a batch with each
+    user's unfiltered top 5 excluded; a steady window of ``SERVICE_STEADY``
+    batches; the params fingerprint, ``save_index`` and ``restore_index``
+    into a fresh service (bit-identical results).  12c: IVF-PQ at phase 7's
+    settings (``ivf_cells`` 4096, nprobe 8, ``pq_m`` 32, overfetch 8):
+    no deleted id served, recall@10 at overfetch 8 and 4 reported; a
+    full-probe fp32 IVF service equal to brute force.  A rehearsal on the
+    CPU shrinks it through ``SERVICE_CONFIG``, ``SERVICE_ITEMS``,
+    ``IVF_CELLS`` and ``SERVICE_STEADY``."""
+    import shutil
+
+    from repro_torch.configs.two_tower import full_config, serving_defaults
+    from repro_torch.kernels.ref import check_topk
+    from repro_torch.models import recsys as P
+    from repro_torch.serving import ServiceConfig, TwoTowerRetrievalService
+    from repro_torch.serving.service import params_crc32
+
+    cfg = full_config() if SERVICE_CONFIG is None else SERVICE_CONFIG
+    n_items, ivf_cells, steady = SERVICE_ITEMS, IVF_CELLS, SERVICE_STEADY
+    k = serving_defaults()["k"]
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    free, total = torch.cuda.mem_get_info()
+    say("service_memory_before", {"free_bytes": free, "total_bytes": total,
+                                  "allocated_bytes": torch.cuda.memory_allocated()})
+    torch.cuda.reset_peak_memory_stats()
+
+    # 12a. The state and the towers.
+    t0 = synced()
+    params = P.init_two_tower(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    init_s = synced() - t0
+    tables = params["user_tables"] + params["item_tables"]
+    state = {"init_s": init_s, "n_params": P.n_params(params),
+             "bytes": 4 * P.n_params(params),
+             "table_bytes": 4 * sum(t.numel() for t in tables),
+             "largest_table_elements": max(t.numel() for t in tables)}
+    say("service_state", state)
+
+    g = np.random.default_rng(12)
+    towers = {}
+    for tower, fn in (("item", P.item_embedding), ("user", P.user_embedding)):
+        tabs, mlp = params[f"{tower}_tables"], params[f"{tower}_mlp"]
+        ids = np.stack([g.integers(0, t.shape[0], 1024) for t in tabs], axis=1)
+        ids[0] = [t.shape[0] - 1 for t in tabs]  # each table's last row
+        got = fn(params, torch.from_numpy(ids).to(dev)).cpu()
+        # The CPU side reads each row through a view (its offset computed on
+        # the host), never through the card's gather.
+        x = torch.cat([torch.stack([t[int(r)] for r in ids[:, i]]).cpu()
+                       for i, t in enumerate(tabs)], dim=1)
+        x = P.apply_mlp([{key: v.cpu() for key, v in layer.items()} for layer in mlp], x)
+        want = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"12a: the {tower} tower on the card vs the CPU: {err}")
+        towers[tower] = {"max_abs_err": err, "rows": 1024,
+                         "last_rows": [int(t.shape[0] - 1) for t in tabs]}
+    big = max(tables, key=lambda t: t.numel()).view(-1)
+    tail = big[-(1 << 20):]
+    tail_std, tail_mean = float(tail.std()), float(tail.mean())
+    check(abs(tail_std - cfg.feat_dim ** -0.5) < 0.01 * cfg.feat_dim ** -0.5
+          and abs(tail_mean) < 1e-3, f"12a: the largest table's tail: std {tail_std}")
+    if big.numel() > (1 << 31) + (1 << 20):
+        check(not torch.equal(tail, big[-(1 << 20) - (1 << 31) : -(1 << 31)]),
+              "12a: the largest table's tail repeats the block 2^31 elements before it")
+    towers["largest_table_tail"] = {"std": tail_std, "mean": tail_mean,
+                                    "elements": big.numel()}
+    del big, tail
+    say("service_towers", towers)
+
+    item_lim, user_lim = min(cfg.i_sizes()), min(cfg.u_sizes())
+    rng = np.random.default_rng(0)  # launch/serve.py's draws of the corpus fields
+    fields = rng.integers(0, item_lim, size=(n_items, cfg.n_item_fields)).astype(np.int32)
+    pool = rng.integers(0, user_lim, size=(4096, cfg.n_user_fields)).astype(np.int32)
+    batch_no = [0]
+
+    def users(m=1024, repeat=0.5):
+        """m users, a share ``repeat`` of them drawn from the pool of 4,096
+        repeat visitors, the rest new (keys past the pool)."""
+        n_rep = int(m * repeat)
+        b = batch_no[0]
+        batch_no[0] += 1
+        keys = np.concatenate([rng.integers(0, 4096, size=n_rep),
+                               4096 + b * m + np.arange(m - n_rep)])
+        f = np.concatenate([pool[keys[:n_rep]],
+                            rng.integers(0, user_lim, size=(m - n_rep, cfg.n_user_fields))])
+        return keys, f.astype(np.int32)
+
+    def brute(svc, q, excluded=None, K=16):
+        """Top-K of -q.v over the service's live rows, by external id, and
+        the distance of any (row, external id)."""
+        vecs, ids = svc._live_index()._live_rows()
+        vt = torch.from_numpy(vecs).to(dev)
+        it = torch.from_numpy(ids).to(dev).long()
+        pos = torch.full((int(it.max()) + 1,), -1, dtype=torch.long, device=dev)
+        pos[it] = torch.arange(len(it), device=dev)
+        bv, bi = [], []
+        for r in range(0, len(q), 256):
+            d = -(q[r : r + 256] @ vt.T)
+            if excluded is not None:
+                for j, ex in enumerate(excluded[r : r + 256]):
+                    p = pos[torch.as_tensor(ex, device=dev).long()]
+                    d[j, p[p >= 0]] = float("inf")
+            v, i = torch.topk(d, K, dim=1, largest=False)
+            bv.append(v)
+            bi.append(it[i])
+
+        def dist(rows, ext):
+            p = pos[ext]
+            check(bool((p >= 0).all()), "a served id is not live")
+            return -(q[rows] * vt[p]).sum(1)
+
+        return torch.cat(bv), torch.cat(bi), dist, len(pos)
+
+    def gate(step, svc, keys, f, exclude=None):
+        ids, scores = svc.recommend(keys, f, exclude_ids=exclude)
+        q = P.user_embedding(params, torch.from_numpy(f).to(dev))
+        bv, bi, dist, n = brute(svc, q, exclude)
+        got_v = -torch.from_numpy(scores).to(dev)
+        got_i = torch.from_numpy(ids).to(dev).long()
+        cmp = check_topk(got_v, got_i, bv[:, :k], bi[:, :k], n=n, rtol=1e-5, atol=1e-5,
+                         dist=dist)
+        say(f"service_check_{step}", {**cmp, "users": len(keys),
+                                      "live": len(svc._live_index())})
+        return ids
+
+    # 12b. The flat service.
+    def flat():
+        res = {}
+        svc = TwoTowerRetrievalService(params, cfg, ServiceConfig(**serving_defaults()),
+                                       device=dev)
+        t0 = synced()
+        sweep = svc._embed("item", fields)
+        res["item_sweep_s"] = synced() - t0
+        del sweep
+        t0 = synced()
+        corpus = svc.build_corpus(np.arange(n_items), fields)
+        res["build_corpus_s"] = synced() - t0
+        res["index_build_s"] = res["build_corpus_s"] - res["item_sweep_s"]
+        check(corpus.shape == (n_items, cfg.tower_mlp[-1]) and corpus.device.type == dev.type,
+              "12b: corpus embeddings' shape or place")
+        del corpus
+        one = []
+        for j in range(21):  # the retrieval_cand cell: one user a call
+            keys, f = users(1, 0.0)
+            t0 = time.perf_counter()
+            if j == 0:
+                gate("one_user", svc, keys, f)
+            else:
+                svc.recommend(keys, f)
+            one.append((time.perf_counter() - t0) * 1e3)
+        res["one_user_first_ms"] = one[0]
+        res["one_user_ms_p50"] = statistics.median(one[1:])
+        gate("batch_1024_initial", svc, *users())
+        gate("batch_1024_repeat", svc, *users())
+        new = rng.integers(0, item_lim, size=(8192, cfg.n_item_fields)).astype(np.int32)
+        t0 = synced()
+        svc.ingest_items(np.arange(n_items, n_items + 8192), new)
+        res["ingest_8192_s"] = synced() - t0
+        gate("ingest", svc, *users())
+        dead = np.random.default_rng(4).choice(n_items, n_items // 100, replace=False)
+        t0 = time.perf_counter()
+        check(svc.delete_items(dead) == len(dead), "12b: delete count")
+        res["delete_1pct_s"] = time.perf_counter() - t0
+        gate("delete", svc, *users())
+        t0 = synced()
+        svc.compact()
+        res["compact_s"] = synced() - t0
+        gate("compact", svc, *users())
+        keys, f = users()
+        top5, _ = svc.recommend(keys, f, k=5)
+        ids = gate("exclude_top5", svc, keys, f, exclude=[row for row in top5])
+        check(not any(set(row.tolist()) & set(ex.tolist()) for row, ex in zip(ids, top5)),
+              "12b: an excluded id was served")
+        # The steady window: warm batches of 1024, half of them repeat users.
+        svc.e2e_meter.reset()
+        svc.meter.reset()
+        h0, m0 = svc.user_cache.hits, svc.user_cache.misses
+        for _ in range(steady + 1):
+            svc.recommend(*users())
+        hits, misses = svc.user_cache.hits - h0, svc.user_cache.misses - m0
+        e2e, eng = svc.e2e_meter, svc.meter
+        embed_ms = []  # the user side alone: cache lookups, the tower on the misses
+        for _ in range(10):
+            keys, f = users()
+            t0 = synced()
+            svc.embed_users(keys, f)
+            embed_ms.append((synced() - t0) * 1e3)
+        res["steady"] = {"batches": e2e.n_batches, "e2e_p50_ms": e2e.latency_ms(50),
+                         "embed_users_ms_p50": statistics.median(embed_ms),
+                         "e2e_p90_ms": e2e.latency_ms(90), "e2e_max_ms": e2e.latency_ms(100),
+                         "scan_p50_ms": eng.latency_ms(50), "scan_p90_ms": eng.latency_ms(90),
+                         "cache_hit_rate": hits / max(hits + misses, 1),
+                         "cold_batches": e2e.summary()["compile_batches"]}
+        # Persistence: the fingerprint alone, then a save and a restore into a
+        # fresh service, each of which takes one fingerprint.
+        root = os.path.join(HERE, "build", "phase12")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        t0 = time.perf_counter()
+        fp = params_crc32(params)
+        res["fingerprint_s"] = time.perf_counter() - t0
+        keys, f = users()
+        want = svc.recommend(keys, f)
+        t0 = synced()
+        snap = svc.save_index(os.path.join(root, "flat"))
+        res["save_index_s"] = synced() - t0
+        res["image_bytes"] = sum(os.path.getsize(os.path.join(dp, name))
+                                 for dp, _, names in os.walk(snap) for name in names)
+        svc2 = TwoTowerRetrievalService(params, cfg, ServiceConfig(**serving_defaults()),
+                                       device=dev)
+        t0 = synced()
+        svc2.restore_index(snap)
+        res["restore_index_s"] = synced() - t0
+        got = svc2.recommend(keys, f)
+        check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+              "12b: the restored service's results differ")
+        res["fingerprint"] = fp
+        res["stats"] = {key: v for key, v in svc.stats().items() if key != "engine"}
+        del svc, svc2
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return res
+
+    out["flat"] = counted("service_flat", flat)
+    say("service_flat", out["flat"])
+
+    # 12c. IVF-PQ at phase 7's settings on the same towers and corpus.
+    def ivfpq():
+        res = {}
+        sc = ServiceConfig(**{**serving_defaults(), "ivf_cells": ivf_cells, "nprobe": 8,
+                              "pq_m": PQ_M, "overfetch": 8})
+        svc = TwoTowerRetrievalService(params, cfg, sc, device=dev)
+        t0 = synced()
+        svc.build_corpus(np.arange(n_items), fields)
+        res["build_corpus_s"] = synced() - t0
+        keys, f = users()
+        t0 = synced()
+        svc.recommend(keys, f)  # trains the cells and the codebooks
+        res["first_search_s"] = synced() - t0
+        ivf = svc.index._dev["main_ivf"]
+        counts = ivf.counts.cpu().numpy()
+        res["cells"] = {"ncells": int(ivf.ncells), "cell_cap": int(ivf.cell_cap),
+                        "max": int(counts.max()), "mean": float(counts.mean()),
+                        "empty": int((counts == 0).sum()),
+                        "packed_bytes": ivf.packed.numel() * 4}
+        q = P.user_embedding(params, torch.from_numpy(f).to(dev))
+        _, truth, _, _ = brute(svc, q, K=k)
+        recall = {}
+        for of in (8, 4):
+            svc.index.overfetch = of
+            ids, _ = svc.recommend(keys, f)
+            recall[f"overfetch_{of}"] = recall_at(torch, torch.from_numpy(ids).to(dev), truth)
+        svc.index.overfetch = 8
+        res["recall_at_10"] = {**recall, "reference_floor_clustered": 0.85}
+        dead = np.random.default_rng(5).choice(n_items, n_items // 100, replace=False)
+        svc.delete_items(dead)
+        svc.ingest_items(np.arange(n_items, n_items + 8192),
+                         rng.integers(0, item_lim, size=(8192, cfg.n_item_fields)).astype(
+                             np.int32))
+        svc.e2e_meter.reset()
+        svc.meter.reset()
+        served = []
+        for _ in range(21):
+            ids, _ = svc.recommend(*users())
+            served.append(ids)
+        served = np.concatenate(served)
+        check(not np.isin(served, dead).any(), "12c: a deleted id was served")
+        check(bool((served >= 0).all()), "12c: a list came back short")
+        res["after_churn"] = {"batches": svc.e2e_meter.n_batches,
+                              "e2e_p50_ms": svc.e2e_meter.latency_ms(50),
+                              "scan_p50_ms": svc.meter.latency_ms(50),
+                              "deleted": len(dead), "ingested": 8192}
+        del svc, q
+        torch.cuda.empty_cache()
+        # The exactness hatch: an fp32 IVF service probing every cell.
+        sc = ServiceConfig(**{**serving_defaults(), "ivf_cells": ivf_cells,
+                              "nprobe": ivf_cells})
+        svc = TwoTowerRetrievalService(params, cfg, sc, device=dev)
+        svc.build_corpus(np.arange(n_items), fields)
+        t0 = synced()
+        svc.recommend(*users())  # trains the cells
+        res["full_probe_first_search_s"] = synced() - t0
+        gate("ivf_full_probe", svc, *users())
+        del svc
+        torch.cuda.empty_cache()
+        return res
+
+    out["ivfpq"] = counted("service_ivfpq", ivfpq)
+    say("service_ivfpq", out["ivfpq"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    del params, tables
+    torch.cuda.empty_cache()
+    say("service_phase", {"seconds": out["phase_s"], "peak_bytes": out["peak_bytes"],
+                          "launches": out["launches"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2834,6 +3172,17 @@ def main() -> int:
     for name in ("fused_knn", "pq_scan", "rescore_topk"):
         check(fleet_launches.get(name, 0) > 0, f"phase 11 never launched {name}: {fleet_launches}")
 
+    # 12. The two-tower retrieval service at full width, on what the earlier
+    # phases freed.
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    service_launches = phase_service(torch, dev, run_path)["launches"]
+    for name in ("fused_knn", "merge_partials", "pq_scan", "rescore_topk"):
+        check(service_launches.get(name, 0) > 0,
+              f"phase 12 never launched {name}: {service_launches}")
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -2962,6 +3311,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches_phase10"] = mesh_launches.get(entry["name"], 0)
         entry["launches_phase11"] = fleet_launches.get(entry["name"], 0)
+        entry["launches_phase12"] = service_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -21,7 +21,8 @@ wait for a's (``Mesh.copy``); a collective program (``Mesh.scope``) starts
 after the caller's queued work and ends before the caller's next.
 
 ``make_production_mesh`` (the reference's 256-chip TPU pod) is not ported:
-it waits for ``launch/serve.py``.
+only the reference's dry run calls it, and it waits for that dry run's
+port.  ``make_host_mesh`` is what ``launch/serve.py --mesh`` uses.
 """
 from __future__ import annotations
 

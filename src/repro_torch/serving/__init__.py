@@ -1,7 +1,9 @@
 """The serving tier: the index and its batching engine, filters, snapshots,
-the crash-safe lifecycle, and the shard fleet (shard images, the router,
+the crash-safe lifecycle, the shard fleet (shard images, the router,
 health and failover, the fault harness, the RPC wire, the worker
-supervisor)."""
+supervisor), and the two-tower retrieval service over all of them with its
+user-embedding cache."""
+from repro_torch.serving.cache import EmbeddingCache
 from repro_torch.serving.engine import EngineConfig, QueryEngine
 from repro_torch.serving.faults import (
     FaultInjectionError,
@@ -44,6 +46,7 @@ from repro_torch.serving.snapshot import (
     restore_shard,
     save_shards,
 )
+from repro_torch.serving.service import ServiceConfig, TwoTowerRetrievalService
 from repro_torch.serving.supervisor import ProcWorker, SupervisorConfig, WorkerSupervisor
 from repro_torch.serving.transport import (
     BackpressureError,
@@ -58,6 +61,7 @@ from repro_torch.serving.transport import (
 __all__ = [
     "BackpressureError",
     "CallPolicy",
+    "EmbeddingCache",
     "EngineConfig",
     "FaultInjectionError",
     "FaultPolicy",
@@ -75,6 +79,7 @@ __all__ = [
     "RemoteWorkerError",
     "RetrievalIndex",
     "SearchResult",
+    "ServiceConfig",
     "ShardRouter",
     "ShardSpec",
     "ShardUnavailableError",
@@ -82,6 +87,7 @@ __all__ = [
     "SnapshotError",
     "SupervisorConfig",
     "TornResultError",
+    "TwoTowerRetrievalService",
     "VirtualClock",
     "WalWriter",
     "WireError",

@@ -82,6 +82,9 @@ class QueryEngine:
     def search(self, queries, k: int | None = None, *, filter=None) -> SearchResult:
         """Exact top-k for [m, d] queries, padded/chunked to engine shapes.
 
+        ``queries``: numpy or a tensor; a tensor is padded where it lies, so
+        one on the index's device reaches the scan with no host copy.
+
         ``filter``: a ``serving.filters.QueryFilter`` (DESIGN.md §17).  Its
         per-query rows (tenant tags, exclusion lists) are chunked and padded
         with the query rows; pad rows get tenant 0 and no exclusions, and
@@ -91,7 +94,7 @@ class QueryEngine:
         hook = getattr(self.index, "before_batch", None)
         if hook is not None:
             hook()
-        q = np.asarray(queries, np.float32)
+        q = torch.as_tensor(queries, dtype=torch.float32)
         assert q.ndim == 2, q.shape
         if len(q) == 0:
             dev = self.index.device
@@ -119,10 +122,10 @@ class QueryEngine:
         return SearchResult(torch.cat(out_v), torch.cat(out_i), coverage=coverage,
                             shard_status=status)
 
-    def _search_padded(self, chunk: np.ndarray, k: int, f=None) -> SearchResult:
+    def _search_padded(self, chunk: torch.Tensor, k: int, f=None) -> SearchResult:
         m = len(chunk)
         mp = self._bucket(m)
-        qp = np.zeros((mp, chunk.shape[1]), np.float32)
+        qp = chunk.new_zeros((mp, chunk.shape[1]))
         qp[:m] = chunk
         sig = self.index.shape_signature(k)
         if sig[0] != self._live_main:  # new packed main: old keys stranded

@@ -47,6 +47,8 @@ def test_import_works_with_jax_blocked():
         "import repro_torch.accounting, repro_torch.core.ivf, repro_torch.core.kmeans\n"
         "import repro_torch.kernels.rescore, repro_torch.kernels.ivf_scan\n"
         "import repro_torch.kernels.pq_scan, repro_torch.core.pq\n"
+        "import repro_torch.serving.service, repro_torch.launch.serve\n"
+        "import repro_torch.configs.two_tower, repro_torch.models.recsys\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -1615,3 +1615,165 @@ def test_processes_that_start_cold_build_each_library_once(cuda, tmp_path):
         assert len(list(build_dir.glob(f"{name}-*.so"))) == 1
         logs = list(build_dir.glob(f"{name}-*.log"))
         assert len(logs) == 1 and "registers" in logs[0].read_text()
+
+
+# -- the two-tower retrieval service on the card -------------------------------
+
+
+def _service_params(cfg, dev, seed=0):
+    """Towers drawn on the CPU from a seed, and the same values on ``dev``."""
+    from repro_torch.models.recsys import init_two_tower
+
+    cpu = init_two_tower(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    moved = {key: [({k: v.to(dev) for k, v in leaf.items()} if isinstance(leaf, dict)
+                    else leaf.to(dev)) for leaf in leaves] for key, leaves in cpu.items()}
+    return cpu, moved
+
+
+def _service_pair(cuda, n=16384, **svc_kw):
+    from repro_torch.configs.two_tower import smoke_config
+    from repro_torch.serving import ServiceConfig, TwoTowerRetrievalService
+
+    cfg = smoke_config()
+    cpu_p, dev_p = _service_params(cfg, cuda)
+    sc = ServiceConfig(k=10, **svc_kw)
+    host = TwoTowerRetrievalService(cpu_p, cfg, sc, device="cpu")
+    card = TwoTowerRetrievalService(dev_p, cfg, sc, device=cuda)
+    g = np.random.default_rng(3)
+    fields = g.integers(0, min(cfg.i_sizes()), size=(n, cfg.n_item_fields)).astype(np.int32)
+    users = g.integers(0, min(cfg.u_sizes()), size=(64, cfg.n_user_fields)).astype(np.int32)
+    return cfg, host, card, fields, users
+
+
+def _assert_served_close(got, want, corpus, u):
+    ids, scores = got
+    wids, wscores = want
+    np.testing.assert_allclose(scores, wscores, rtol=1e-5, atol=1e-5)
+    for r, j in zip(*np.nonzero(ids != wids)):  # near-ties: the id's own score
+        assert abs(float(u[r] @ corpus[int(ids[r, j])]) - scores[r, j]) <= 1e-5
+
+
+def test_service_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import recsys as P
+
+    cfg, host, card, fields, users = _service_pair(cuda)
+    n = len(fields)
+    want_vecs = host.build_corpus(np.arange(n), fields)
+    got_vecs = card.build_corpus(np.arange(n), fields)
+    assert got_vecs.device.type == cuda.type
+    torch.testing.assert_close(got_vecs.cpu(), want_vecs, rtol=1e-5, atol=1e-5)
+    corpus = dict(enumerate(want_vecs.numpy()))
+    keys = np.concatenate([np.arange(40), np.arange(24)])  # 24 repeat users
+    for step in ("initial", "churn", "compact", "exclude"):
+        if step == "churn":
+            new = np.random.default_rng(4).integers(0, min(cfg.i_sizes()), size=(300, 4))
+            for svc in (host, card):
+                svc.ingest_items(np.arange(n, n + 300), new.astype(np.int32))
+                svc.delete_items(np.arange(0, n, 97))
+            vecs, ids = host.index._live_rows()
+            corpus.update(zip(ids.tolist(), vecs))
+        if step == "compact":
+            host.compact()
+            card.compact()
+        kw = {"exclude_ids": [np.arange(j, j + 9) for j in range(64)]} if step == "exclude" else {}
+        u = P.user_embedding(host.params, users[keys]).numpy()
+        want = host.recommend(keys, users[keys], **kw)
+        got = card.recommend(keys, users[keys], **kw)
+        _assert_served_close(got, want, corpus, u)
+    assert card.stats()["cache"] == host.stats()["cache"]
+    assert card.stats()["cache"]["hits"] > 0
+
+
+def test_tower_products_stay_fp32_with_tf32_switched_on(cuda):
+    """The towers' matmuls run in IEEE fp32 with TF32 off, as the process
+    leaves it; where the process allows TF32 they refuse to run, and the
+    process' setting is left as it was."""
+    from repro_torch.models import recsys as P
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1024, 384, generator=g) * 0.125
+    layers = [{"w": torch.randn(a, b, generator=g) / a ** 0.5, "b": torch.zeros(b)}
+              for a, b in ((384, 1024), (1024, 512), (512, 256))]
+    want = x.double()
+    for i, layer in enumerate(layers):
+        want = want @ layer["w"].double() + layer["b"].double()
+        if i < 2:
+            want = want.clamp_min(0)
+    dev_layers = [{k: v.to(cuda) for k, v in layer.items()} for layer in layers]
+    got = P.apply_mlp(dev_layers, x.to(cuda)).cpu().double()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    for switch in ("precision", "flag"):
+        prev = torch.get_float32_matmul_precision()
+        try:
+            if switch == "precision":
+                torch.set_float32_matmul_precision("high")
+            else:
+                torch.backends.cuda.matmul.allow_tf32 = True
+            assert torch.backends.cuda.matmul.allow_tf32
+            setting = torch.get_float32_matmul_precision()
+            # TF32 is really on: a bare product of the same operands is off by more
+            tf32_err = float((x.to(cuda) @ dev_layers[0]["w"]).cpu().double().sub(
+                x.double() @ layers[0]["w"].double()).abs().max())
+            with pytest.raises(RuntimeError, match="TF32 is on"):
+                P.apply_mlp(dev_layers, x.to(cuda))
+            assert torch.get_float32_matmul_precision() == setting
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.set_float32_matmul_precision(prev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert tf32_err > 1e-4, (switch, tf32_err)
+
+
+def test_service_recommend_launches_the_scan_and_merge(cuda):
+    cfg, host, card, fields, users = _service_pair(cuda)
+    card.build_corpus(np.arange(len(fields)), fields)
+    with B.launch_tally() as tally:
+        ids, _ = card.recommend(np.arange(8), users[:8])
+        card.recommend(np.arange(64), users)
+    assert ids.shape == (8, 10) and (ids >= 0).all()
+    assert tally.get("fused_knn.LAUNCHES", 0) >= 2, tally
+    assert tally.get("merge_partials.LAUNCHES", 0) >= 1, tally
+
+
+def test_service_lifecycle_and_shards_on_the_card(cuda, tmp_path):
+    from repro_torch.configs.two_tower import smoke_config
+    from repro_torch.serving import ServiceConfig, ShardRouter, TwoTowerRetrievalService
+
+    cfg = smoke_config()
+    _, params = _service_params(cfg, cuda)
+    g = np.random.default_rng(6)
+    fields = g.integers(0, min(cfg.i_sizes()), size=(4096, 4)).astype(np.int32)
+    users = g.integers(0, min(cfg.u_sizes()), size=(32, 6)).astype(np.int32)
+    keys = np.arange(32)
+    # The lifecycle: journaled churn, a background compact, recovery.
+    snap = str(tmp_path / "wal")
+    sc = ServiceConfig(k=10, snapshot_dir=snap, wal=True)
+    svc = TwoTowerRetrievalService(params, cfg, sc, device=cuda)
+    svc.build_corpus(np.arange(4096), fields)
+    svc.enable_lifecycle()
+    svc.ingest_items(np.arange(4096, 4160), fields[:64])
+    svc.delete_items(np.arange(0, 4096, 41))
+    svc.compact(wait=True)
+    want = svc.recommend(keys + 1000, users)
+    svc2 = TwoTowerRetrievalService(params, cfg, sc, device=cuda)
+    rec = svc2.recover_lifecycle()
+    assert rec.wal and rec.torn_bytes == 0
+    got = svc2.recommend(keys + 1000, users)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    svc2.lifecycle.close()
+    svc.lifecycle.close()
+    # An in-process shard fleet on the card, exhaustive: the index's results.
+    root = str(tmp_path / "shards")
+    sc = ServiceConfig(k=10, shards=2, snapshot_dir=root, **_FLEET_EXHAUSTIVE)
+    svc = TwoTowerRetrievalService(params, cfg, sc, device=cuda)
+    svc.build_corpus(np.arange(2048), fields[:2048])
+    want = svc.recommend(keys, users)
+    svc.save_shards()
+    svc.restore_shards()
+    assert isinstance(svc.engine.index, ShardRouter)
+    assert all(w.device.type == cuda.type for w in svc.router.workers)
+    got = svc.recommend(keys + 5000, users)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
