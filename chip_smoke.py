@@ -195,6 +195,22 @@ Phases (each one raises on a failed check; nothing is caught):
    IVF service equal to brute force.  Phase 12 must launch ``fused_knn``,
    ``merge_partials``, ``pq_scan`` and ``rescore_topk``, and each kernel's
    entry carries ``launches_phase12``; the peak device memory is printed.
+13. The recommender's trainer (``distributed.steps``, ``train.optim``) at
+   each recsys arch's ``full_config()`` and the ``train_batch`` cell (65,536
+   rows a step), through ``RecsysArch.build``: 13a the two-tower model (44.5
+   GB of tables, 8 micro-batches), each sampled touched row equal to
+   row-wise Adagrad recomputed on the host, untouched rows (past element
+   2^31 among them) byte-equal, a repeat of its first 3 steps byte-equal,
+   then its trained towers served through ``TwoTowerRetrievalService``
+   (10^6 items, 1,024 users) and ``make_retrieval_step`` (1 x 10^6, k 100),
+   each equal to brute force; 13b ``dlrm-rm2``, ``xdeepfm`` and ``bst``
+   trained and served at ``serve_p99``; 13c the four at ``smoke_config()``
+   on the card and on the CPU from one start, allclose.  Per arch: step ms
+   (first, median) as forward-and-backward and update, rows touched, peak
+   memory.  The training path reaches no kernel (none of the reference's
+   Pallas kernels has a backward); phase 13 must launch ``fused_knn`` and
+   ``merge_partials`` (the retrieval), and each entry carries
+   ``launches_phase13``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -241,6 +257,13 @@ MESH_QUERIES = 8192  # phase 10c: the query_1m cell's m (src/repro/configs/base.
 SERVICE_ITEMS = 1_000_000  # phase 12: the two-tower retrieval_cand cell (configs/base.py:354-356)
 SERVICE_STEADY = 50  # phase 12b: batches of 1024 users in the steady window
 SERVICE_CONFIG = None  # phase 12's towers: None is configs/two_tower.py::full_config()
+TRAIN_ROWS = None  # phase 13's rows a step: None is the train_batch cell's 65536 (configs/base.py:350)
+TRAIN_STEPS = {"two-tower-retrieval": 10, "dlrm-rm2": 5, "xdeepfm": 5, "bst": 5}
+# micro_batches: the two-tower's 8 give each slice an 8192-row in-batch
+# softmax (a [65536, 65536] one would not fit); xDeepFM's CIN outer products
+# of 65,536 rows (about 45 GB for the three layers) do not fit one pass.
+TRAIN_MICRO = {"two-tower-retrieval": 8, "dlrm-rm2": 1, "xdeepfm": 2, "bst": 1}
+TRAIN_STEP = dict(peak_lr=5e-3, warmup_steps=2, total_steps=100)  # the rest StepConfig's defaults
 PQ_M, PQ_NBITS = 32, 8  # faiss's "IVF4096,PQ32": dsub 8, as the reference's d 128, pq_m 16
 # fp32 operations per (pair, coordinate) of the cumulative accumulators
 # (csrc/pairwise_cumulative.cu), counted by the fp32 pipe's slots: an FFMA
@@ -2839,6 +2862,372 @@ def phase_service(torch, dev, run_path):
     return out
 
 
+def table_digest(torch, t) -> int:
+    """A position-weighted sum of ``t``'s 32-bit words (mod 2^64), computed
+    on its device in blocks of 2^24 words: equal for byte-equal tensors."""
+    words = t.detach().reshape(-1).view(torch.int32)
+    n = 1 << 24
+    w = torch.arange(1, n + 1, device=t.device, dtype=torch.int64)
+    sums = torch.stack([(c.long() * w[: len(c)]).sum() for c in words.split(n)]).cpu().tolist()
+    acc = 0
+    for s in sums:
+        acc = (acc * 1000003 + s) % (1 << 64)
+    return acc
+
+
+# Phase 13's largest table of each arch (a leaf of its params) and the batch
+# column(s) that index it.
+LARGEST_TABLE = {
+    "two-tower-retrieval": (("user_tables", 0), lambda b: b["user"][:, 0]),
+    "dlrm-rm2": (("tables", 0), lambda b: b["sparse"][:, 0]),
+    "xdeepfm": (("tables", 0), lambda b: b["sparse"][:, 0]),
+    "bst": (("items", None), lambda b: np.concatenate([b["hist"].ravel(), b["target"]])),
+}
+
+
+def phase_train(torch, dev, run_path):
+    """13. The recommender's trainer (``distributed.steps``, ``train.optim``)
+    at the full width of each recsys arch's ``full_config()`` on the card,
+    through ``RecsysArch.build(rules, "train_batch")``: 65,536 rows a step
+    (``configs/base.py:350``), ``StepConfig(**TRAIN_STEP)`` with
+    ``TRAIN_MICRO`` micro-batches; each step timed as its two halves
+    (``step.grads``: forward and backward; ``step.update``: the clip and the
+    optimizer), the rows it touched, the peak device memory.
+
+    13a: the two-tower model (44.5 GB of tables drawn from seed 0), 10 steps
+    at 8 micro-batches of 8,192 rows (each its own in-batch softmax).
+    Gates: every loss finite and the last below the first; every sampled
+    touched row of every table (the hottest ids, the largest ids, others
+    spread between) equal, after each step, to row-wise Adagrad recomputed
+    on the host from that step's coalesced gradient and clip (rtol 1e-6,
+    atol 1e-7); a sample of the largest user table (rows past element 2^31
+    among them) that no batch touched byte-equal to the start; then the
+    trained towers serve: ``TwoTowerRetrievalService`` over 10^6 items, one
+    batch of 1,024 users equal to a brute force over the trained item
+    embeddings, and ``make_retrieval_step`` at ``retrieval_cand`` (1 user x
+    10^6 candidates, k 100) equal to brute force; then a repeat of the first
+    3 steps from a fresh draw of seed 0 through ``step`` itself: every table
+    (a device digest of its words, and its touched rows byte for byte), the
+    row accumulators and the towers byte-equal to the first run's after its
+    third step.  13b: ``dlrm-rm2``, ``xdeepfm`` and ``bst``, 5 steps each,
+    losses finite and a sample of untouched rows of the largest table byte-
+    equal (DLRM's past element 2^31), then ``serve_p99`` (512 rows) through
+    ``make_recsys_serve_step``.  13c: each arch at ``smoke_config()``, 5
+    steps on the card and on the CPU from one start: losses and params
+    within rtol 1e-4 and atol 1e-5.  A rehearsal on the CPU shrinks it by
+    replacing the archs' ``full_config`` and through ``TRAIN_ROWS`` and
+    ``SERVICE_ITEMS``."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.two_tower import serving_defaults
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels.ref import check_topk
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import recsys as P
+    from repro_torch.models.nn import split_params, tree_leaves, tree_map
+    from repro_torch.serving import ServiceConfig, TwoTowerRetrievalService
+    from repro_torch.train import optim as O
+
+    import gc
+
+    rules = make_rules(make_host_mesh(devices=[dev]))
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def leaf(tree, path):
+        node = tree[path[0]]
+        return node if path[1] is None else node[path[1]]
+
+    def state_from_spec(spec, values, where):
+        """A train state of ``values``: its optimizer state the zeros of the
+        built spec's (meta) shapes."""
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=t.dtype, device=where)
+
+        return ST.TrainState(values, O.OptState(0, tree_map(zeros, spec.opt.m),
+                                                tree_map(zeros, spec.opt.v)))
+
+    def fresh_state(aid):
+        """(step, state, cfg, rows a step): the cell's step and a state drawn
+        on the card from seed 0."""
+        arch = REG.get(aid)
+        sc = ST.StepConfig(**TRAIN_STEP, micro_batches=TRAIN_MICRO[aid])
+        step, (spec, specs) = arch.build(rules, "train_batch", step_config=sc)
+        cfg = arch.full_config()
+        values, _ = split_params(arch.init_params(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
+        rows = TRAIN_ROWS or next(iter(specs.values())).shape[0]
+        return step, state_from_spec(spec, values, dev), cfg, rows
+
+    def sample_rows(t, g):
+        """Rows of ``t`` to watch: drawn ones, the last 256 and, where the
+        table passes 2^31 elements, the 16 rows around that element."""
+        R, D = t.shape
+        parts = [g.integers(0, R, 4096), np.arange(max(R - 256, 0), R)]
+        edge = (1 << 31) // D
+        if edge < R:
+            parts.append(np.arange(edge - 8, min(edge + 8, R)))
+        return np.unique(np.concatenate(parts))
+
+    def train(aid, n_steps, hook=None):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = synced()
+        step, state, cfg, rows = fresh_state(aid)
+        init_s = synced() - t0
+        path, col = LARGEST_TABLE[aid]
+        big = leaf(state.params, path)
+        watch = sample_rows(big, np.random.default_rng(13))
+        watch_t = torch.from_numpy(watch).to(dev)
+        start = big.index_select(0, watch_t).cpu()
+        rec = {"init_s": init_s, "rows_a_step": rows, "micro_batches": TRAIN_MICRO[aid],
+               "losses": [], "grads_ms": [], "update_ms": [], "rows_touched": []}
+        touched = []
+        for i in range(n_steps):
+            batch = recsys_batch(aid, rows, cfg, step=i)
+            touched.append(np.unique(col(batch)))
+            t0 = synced()
+            (_, metrics), grads = step.grads(state, batch)
+            rec["grads_ms"].append((synced() - t0) * 1e3)
+            kept = hook("before", i, state, grads, metrics) if hook else None
+            t0 = synced()
+            state, metrics = step.update(state, grads, metrics)
+            rec["update_ms"].append((synced() - t0) * 1e3)
+            if hook:
+                hook("after", i, state, grads, metrics, kept)
+            rec["losses"].append(float(metrics["loss"]))
+            rec["rows_touched"].append(sum(len(g.ids) for g in tree_leaves(grads)
+                                           if isinstance(g, O.RowGrad)))
+            del grads
+        step_ms = [a + b for a, b in zip(rec["grads_ms"], rec["update_ms"])]
+        rec.update(step_ms_first=step_ms[0], step_ms_median=statistics.median(step_ms),
+                   grads_ms_median=statistics.median(rec["grads_ms"]),
+                   update_ms_median=statistics.median(rec["update_ms"]),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        check(all(np.isfinite(rec["losses"])), f"13: {aid} losses {rec['losses']}")
+        untouched = ~np.isin(watch, np.unique(np.concatenate(touched)))
+        now = big.index_select(0, watch_t).cpu()
+        check(bool(untouched.any()) and torch.equal(now[untouched], start[untouched]),
+              f"13: untouched rows of {aid}'s largest table moved")
+        past = watch * big.shape[1] >= (1 << 31)
+        rec["untouched_checked"] = {"rows": int(untouched.sum()),
+                                    "past_2_31": int((untouched & past).sum()),
+                                    "table_rows": int(big.shape[0])}
+        return step, state, cfg, rec
+
+    # 13a. The two-tower model.
+    def two_tower():
+        aid = "two-tower-retrieval"
+        clip, eps = ST.StepConfig().grad_clip, 1e-8
+        errs = {"acc": 0.0, "p": 0.0, "rows": 0}
+        keep = {}
+
+        def hook(when, i, state, grads, metrics, kept=None):
+            tables = [(name, j) for name in ("user_tables", "item_tables")
+                      for j in range(len(state.params[name]))]
+            if when == "before":
+                kept = {}
+                for name, j in tables:
+                    rg = grads[name][j]
+                    n = len(rg.ids)
+                    pos = torch.from_numpy(np.unique(np.concatenate([
+                        np.arange(min(3, n)), np.arange(max(n - 8, 0), n),
+                        np.linspace(0, n - 1, 21).astype(np.int64)]))).to(dev)
+                    ids = rg.ids[pos]
+                    kept[name, j] = (ids, state.params[name][j].index_select(0, ids).cpu(),
+                                     state.opt.m[name][j].index_select(0, ids).cpu(),
+                                     rg.rows[pos].cpu())
+                return kept
+            scale = min(np.float32(1), np.float32(clip) / max(np.float32(float(metrics["grad_norm"])),
+                                                                np.float32(1e-9)))
+            lr = np.float32(metrics["lr"])
+            for (name, j), (ids, p0, a0, g) in kept.items():
+                g = g.numpy() * np.float32(scale)
+                acc = a0.numpy() + (g * g).mean(-1, keepdims=True)
+                want = p0.numpy() - lr * (g / np.sqrt(acc + np.float32(eps)))
+                got_acc = state.opt.m[name][j].index_select(0, ids).cpu().numpy()
+                got = state.params[name][j].index_select(0, ids).cpu().numpy()
+                np.testing.assert_allclose(got_acc, acc, rtol=1e-6, atol=0)
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+                errs["acc"] = max(errs["acc"], float(np.abs(got_acc / acc - 1).max()))
+                errs["p"] = max(errs["p"], float(np.abs(got - want).max()))
+                errs["rows"] += len(ids)
+            if i == 2:  # the first 3 steps: what the repeat must reproduce
+                keep["ids"] = {}
+                for name, j in tables:
+                    ids = torch.unique(torch.cat(keep.pop(("g", name, j), [])
+                                                 + [grads[name][j].ids]))
+                    keep["ids"][name, j] = (ids, state.params[name][j].index_select(0, ids),
+                                            state.opt.m[name][j].index_select(0, ids),
+                                            table_digest(torch, state.params[name][j]))
+                keep["towers"] = [t.clone() for key in ("user_mlp", "item_mlp")
+                                  for t in P.param_leaves(state.params[key])]
+            elif i < 2:
+                for name, j in tables:
+                    keep.setdefault(("g", name, j), []).append(grads[name][j].ids)
+            return None
+
+        step, state, cfg, rec = train(aid, TRAIN_STEPS[aid], hook)
+        check(rec["losses"][-1] < rec["losses"][0], f"13a: the loss did not fall {rec['losses']}")
+        rec["formula_check"] = {"rows": errs["rows"], "max_rel_err_acc": errs["acc"],
+                                "max_abs_err_param": errs["p"]}
+        say("train_two_tower", rec)
+
+        # Serve the trained towers.
+        n_items = SERVICE_ITEMS
+        k = serving_defaults()["k"]
+        rng = np.random.default_rng(0)
+        fields = rng.integers(0, min(cfg.i_sizes()),
+                              size=(n_items, cfg.n_item_fields)).astype(np.int32)
+        users = rng.integers(0, min(cfg.u_sizes()),
+                             size=(1024, cfg.n_user_fields)).astype(np.int32)
+
+        def serve():
+            torch.cuda.reset_peak_memory_stats()
+            res = {}
+            svc = TwoTowerRetrievalService(state.params, cfg, ServiceConfig(**serving_defaults()),
+                                           device=dev)
+            t0 = synced()
+            corpus = svc.build_corpus(np.arange(n_items), fields)
+            res["build_corpus_s"] = synced() - t0
+            t0 = synced()
+            ids, scores = svc.recommend(np.arange(1024), users)
+            res["batch_1024_ms"] = (synced() - t0) * 1e3
+            q = P.user_embedding(state.params, torch.from_numpy(users).to(dev))
+
+            def brute(qq, kk):
+                bv, bi = [], []
+                for r in range(0, len(qq), 256):
+                    v, i = torch.topk(-(qq[r : r + 256] @ corpus.T), kk, dim=1, largest=False)
+                    bv.append(v)
+                    bi.append(i)
+                return torch.cat(bv), torch.cat(bi)
+
+            def dist(qq):
+                return lambda rows, ext: -(qq[rows] * corpus[ext]).sum(1)
+
+            bv, bi = brute(q, k)
+            res["service_vs_brute"] = check_topk(
+                -torch.from_numpy(scores).to(dev), torch.from_numpy(ids).to(dev).long(), bv, bi,
+                n=n_items, rtol=1e-5, atol=1e-5, dist=dist(q))
+            fn, _ = REG.get(aid).build(rules, "retrieval_cand")
+            t0 = synced()
+            s1, i1 = fn(state.params, users[:1], corpus)
+            res["retrieval_step_ms"] = (synced() - t0) * 1e3
+            check(s1.shape == (1, min(100, n_items)), f"13a: retrieval step shape {s1.shape}")
+            bv, bi = brute(q[:1], s1.shape[1])
+            res["retrieval_step_vs_brute"] = check_topk(-s1, i1.long(), bv, bi, n=n_items,
+                                                        rtol=1e-5, atol=1e-5, dist=dist(q[:1]))
+            del svc, corpus
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return res
+
+        # Within this path's count: a nested run_path would zero and read the
+        # counters again, and this path would then count those launches twice.
+        serving = serve()
+        say("train_two_tower_serve", serving)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The repeat: the first 3 steps again from a fresh draw, through step().
+        step, state, cfg, rows = fresh_state(aid)
+        for i in range(3):
+            state, _ = step(state, recsys_batch(aid, rows, cfg, step=i))
+        same = {"tables": 0, "rows": 0}
+        for (name, j), (ids, vals, acc, digest) in keep["ids"].items():
+            t = state.params[name][j]
+            check(torch.equal(t.index_select(0, ids), vals)
+                  and torch.equal(state.opt.m[name][j].index_select(0, ids), acc)
+                  and table_digest(torch, t) == digest,
+                  f"13a: the repeat's {name}[{j}] differs from the first run's")
+            same["tables"] += 1
+            same["rows"] += len(ids)
+        towers = [t for key in ("user_mlp", "item_mlp") for t in P.param_leaves(state.params[key])]
+        check(all(torch.equal(a, b) for a, b in zip(towers, keep["towers"])),
+              "13a: the repeat's towers differ from the first run's")
+        same["tower_leaves"] = len(towers)
+        say("train_two_tower_repeat", same)
+        del state, keep
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"train": rec, "serve": serving, "repeat": same}
+
+    out["two_tower"] = counted("train_two_tower", two_tower)
+
+    # 13b. The three ranking models.
+    for aid in ("dlrm-rm2", "xdeepfm", "bst"):
+        def ranking(aid=aid):
+            _, state, cfg, rec = train(aid, TRAIN_STEPS[aid])
+            fn, _ = REG.get(aid).build(rules, "serve_p99")
+            batch = recsys_batch(aid, 512, cfg, step=99)
+            batch.pop("labels")
+            ms = []
+            for _ in range(11):
+                t0 = synced()
+                prob = fn(state.params, batch)
+                ms.append((synced() - t0) * 1e3)
+            check(prob.shape == (512,) and bool(((prob >= 0) & (prob <= 1)).all()),
+                  f"13b: {aid} serve_p99 output")
+            rec["serve_p99_ms_first"] = ms[0]
+            rec["serve_p99_ms_median"] = statistics.median(ms[1:])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            return rec
+
+        out[aid] = counted(f"train_{aid}", ranking)
+        say(f"train_{aid}", out[aid])
+
+    # 13c. The card against the CPU at smoke_config().
+    cpu = torch.device("cpu")
+    cpu_rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[cpu]))
+
+    def card_vs_cpu():
+        res = {}
+        for aid in ("two-tower-retrieval", "dlrm-rm2", "xdeepfm", "bst"):
+            arch = REG.get(aid)
+            cfg = arch.smoke_config()
+            sc = ST.StepConfig(**TRAIN_STEP)
+            values, _ = split_params(arch.init_params(
+                cfg, generator=torch.Generator().manual_seed(0), device=cpu))
+            runs = {}
+            for where, r in ((cpu, cpu_rules), (dev, rules)):
+                step, (spec, _) = arch.build(r, "train_batch", smoke=True, step_config=sc)
+                state = state_from_spec(spec, tree_map(lambda t: t.to(where, copy=True), values),
+                                        where)
+                losses = []
+                for i in range(5):
+                    state, m = step(state, recsys_batch(aid, 64, cfg, step=i))
+                    losses.append(float(m["loss"]))
+                runs[where.type] = (losses, [t.cpu() for t in P.param_leaves(state.params)])
+            (lc, pc), (lg, pg) = runs["cpu"], runs[dev.type]
+            np.testing.assert_allclose(lg, lc, rtol=1e-4, atol=1e-5)
+            for a, b in zip(pg, pc):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+            res[aid] = {"max_abs_loss_err": float(np.abs(np.subtract(lg, lc)).max()),
+                        "max_abs_param_err": max(float((a - b).abs().max())
+                                                 for a, b in zip(pg, pc)),
+                        "losses_card": lg}
+        return res
+
+    out["card_vs_cpu"] = counted("train_card_vs_cpu", card_vs_cpu)
+    say("train_card_vs_cpu", out["card_vs_cpu"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("train_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3183,6 +3572,14 @@ def main() -> int:
         check(service_launches.get(name, 0) > 0,
               f"phase 12 never launched {name}: {service_launches}")
 
+    # 13. The recommender's trainer at full width, then retrieval with the
+    # trained towers, on what phase 12 freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, dev, run_path)["launches"]
+    for name in ("fused_knn", "merge_partials"):
+        check(train_launches.get(name, 0) > 0, f"phase 13 never launched {name}: {train_launches}")
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -3312,6 +3709,7 @@ def main() -> int:
         entry["launches_phase10"] = mesh_launches.get(entry["name"], 0)
         entry["launches_phase11"] = fleet_launches.get(entry["name"], 0)
         entry["launches_phase12"] = service_launches.get(entry["name"], 0)
+        entry["launches_phase13"] = train_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -1,1 +1,2 @@
-"""Model configurations of the port: the two-tower retrieval model (``two_tower``)."""
+"""Model configurations of the port and their registry (``--arch <id>``):
+the recsys archs ``dlrm-rm2``, ``xdeepfm``, ``bst`` and ``two-tower-retrieval``."""

@@ -1,0 +1,171 @@
+"""Architecture/shape registry plumbing (the recsys family).
+
+Port of the recsys part of ``repro/configs/base.py``.  Each architecture is
+an arch object with:
+
+  * ``full_config()``  -- the published hyper-parameters;
+  * ``smoke_config()`` -- a reduced config of the same family, small enough
+    to train on the CPU;
+  * ``shapes``         -- its input-shape cells (``Cell``; ``Skip`` with the
+    reason for a cell an arch does not run);
+  * ``abstract_params(cfg)`` -- its ``nn.Param`` tree on the meta device
+    (shapes, dtypes and logical axes, nothing allocated);
+  * ``init_params(cfg, generator=..., device=...)`` -- a drawn ``Param`` tree;
+  * ``build(rules, shape, smoke=False)`` -- ``(fn, args)``: the step of the
+    cell and its arguments as meta tensors (the train state, the batch);
+  * ``smoke_batch(shape)`` -- real (small) data for integration tests.
+
+The language-model, GNN and kNN arch families wait for their models' port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.distributed.sharding import AxisRules
+
+
+def pad_to(n: int, mult: int) -> int:
+    return n + (-n) % mult
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    name: str
+    kind: str  # train | prefill | decode | serve | retrieval | allpairs
+    params: dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Skip:
+    name: str
+    reason: str
+
+    @property
+    def kind(self) -> str:
+        return "skip"
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """The port's ``jax.ShapeDtypeStruct``: a tensor on the meta device."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+class RecsysArch:
+    family = "recsys"
+
+    def __init__(self, arch_id: str, full_cfg: Callable, smoke_cfg: Callable):
+        self.id = arch_id
+        self.full_config = full_cfg
+        self.smoke_config = smoke_cfg
+
+    @property
+    def shapes(self):
+        cells = [
+            Cell("train_batch", "train", dict(batch=65536)),
+            Cell("serve_p99", "serve", dict(batch=512)),
+            Cell("serve_bulk", "serve", dict(batch=262144)),
+        ]
+        if self.id == "two-tower-retrieval":
+            cells.append(Cell("retrieval_cand", "retrieval",
+                              dict(batch=1, n_candidates=1_000_000)))
+        else:
+            # Ranking models score the 10^6 candidates pointwise: a bulk
+            # serve at batch = n_candidates (one user broadcast over items).
+            cells.append(Cell("retrieval_cand", "serve",
+                              dict(batch=1_000_000, broadcast_user=True)))
+        return cells
+
+    def _cell(self, shape_name: str) -> Cell:
+        return {c.name: c for c in self.shapes}[shape_name]
+
+    def _init_fn(self):
+        from repro_torch.models import recsys as R
+
+        return R.INIT_FNS[self.id]
+
+    def abstract_params(self, cfg):
+        return self._init_fn()(cfg, device="meta")
+
+    def init_params(self, cfg, *, generator: torch.Generator | None = None, device="cuda"):
+        """The ``Param`` tree drawn on ``device`` from ``generator`` (default:
+        a fresh one seeded 0); ``jax.random`` cannot be replayed, so the
+        values are the reference's distributions, not its numbers."""
+        return self._init_fn()(cfg, generator=generator, device=device)
+
+    def input_specs(self, shape_name: str, cfg=None, smoke: bool = False) -> dict:
+        cfg = cfg or (self.smoke_config() if smoke else self.full_config())
+        cell = self._cell(shape_name)
+        B = 32 if smoke else cell.params["batch"]
+        i32, f32 = torch.int32, torch.float32
+        if cell.kind == "retrieval":
+            n_cand = 4096 if smoke else cell.params["n_candidates"]
+            return {"user": _spec((B, cfg.n_user_fields), i32),
+                    "db": _spec((n_cand, cfg.tower_mlp[-1]), f32)}
+        if self.id == "dlrm-rm2":
+            s = {"dense": _spec((B, cfg.n_dense), f32), "sparse": _spec((B, cfg.n_sparse), i32)}
+        elif self.id == "xdeepfm":
+            s = {"sparse": _spec((B, cfg.n_sparse), i32)}
+        elif self.id == "bst":
+            s = {"hist": _spec((B, cfg.seq_len - 1), i32), "target": _spec((B,), i32),
+                 "others": _spec((B, cfg.n_other), i32)}
+        else:  # two-tower
+            s = {"user": _spec((B, cfg.n_user_fields), i32),
+                 "item": _spec((B, cfg.n_item_fields), i32)}
+        if cell.kind == "train" and self.id != "two-tower-retrieval":
+            s["labels"] = _spec((B,), f32)
+        return s
+
+    def build(self, rules: AxisRules, shape_name: str, *, smoke: bool = False,
+              step_config=None, variant: str | None = None):
+        """``(fn, args)`` for one cell: ``fn`` the cell's step
+        (``distributed.steps``), ``args`` its arguments as meta tensors.  A
+        caller that runs the step builds its own state and batch of those
+        shapes (``init_params``, ``steps.init_state``, ``smoke_batch``)."""
+        from repro_torch.distributed import steps as ST
+        from repro_torch.models.nn import split_params
+
+        cfg = self.smoke_config() if smoke else self.full_config()
+        cell = self._cell(shape_name)
+        abstract = self.abstract_params(cfg)
+        specs = self.input_specs(shape_name, cfg, smoke=smoke)
+        values, _ = split_params(abstract)
+
+        if cell.kind == "train":
+            loss, baxes = ST.recsys_loss(self.id, cfg)
+            sc = step_config or ST.StepConfig()
+            _, jitted, _, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
+            return jitted(specs), (ST.init_state(optimizer, values), specs)
+        if cell.kind == "serve":
+            if self.id == "two-tower-retrieval":
+                from repro_torch.distributed.sharding import axis_rules
+                from repro_torch.models import recsys as R
+
+                def score(values, batch):  # bulk/online scoring: the two towers' dot
+                    with torch.no_grad(), axis_rules(rules):
+                        u = R.user_embedding(values, batch["user"])
+                        v = R.item_embedding(values, batch["item"])
+                        return torch.sum(u * v, dim=-1)
+
+                return score, (values, specs)
+            _, shard_for, _ = ST.make_recsys_serve_step(self.id, cfg, rules, abstract)
+            return shard_for(specs), (values, specs)
+        if cell.kind == "retrieval":
+            _, shard_for, _ = ST.make_retrieval_step(cfg, rules, abstract,
+                                                     k=min(100, specs["db"].shape[0]))
+            return shard_for(specs["user"], specs["db"]), (values, specs["user"], specs["db"])
+        raise KeyError(cell.kind)
+
+    def smoke_batch(self, shape_name: str, seed: int = 0, *, device="cuda") -> dict:
+        """A batch of 32 rows of the smoke config for ``shape_name``, as
+        tensors on ``device``."""
+        from repro_torch.data.synthetic import recsys_batch
+        from repro_torch.kernels._backend import resolve_device
+
+        dev = resolve_device(device)
+        b = recsys_batch(self.id, 32, self.smoke_config(), seed=seed)
+        if self._cell(shape_name).kind != "train":
+            b.pop("labels", None)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}

@@ -5,6 +5,7 @@ towers 1024-512-256, interaction dot.  The ``retrieval_cand`` cell (1 query
 x 10^6 candidates) runs on the kNN serving engine
 (``serving.service.TwoTowerRetrievalService``).
 """
+from repro_torch.configs.base import RecsysArch
 from repro_torch.models.recsys import TwoTowerConfig, default_table_sizes
 
 
@@ -36,3 +37,6 @@ def serving_defaults() -> dict:
     """
     return dict(k=10, distance="neg_dot", embed_batch=1024,
                 cache_capacity=4096, min_batch=8, max_batch=1024)
+
+
+ARCH = RecsysArch("two-tower-retrieval", full_config, smoke_config)

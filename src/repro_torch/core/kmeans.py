@@ -14,9 +14,8 @@ floating-point sums run in an order set by the hardware's timing:
 ``index_add_`` (atomic adds) and the 1-D ``cumsum`` (a single-pass scan),
 both listed by torch as nondeterministic on CUDA.  So a cluster's sum is a
 segmented sum over the rows sorted stably by cluster
-(``torch.segment_reduce``: each segment summed in order by one thread;
-``cluster_sums``), which on the CPU is the sequential ``index_add_`` bit
-for bit; and k-means++'s inverse CDF is a prefix sum in a fixed order
+(``core.segments.group_sums``), which on the CPU is the sequential
+``index_add_`` bit for bit; and k-means++'s inverse CDF is a prefix sum in a fixed order
 (``_ordered_cumsum``).
 
 The reference draws its start from ``jax.random.permutation``, which torch
@@ -34,6 +33,8 @@ IVF-PQ's recall@10 at overfetch 8 to 0.83 against its probe ceiling of
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.segments import group_sums
 
 Tensor = torch.Tensor
 
@@ -63,47 +64,10 @@ def lloyd(g: Tensor, k: int, *, iters: int = 10, init_perm: Tensor | None = None
 
     for _ in range(iters):
         a = assign_to(cent)
-        sums, cnt = cluster_sums(g, a, k)
+        sums, cnt = group_sums(g, a, k)
         cnt = cnt.float()
         cent = torch.where(cnt[:, None] > 0, sums / torch.clamp_min(cnt[:, None], 1.0), cent)
     return cent, assign_to(cent).to(torch.int32)
-
-
-_PIECE = 64  # rows a thread sums in the first pass of ``cluster_sums`` on the card
-
-
-def cluster_sums(g: Tensor, a: Tensor, k: int) -> tuple[Tensor, Tensor]:
-    """(sums [k, d] fp32, counts [k] int64) of the rows ``g`` [n, d] per
-    cluster ``a`` [n], in an order fixed by ``a`` alone (module docstring):
-    the rows sorted stably by cluster, then summed a segment at a time.  An
-    empty cluster sums to 0.
-
-    On the CPU each cluster is one segment, summed in row order, which is
-    ``index_add_``'s order.  On the card one thread sums one segment, so a
-    few large clusters (PQ's 256 codewords over a million rows) would leave
-    the card idle: each cluster is cut into pieces of ``_PIECE`` rows, the
-    pieces summed, then each cluster's pieces in order.
-    """
-    cnt = torch.bincount(a, minlength=k)
-    rows = g[torch.argsort(a, stable=True)]
-    if g.device.type != "cuda":
-        return torch.segment_reduce(rows, "sum", lengths=cnt, axis=0), cnt
-    return _piecewise_sums(rows, cnt), cnt
-
-
-def _piecewise_sums(rows: Tensor, cnt: Tensor) -> Tensor:
-    """Segment sums of ``rows`` [n, d] (segments of ``cnt`` rows, in order):
-    each segment cut into pieces of ``_PIECE`` rows, the pieces summed, then
-    each segment's pieces in order."""
-    pieces = (cnt + _PIECE - 1) // _PIECE
-    n_pieces = int(pieces.sum())
-    seg = torch.repeat_interleave(torch.arange(len(cnt), device=rows.device), pieces,
-                                  output_size=n_pieces)
-    first = torch.cumsum(pieces, 0) - pieces  # integers: exact in any order
-    j = torch.arange(n_pieces, device=rows.device) - first[seg]
-    piece_len = torch.clamp(cnt[seg] - j * _PIECE, max=_PIECE)
-    partial = torch.segment_reduce(rows, "sum", lengths=piece_len, axis=0)
-    return torch.segment_reduce(partial, "sum", lengths=pieces, axis=0)
 
 
 def kmeanspp_rows(g: Tensor, k: int, generator: torch.Generator | None = None) -> Tensor:

@@ -1,8 +1,9 @@
-"""Deterministic synthetic kNN vectors (numpy only).
+"""Deterministic synthetic data (numpy only): kNN vectors and click logs.
 
-The port's own copy of the vector generators of ``repro/data/synthetic.py``:
-the same seeds give the same arrays in both packages, so the parity tests
-and ``chip_smoke.py`` can feed one dataset to either.
+The port's own copy of the vector generators and ``recsys_batch`` of
+``repro/data/synthetic.py``: the same seeds give the same arrays in both
+packages, bit for bit, so the parity tests and ``chip_smoke.py`` can feed
+one dataset to either.
 """
 from __future__ import annotations
 
@@ -33,3 +34,59 @@ def distribution_vectors(n: int, d: int, seed: int = 0) -> np.ndarray:
     g = _rng(seed)
     x = g.gamma(1.0, 1.0, (n, d)).astype(np.float32) + 1e-6
     return x / x.sum(axis=1, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
+# Click logs (recsys).
+# ---------------------------------------------------------------------------
+
+
+def recsys_batch(arch: str, batch: int, cfg, seed: int = 0, step: int = 0) -> dict:
+    """One training/serving batch for the given recsys architecture.
+
+    Ids are drawn as ``random() ** 2 * size``, so low ids repeat (hot rows).
+    Click labels come from a planted logistic model over a few hashed id
+    buckets, so CTR losses actually decrease while training (pure-noise
+    labels would plateau at ln 2).
+    """
+    g = _rng(seed, step)
+
+    def planted_labels(ids: np.ndarray) -> np.ndarray:
+        w = ((ids.astype(np.int64) * 2654435761) % 97 < 33).astype(np.float32)  # hidden pattern
+        # Standardize the field average: its raw std shrinks as 1/sqrt(n_fields),
+        # so without this the per-example logit collapses to a constant for wide
+        # models and the planted signal is unlearnable noise.  z is ~N(0, 1).
+        q = 33.0 / 97.0
+        z = (w.mean(axis=1) - q) / np.sqrt(q * (1.0 - q) / ids.shape[1])
+        p = 1.0 / (1.0 + np.exp(-1.5 * z))
+        return (g.random(len(p)) < p).astype(np.float32)
+
+    if arch == "dlrm-rm2":
+        sizes = np.asarray(cfg.sizes())
+        sparse = (g.random((batch, cfg.n_sparse)) ** 2 * sizes).astype(np.int32)
+        return {
+            "dense": g.standard_normal((batch, cfg.n_dense), dtype=np.float32),
+            "sparse": sparse,
+            "labels": planted_labels(sparse),
+        }
+    if arch == "xdeepfm":
+        sizes = np.asarray(cfg.sizes())
+        sparse = (g.random((batch, cfg.n_sparse)) ** 2 * sizes).astype(np.int32)
+        return {"sparse": sparse, "labels": planted_labels(sparse)}
+    if arch == "bst":
+        hist = (g.random((batch, cfg.seq_len - 1)) ** 2 * cfg.n_items).astype(np.int32)
+        target = (g.random((batch,)) ** 2 * cfg.n_items).astype(np.int32)
+        others = (g.random((batch, cfg.n_other)) * np.asarray(cfg.sizes())).astype(np.int32)
+        return {
+            "hist": hist,
+            "target": target,
+            "others": others,
+            "labels": planted_labels(np.concatenate([hist, target[:, None]], 1)),
+        }
+    if arch == "two-tower-retrieval":
+        user = (g.random((batch, cfg.n_user_fields)) ** 2
+                * np.asarray(cfg.u_sizes())).astype(np.int32)
+        item = (g.random((batch, cfg.n_item_fields)) ** 2
+                * np.asarray(cfg.i_sizes())).astype(np.int32)
+        return {"user": user, "item": item}
+    raise KeyError(arch)

@@ -1,0 +1,299 @@
+"""Train and serve step factories for the recommender models.
+
+Port of the recsys part of ``repro/distributed/steps.py``: ``TrainState``,
+``StepConfig`` (field for field), the optimizer choice, ``init_state``,
+gradient accumulation over micro-batches, ``make_train_step``,
+``recsys_loss``, ``make_recsys_serve_step`` and ``make_retrieval_step``.
+The language-model and GNN steps wait for their models' port.
+
+The reference jits each step with shardings derived from the logical axes.
+Here a step is a Python function over the params' tensors on their device,
+eager, updating them in place.  The factories keep the reference's return
+shape, so its callers read the same: ``_, jitted, _, opt =
+make_train_step(...)``, ``fn = jitted(batch)``, ``state, metrics =
+fn(state, batch)``.  What stands in those places is descriptive only:
+``jitted(batch_example)`` and ``shardings_for(...)`` return the step
+itself, and the returned shardings (``sharding.Sharding`` tuples, computed
+from the logical axes as the reference computes its own) place no tensor;
+every tensor of a step stays on its device, whole.  ``make_train_step``'s
+``batch_axes`` is taken for the same signature and read by nothing.
+
+Gradients.  Every leaf whose logical axes hold ``"table"`` is an embedding
+table; the forward sees it as a ``models.recsys.RowTap``, so its gradient
+comes back as one row per lookup and is summed per id
+(``train.optim.coalesce_rows``) into a ``RowGrad``: no table-sized
+gradient is ever made.  The dense leaves are differentiated by
+``torch.autograd`` as usual.  With ``micro_batches`` > 1 the batch's
+leading axis is cut into that many slices (an array whose leading axis does
+not divide is passed whole, as the reference does); the loss, metrics and
+gradients are the slices' means, so the two-tower loss takes an in-batch
+softmax within each slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.distributed.sharding import AxisRules, Sharding, axis_rules
+from repro_torch.models.nn import is_param, split_params, tree_leaves, tree_map
+from repro_torch.train import optim as O
+
+
+class TrainState(NamedTuple):
+    params: Any  # value tree (tensors), updated in place by each step
+    opt: O.OptState
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    optimizer: str = "adamw"
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    micro_batches: int = 1  # gradient accumulation over the batch dim
+    # Embedding tables ("table" logical axis) get ROW-WISE ADAGRAD instead
+    # of AdamW: one scalar of state a row, and untouched rows never move
+    # (train.optim.mixed_table_adamw).
+    table_rowwise: bool = True
+
+
+def table_mask(abstract_params):
+    """A bool tree: which leaves are embedding tables (``"table"`` in their axes)."""
+    _, axes = split_params(abstract_params)
+    return tree_map(lambda ax: isinstance(ax, tuple) and "table" in ax, axes,
+                    is_leaf=lambda x: isinstance(x, tuple))
+
+
+def _make_optimizer(sc: StepConfig, abstract_params=None) -> O.Optimizer:
+    if sc.optimizer != "adamw":
+        return O.sgdm()
+    if sc.table_rowwise and abstract_params is not None:
+        is_table = table_mask(abstract_params)
+        if any(tree_leaves(is_table)):
+            return O.mixed_table_adamw(is_table, weight_decay=sc.weight_decay)
+    return O.adamw(weight_decay=sc.weight_decay)
+
+
+def param_shardings(rules: AxisRules, abstract_params):
+    """(a ``Sharding`` tree, the value tree) of a ``Param`` tree."""
+    values, axes = split_params(abstract_params)
+    return tree_map(lambda v, ax: rules.sharding(ax, tuple(v.shape)), values, axes), values
+
+
+def state_shardings(rules: AxisRules, abstract_params) -> TrainState:
+    p_shard, _ = param_shardings(rules, abstract_params)
+    return TrainState(params=p_shard,
+                      opt=O.OptState(step=Sharding(rules.mesh, ()), m=p_shard, v=p_shard))
+
+
+def init_state(optimizer: O.Optimizer, params) -> TrainState:
+    """The train state of ``params`` (a ``Param`` tree or its values)."""
+    if any(is_param(leaf) for leaf in tree_leaves(params, is_leaf=is_param)):
+        params, _ = split_params(params)
+    return TrainState(params=params, opt=optimizer.init(params))
+
+
+def _slice_batch(batch: dict, i: int, n: int) -> dict:
+    def cut(x):
+        shape = getattr(x, "shape", ())
+        if len(shape) >= 1 and shape[0] % n == 0:
+            mb = shape[0] // n
+            return x[i * mb : (i + 1) * mb]
+        return x
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def loss_and_grads(loss_fn, values, batch: dict, is_table, n_micro: int = 1):
+    """((loss, metrics), grads) of ``loss_fn(values, batch)``, averaged over
+    ``n_micro`` slices of the batch.  ``grads`` has ``values``' structure:
+    a tensor for a dense leaf, a ``RowGrad`` for a table (``is_table``)."""
+    from repro_torch.models.recsys import RowTap
+
+    dense = []  # the dense leaves, as tensors that require grad, in traversal order
+
+    def wrap(v, tab):
+        if tab:
+            return None
+        d = v.detach().requires_grad_()
+        dense.append(d)
+        return d
+
+    live = tree_map(wrap, values, is_table)
+    acc_dense = [None] * len(dense)
+    lookups: list[tuple[list, list]] = []  # per table: (ids, gradient rows) of every slice
+    loss_sum, metrics_sum = None, {}
+    for i in range(n_micro):
+        taps = []
+
+        def tap(v, tab, d):
+            if not tab:
+                return d
+            taps.append(RowTap(v))
+            return taps[-1]
+
+        loss, metrics = loss_fn(tree_map(tap, values, is_table, live),
+                                _slice_batch(batch, i, n_micro) if n_micro > 1 else batch)
+        rows = [r for t in taps for r in t.rows]
+        gs = torch.autograd.grad(loss, dense + rows, allow_unused=True)
+        for j, (d, g) in enumerate(zip(dense, gs[: len(dense)])):
+            g = torch.zeros_like(d) if g is None else g
+            acc_dense[j] = g if acc_dense[j] is None else acc_dense[j] + g
+        if not lookups:
+            lookups = [([], []) for _ in taps]
+        g_rows = iter(gs[len(dense):])
+        for (ids, grads), t in zip(lookups, taps):
+            for lk in t.ids:
+                ids.append(lk)
+                grads.append(next(g_rows).reshape(len(lk), -1))
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+        for k, m in metrics.items():
+            m = m.detach()
+            metrics_sum[k] = m if k not in metrics_sum else metrics_sum[k] + m
+    inv = 1.0 / n_micro
+    scale = (lambda x: x) if n_micro == 1 else (lambda x: x * inv)
+    tables = iter([O.RowGrad(rg.ids, scale(rg.rows)) for rg in
+                   (O.coalesce_rows(torch.cat(ids), torch.cat(grads)) for ids, grads in lookups)])
+    dense_g = iter([scale(g) for g in acc_dense])
+    grads = tree_map(lambda v, tab: next(tables) if tab else next(dense_g), values, is_table)
+    return (scale(loss_sum), {k: scale(m) for k, m in metrics_sum.items()}), grads
+
+
+def make_train_step(
+    loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]],
+    abstract_params,
+    rules: AxisRules,
+    batch_axes: dict[str, tuple],
+    sc: StepConfig,
+):
+    """A train step for ``loss_fn(values, batch) -> (loss, metrics)``.
+
+    Returns ``(step, jitted, state_shardings, optimizer)``;
+    ``step(state, batch) -> (state, metrics)`` updates the params and the
+    optimizer state in place.  Its two halves are ``step.grads(state,
+    batch) -> ((loss, metrics), grads)`` (forward and backward) and
+    ``step.update(state, grads, metrics) -> (state, metrics)`` (the clip,
+    the schedule and the optimizer); ``step`` is the one then the other.
+    ``jitted``, the shardings and ``batch_axes`` keep the reference's
+    signature and are descriptive only (module docstring).
+    """
+    optimizer = _make_optimizer(sc, abstract_params)
+    schedule = O.warmup_cosine(sc.peak_lr, sc.warmup_steps, sc.total_steps)
+    st_shard = state_shardings(rules, abstract_params)
+    is_table = table_mask(abstract_params)
+
+    def grads_of(state: TrainState, batch):
+        with axis_rules(rules):
+            return loss_and_grads(loss_fn, state.params, batch, is_table, sc.micro_batches)
+
+    def update(state: TrainState, grads, metrics: dict):
+        if sc.grad_clip > 0:
+            grads, gnorm = O.clip_by_global_norm(grads, sc.grad_clip)
+            metrics = dict(metrics, grad_norm=gnorm)
+        lr = schedule(state.opt.step)
+        new_p, new_opt = optimizer.update(grads, state.opt, state.params, lr)
+        return TrainState(new_p, new_opt), dict(metrics, lr=lr)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        (_, metrics), grads = grads_of(state, batch)
+        return update(state, grads, metrics)
+
+    step.grads, step.update = grads_of, update
+
+    def jitted(batch_example):
+        return step
+
+    return step, jitted, st_shard, optimizer
+
+
+# ---------------------------------------------------------------------------
+# The recsys loss closures + batch axes.
+# ---------------------------------------------------------------------------
+
+
+def recsys_loss(arch: str, cfg):
+    from repro_torch.models import recsys as R
+
+    if arch == "two-tower-retrieval":
+        def loss(values, batch):
+            return R.two_tower_loss(values, batch, cfg)
+        axes = {"user": ("batch", None), "item": ("batch", None), "logq": ("batch",)}
+        return loss, axes
+
+    logit_fn = R.LOGIT_FNS[arch]
+
+    def loss(values, batch):
+        return R.bce_loss(logit_fn(values, batch, cfg), batch["labels"])
+
+    axes = {"dense": ("batch", None), "sparse": ("batch", None),
+            "hist": ("batch", None), "target": ("batch",),
+            "others": ("batch", None), "labels": ("batch",)}
+    return loss, axes
+
+
+# ---------------------------------------------------------------------------
+# Serve steps.
+# ---------------------------------------------------------------------------
+
+
+def make_recsys_serve_step(arch: str, cfg, rules: AxisRules, abstract_params):
+    """``(step, shardings_for, param_shardings)``; ``step(values, batch)`` is
+    the click probability of each row, ``shardings_for(batch)`` returns it."""
+    from repro_torch.models import recsys as R
+
+    p_shard, _ = param_shardings(rules, abstract_params)
+    if arch == "two-tower-retrieval":
+        raise ValueError("use make_retrieval_step for two-tower serving")
+    logit_fn = R.LOGIT_FNS[arch]
+
+    def step(values, batch):
+        with torch.no_grad(), axis_rules(rules):
+            return torch.sigmoid(logit_fn(values, batch, cfg))
+
+    def shardings_for(batch_example):
+        return step
+
+    return step, shardings_for, p_shard
+
+
+def make_retrieval_step(cfg, rules: AxisRules, abstract_params, *, k: int = 100,
+                        impl: str = "fused"):
+    """The two-tower ``retrieval_cand`` cell: embed the users with the user
+    tower, then score the candidates on the kNN engine
+    (``core.distributed.make_query_sharded`` over the rules' mesh, the
+    candidates sharded over the "table" axis, the users replicated,
+    ``neg_dot``) and keep the top ``k``.
+
+    ``step(values, user_ids [Q, n_user_fields], db [n, E])`` returns
+    (scores [Q, k], candidate rows [Q, k]), scores the dot products (the
+    engine's negated distances).  ``impl`` defaults to the port's
+    ``"fused"`` (the ``fused_knn`` kernel on the card), where the
+    reference's defaults to its plain ``"jnp"``.
+    """
+    from repro_torch.core import distributed as KD
+    from repro_torch.models import recsys as R
+
+    p_shard, _ = param_shardings(rules, abstract_params)
+    db_axes = rules.rules.get("table", ("model",))
+    db_axis = db_axes[0] if db_axes else "model"
+    knn = KD.make_query_sharded(rules.mesh, query_axis=(), db_axis=db_axis, k=k,
+                                distance="neg_dot", impl=impl)
+
+    def step(values, user_ids, db):
+        with torch.no_grad():
+            with axis_rules(rules):
+                u = R.user_embedding(values, user_ids)  # [Q, E]
+            n_db = db.shape[0]
+            db = KD.pad_rows_to(db.to(u.device), rules.mesh.shape[db_axis])
+            res = knn(u, db, n_db)
+        return -res.distances, res.indices
+
+    def shardings_for(user_example, db_example):
+        return step
+
+    return step, shardings_for, p_shard

@@ -1,34 +1,395 @@
-"""The two-tower retrieval model: user and item towers into one embedding space.
+"""RecSys substrate: embedding lookups and bags, and the four recommender models.
 
-Port of the two-tower part of ``repro/models/recsys.py``: the config, the
-table sizes, the initial state and the forward pass of both towers.  Each
-tower looks up one row per id field in its own table, concatenates the rows,
-runs a ReLU MLP and L2-normalises the output, so that ``-dot`` ranks by
-cosine (``serving.service``'s ``neg_dot``).
+Port of ``repro/models/recsys.py``:
 
-Params are a plain dict in the reference's layout (``split_params`` of
-``init_two_tower``): ``user_tables`` / ``item_tables``, lists of
-``[rows, feat_dim]`` fp32 tables, and ``user_mlp`` / ``item_mlp``, lists of
-``{"w": [in, out], "b": [out]}`` layers applied as ``x @ w + b``.
-``params_from_reference`` carries the reference's values across (numpy
-leaves); ``param_leaves`` lists them in the reference's leaf order.
+  * ``dlrm``      -- bottom MLP on the dense features, one table lookup per
+                    sparse field, the dot self-interaction of the
+                    [n_sparse + 1, D] features (upper triangle), top MLP;
+  * ``xdeepfm``   -- CIN (compressed interaction network) over the field
+                    embeddings + a DNN + a linear term, summed into one logit;
+  * ``bst``       -- Behavior Sequence Transformer: item + position
+                    embeddings, post-LN encoder blocks over the session,
+                    concatenated with the side fields into an MLP;
+  * ``two_tower`` -- user and item MLP towers into one unit-norm space, dot
+                    scoring, in-batch sampled softmax with logQ correction;
+                    retrieval serves on the kNN engine
+                    (``serving.service``, ``distributed.steps``).
 
-The products are plain fp32 matmuls (no Pallas kernel computes them in the
-reference).  The precision is the process's to set: on the card the towers
-refuse to run while TF32 is on (``apply_mlp``), rather than switch it off
-and on again around each call, which would change it under other threads.
+Params are plain dicts and lists in the reference's layout.  ``init_dlrm``,
+``init_xdeepfm``, ``init_bst`` and ``init_two_tower_params`` return trees of
+``nn.Param`` (a tensor and its logical axes, the reference's axes);
+``init_two_tower`` returns the towers' values alone, as the serving side
+takes them.  ``params_from_reference`` carries a reference init across
+(numpy leaves); ``param_leaves`` lists a tree's tensors in the reference's
+``jax.tree.leaves`` order.  Every function here reads a leaf through
+``_val``, so it takes a ``Param`` tree or a value tree alike.
+
+Training lookups.  Inside a train step (``distributed.steps``) each table
+leaf is a ``RowTap``: ``embedding_lookup`` gathers the rows into a fresh
+tensor that autograd differentiates and records the ids, so the backward
+pass yields one gradient row per lookup, which the step sums per id
+(``train.optim.coalesce_rows``).  The table never enters the autograd
+graph and no table-sized gradient exists.
+
+The products are IEEE fp32: on the card ``apply_mlp`` raises while the
+process lets cuBLAS use TF32 rather than switch it (every model runs an
+MLP).  The CIN's contraction is written out as one product of the
+[B * D, H_prev * F] outer products with the [H, H_prev * F] weights
+(``cin_layer``), the cheapest order there is; its [B, D, H_prev, F]
+operand is the step's largest transient, which is why xDeepFM trains its
+full batch in micro-batches (``PERF.md``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core.segments import group_sums
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels._backend import resolve_device
+from repro_torch.models.nn import (
+    Param,
+    apply_layernorm,
+    is_param,
+    layernorm_params,
+    lecun_init,
+    n_params as _n_params,
+    normal_init,
+    require_fp32_products,
+    split_params,
+    tree_leaves,
+    tree_map,
+)
 
 Tensor = torch.Tensor
+
+
+def _val(p):
+    return p.value if is_param(p) else p
+
+
+def default_table_sizes(n: int, lo: int = 10_000, hi: int = 40_000_000) -> list[int]:
+    """Deterministic Criteo-like skewed size mix (a few huge, many small),
+    each rounded up to a multiple of 1024, as the reference's."""
+    out = []
+    for i in range(n):
+        # log-spaced with a deterministic scramble, heaviest first
+        f = ((i * 2654435761) % 997) / 997.0
+        s = int(lo * (hi / lo) ** ((1.0 - f) ** 2))
+        out.append(s + (-s) % 1024)
+    return out
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
+def _generator(generator, dev):
+    if generator is None and dev.type != "meta":
+        return torch.Generator(dev).manual_seed(0)
+    return generator
+
+
+# ---------------------------------------------------------------------------
+# Embedding lookups.
+# ---------------------------------------------------------------------------
+
+
+class RowTap:
+    """A table inside a train step's forward (module docstring): each lookup
+    gathers its rows into a new leaf that requires grad and records the ids
+    beside it; ``table`` stays out of the autograd graph."""
+
+    def __init__(self, table: Tensor):
+        self.table = table
+        self.ids: list[Tensor] = []
+        self.rows: list[Tensor] = []
+
+    def lookup(self, ids: Tensor) -> Tensor:
+        rows = self.table[ids].requires_grad_()
+        self.ids.append(ids.reshape(-1))
+        self.rows.append(rows)
+        return rows
+
+
+def init_table(n_rows: int, dim: int, *, generator=None, device="cuda") -> Param:
+    dev = _device(device)
+    return Param(normal_init(_generator(generator, dev), (n_rows, dim), 1.0 / dim ** 0.5,
+                             device=dev), ("table", None))
+
+
+def embedding_lookup(table, ids) -> Tensor:
+    """Single-valued lookup: ids ``[...]`` -> ``[..., D]`` (int64 offsets, so
+    a table past 2^31 elements is read whole)."""
+    t = _val(table)
+    base = t.table if isinstance(t, RowTap) else t
+    ids = torch.as_tensor(ids).to(device=base.device, dtype=torch.long)
+    return t.lookup(ids) if isinstance(t, RowTap) else base[ids]
+
+
+def embedding_bag(table, ids, bag_ids, n_bags: int, weights=None, mode: str = "sum") -> Tensor:
+    """Multi-valued pooled lookup (torch's ``EmbeddingBag``): ids [nnz] row
+    indices, bag_ids [nnz] the bag of each (sorted or not); returns
+    [n_bags, D].  ``mode``: sum | mean.  The bags are summed in an order set
+    by ``bag_ids`` (``core.segments.group_sums``), never by atomics."""
+    rows = embedding_lookup(table, ids)
+    bag_ids = torch.as_tensor(bag_ids).to(device=rows.device, dtype=torch.long)
+    if weights is not None:
+        rows = rows * torch.as_tensor(weights).to(rows.device, rows.dtype)[:, None]
+    out, cnt = group_sums(rows, bag_ids, n_bags)
+    if mode == "mean":
+        out = out / torch.clamp_min(cnt.to(out.dtype), 1.0)[:, None]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLPs (the recsys towers are plain ReLU stacks).
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(sizes: Sequence[int], *, generator=None, device="cuda", hidden_axis="tensor"):
+    """``[{"w": Param [in, out], "b": Param [out]}, ...]``: w N(0, 1/fan_in),
+    b zero; the hidden layers' output axis ``hidden_axis``, the last's None."""
+    dev = _device(device)
+    g = _generator(generator, dev)
+    layers = []
+    for i in range(len(sizes) - 1):
+        ax_out = hidden_axis if i < len(sizes) - 2 else None
+        layers.append({"w": Param(lecun_init(g, (sizes[i], sizes[i + 1]), sizes[i], device=dev),
+                                  (None, ax_out)),
+                       "b": Param(torch.zeros(sizes[i + 1], device=dev), (ax_out,))})
+    return layers
+
+
+def apply_mlp(layers, x: Tensor, act=torch.relu, final_act=None) -> Tensor:
+    """``x @ w + b`` per layer, ``act`` between layers, ``final_act`` after
+    the last.
+
+    On the card the products must be IEEE fp32: this raises while the
+    process lets cuBLAS use TF32 (``nn.require_fp32_products``).
+    """
+    require_fp32_products(x)
+    for i, layer in enumerate(layers):
+        x = torch.addmm(_val(layer["b"]), x, _val(layer["w"]))
+        if i < len(layers) - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def _dense_input(x, like: Tensor) -> Tensor:
+    return torch.as_tensor(x).to(device=like.device, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# DLRM (arXiv:1906.00091, RM2 scale).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 64
+    bot_mlp: tuple[int, ...] = (512, 256, 64)
+    top_mlp: tuple[int, ...] = (512, 512, 256, 1)
+    table_sizes: tuple[int, ...] = ()  # len == n_sparse; configs fill this
+
+    def sizes(self) -> tuple[int, ...]:
+        if self.table_sizes:
+            assert len(self.table_sizes) == self.n_sparse
+            return self.table_sizes
+        return tuple(default_table_sizes(self.n_sparse))
+
+
+def init_dlrm(cfg: DLRMConfig, *, generator=None, device="cuda"):
+    dev = _device(device)
+    g = _generator(generator, dev)
+    n_feat = cfg.n_sparse + 1
+    n_inter = n_feat * (n_feat - 1) // 2
+    return {
+        "tables": [init_table(s, cfg.embed_dim, generator=g, device=dev) for s in cfg.sizes()],
+        "bot": init_mlp((cfg.n_dense,) + tuple(cfg.bot_mlp), generator=g, device=dev),
+        "top": init_mlp((n_inter + cfg.embed_dim,) + tuple(cfg.top_mlp), generator=g,
+                        device=dev),
+    }
+
+
+def dlrm_logits(params, batch, cfg: DLRMConfig) -> Tensor:
+    """batch: dense [B, 13] float, sparse [B, 26] int (one id per field)."""
+    w0 = _val(params["bot"][0]["w"])
+    x_bot = apply_mlp(params["bot"], _dense_input(batch["dense"], w0))  # [B, D]
+    sparse = torch.as_tensor(batch["sparse"]).to(device=w0.device, dtype=torch.long)
+    embs = [embedding_lookup(t, sparse[:, i]) for i, t in enumerate(params["tables"])]
+    feats = constrain(torch.stack([x_bot] + embs, dim=1), ("batch", None, None))  # [B, F, D]
+    inter = torch.bmm(feats, feats.transpose(1, 2))  # the dot interaction
+    iu, ju = torch.triu_indices(feats.shape[1], feats.shape[1], offset=1, device=w0.device)
+    top_in = torch.cat([inter[:, iu, ju], x_bot], dim=-1)  # [B, F(F-1)/2 + D]
+    return apply_mlp(params["top"], top_in)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# xDeepFM (arXiv:1803.05170).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class XDeepFMConfig:
+    n_sparse: int = 39
+    embed_dim: int = 10
+    cin_layers: tuple[int, ...] = (200, 200, 200)
+    mlp: tuple[int, ...] = (400, 400)
+    table_sizes: tuple[int, ...] = ()
+
+    def sizes(self):
+        if self.table_sizes:
+            assert len(self.table_sizes) == self.n_sparse
+            return self.table_sizes
+        return tuple(default_table_sizes(self.n_sparse, hi=10_000_000))
+
+
+def init_xdeepfm(cfg: XDeepFMConfig, *, generator=None, device="cuda"):
+    dev = _device(device)
+    g = _generator(generator, dev)
+    F_ = cfg.n_sparse
+    tables = [init_table(s, cfg.embed_dim, generator=g, device=dev) for s in cfg.sizes()]
+    lin = [Param(normal_init(g, (s, 1), 0.01, device=dev), ("table", None))
+           for s in cfg.sizes()]
+    cin, h_prev = [], F_
+    for h in cfg.cin_layers:
+        cin.append(Param(lecun_init(g, (h, h_prev, F_), h_prev * F_, device=dev),
+                         ("tensor", None, None)))
+        h_prev = h
+    return {
+        "tables": tables,
+        "lin_tables": lin,
+        "cin": cin,
+        "mlp": init_mlp((F_ * cfg.embed_dim,) + tuple(cfg.mlp) + (1,), generator=g, device=dev),
+        "out_cin": Param(lecun_init(g, (sum(cfg.cin_layers), 1), sum(cfg.cin_layers),
+                                    device=dev), (None, None)),
+        "bias": Param(torch.zeros((), device=dev), ()),
+    }
+
+
+def cin_layer(xs: Tensor, x0: Tensor, w: Tensor) -> Tensor:
+    """One CIN layer: ``out[b,h,d] = sum_{i,j} w[h,i,j] xs[b,i,d] x0[b,j,d]``
+    (``jnp.einsum("bid,bjd,hij->bhd")``) as the outer products
+    [B, D, H_prev, F] times ``w`` reshaped [H, H_prev * F]: one product, no
+    [B, H, H_prev, D] or [B, H, F, D] operand."""
+    B, Hp, D = xs.shape
+    H = w.shape[0]
+    z = xs.transpose(1, 2)[:, :, :, None] * x0.transpose(1, 2)[:, :, None, :]  # [B, D, Hp, F]
+    out = z.reshape(B * D, Hp * x0.shape[1]) @ w.reshape(H, -1).T  # [B * D, H]
+    return out.reshape(B, D, H).transpose(1, 2)
+
+
+def xdeepfm_logits(params, batch, cfg: XDeepFMConfig) -> Tensor:
+    """batch: sparse [B, 39] int.  logit = linear + CIN + DNN + bias."""
+    bias = _val(params["bias"])
+    sparse = torch.as_tensor(batch["sparse"]).to(device=bias.device, dtype=torch.long)
+    x0 = torch.stack([embedding_lookup(t, sparse[:, i])
+                      for i, t in enumerate(params["tables"])], dim=1)  # [B, F, D]
+    x0 = constrain(x0, ("batch", None, None))
+    lin = sum(embedding_lookup(t, sparse[:, i])[:, 0]
+              for i, t in enumerate(params["lin_tables"]))  # first-order term
+    xs, pooled = x0, []
+    for wk in params["cin"]:
+        xs = constrain(cin_layer(xs, x0, _val(wk)), ("batch", "tensor", None))
+        pooled.append(xs.sum(-1))  # [B, H]
+    cin_out = torch.cat(pooled, dim=-1) @ _val(params["out_cin"])  # [B, 1]
+    dnn = apply_mlp(params["mlp"], x0.reshape(x0.shape[0], -1))  # [B, 1]
+    return lin + cin_out[:, 0] + dnn[:, 0] + bias
+
+
+# ---------------------------------------------------------------------------
+# BST: Behavior Sequence Transformer (arXiv:1905.06874).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BSTConfig:
+    embed_dim: int = 32
+    seq_len: int = 20
+    n_blocks: int = 1
+    n_heads: int = 8
+    mlp: tuple[int, ...] = (1024, 512, 256)
+    n_items: int = 4_000_000
+    n_other: int = 8  # side-feature fields (user profile / context)
+    other_sizes: tuple[int, ...] = ()
+
+    def sizes(self):
+        if self.other_sizes:
+            return self.other_sizes
+        return tuple(default_table_sizes(self.n_other, hi=1_000_000))
+
+
+def init_bst(cfg: BSTConfig, *, generator=None, device="cuda"):
+    dev = _device(device)
+    g = _generator(generator, dev)
+    D = cfg.embed_dim
+
+    def w(shape, fan_in, axes):
+        return Param(lecun_init(g, shape, fan_in, device=dev), axes)
+
+    items = init_table(cfg.n_items, D, generator=g, device=dev)
+    pos = Param(normal_init(g, (cfg.seq_len, D), 0.02, device=dev), (None, None))
+    others = [init_table(s, D, generator=g, device=dev) for s in cfg.sizes()]
+    blocks = [{
+        "wq": w((D, D), D, (None, "tensor")),
+        "wk": w((D, D), D, (None, "tensor")),
+        "wv": w((D, D), D, (None, "tensor")),
+        "wo": w((D, D), D, ("tensor", None)),
+        "ln1": layernorm_params(D, device=dev),
+        "ln2": layernorm_params(D, device=dev),
+        "ff1": w((D, 4 * D), D, (None, "tensor")),
+        "ff2": w((4 * D, D), 4 * D, ("tensor", None)),
+    } for _ in range(cfg.n_blocks)]
+    # seq_len counts the session including the target item (paper Fig. 1):
+    # hist is [B, seq_len - 1], the target appended as the last position.
+    mlp_in = cfg.seq_len * D + cfg.n_other * D
+    return {"items": items, "pos": pos, "others": others, "blocks": blocks,
+            "mlp": init_mlp((mlp_in,) + tuple(cfg.mlp) + (1,), generator=g, device=dev)}
+
+
+def _bst_block(bp, x: Tensor, n_heads: int) -> Tensor:
+    """Post-LN encoder block over [B, S, D] (no causal mask: session attention)."""
+    B, S, D = x.shape
+    hd = D // n_heads
+    q = (x @ _val(bp["wq"])).reshape(B, S, n_heads, hd)
+    k = (x @ _val(bp["wk"])).reshape(B, S, n_heads, hd)
+    v = (x @ _val(bp["wv"])).reshape(B, S, n_heads, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    a = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D)
+    x = apply_layernorm(bp["ln1"], x + o @ _val(bp["wo"]))
+    ff = torch.relu(x @ _val(bp["ff1"])) @ _val(bp["ff2"])
+    return apply_layernorm(bp["ln2"], x + ff)
+
+
+def bst_logits(params, batch, cfg: BSTConfig) -> Tensor:
+    """batch: hist [B, S-1] item ids, target [B], others [B, n_other]."""
+    pos = _val(params["pos"])
+    ids = lambda key: torch.as_tensor(batch[key]).to(device=pos.device, dtype=torch.long)  # noqa: E731
+    seq_ids = torch.cat([ids("hist"), ids("target")[:, None]], dim=1)  # [B, S]
+    x = constrain(embedding_lookup(params["items"], seq_ids) + pos[None], ("batch", None, None))
+    for bp in params["blocks"]:
+        x = _bst_block(bp, x, cfg.n_heads)
+    others = ids("others")
+    side = [embedding_lookup(t, others[:, i]) for i, t in enumerate(params["others"])]
+    flat = torch.cat([x.reshape(x.shape[0], -1)] + side, dim=-1)
+    return apply_mlp(params["mlp"], flat)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Two-tower retrieval (YouTube/RecSys'19-style sampled softmax).
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,130 +410,41 @@ class TwoTowerConfig:
         return self.item_sizes or tuple(default_table_sizes(self.n_item_fields, hi=10_000_000))
 
 
-def default_table_sizes(n: int, lo: int = 10_000, hi: int = 40_000_000) -> list[int]:
-    """Deterministic Criteo-like skewed size mix (a few huge, many small),
-    each rounded up to a multiple of 1024, as the reference's."""
-    out = []
-    for i in range(n):
-        # log-spaced with a deterministic scramble, heaviest first
-        f = ((i * 2654435761) % 997) / 997.0
-        s = int(lo * (hi / lo) ** ((1.0 - f) ** 2))
-        out.append(s + (-s) % 1024)
-    return out
-
-
-# -- initial state -----------------------------------------------------------
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    return dev if dev.type == "meta" else resolve_device(dev)
-
-
-def _normal(shape, std: float, generator, device) -> Tensor:
-    if device.type == "meta":
-        return torch.empty(shape, device=device)
-    return torch.randn(shape, generator=generator, device=device).mul_(std)
-
-
-def _mlp(sizes, generator, device) -> list[dict]:
-    """ReLU stack weights: w N(0, 1/fan_in) ``[in, out]``, b zero."""
-    return [{"w": _normal((sizes[i], sizes[i + 1]), 1.0 / math.sqrt(max(sizes[i], 1)),
-                          generator, device),
-             "b": torch.zeros(sizes[i + 1], device=device)}
-            for i in range(len(sizes) - 1)]
+def init_two_tower_params(cfg: TwoTowerConfig, *, generator=None, device="cuda"):
+    """The towers' initial ``Param`` tree, drawn on ``device`` from
+    ``generator`` in the order user tables, item tables, user MLP, item MLP
+    (``init_two_tower`` gives its values)."""
+    dev = _device(device)
+    g = _generator(generator, dev)
+    return {
+        "user_tables": [init_table(s, cfg.feat_dim, generator=g, device=dev)
+                        for s in cfg.u_sizes()],
+        "item_tables": [init_table(s, cfg.feat_dim, generator=g, device=dev)
+                        for s in cfg.i_sizes()],
+        "user_mlp": init_mlp((cfg.n_user_fields * cfg.feat_dim,) + tuple(cfg.tower_mlp),
+                             generator=g, device=dev),
+        "item_mlp": init_mlp((cfg.n_item_fields * cfg.feat_dim,) + tuple(cfg.tower_mlp),
+                             generator=g, device=dev),
+    }
 
 
 def init_two_tower(cfg: TwoTowerConfig, *, generator: torch.Generator | None = None,
                    device="cuda") -> dict:
-    """The towers' initial state, drawn on ``device`` from ``generator``.
+    """The towers' initial values, drawn on ``device`` from ``generator``.
 
     Tables N(0, 1/feat_dim), MLP weights N(0, 1/fan_in), biases zero: the
     reference's distributions (``models/nn.py``'s ``normal_init`` and
     ``lecun_init``).  ``generator`` is a ``torch.Generator`` on ``device``'s
-    type (default: a fresh one seeded 0), drawn in the order user tables,
-    item tables, user MLP, item MLP; it cannot replay ``jax.random``, so
-    the values differ from the reference's (carry those across with
+    type (default: a fresh one seeded 0); it cannot replay ``jax.random``,
+    so the values differ from the reference's (carry those across with
     ``params_from_reference``).  ``device="meta"`` gives the shapes with no
     allocation.
     """
-    dev = _device(device)
-    if generator is None and dev.type != "meta":
-        generator = torch.Generator(dev).manual_seed(0)
-    std = 1.0 / math.sqrt(cfg.feat_dim)
-    return {
-        "user_tables": [_normal((s, cfg.feat_dim), std, generator, dev) for s in cfg.u_sizes()],
-        "item_tables": [_normal((s, cfg.feat_dim), std, generator, dev) for s in cfg.i_sizes()],
-        "user_mlp": _mlp((cfg.n_user_fields * cfg.feat_dim,) + tuple(cfg.tower_mlp),
-                         generator, dev),
-        "item_mlp": _mlp((cfg.n_item_fields * cfg.feat_dim,) + tuple(cfg.tower_mlp),
-                         generator, dev),
-    }
+    return split_params(init_two_tower_params(cfg, generator=generator, device=device))[0]
 
 
-def params_from_reference(values, *, device="cuda") -> dict:
-    """The reference's two-tower values (``split_params(init_two_tower(...))[0]``
-    with numpy leaves) as the port's params on ``device``."""
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
-
-    return {
-        "user_tables": [t(a) for a in values["user_tables"]],
-        "item_tables": [t(a) for a in values["item_tables"]],
-        "user_mlp": [{"w": t(layer["w"]), "b": t(layer["b"])} for layer in values["user_mlp"]],
-        "item_mlp": [{"w": t(layer["w"]), "b": t(layer["b"])} for layer in values["item_mlp"]],
-    }
-
-
-def param_leaves(params) -> list[Tensor]:
-    """The leaves in the reference's ``jax.tree.leaves`` order: dict keys
-    sorted, lists in order, so
-
-        item_mlp[i].b, item_mlp[i].w (i = 0, 1, ...), item_tables[j],
-        user_mlp[i].b, user_mlp[i].w, user_tables[j].
-    """
-    out = []
-    for key in ("item_mlp", "item_tables", "user_mlp", "user_tables"):
-        for leaf in params[key]:
-            out.extend((leaf["b"], leaf["w"]) if isinstance(leaf, dict) else (leaf,))
-    return out
-
-
-def n_params(params) -> int:
-    return sum(leaf.numel() for leaf in param_leaves(params))
-
-
-# -- forward -----------------------------------------------------------------
-
-
-def embedding_lookup(table: Tensor, ids: Tensor) -> Tensor:
-    """Single-valued lookup: ids ``[...]`` -> ``[..., D]``."""
-    return table[ids]
-
-
-def apply_mlp(layers, x: Tensor) -> Tensor:
-    """``x @ w + b`` per layer, ReLU between layers, none after the last.
-
-    On the card the products must be IEEE fp32: this raises while the
-    process lets cuBLAS use TF32 (``torch.backends.cuda.matmul.allow_tf32``,
-    or a ``torch.set_float32_matmul_precision`` below ``"highest"``).
-    """
-    if x.is_cuda and (torch.backends.cuda.matmul.allow_tf32
-                      or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("the towers' products are fp32, but TF32 is on: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False and "
-                           "torch.set_float32_matmul_precision('highest')")
-    for i, layer in enumerate(layers):
-        x = torch.addmm(layer["b"], x, layer["w"])
-        if i < len(layers) - 1:
-            x = torch.relu_(x)
-    return x
-
-
-def _tower(tables, mlp, ids: Tensor) -> Tensor:
-    ids = ids.to(device=tables[0].device, dtype=torch.long)
+def _tower(tables, mlp, ids) -> Tensor:
+    ids = torch.as_tensor(ids).to(device=_val(mlp[0]["w"]).device, dtype=torch.long)
     x = torch.cat([embedding_lookup(t, ids[:, i]) for i, t in enumerate(tables)], dim=-1)
     x = apply_mlp(mlp, x)
     return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -180,9 +452,81 @@ def _tower(tables, mlp, ids: Tensor) -> Tensor:
 
 def user_embedding(params, user_ids) -> Tensor:
     """``[B, n_user_fields]`` ids -> ``[B, embed]`` unit rows."""
-    return _tower(params["user_tables"], params["user_mlp"], torch.as_tensor(user_ids))
+    return _tower(params["user_tables"], params["user_mlp"], user_ids)
 
 
 def item_embedding(params, item_ids) -> Tensor:
     """``[B, n_item_fields]`` ids -> ``[B, embed]`` unit rows."""
-    return _tower(params["item_tables"], params["item_mlp"], torch.as_tensor(item_ids))
+    return _tower(params["item_tables"], params["item_mlp"], item_ids)
+
+
+def two_tower_loss(params, batch, cfg: TwoTowerConfig):
+    """In-batch sampled softmax with logQ correction.
+
+    batch: user [B, n_user_fields], item [B, n_item_fields], optional logq
+    [B] (the sampling log-probability of each in-batch item).
+    """
+    u = constrain(user_embedding(params, batch["user"]), ("batch", None))  # [B, E]
+    v = item_embedding(params, batch["item"])  # [B, E]
+    logits = (u @ v.T) / cfg.temperature  # [B, B]
+    if batch.get("logq") is not None:
+        logits = logits - _dense_input(batch["logq"], u)[None, :]
+    labels = torch.arange(u.shape[0], device=u.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = torch.mean(-logp[labels, labels])
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, {"loss": loss, "in_batch_acc": acc}
+
+
+# ---------------------------------------------------------------------------
+# Pointwise CTR loss shared by dlrm / xdeepfm / bst.
+# ---------------------------------------------------------------------------
+
+
+def bce_loss(logits: Tensor, labels):
+    """Numerically stable binary cross entropy from logits."""
+    x = logits.float()
+    y = _dense_input(labels, x)
+    nll = -(y * F.logsigmoid(x) + (1.0 - y) * F.logsigmoid(-x))
+    loss = torch.mean(nll)
+    return loss, {"loss": loss}
+
+
+LOGIT_FNS = {
+    "dlrm-rm2": dlrm_logits,
+    "xdeepfm": xdeepfm_logits,
+    "bst": bst_logits,
+}
+
+INIT_FNS = {
+    "dlrm-rm2": init_dlrm,
+    "xdeepfm": init_xdeepfm,
+    "bst": init_bst,
+    "two-tower-retrieval": init_two_tower_params,
+}
+
+
+# ---------------------------------------------------------------------------
+# Crossing from the reference, and the reference's leaf order.
+# ---------------------------------------------------------------------------
+
+
+def params_from_reference(values, *, device="cuda"):
+    """A reference value tree (``split_params(init_*(...))[0]`` with numpy
+    leaves, any of the four models) as the port's values on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=dev), values)
+
+
+def param_leaves(params) -> list[Tensor]:
+    """The tensors in the reference's ``jax.tree.leaves`` order: dict keys
+    sorted, lists in order; for the towers
+
+        item_mlp[i].b, item_mlp[i].w (i = 0, 1, ...), item_tables[j],
+        user_mlp[i].b, user_mlp[i].w, user_tables[j].
+    """
+    return [_val(p) for p in tree_leaves(params, is_leaf=is_param)]
+
+
+def n_params(params) -> int:
+    return _n_params(params)

@@ -49,6 +49,12 @@ def test_import_works_with_jax_blocked():
         "import repro_torch.kernels.pq_scan, repro_torch.core.pq\n"
         "import repro_torch.serving.service, repro_torch.launch.serve\n"
         "import repro_torch.configs.two_tower, repro_torch.models.recsys\n"
+        "import repro_torch.models.nn, repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.steps, repro_torch.train.optim\n"
+        "import repro_torch.configs.registry, repro_torch.configs.base\n"
+        "from repro_torch.configs import registry\n"
+        "for arch_id in registry.ASSIGNED:\n"
+        "    registry.get(arch_id).abstract_params(registry.get(arch_id).full_config())\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card, held against their plain versions,
+and the recommender's trainer on the card held against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports torch and the port only, so it runs where JAX is absent:
@@ -1777,3 +1778,108 @@ def test_service_lifecycle_and_shards_on_the_card(cuda, tmp_path):
     got = svc.recommend(keys + 5000, users)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The recommender's trainer: row-sparse table updates on the card.
+# ---------------------------------------------------------------------------
+
+
+def _rowwise(table, ids, rows, lr=0.05):
+    """One row-wise Adagrad update of ``table`` from per-lookup gradients
+    (``ids``, ``rows``), on ``table``'s device: (table, accumulator)."""
+    from repro_torch.train import optim as O
+
+    opt = O.mixed_table_adamw({"t": True})
+    params = {"t": table}
+    state = opt.init(params)
+    grads, _ = O.clip_by_global_norm({"t": O.coalesce_rows(ids, rows)}, 1.0)
+    opt.update(grads, state, params, lr)
+    return params["t"], state.m["t"]
+
+
+def test_row_sparse_update_on_the_card_matches_the_cpu_and_repeats_byte_equal(cuda):
+    """65,536 lookups into 4,096 rows, drawn as ``recsys_batch`` draws ids
+    (low rows repeated hundreds of times): the card's coalesced update equals
+    the CPU's within fp32 rounding, untouched rows keep their bytes, and two
+    runs on the card give the same bytes (no atomics)."""
+    g = np.random.default_rng(0)
+    table = torch.from_numpy(g.standard_normal((4096, 64)).astype(np.float32))
+    ids = torch.from_numpy((g.random(65536) ** 2 * 3500).astype(np.int64))
+    rows = torch.from_numpy(g.standard_normal((65536, 64)).astype(np.float32))
+    want_t, want_m = _rowwise(table.clone(), ids, rows)
+    runs = [_rowwise(table.to(cuda, copy=True), ids.to(cuda), rows.to(cuda)) for _ in range(2)]
+    for got_t, got_m in runs:
+        torch.testing.assert_close(got_t.cpu(), want_t, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got_m.cpu(), want_m, rtol=1e-5, atol=0.0)
+        assert torch.equal(got_t[3500:].cpu(), table[3500:])  # never looked up
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("arch_id", ["dlrm-rm2", "xdeepfm", "bst", "two-tower-retrieval"])
+def test_train_steps_of_each_arch_on_the_card_match_the_cpu(cuda, arch_id):
+    """Three steps at ``smoke_config()`` from one start: losses and params on
+    the card within rtol 1e-4 and atol 1e-5 of the CPU's; a second run on the
+    card byte-equal to the first."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys as P
+    from repro_torch.models.nn import split_params, tree_map
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    sc = STP.StepConfig(peak_lr=5e-3, warmup_steps=1, total_steps=100,
+                        micro_batches=2 if arch_id == "two-tower-retrieval" else 1)
+    values, _ = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                              device="cpu"))
+
+    def run(dev):
+        rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+        loss, baxes = STP.recsys_loss(arch_id, cfg)
+        step, _, _, opt = STP.make_train_step(loss, arch.abstract_params(cfg), rules, baxes, sc)
+        state = STP.init_state(opt, tree_map(lambda t: t.to(dev, copy=True), values))
+        losses = []
+        for i in range(3):
+            state, m = step(state, recsys_batch(arch_id, 64, cfg, step=i))
+            losses.append(float(m["loss"]))
+        return losses, [t.cpu() for t in P.param_leaves(state.params)]
+
+    want_l, want_p = run(torch.device("cpu"))
+    got_l, got_p = run(cuda)
+    again_l, again_p = run(cuda)
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got_p, want_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert got_l == again_l and all(torch.equal(a, b) for a, b in zip(got_p, again_p))
+
+
+def test_an_update_reaches_the_last_row_of_a_table_past_2_31_elements(cuda):
+    """A table of 2^31 + 2^16 elements (8.6 GB): a lookup and a row-wise
+    update at its last row and at the rows around element 2^31 land where
+    int64 offsets put them, and the rows between keep their bytes."""
+    from repro_torch.models import recsys as P
+
+    D = 64
+    R = (1 << 31) // D + 1024
+    table = torch.zeros(R, D, device=cuda)
+    edge = (1 << 31) // D
+    ids = torch.tensor([R - 1, R - 1, edge, edge - 1, 5], device=cuda)
+    table[ids] = torch.arange(5 * D, device=cuda, dtype=torch.float32).reshape(5, D)[[0, 0, 2, 3, 4]]
+    looked = P.embedding_lookup(table, ids)
+    assert torch.equal(looked.cpu(), table.index_select(0, ids).cpu())
+    before = table.index_select(0, ids).cpu()
+    rows = torch.ones(5, D, device=cuda)
+    table, acc = _rowwise(table, ids, rows, lr=0.5)
+    after = table.index_select(0, ids).cpu()
+    scale = min(1.0, 1.0 / float(np.sqrt(2 * 2 * D + 3 * D)))  # the clip over the coalesced rows
+    for j, dup in ((0, 2), (2, 1), (3, 1), (4, 1)):
+        g = dup * scale
+        want = before[j] - 0.5 * g / np.sqrt(g * g + 1e-8)
+        torch.testing.assert_close(after[j], want, rtol=1e-6, atol=1e-6)
+    assert float(acc[R - 1, 0]) > 0 and float(acc[edge, 0]) > 0
+    assert not table[edge + 1 : R - 1].any()  # the rows between: untouched zeros
+    del table, acc
+    torch.cuda.empty_cache()

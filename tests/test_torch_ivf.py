@@ -84,24 +84,25 @@ def test_lloyd_generator_start_is_deterministic_and_assigns_all_rows():
 @pytest.mark.parametrize("n,k,d", [(5000, 37, 8), (64, 64, 3), (1, 4, 16), (3000, 2, 256)])
 def test_cluster_sums_fix_their_order(n, k, d):
     """ROADMAP F3: the re-centring's sums run in an order fixed by the
-    assignment alone.  On the CPU (one segment a cluster) they are
-    ``index_add_``'s, bit for bit; the card's pieces (``_piecewise_sums``,
-    here on CPU tensors) agree to fp32 rounding, the same bits every time;
-    an empty cluster sums to 0.  The prefix sum of k-means++ matches
+    assignment alone (``core.segments``).  On the CPU (one segment a
+    cluster) they are ``index_add_``'s, bit for bit; the card's pieces
+    (``_piecewise_sums``, here on CPU tensors) agree to fp32 rounding, the
+    same bits every time; an empty cluster sums to 0.  The prefix sum of k-means++ matches
     ``cumsum`` to float64 rounding."""
     from repro_torch.core import kmeans as KM
+    from repro_torch.core import segments as SEG
 
     g = torch.from_numpy(np.random.default_rng(n).standard_normal((n, d)).astype(np.float32))
     a = torch.from_numpy(np.random.default_rng(k).integers(0, k, n))
     a[a == k - 1] = 0  # at least one empty cluster
     want = torch.zeros(k, d).index_add_(0, a, g)
-    sums, cnt = KM.cluster_sums(g, a, k)
+    sums, cnt = SEG.group_sums(g, a, k)
     assert torch.equal(sums, want)
     assert torch.equal(cnt, torch.bincount(a, minlength=k))
     rows = g[torch.argsort(a, stable=True)]
-    piecewise = KM._piecewise_sums(rows, cnt)
+    piecewise = SEG._piecewise_sums(rows, cnt)
     torch.testing.assert_close(piecewise, want, rtol=1e-5, atol=1e-4)
-    assert torch.equal(piecewise, KM._piecewise_sums(rows.clone(), cnt.clone()))
+    assert torch.equal(piecewise, SEG._piecewise_sums(rows.clone(), cnt.clone()))
     assert not piecewise[k - 1].any()
     x = torch.from_numpy(np.random.default_rng(1).random(n * 7 + 3))
     torch.testing.assert_close(KM._ordered_cumsum(x), torch.cumsum(x, 0), rtol=1e-12,
