@@ -18,7 +18,7 @@ Phases (each one raises on a failed check; nothing is caught):
    ring, CTAs per SM, shared memory and column splits reported.  Then
    ``stream_topk`` at the card's cap, k = 4096, on rows 0..1023 of that
    matrix, equal to its plain version.  Then the per-tile
-   ``knn_allpairs(impl="kernel", symmetric=True)`` at n = 32,768.
+   ``knn_allpairs(impl="kernel", symmetric=True)`` at n = 16,384.
 3b. The paper's two phases with the generic distance: rows 0..1023 against
    all 160,000 through ``pairwise_distance(cumulative=True)`` (the
    per-coordinate kernel, sqeuclidean) then ``stream_topk`` at k = 100; the
@@ -200,10 +200,10 @@ Phases (each one raises on a failed check; nothing is caught):
    rows a step), through ``RecsysArch.build``: 13a the two-tower model (44.5
    GB of tables, 8 micro-batches), each sampled touched row equal to
    row-wise Adagrad recomputed on the host, untouched rows (past element
-   2^31 among them) byte-equal, a repeat of its first 3 steps byte-equal,
-   then its trained towers served through ``TwoTowerRetrievalService``
+   2^31 among them) byte-equal, then its trained towers served through ``TwoTowerRetrievalService``
    (10^6 items, 1,024 users) and ``make_retrieval_step`` (1 x 10^6, k 100),
-   each equal to brute force; 13b ``dlrm-rm2``, ``xdeepfm`` and ``bst``
+   each equal to brute force, then 14a (below) in place of a plain repeat;
+   13b ``dlrm-rm2``, ``xdeepfm`` and ``bst``
    trained and served at ``serve_p99``; 13c the four at ``smoke_config()``
    on the card and on the CPU from one start, allclose.  Per arch: step ms
    (first, median) as forward-and-backward and update, rows touched, peak
@@ -211,6 +211,27 @@ Phases (each one raises on a failed check; nothing is caught):
    Pallas kernels has a backward); phase 13 must launch ``fused_knn`` and
    ``merge_partials`` (the retrieval), and each entry carries
    ``launches_phase13``.
+14. The training loop, checkpoints, the launcher and the NequIP potential
+   (``train.loop``, ``train.checkpoint``, ``launch.train``,
+   ``models.gnn``, ``data.graphs``).  14a, inside 13a: a ``TrainLoop`` of
+   3 steps from a fresh draw of the two-tower model, its final sync save
+   streaming the full-width state (45.9 GB) from the card to disk (the
+   free disk checked first), the state freed, seed 0 drawn afresh and
+   auto-resumed in place by a second ``TrainLoop`` to step 5: every leaf
+   equal to 13a's first run there; save and restore seconds, GB/s, fsync
+   seconds, peak memory.  14b: BST at full width, async saves every 2
+   steps, each kept step's bytes equal to its state's digests; the train
+   launcher SIGKILLed after its first checkpoint and resumed, its losses
+   bit-equal to a whole run's.  14c: NequIP at ``full_config()`` on the
+   ``molecule`` cell (3,840 atoms, 8,192 edges), 40 steps, the loss
+   falling, a 3-step repeat byte-equal, the CPU within rtol 1e-4.  14d:
+   the relaxation of ``examples/potential_md.py`` over the 128 molecules in
+   one system, the neighbour list rebuilt by ``radius_graph`` on the card
+   every 5 steps, each rebuild's edges equal to a float64 brute force
+   except at near-ties, the first rebuild's ``fused_knn`` launches held
+   against their plain version.  Then ``coalesce_rows`` against the
+   ``torch.unique`` + ``argsort`` form, in turns.  Phase 14 must launch
+   ``fused_knn`` (14d), and each entry carries ``launches_phase14``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -2905,11 +2926,10 @@ def phase_train(torch, dev, run_path):
     trained towers serve: ``TwoTowerRetrievalService`` over 10^6 items, one
     batch of 1,024 users equal to a brute force over the trained item
     embeddings, and ``make_retrieval_step`` at ``retrieval_cand`` (1 user x
-    10^6 candidates, k 100) equal to brute force; then a repeat of the first
-    3 steps from a fresh draw of seed 0 through ``step`` itself: every table
-    (a device digest of its words, and its touched rows byte for byte), the
-    row accumulators and the towers byte-equal to the first run's after its
-    third step.  13b: ``dlrm-rm2``, ``xdeepfm`` and ``bst``, 5 steps each,
+    10^6 candidates, k 100) equal to brute force; then 14a
+    (``phase_loop_checkpoint``): the first 3 steps again from a fresh draw
+    of seed 0 through a ``TrainLoop`` and a full-width checkpoint, resumed
+    to step 5 and held leaf by leaf against this run's state there.  13b: ``dlrm-rm2``, ``xdeepfm`` and ``bst``, 5 steps each,
     losses finite and a sample of untouched rows of the largest table byte-
     equal (DLRM's past element 2^31), then ``serve_p99`` (512 rows) through
     ``make_recsys_serve_step``.  13c: each arch at ``smoke_config()``, 5
@@ -3062,19 +3082,8 @@ def phase_train(torch, dev, run_path):
                 errs["acc"] = max(errs["acc"], float(np.abs(got_acc / acc - 1).max()))
                 errs["p"] = max(errs["p"], float(np.abs(got - want).max()))
                 errs["rows"] += len(ids)
-            if i == 2:  # the first 3 steps: what the repeat must reproduce
-                keep["ids"] = {}
-                for name, j in tables:
-                    ids = torch.unique(torch.cat(keep.pop(("g", name, j), [])
-                                                 + [grads[name][j].ids]))
-                    keep["ids"][name, j] = (ids, state.params[name][j].index_select(0, ids),
-                                            state.opt.m[name][j].index_select(0, ids),
-                                            table_digest(torch, state.params[name][j]))
-                keep["towers"] = [t.clone() for key in ("user_mlp", "item_mlp")
-                                  for t in P.param_leaves(state.params[key])]
-            elif i < 2:
-                for name, j in tables:
-                    keep.setdefault(("g", name, j), []).append(grads[name][j].ids)
+            if i == LOOP_RESUME_TO - 1:  # what 14a's resumed loop must reproduce
+                keep["digests"] = state_digests(torch, state)
             return None
 
         step, state, cfg, rec = train(aid, TRAIN_STEPS[aid], hook)
@@ -3140,28 +3149,13 @@ def phase_train(torch, dev, run_path):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # The repeat: the first 3 steps again from a fresh draw, through step().
-        step, state, cfg, rows = fresh_state(aid)
-        for i in range(3):
-            state, _ = step(state, recsys_batch(aid, rows, cfg, step=i))
-        same = {"tables": 0, "rows": 0}
-        for (name, j), (ids, vals, acc, digest) in keep["ids"].items():
-            t = state.params[name][j]
-            check(torch.equal(t.index_select(0, ids), vals)
-                  and torch.equal(state.opt.m[name][j].index_select(0, ids), acc)
-                  and table_digest(torch, t) == digest,
-                  f"13a: the repeat's {name}[{j}] differs from the first run's")
-            same["tables"] += 1
-            same["rows"] += len(ids)
-        towers = [t for key in ("user_mlp", "item_mlp") for t in P.param_leaves(state.params[key])]
-        check(all(torch.equal(a, b) for a, b in zip(towers, keep["towers"])),
-              "13a: the repeat's towers differ from the first run's")
-        same["tower_leaves"] = len(towers)
-        say("train_two_tower_repeat", same)
-        del state, keep
+        # 14a. The repeat as a TrainLoop: 3 steps and a final sync save of the
+        # full-width state, then a fresh draw resumed from it to step 5.
+        loop = phase_loop_checkpoint(torch, dev, lambda: fresh_state(aid), aid, keep.pop("digests"))
+        say("loop_two_tower_checkpoint", loop)
         gc.collect()
         torch.cuda.empty_cache()
-        return {"train": rec, "serve": serving, "repeat": same}
+        return {"train": rec, "serve": serving, "loop_checkpoint": loop}
 
     out["two_tower"] = counted("train_two_tower", two_tower)
 
@@ -3225,6 +3219,483 @@ def phase_train(torch, dev, run_path):
     say("train_card_vs_cpu", out["card_vs_cpu"])
     out["phase_s"] = time.perf_counter() - t_phase
     say("train_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    return out
+
+
+LOOP_STEPS, LOOP_RESUME_TO = 3, 5  # 14a: the first loop's steps, the resumed loop's end
+ASYNC_STEPS, ASYNC_EVERY, ASYNC_KEEP = 6, 2, 2  # 14b: BST at full width, async saves
+LAUNCHER_STEPS, LAUNCHER_EVERY = 200, 10  # 14b: launch/train.py --arch bst (smoke_config)
+NEQUIP_STEPS = 40  # 14c: the reference test's run (tests/test_models_gnn.py:90-112)
+NEQUIP_STEP = dict(peak_lr=5e-3, warmup_steps=5, total_steps=60)
+RELAX_ITERS, RELAX_EVERY, RELAX_STEP = 20, 5, 0.02  # 14d: examples/potential_md.py's loop
+RELAX_SPACING = 20  # 14d: molecules this many cutoffs apart along x
+
+
+def state_digests(torch, state) -> list:
+    """Each leaf of a train state in checkpoint order: a tensor's
+    ``table_digest``, an int itself."""
+    from repro_torch.train.checkpoint import flatten
+
+    return [table_digest(torch, t) if isinstance(t, torch.Tensor) else t for t in flatten(state)]
+
+
+def meta_like(torch, state):
+    """``state``'s structure with each tensor a meta tensor of its shape."""
+    from repro_torch.train.checkpoint import flatten, unflatten
+
+    return unflatten(state, [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                             if isinstance(t, torch.Tensor) else t for t in flatten(state)])
+
+
+def phase_loop_checkpoint(torch, dev, draw, aid, want):
+    """14a. The loop and a full-width checkpoint (``train.loop.TrainLoop``,
+    ``train.checkpoint``), on 13a's two-tower model: ``draw()`` gives (step,
+    state drawn from seed 0, cfg, rows a step).  A ``TrainLoop`` runs
+    ``LOOP_STEPS`` steps and its final sync save streams the state (44.5 GB
+    of tables, the row accumulators, the towers and their moments) from the
+    card into ``build/phase14a`` (the free disk checked first: too little
+    fails with the numbers); the state is freed, seed 0 drawn afresh, and a
+    second ``TrainLoop`` (``final_save=False``: the disk holds one such
+    checkpoint) auto-resumes into the fresh draw's tensors in place and runs
+    to step ``LOOP_RESUME_TO``.  Every leaf (each table's digest, the
+    accumulators, the towers and their moments, the step) must equal 13a's
+    first run at that step (``want``).  The save's and restore's seconds and
+    GB/s, the fsync's seconds and the peak memory are printed; the directory
+    is removed at the end."""
+    import gc
+    import shutil
+
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+
+    root = os.path.join(HERE, "build", "phase14a")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        step, state, cfg, rows = draw()
+        need = sum(t.numel() * t.element_size() for t in flatten(state)
+                   if isinstance(t, torch.Tensor))
+        free = shutil.disk_usage(root).free
+        out["disk"] = {"free_gb": free / 1e9, "checkpoint_gb": need / 1e9}
+        check(free > need + (2 << 30), f"14a: {free / 1e9:.2f} GB free under build/; the "
+              f"checkpoint needs {need / 1e9:.2f} GB and 2 GiB of room")
+
+        def batch_fn(i):
+            return recsys_batch(aid, rows, cfg, step=i)
+
+        common = dict(checkpoint_dir=root, checkpoint_every=1 << 30, keep_checkpoints=1,
+                      log_every=1)
+        first = TrainLoop(step, batch_fn, TrainLoopConfig(total_steps=LOOP_STEPS, **common))
+        t0 = time.perf_counter()
+        state, end = first.run(state)
+        out["first_run_s"] = time.perf_counter() - t0
+        check(end == LOOP_STEPS, f"14a: the first loop ended at {end}")
+        st = first.ckpt.last_stats
+        out["save"] = {**st, "gb": st["bytes"] / 1e9, "gb_per_s": st["bytes"] / st["seconds"] / 1e9}
+        out["losses"] = [h["loss"] for h in first.history]
+        del state, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        step, like, cfg, rows = draw()  # seed 0 afresh: the restore overwrites it in place
+        ptrs = [t.data_ptr() for t in flatten(like) if isinstance(t, torch.Tensor)]
+        second = TrainLoop(step, batch_fn, TrainLoopConfig(total_steps=LOOP_RESUME_TO,
+                                                           final_save=False, **common))
+        t0 = time.perf_counter()
+        state, end = second.run(like)
+        out["second_run_s"] = time.perf_counter() - t0
+        rs = second.restore_stats
+        out["restore"] = {**rs, "gb": rs["bytes"] / 1e9, "gb_per_s": rs["bytes"] / rs["seconds"] / 1e9}
+        out["losses"] += [h["loss"] for h in second.history]
+        check(end == LOOP_RESUME_TO and len(second.history) == LOOP_RESUME_TO - LOOP_STEPS,
+              f"14a: the resumed loop ran {len(second.history)} steps to {end}")
+        check([t.data_ptr() for t in flatten(state) if isinstance(t, torch.Tensor)] == ptrs,
+              "14a: the restore did not fill the drawn tensors in place")
+        got = state_digests(torch, state)
+        check(got == want, "14a: the resumed state at step "
+              f"{LOOP_RESUME_TO} differs from 13a's first run in leaves "
+              f"{[j for j, (a, b) in enumerate(zip(got, want)) if a != b][:8]}")
+        out["leaves_equal"] = len(got)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del state, like, second
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def coalesce_ab(torch, dev, rounds=4):
+    """``train.optim.coalesce_rows`` (one stable sort of the ids) against the
+    ``torch.unique`` + ``argsort`` form it replaced, on one step's lookups of
+    the two-tower model's largest table at ``train_batch`` (65,536 ids of
+    ``recsys_batch``, rows of its 256 columns): the two results equal bit
+    for bit, each timed by CUDA events (median of 20 calls) in turns one,
+    two, two, one."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.core.segments import segment_sums
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.train.optim import RowGrad, coalesce_rows
+
+    cfg = REG.get("two-tower-retrieval").full_config()
+    rows_n = TRAIN_ROWS or 65536
+    ids = torch.from_numpy(recsys_batch("two-tower-retrieval", rows_n, cfg, step=0)["user"][:, 0]
+                           .astype(np.int64)).to(dev)
+    rows = torch.randn((rows_n, cfg.embed_dim), generator=torch.Generator(dev).manual_seed(5),
+                       device=dev)
+
+    def two_sorts():
+        uniq, inv = torch.unique(ids, return_inverse=True)
+        order = torch.argsort(inv, stable=True)
+        return RowGrad(uniq, segment_sums(rows[order], torch.bincount(inv, minlength=len(uniq))))
+
+    a, b = coalesce_rows(ids, rows), two_sorts()
+    check(torch.equal(a.ids, b.ids) and torch.equal(a.rows, b.rows),
+          "coalesce: the one-sort and two-sort forms differ")
+    ms = {"one_sort": [], "unique_argsort": []}
+    for r in range(rounds):
+        for name in (("one_sort", "unique_argsort") if r % 2 == 0
+                     else ("unique_argsort", "one_sort")):
+            fn = (lambda: coalesce_rows(ids, rows)) if name == "one_sort" else two_sorts
+            ms[name].append(time_ms(torch, fn, reps=20, warmup=2))
+    return {"lookups": rows_n, "unique_ids": len(a.ids), "row_cols": cfg.embed_dim,
+            **{f"{k}_ms": statistics.median(v) for k, v in ms.items()}, "runs_ms": ms}
+
+
+def edges_agree(pos, got_src, want_src, k, cutoff, tol=1e-4):
+    """Hold a radius graph's sources ([n * k], slot j of row i the j-th
+    neighbour of node i, a self-loop for none) against a brute force's:
+    each row's set of neighbours equal, except ids at near-ties (a differing
+    id's squared distance within ``tol`` relative of the row's k-th or of the
+    cutoff's); returns the count of such ties."""
+    n = len(pos)
+    got, want = got_src.reshape(n, k), want_src.reshape(n, k)
+    rows = np.nonzero((np.sort(got, 1) != np.sort(want, 1)).any(1))[0]
+    ties = 0
+    for i in rows:
+        a, b = set(got[i].tolist()) - {i}, set(want[i].tolist()) - {i}
+        if a == b:
+            continue
+        d2 = ((pos - pos[i]) ** 2).sum(1)
+        d2[i] = np.inf
+        bounds = (np.sort(d2)[k - 1], cutoff * cutoff)
+        for j in a ^ b:
+            check(min(abs(d2[j] - e) for e in bounds) <= tol * max(1.0, d2[j]),
+                  f"14d: node {i}'s neighbour {j} (d^2 {d2[j]}) is no near-tie")
+            ties += 1
+    return ties
+
+
+def phase_loop(torch, dev, run_path):
+    """14. The training loop, the launcher and the NequIP potential.
+
+    14b: BST at ``full_config()`` (0.89 GB of tables), ``ASYNC_STEPS`` steps
+    of 65,536 rows through a ``TrainLoop`` with async saves every
+    ``ASYNC_EVERY`` steps, ``ASYNC_KEEP`` kept: each kept step's restored
+    bytes equal that step's digests, taken before the next in-place step.
+    Then ``python -m repro_torch.launch.train --arch bst`` (``smoke_config``,
+    the card) run whole beside a second run SIGKILLed after its first
+    checkpoint and then rerun: the resumed losses in ``--metrics`` bit-equal
+    to the whole run's at the same steps.
+    14c: NequIP at ``full_config()`` on the ``molecule`` cell
+    (``molecule_batch(128, 30, 64, n_species=64)``: 3,840 atoms, 8,192
+    edges), ``NEQUIP_STEPS`` steps with ``NEQUIP_STEP``: the last loss below
+    the first (the ratio printed beside the reference test's 0.7); 3 steps
+    again from the same start byte-equal in every parameter; 3 steps on the
+    CPU from that start within rtol 1e-4 and atol 1e-5.
+    14d: ``examples/potential_md.py``'s relaxation at full width with 14c's
+    trained params: the 128 molecules packed into one system,
+    ``RELAX_SPACING`` cutoffs apart along x; ``RELAX_ITERS`` steepest-descent
+    steps, the neighbour list rebuilt by ``radius_graph`` on the card every
+    ``RELAX_EVERY`` (3,840 atoms, 12 neighbours, the fused kernel over each
+    group at d 4), each rebuild's edges equal to a float64 brute force on
+    the card except at near-ties (counted), the first rebuild's kernel
+    launches each held against ``fused_knn_plain``.
+    Then ``coalesce_ab``: the ``coalesce_rows`` A/B."""
+    import shutil
+    import signal
+
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.graphs import molecule_batch, radius_graph
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels.ref import check_topk, operand_distance
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import gnn as G
+    from repro_torch.models.nn import split_params, tree_leaves, tree_map
+    from repro_torch.train import optim as O
+    from repro_torch.train.checkpoint import available_steps, latest_step, restore
+    from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+
+    rules = make_rules(make_host_mesh(devices=[dev]))
+    cpu = torch.device("cpu")
+    cpu_rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[cpu]))
+    root = os.path.join(HERE, "build", "phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # 14b. Async saves at full width.
+    def async_saves():
+        aid = "bst"
+        arch = REG.get(aid)
+        step, (spec, _) = arch.build(rules, "train_batch", step_config=ST.StepConfig(
+            **TRAIN_STEP, micro_batches=TRAIN_MICRO[aid]))
+        cfg = arch.full_config()
+        values, _ = split_params(arch.init_params(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
+        zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev)  # noqa: E731
+        state = ST.TrainState(values, O.OptState(0, tree_map(zeros, spec.opt.m),
+                                                 tree_map(zeros, spec.opt.v)))
+        rows = TRAIN_ROWS or 65536
+        digests = {}
+
+        def watched(state, batch):
+            return step(state, batch)
+
+        def grads(state, batch):  # before the in-place step: the state a save took
+            s = state.opt.step
+            if s and s % ASYNC_EVERY == 0:
+                digests[s] = state_digests(torch, state)
+            return step.grads(state, batch)
+
+        watched.grads, watched.update = grads, step.update
+        ck = os.path.join(root, "async")
+        loop = TrainLoop(watched, lambda i: recsys_batch(aid, rows, cfg, step=i), TrainLoopConfig(
+            total_steps=ASYNC_STEPS, checkpoint_dir=ck, checkpoint_every=ASYNC_EVERY,
+            keep_checkpoints=ASYNC_KEEP, log_every=1))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, end = loop.run(state)
+        run_s = time.perf_counter() - t0
+        digests[end] = state_digests(torch, state)
+        kept = available_steps(ck)
+        want_kept = list(range(ASYNC_STEPS, 0, -ASYNC_EVERY))[:ASYNC_KEEP][::-1]
+        check(kept == want_kept, f"14b: kept steps {kept}, not {want_kept}")
+        like = meta_like(torch, state)
+        for s in kept:
+            got, _, _ = restore(ck, like, step=s, device=dev)
+            check(state_digests(torch, got) == digests[s],
+                  f"14b: the checkpoint of step {s} differs from the state it saved")
+            del got
+        return {"steps": end, "kept": kept, "checked_steps": sorted(digests), "run_s": run_s,
+                "step_dt_s": [h["dt_s"] for h in loop.history],
+                "losses": [h["loss"] for h in loop.history],
+                "last_save": loop.ckpt.last_stats, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    out["async"] = counted("loop_async_bst", async_saves)
+    say("loop_async_bst", out["async"])
+
+    # 14b. The launcher, SIGKILLed after its first checkpoint and resumed.
+    def launcher():
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "bst",
+                "--steps", str(LAUNCHER_STEPS), "--checkpoint-every", str(LAUNCHER_EVERY),
+                "--lr", "5e-3", "--device", dev.type]
+        path = lambda name: os.path.join(root, name)  # noqa: E731
+        t0 = time.perf_counter()
+        whole = subprocess.Popen(base + ["--metrics", path("whole.jsonl")], env=env,
+                                 stdout=subprocess.DEVNULL)
+        cut = subprocess.Popen(base + ["--checkpoint-dir", path("ck"), "--metrics",
+                                       path("cut.jsonl")], env=env, stdout=subprocess.DEVNULL)
+        again = None
+        try:
+            while latest_step(path("ck")) is None and cut.poll() is None:
+                time.sleep(0.005)
+            cut.send_signal(signal.SIGKILL)
+            check(cut.wait() == -signal.SIGKILL, "14b: the launcher ended before its checkpoint")
+            first = latest_step(path("ck"))
+            again = subprocess.Popen(base + ["--checkpoint-dir", path("ck"), "--metrics",
+                                             path("again.jsonl")], env=env,
+                                     stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            check(whole.wait(timeout=600) == 0, "14b: the whole launcher run failed")
+            _, err = again.communicate(timeout=600)
+            check(again.returncode == 0, f"14b: the resumed launcher failed: {err[-2000:]}")
+        finally:
+            for p in (whole, cut, again):
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+        def losses(name):
+            return {r["step"]: r["loss"] for r in map(json.loads, open(path(name)))
+                    if "loss" in r}
+
+        want, got = losses("whole.jsonl"), losses("again.jsonl")
+        check(got and min(got) > first and all(got[s] == want[s] for s in got),
+              f"14b: the resumed losses differ from the whole run's: {got} {want}")
+        check(latest_step(path("ck")) == LAUNCHER_STEPS, "14b: the resumed run's last save")
+        return {"killed_after_step": first, "resumed_steps_compared": len(got),
+                "seconds": time.perf_counter() - t0}
+
+    out["launcher"] = counted("loop_launcher_kill_resume", launcher)
+    say("loop_launcher_kill_resume", out["launcher"])
+
+    # 14c. NequIP at full width on the molecule cell.
+    arch = REG.get("nequip")
+    cfg = arch.full_config()
+    cell = {c.name: c for c in arch.shapes}["molecule"]
+    n_mol = cell.params["batch"]
+    mb = molecule_batch(n_mol, cell.params["n_nodes"] // n_mol,
+                        cell.params["n_edges"] // n_mol, n_species=cfg.n_species, seed=0)
+    check(len(mb["positions"]) == cell.params["n_nodes"]
+          and len(mb["edges"][0]) == cell.params["n_edges"], "14c: the molecule cell's shape")
+    start, _ = split_params(arch.init_params(cfg, cell, generator=torch.Generator(dev).manual_seed(0),
+                                             device=dev))
+    start = tree_map(lambda t: t.cpu(), start)
+    loss, baxes = ST.gnn_potential_loss(cfg, n_graphs=n_mol)
+
+    def on(where):
+        return {k: (tuple(torch.from_numpy(x).to(where) for x in v) if isinstance(v, tuple)
+                    else torch.from_numpy(v).to(where))
+                for k, v in mb.items() if k != "n_graphs"}
+
+    def train(where, r, n_steps, keep_at=None):
+        step, _, _, opt = ST.make_train_step(loss, arch.abstract_params(cfg, cell), r, baxes,
+                                             ST.StepConfig(**NEQUIP_STEP))
+        state = ST.init_state(opt, tree_map(lambda t: t.to(where, copy=True), start))
+        batch = on(where)
+        losses, ms, kept = [], [], None
+        for i in range(n_steps):
+            t0 = synced() if where.type == "cuda" else time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append(((synced() if where.type == "cuda" else time.perf_counter()) - t0) * 1e3)
+            if i + 1 == keep_at:
+                kept = [t.clone() for t in tree_leaves(state.params)]
+        return state, losses, ms, kept
+
+    def nequip():
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, ms, first3 = train(dev, rules, NEQUIP_STEPS, keep_at=3)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"14c: the loss did not fall: {losses[0]} -> {losses[-1]}")
+        peak = torch.cuda.max_memory_allocated()
+        _, again, _, again3 = train(dev, rules, 3, keep_at=3)
+        check(again == losses[:3] and all(torch.equal(a, b) for a, b in zip(again3, first3)),
+              "14c: 3 steps again from the same start differ on the card")
+        _, on_cpu, cpu_ms, cpu3 = train(cpu, cpu_rules, 3, keep_at=3)
+        np.testing.assert_allclose(losses[:3], on_cpu, rtol=1e-4, atol=1e-5)
+        errs = []
+        for a, b in zip(first3, cpu3):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+            errs.append(float((a.cpu() - b).abs().max()))
+        return state.params, {
+            "atoms": len(mb["positions"]), "edges": len(mb["edges"][0]), "molecules": n_mol,
+            "n_params": sum(t.numel() for t in tree_leaves(start)), "losses": losses,
+            "last_over_first": losses[-1] / losses[0], "reference_test_asks": 0.7,
+            "step_ms_first": ms[0], "step_ms_median": statistics.median(ms[1:]),
+            "cpu_step_ms_median": statistics.median(cpu_ms), "repeat_byte_equal_leaves": len(first3),
+            "cpu_max_abs_param_err": max(errs),
+            "cpu_max_abs_loss_err": float(np.abs(np.subtract(losses[:3], on_cpu)).max()),
+            "peak_bytes": peak}
+
+    trained, out["nequip"] = counted("nequip_train", nequip)
+    say("nequip_train", out["nequip"])
+
+    # 14d. The relaxation at full width, the neighbour list on the card.
+    offset = (mb["node_graph"].astype(np.float32) * np.float32(RELAX_SPACING * cfg.cutoff))
+    pos0 = mb["positions"] + np.stack([offset, 0 * offset, 0 * offset], 1)
+    species = torch.from_numpy(mb["node_input"]).to(dev)
+    K_NB = 12
+
+    def relax():
+        pos = torch.from_numpy(pos0).to(dev)
+        res = {"rebuild_ms": [], "ties": [], "energy": [], "max_abs_force": []}
+        records = []
+        orig = FK.fused_knn_partials
+
+        def recorded(*a, **kw):
+            got = orig(*a, **kw)
+            records.append((a, kw, got))
+            return got
+
+        edges = None
+        for it in range(RELAX_ITERS):
+            if it % RELAX_EVERY == 0:
+                if it == 0:
+                    FK.fused_knn_partials = recorded
+                try:
+                    t0 = synced()
+                    edges = radius_graph(pos, cutoff=cfg.cutoff, max_neighbors=K_NB)
+                    res["rebuild_ms"].append((synced() - t0) * 1e3)
+                finally:
+                    FK.fused_knn_partials = orig
+                p64 = pos.double()
+                d2 = ((p64[:, None, :] - p64[None, :, :]) ** 2).sum(-1)
+                d2.fill_diagonal_(float("inf"))
+                bv, bi = torch.topk(d2, K_NB, dim=1, largest=False)
+                n = len(p64)
+                want = torch.where(bv <= cfg.cutoff ** 2, bi,
+                                   torch.arange(n, device=dev)[:, None]).reshape(-1)
+                del d2, bv, bi
+                res["ties"].append(edges_agree(p64.cpu().numpy(), edges[0].long().cpu().numpy(),
+                                               want.cpu().numpy(), K_NB, cfg.cutoff))
+                res.setdefault("live_edges", []).append(
+                    int((edges[0] != edges[1]).sum()))
+            e, f = G.energy_and_forces(trained, pos, species, edges, cfg)
+            res["energy"].append(float(e))
+            res["max_abs_force"].append(float(f.abs().max()))
+            pos = pos + RELAX_STEP * f
+        check(bool(torch.isfinite(pos).all()) and all(np.isfinite(res["energy"])),
+              "14d: the relaxation went non-finite")
+        return res, records
+
+    (out["relax"], records) = counted("nequip_relax", relax)
+    check(out["launches"].get("fused_knn", 0) > 0, "14d: radius_graph launched no fused_knn")
+
+    # The first rebuild's launches against the plain version, and their time.
+    check(all(v.shape[0] == 1 for _, _, (v, _) in records),
+          "14d: a group's call split its database axis (the hold below takes one set)")
+    errs, ties, calls = [], 0, []
+    bound = {"ops": 0.0, "bytes": 0.0}
+    for a, kw, (v, i) in records:
+        fx, gy, hx, hy, k = a
+        plain_v, plain_i = FK.fused_knn_plain(fx, gy, hx, hy, k, alpha=kw["alpha"],
+                                              finalize=kw["distance_finalize"],
+                                              n_real=kw["n_real"],
+                                              exclude_self=kw.get("exclude_self", False))
+        c = check_topk(v[0], i[0], plain_v, plain_i, n=gy.shape[0], rtol=1e-5, atol=1e-4,
+                       dist=operand_distance(fx, gy, hx, hy, alpha=kw["alpha"],
+                                             finalize=kw["distance_finalize"]))
+        errs.append(c["max_abs_err"])
+        ties += c["swapped"] + c["cut_ties"]
+        calls.append((a, kw))
+        (m_, d_), n_, K_ = fx.shape, gy.shape[0], v.shape[-1]
+        bound["ops"] += 2.0 * m_ * n_ * d_
+        bound["bytes"] += (m_ + n_) * d_ * 4 + (m_ + n_) * 4 + m_ * K_ * 8
+    k_ms = time_ms(torch, lambda: [FK.fused_knn_partials(*a, **kw) for a, kw in calls])
+    p_ms = time_ms(torch, lambda: [FK.fused_knn_plain(
+        *a, alpha=kw["alpha"], finalize=kw["distance_finalize"], n_real=kw["n_real"],
+        exclude_self=kw.get("exclude_self", False)) for a, kw in calls])
+    out["relax"]["fused_knn_hold"] = {
+        "calls": len(records), "max_abs_err": max(errs), "near_ties": ties, "ms": k_ms,
+        "plain_ms": p_ms, **mm_bound(bound["ops"], bound["bytes"]), "library_ms": None,
+        "shape": f"{len(records)} groups, {records[0][0][0].shape[0]} x "
+                 f"{records[0][0][1].shape[0]} each, d {records[0][0][0].shape[1]} (3 padded), "
+                 f"K {records[0][2][0].shape[-1]}"}
+    del records, calls
+    say("nequip_relax", out["relax"])
+
+    out["coalesce"] = coalesce_ab(torch, dev)
+    say("coalesce_rows_ab", out["coalesce"])
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("loop_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
     return out
 
 
@@ -3391,13 +3862,13 @@ def main() -> int:
     st_wide = hold_wide(torch, rec.records)["stream_topk"][0]
     del dm, rec
 
-    n3 = 32_768
+    n3 = 16_384  # 528 tiles of 512: the per-tile path's depth, cut for the script's time
     x3 = x[:n3]
-    sym, counts = run_path("allpairs_32k_kernel_symmetric",
+    sym, counts = run_path("allpairs_16k_kernel_symmetric",
                            lambda: knn_allpairs(x3, k, impl="kernel", symmetric=True))
     check(counts["pairwise_distance"] > 0, f"launches {counts}")
     ref3 = knn_allpairs(x3, k, impl="fused")
-    say("symmetric_kernel_vs_fused_32k", check_topk(
+    say("symmetric_kernel_vs_fused_16k", check_topk(
         sym.distances, sym.indices, ref3.distances, ref3.indices, n=n3, rtol=1e-5, atol=2e-3,
         dist=dist))
     del sym, ref3
@@ -3580,6 +4051,13 @@ def main() -> int:
     for name in ("fused_knn", "merge_partials"):
         check(train_launches.get(name, 0) > 0, f"phase 13 never launched {name}: {train_launches}")
 
+    # 14. The loop, async saves and the launcher, NequIP and its relaxation,
+    # the neighbour lists built by the fused kernel.
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = phase_loop(torch, dev, run_path)
+    loop_launches = loop["launches"]
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -3617,6 +4095,8 @@ def main() -> int:
                     "shape")}
                 wide[name][key]["launches"] = launches[f"{name}_wide"]
     fused_variants.update(wide["fused_knn"])
+    fused_variants["radius_graph_d4"] = {**loop["relax"]["fused_knn_hold"],
+                                         "launches": loop_launches.get("fused_knn", 0)}
     kernels = [
         {"name": "fused_knn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -3710,6 +4190,7 @@ def main() -> int:
         entry["launches_phase11"] = fleet_launches.get(entry["name"], 0)
         entry["launches_phase12"] = service_launches.get(entry["name"], 0)
         entry["launches_phase13"] = train_launches.get(entry["name"], 0)
+        entry["launches_phase14"] = loop_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

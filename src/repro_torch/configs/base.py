@@ -1,6 +1,6 @@
-"""Architecture/shape registry plumbing (the recsys family).
+"""Architecture/shape registry plumbing (the recsys and GNN families).
 
-Port of the recsys part of ``repro/configs/base.py``.  Each architecture is
+Port of the recsys and GNN parts of ``repro/configs/base.py``.  Each architecture is
 an arch object with:
 
   * ``full_config()``  -- the published hyper-parameters;
@@ -15,13 +15,14 @@ an arch object with:
     cell and its arguments as meta tensors (the train state, the batch);
   * ``smoke_batch(shape)`` -- real (small) data for integration tests.
 
-The language-model, GNN and kNN arch families wait for their models' port.
+The language-model and kNN arch families wait for their models' port.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import AxisRules
@@ -51,6 +52,142 @@ class Skip:
 def _spec(shape, dtype) -> torch.Tensor:
     """The port's ``jax.ShapeDtypeStruct``: a tensor on the meta device."""
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _cells(arch) -> dict:
+    return {c.name: c for c in arch.shapes}
+
+
+# ---------------------------------------------------------------------------
+# GNN family.
+# ---------------------------------------------------------------------------
+
+
+class GNNArch:
+    family = "gnn"
+
+    def __init__(self, arch_id: str, full_cfg: Callable, smoke_cfg: Callable):
+        self.id = arch_id
+        self.full_config = full_cfg
+        self.smoke_config = smoke_cfg
+
+    @property
+    def shapes(self):
+        # Edge counts padded to multiples of 512 (divides every mesh's DP
+        # product); the model masks padding as self-loop edges.
+        return [
+            Cell("full_graph_sm", "train", dict(
+                n_nodes=2708, n_edges=pad_to(10556, 512), d_feat=1433,
+                n_classes=7, task="classify")),
+            Cell("minibatch_lg", "train", dict(
+                n_nodes=180224, n_edges=pad_to(168960, 512), d_feat=602,
+                n_classes=41, task="classify", sampled=True)),
+            Cell("ogb_products", "train", dict(
+                n_nodes=2449029, n_edges=pad_to(61859140, 512), d_feat=100,
+                n_classes=47, task="classify")),
+            Cell("molecule", "train", dict(
+                n_nodes=30 * 128, n_edges=pad_to(64 * 128, 512), batch=128,
+                task="potential")),
+        ]
+
+    def _cfg_for(self, cell: Cell, smoke: bool):
+        cfg = self.smoke_config() if smoke else self.full_config()
+        if cell.params["task"] == "classify":
+            cfg = dataclasses.replace(cfg, d_feat=16 if smoke else cell.params["d_feat"])
+        return cfg
+
+    def abstract_params(self, cfg, cell: Cell | None = None):
+        return self.init_params(cfg, cell, device="meta")
+
+    def init_params(self, cfg, cell: Cell | None = None, *,
+                    generator: torch.Generator | None = None, device="cuda"):
+        """The ``Param`` tree drawn on ``device`` from ``generator`` (default:
+        a fresh one seeded 0), with a classifier head [C, n_classes] for a
+        ``classify`` cell (drawn last)."""
+        from repro_torch.models import gnn as G
+        from repro_torch.models.nn import Param, lecun_init
+
+        dev = torch.device(device)
+        if dev.type != "meta" and generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        params = G.init_params(cfg, generator=generator, device=dev)
+        if cell is not None and cell.params["task"] == "classify":
+            n_cls = cell.params["n_classes"]
+            params = dict(params, cls_head=Param(
+                lecun_init(generator, (cfg.d_hidden, n_cls), cfg.d_hidden, device=dev),
+                ("tensor", None)))
+        return params
+
+    def input_specs(self, shape_name: str, cfg=None, smoke: bool = False) -> dict:
+        p = _cells(self)[shape_name].params
+        if smoke:
+            N, E = 64, 512
+            d_feat = 16
+        else:
+            N, E = p["n_nodes"], p["n_edges"]
+            d_feat = p.get("d_feat", 0)
+        i32, f32 = torch.int32, torch.float32
+        base = {"positions": _spec((N, 3), f32),
+                "edges": (_spec((E,), i32), _spec((E,), i32))}
+        if p["task"] == "classify":
+            base.update(node_input=_spec((N, d_feat), f32), labels=_spec((N,), i32),
+                        label_mask=_spec((N,), f32))
+        else:
+            n_graphs = 4 if smoke else p.get("batch", 1)
+            base.update(node_input=_spec((N,), i32), energy=_spec((n_graphs,), f32),
+                        forces=_spec((N, 3), f32), node_graph=_spec((N,), i32))
+        return base
+
+    def build(self, rules: AxisRules, shape_name: str, *, smoke: bool = False,
+              step_config=None, variant: str | None = None):
+        """``(fn, args)``: the cell's train step and its arguments (the train
+        state and the batch) as meta tensors."""
+        from repro_torch.distributed import steps as ST
+        from repro_torch.models.nn import split_params
+
+        cell = _cells(self)[shape_name]
+        cfg = self._cfg_for(cell, smoke)
+        abstract = self.abstract_params(cfg, cell)
+        specs = self.input_specs(shape_name, cfg, smoke=smoke)
+        if cell.params["task"] == "classify":
+            loss, baxes = ST.gnn_classifier_loss(cfg, cell.params["n_classes"])
+        else:
+            loss, baxes = ST.gnn_potential_loss(cfg, n_graphs=4 if smoke else cell.params["batch"])
+        sc = step_config or ST.StepConfig()
+        _, jitted, _, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
+        values, _ = split_params(abstract)
+        return jitted(specs), (ST.init_state(optimizer, values), specs)
+
+    def smoke_batch(self, shape_name: str, seed: int = 0, *, device="cuda") -> dict:
+        """Real small data for ``shape_name``, as tensors on ``device``: four
+        packed molecules for ``molecule``, a random 64-node graph else."""
+        from repro_torch.data.graphs import molecule_batch, random_graph
+        from repro_torch.kernels._backend import resolve_device
+
+        dev = resolve_device(device)
+
+        def t(a):
+            return tuple(t(x) for x in a) if isinstance(a, tuple) else torch.from_numpy(a).to(dev)
+
+        cell = _cells(self)[shape_name]
+        rng = np.random.default_rng(seed)
+        if cell.params["task"] == "potential":
+            mb = molecule_batch(4, 12, 100, n_species=8, seed=seed)
+            return {k: t(v) for k, v in mb.items() if k != "n_graphs"}
+        N, E = 64, 512
+        g = random_graph(N, E, seed)
+        src = np.repeat(np.arange(N), np.diff(g.indptr).astype(int)).astype(np.int32)
+        return {k: t(v) for k, v in {
+            "positions": rng.standard_normal((N, 3), np.float32) * 2,
+            "edges": (src, g.indices.astype(np.int32)),
+            "node_input": rng.standard_normal((N, 16), np.float32),
+            "labels": rng.integers(0, cell.params["n_classes"], N).astype(np.int32),
+            "label_mask": np.ones((N,), np.float32)}.items()}
+
+
+# ---------------------------------------------------------------------------
+# RecSys family.
+# ---------------------------------------------------------------------------
 
 
 class RecsysArch:

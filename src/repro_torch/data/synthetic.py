@@ -1,7 +1,7 @@
 """Deterministic synthetic data (numpy only): kNN vectors and click logs.
 
-The port's own copy of the vector generators and ``recsys_batch`` of
-``repro/data/synthetic.py``: the same seeds give the same arrays in both
+The port's own copy of the vector generators, ``host_slice`` and
+``recsys_batch`` of ``repro/data/synthetic.py``: the same seeds give the same arrays in both
 packages, bit for bit, so the parity tests and ``chip_smoke.py`` can feed
 one dataset to either.
 """
@@ -12,6 +12,12 @@ import numpy as np
 
 def _rng(seed: int, step: int = 0) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+def host_slice(global_batch: int, n_hosts: int, host_id: int) -> slice:
+    """The rows of a global batch that host ``host_id`` of ``n_hosts`` reads."""
+    per = global_batch // n_hosts
+    return slice(host_id * per, (host_id + 1) * per)
 
 
 def random_vectors(n: int, d: int, seed: int = 0, dtype=np.float32) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Train and serve step factories for the recommender models.
 
-Port of the recsys part of ``repro/distributed/steps.py``: ``TrainState``,
-``StepConfig`` (field for field), the optimizer choice, ``init_state``,
-gradient accumulation over micro-batches, ``make_train_step``,
-``recsys_loss``, ``make_recsys_serve_step`` and ``make_retrieval_step``.
-The language-model and GNN steps wait for their models' port.
+Port of the recsys and GNN parts of ``repro/distributed/steps.py``:
+``TrainState``, ``StepConfig`` (field for field), the optimizer choice,
+``init_state``, gradient accumulation over micro-batches,
+``make_train_step``, ``recsys_loss``, ``gnn_potential_loss``,
+``gnn_classifier_loss``, ``make_recsys_serve_step`` and
+``make_retrieval_step``.  The language-model steps wait for their model's
+port.
 
 The reference jits each step with shardings derived from the logical axes.
 Here a step is a Python function over the params' tensors on their device,
@@ -36,6 +38,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.segments import one_thread_backward
 from repro_torch.distributed.sharding import AxisRules, Sharding, axis_rules
 from repro_torch.models.nn import is_param, split_params, tree_leaves, tree_map
 from repro_torch.train import optim as O
@@ -139,7 +142,8 @@ def loss_and_grads(loss_fn, values, batch: dict, is_table, n_micro: int = 1):
         loss, metrics = loss_fn(tree_map(tap, values, is_table, live),
                                 _slice_batch(batch, i, n_micro) if n_micro > 1 else batch)
         rows = [r for t in taps for r in t.rows]
-        gs = torch.autograd.grad(loss, dense + rows, allow_unused=True)
+        with one_thread_backward():
+            gs = torch.autograd.grad(loss, dense + rows, allow_unused=True)
         for j, (d, g) in enumerate(zip(dense, gs[: len(dense)])):
             g = torch.zeros_like(d) if g is None else g
             acc_dense[j] = g if acc_dense[j] is None else acc_dense[j] + g
@@ -212,8 +216,37 @@ def make_train_step(
 
 
 # ---------------------------------------------------------------------------
-# The recsys loss closures + batch axes.
+# The loss closures + batch axes.
 # ---------------------------------------------------------------------------
+
+
+def gnn_potential_loss(cfg, n_graphs: int = 1):
+    """NequIP's energy + force loss (``models.gnn.loss_fn``) over ``n_graphs``
+    packed graphs; the GNN has no tables, so every leaf is dense."""
+    from repro_torch.models import gnn as G
+
+    def loss(values, batch):
+        # n_graphs is a segment count: a closure constant, not batch data.
+        return G.loss_fn(values, dict(batch, n_graphs=n_graphs), cfg)
+
+    axes = {"positions": (None, None), "node_input": (None,), "edges": ("batch",),
+            "forces": (None, None), "energy": (None,), "node_graph": (None,),
+            "node_mask": (None,)}
+    return loss, axes
+
+
+def gnn_classifier_loss(cfg, n_classes: int):
+    """Node classification on the last block's scalars, head ``cls_head``."""
+    from repro_torch.models import gnn as G
+
+    def loss(values, batch):
+        body = {k: v for k, v in values.items() if k != "cls_head"}
+        l = G.node_classifier_loss(body, batch, cfg, n_classes, values["cls_head"])
+        return l, {"loss": l}
+
+    axes = {"positions": (None, None), "node_input": (None, None), "edges": ("batch",),
+            "labels": (None,), "label_mask": (None,)}
+    return loss, axes
 
 
 def recsys_loss(arch: str, cfg):

@@ -1,0 +1,117 @@
+"""End-to-end training launcher.
+
+Port of ``repro/launch/train.py``, every flag, plus ``--device`` (default
+``cuda``, the card; ``cpu`` runs the same steps on the host).  It trains any
+registered architecture of the port at ``smoke_config()`` on synthetic but
+learnable data (a pure function of ``--seed`` and the step) through
+``train.loop.TrainLoop``: kill it, rerun it with the same
+``--checkpoint-dir``, and it resumes from the newest valid checkpoint.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch nequip --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bst --steps 300 \\
+      --checkpoint-dir build/ckpt --metrics build/ckpt.jsonl [--device cpu]
+
+The recsys and GNN families are ported; the language models
+(``--preset lm100m`` and the LM ``--arch`` ids) are item 2d of ROADMAP.md
+and raise a ``KeyError`` that says so.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+
+def build_arch(arch_id: str, rules, args, device):
+    """(step, initial state, batch_fn, state shardings) of ``arch_id`` at
+    ``smoke_config()``, its params drawn from ``--seed`` on ``device``."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed import steps as ST
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    sc = ST.StepConfig(peak_lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    if arch.family == "gnn":
+        from repro_torch.data.graphs import molecule_batch
+
+        cell = {c.name: c for c in arch.shapes}["molecule"]
+        params = arch.init_params(cfg, cell, generator=gen, device=device)
+        loss, baxes = ST.gnn_potential_loss(cfg, n_graphs=8)
+        abstract = arch.abstract_params(cfg, cell)
+
+        def batch_fn(step):
+            mb = molecule_batch(8, 12, 100, n_species=cfg.n_species, seed=args.seed, step=step)
+            return {k: (tuple(torch.from_numpy(x).to(device) for x in v) if isinstance(v, tuple)
+                        else torch.from_numpy(v).to(device))
+                    for k, v in mb.items() if k != "n_graphs"}
+    elif arch.family == "recsys":
+        from repro_torch.data.synthetic import recsys_batch
+
+        params = arch.init_params(cfg, generator=gen, device=device)
+        loss, baxes = ST.recsys_loss(arch_id, cfg)
+        abstract = arch.abstract_params(cfg)
+
+        def batch_fn(step):
+            return {k: torch.from_numpy(v).to(device) for k, v in
+                    recsys_batch(arch_id, args.batch, cfg, args.seed, step).items()}
+    else:
+        raise KeyError(arch.family)
+    _, jitted, st_shard, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
+    state = ST.init_state(optimizer, params)
+    return jitted(batch_fn(0)), state, batch_fn, st_shard
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--preset", choices=("lm100m",), default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--micro-batches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--metrics", default=None)
+    ap.add_argument("--model-parallel", type=int, default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (the card, the default) or cpu")
+    args = ap.parse_args(argv)
+
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels._backend import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+
+    if args.preset == "lm100m":
+        raise KeyError("--preset lm100m is a language model, not ported yet (ROADMAP.md, "
+                       "item 2d)")
+    if not args.arch:
+        ap.error("--arch or --preset required")
+    dev = resolve_device(args.device)
+    mesh = make_host_mesh(args.model_parallel, devices=[dev])
+    rules = make_rules(mesh)
+    print(f"[train] mesh: {dict(mesh.shape)} on {dev}")
+    fn, state, batch_fn, st_shard = build_arch(args.arch, rules, args, dev)
+
+    loop = TrainLoop(fn, batch_fn, TrainLoopConfig(
+        total_steps=args.steps, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, log_every=max(args.steps // 20, 1),
+        metrics_path=args.metrics))
+    t0 = time.time()
+    state, end = loop.run(state)
+    dt = time.time() - t0
+    hist = [h for h in loop.history if "loss" in h]
+    print(f"[train] done: step {end} in {dt:.1f}s ({dt / max(end, 1) * 1e3:.1f} ms/step avg)")
+    if hist:
+        print(f"[train] loss: first={hist[0]['loss']:.4f} last={hist[-1]['loss']:.4f}")
+    if loop.quarantine:
+        print(f"[train] straggler events: {len(loop.quarantine)}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

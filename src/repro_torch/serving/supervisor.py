@@ -349,31 +349,45 @@ class WorkerSupervisor:
 
         Mirrors ``shards.load_fleet``'s restore loop at process
         granularity; the fleet manifest's replication factor applies
-        unless overridden.
+        unless overridden.  Every process is started first and their HELLOs
+        are taken after, in order, so the workers' start-ups (the
+        interpreter, the imports, the image's restore) overlap.
         """
         manifest = read_fleet_manifest(directory)
         R = (int(manifest.get("replicas", 1)) if replicas is None
              else int(replicas))
         if R < 1:
             raise SnapshotError(f"fleet needs replicas >= 1, got {R}")
-        out = []
-        for d in shard_dirs(directory):
-            for r in range(R):
-                w = ProcWorker(d, replica=r, n_replicas=R, supervisor=self)
-                self._spawn(w)
-                self.workers.append(w)
-                out.append(w)
+        out = [ProcWorker(d, replica=r, n_replicas=R, supervisor=self)
+               for d in shard_dirs(directory) for r in range(R)]
+        self._spawn_all(out)
+        self.workers.extend(out)
         return out
 
-    def _spawn(self, w: ProcWorker) -> None:
-        """Start ``w``'s process: listen, exec the worker module, take the
-        HELLO handshake, and hand the connected socket to the handle."""
+    def _spawn_all(self, workers: list[ProcWorker]) -> None:
+        """Start every worker's process, then take each one's HELLO."""
+        started = []
+        try:
+            for w in workers:
+                started.append(self._start(w))
+            for w, pending in zip(workers, started):
+                self._handshake(w, pending)
+        except BaseException:
+            for _w, (listener, proc, sock_path, _t0) in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                self._drop_listener(listener, sock_path)
+            raise
+
+    def _start(self, w: ProcWorker):
+        """Listen on a fresh socket and exec the worker module for ``w``:
+        ``(w, (listener, process, socket path, start time))``."""
         sock_path = os.path.join(self._sock_root,
                                  f"{w.key}-{w.respawns}.sock")
         if os.path.exists(sock_path):
             os.unlink(sock_path)
         listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-        proc = None
         try:
             listener.bind(sock_path)
             listener.listen(1)
@@ -400,6 +414,22 @@ class WorkerSupervisor:
                 cmd += ["--impl", self.impl]
             t0 = time.perf_counter()
             proc = subprocess.Popen(cmd, env=env)
+        except BaseException:
+            self._drop_listener(listener, sock_path)
+            raise
+        return w, (listener, proc, sock_path, t0)
+
+    @staticmethod
+    def _drop_listener(listener, sock_path: str) -> None:
+        listener.close()
+        if os.path.exists(sock_path):
+            os.unlink(sock_path)
+
+    def _handshake(self, w: ProcWorker, pending) -> None:
+        """Take the HELLO of ``w``'s started process and hand the connected
+        socket to the handle; on any failure kill the process."""
+        listener, proc, sock_path, t0 = pending[1]
+        try:
             try:
                 conn, _ = listener.accept()
             except socket.timeout:
@@ -424,14 +454,12 @@ class WorkerSupervisor:
             w._attach(proc, conn)
             w.spawn_s = time.perf_counter() - t0
         except BaseException:
-            if proc is not None and proc.poll() is None:
+            if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             raise
         finally:
-            listener.close()
-            if os.path.exists(sock_path):
-                os.unlink(sock_path)
+            self._drop_listener(listener, sock_path)
 
     # -- supervision --------------------------------------------------------
 
@@ -444,7 +472,7 @@ class WorkerSupervisor:
         catches a wedged process that still holds its socket open.
         Respawned workers re-enter routing through PROBATION.
         """
-        respawned = []
+        dead_workers = []
         now = self._clock()
         for w in self.workers:
             dead = w._dead or (w._proc is not None
@@ -456,17 +484,20 @@ class WorkerSupervisor:
                 except Exception:  # noqa: BLE001 — any probe failure is death
                     dead = True
             if dead and self.cfg.respawn and not self._closed:
-                self._respawn(w)
-                respawned.append(w.key)
-                if tracker is not None:
-                    tracker.mark_respawned(w.key)
-        return respawned
+                dead_workers.append(w)
+        self._respawn(dead_workers)
+        if tracker is not None:
+            for w in dead_workers:
+                tracker.mark_respawned(w.key)
+        return [w.key for w in dead_workers]
 
-    def _respawn(self, w: ProcWorker) -> None:
-        w._close()
-        w.respawns += 1
-        self.respawns += 1
-        self._spawn(w)
+    def _respawn(self, workers: list[ProcWorker]) -> None:
+        """Respawn ``workers`` from their images: all started, then each HELLO."""
+        for w in workers:
+            w._close()
+            w.respawns += 1
+            self.respawns += 1
+        self._spawn_all(workers)
 
     # -- shutdown -----------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Training substrate of the port: optimizers and schedules (``optim``)."""
+"""Training substrate of the port: optimizers and schedules (``optim``),
+checkpoints (``checkpoint``) and the fault-tolerant loop (``loop``)."""
 from repro_torch.train.optim import (  # noqa: F401
     OPTIMIZERS,
     Optimizer,
@@ -13,3 +14,10 @@ from repro_torch.train.optim import (  # noqa: F401
     sgdm,
     warmup_cosine,
 )
+from repro_torch.train.checkpoint import (  # noqa: F401
+    CheckpointManager,
+    latest_step,
+    restore,
+    save,
+)
+from repro_torch.train.loop import TrainLoop, TrainLoopConfig  # noqa: F401

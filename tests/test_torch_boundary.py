@@ -52,6 +52,8 @@ def test_import_works_with_jax_blocked():
         "import repro_torch.models.nn, repro_torch.distributed.sharding\n"
         "import repro_torch.distributed.steps, repro_torch.train.optim\n"
         "import repro_torch.configs.registry, repro_torch.configs.base\n"
+        "import repro_torch.models.gnn, repro_torch.data.graphs, repro_torch.launch.train\n"
+        "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
         "from repro_torch.configs import registry\n"
         "for arch_id in registry.ASSIGNED:\n"
         "    registry.get(arch_id).abstract_params(registry.get(arch_id).full_config())\n"

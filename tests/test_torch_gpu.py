@@ -1883,3 +1883,135 @@ def test_an_update_reaches_the_last_row_of_a_table_past_2_31_elements(cuda):
     assert not table[edge + 1 : R - 1].any()  # the rows between: untouched zeros
     del table, acc
     torch.cuda.empty_cache()
+
+
+# -- the training loop's checkpoints and the NequIP potential ------------------------
+
+
+def _radius_sets(src, n, k):
+    rows = np.asarray(src).reshape(n, k)
+    return [set(r.tolist()) - {i} for i, r in enumerate(rows)]
+
+
+def _brute_radius(pos, cutoff, k):
+    p = pos.astype(np.float64)
+    d2 = ((p[:, None] - p[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    near = np.take_along_axis(d2, order, 1) <= cutoff * cutoff
+    return np.where(near, order, np.arange(len(p))[:, None]).reshape(-1), d2
+
+
+def test_radius_graph_at_d3_on_the_card_matches_a_brute_force_and_the_plain_version(cuda):
+    """``radius_graph`` on the card (the fused kernel at d 3, padded to 4)
+    against a float64 brute force and against the same call on the CPU (the
+    kernel's plain version): neighbour sets equal except at near-ties, over
+    drawn points and over molecules 100 apart at x ~ 10^4."""
+    from repro_torch.data import graphs as GR
+
+    mb = GR.molecule_batch(24, 30, 64, n_species=8, seed=3)
+    far = mb["positions"].copy()
+    far[:, 0] += np.repeat(np.arange(24) * 100.0 + 9000.0, 30).astype(np.float32)
+    near = np.random.default_rng(1).standard_normal((300, 3)).astype(np.float32) * 2
+    for pos, cutoff, k in ((far, 5.0, 12), (near, 2.5, 8)):
+        n = len(pos)
+        src, dst = GR.radius_graph(torch.from_numpy(pos).to(cuda), cutoff, k)
+        assert src.device.type == cuda.type and src.dtype == torch.int32
+        assert torch.equal(dst.cpu(), torch.arange(n, dtype=torch.int32).repeat_interleave(k))
+        plain, _ = GR.radius_graph(torch.from_numpy(pos), cutoff, k)
+        want, d2 = _brute_radius(pos, cutoff, k)
+        kth = np.sort(d2, 1)[:, k - 1]
+        got_sets = _radius_sets(src.cpu(), n, k)
+        for other in (_radius_sets(want, n, k), _radius_sets(plain, n, k)):
+            for i, (a, b) in enumerate(zip(got_sets, other)):
+                for j in a ^ b:  # a near-tie at the k-th distance or at the cutoff
+                    assert min(abs(d2[i, j] - kth[i]), abs(d2[i, j] - cutoff ** 2)) \
+                        <= 1e-4 * max(1.0, d2[i, j]), (i, j)
+
+
+def test_nequip_steps_on_the_card_repeat_byte_equal_and_match_the_cpu(cuda):
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.nn import split_params, tree_leaves, tree_map
+
+    arch = REG.get("nequip")
+    cfg = arch.smoke_config()
+    cell = {c.name: c for c in arch.shapes}["molecule"]
+    start, _ = split_params(arch.init_params(cfg, cell, generator=torch.Generator().manual_seed(0),
+                                             device="cpu"))
+    batch = arch.smoke_batch("molecule", device="cpu")
+
+    def run(dev):
+        rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+        loss, baxes = STP.gnn_potential_loss(cfg, n_graphs=4)
+        step, _, _, opt = STP.make_train_step(loss, arch.abstract_params(cfg, cell), rules, baxes,
+                                              STP.StepConfig(peak_lr=5e-3, warmup_steps=5,
+                                                             total_steps=60))
+        state = STP.init_state(opt, tree_map(lambda t: t.to(dev, copy=True), start))
+        b = {k: (tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev))
+             for k, v in batch.items()}
+        losses = []
+        for _ in range(3):
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return losses, [t.cpu() for t in tree_leaves(state.params)]
+
+    want_l, want_p = run(torch.device("cpu"))
+    got_l, got_p = run(cuda)
+    again_l, again_p = run(cuda)
+    assert got_l == again_l and all(torch.equal(a, b) for a, b in zip(got_p, again_p))
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got_p, want_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_streamed_checkpoint_of_a_leaf_past_one_block_round_trips_on_the_card(cuda, tmp_path):
+    """A leaf of more than one pinned block (and a bf16 one, and an int)
+    saved from the card and restored into the card's tensors in place."""
+    from repro_torch.train import checkpoint as C
+
+    g = torch.Generator(cuda).manual_seed(0)
+    big = torch.randn(C.BLOCK_BYTES // 4 + 12345, generator=g, device=cuda)
+    half = torch.randn((777, 3), generator=g, device=cuda).to(torch.bfloat16)
+    final = C.save(str(tmp_path), {"big": big, "half": half, "step": 9}, 2)
+    z = np.load(os.path.join(final, "leaves.npz"))
+    assert np.array_equal(z["leaf_00000"][-4096:], big[-4096:].cpu().numpy())
+    like = {"big": torch.zeros_like(big), "half": torch.zeros_like(half), "step": 0}
+    ptr = like["big"].data_ptr()
+    stats = {}
+    out, step, _ = C.restore(str(tmp_path), like, stats=stats)
+    assert step == 2 and out["step"] == 9 and out["big"].data_ptr() == ptr
+    assert torch.equal(out["big"], big) and torch.equal(out["half"], half)
+    assert stats["bytes"] == big.numel() * 4 + half.numel() * 2 + 4
+
+
+def test_async_save_on_the_card_holds_the_bytes_of_its_step(cuda, tmp_path):
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint as C
+
+    arch = REG.get("dlrm-rm2")
+    cfg = arch.smoke_config()
+    rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[cuda]))
+    loss, baxes = STP.recsys_loss("dlrm-rm2", cfg)
+    step, _, _, opt = STP.make_train_step(loss, arch.abstract_params(cfg), rules, baxes,
+                                          STP.StepConfig(peak_lr=5e-3, warmup_steps=1))
+    state = STP.init_state(opt, arch.init_params(cfg, device=cuda))
+    mgr = C.CheckpointManager(str(tmp_path), keep=2)
+    for i in range(3):
+        state, _ = step(state, recsys_batch("dlrm-rm2", 64, cfg, step=i))
+        want = [t.clone() if isinstance(t, torch.Tensor) else t for t in C.flatten(state)]
+        mgr.save(state, i + 1)
+        state, _ = step(state, recsys_batch("dlrm-rm2", 64, cfg, step=10 + i))  # in place
+        mgr.wait()
+        like = C.unflatten(state, [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                                   if isinstance(t, torch.Tensor) else t
+                                   for t in C.flatten(state)])
+        out, _, _ = C.restore(str(tmp_path), like, step=i + 1, device=cuda)
+        for a, b in zip(C.flatten(out), want):
+            assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b

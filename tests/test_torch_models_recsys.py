@@ -303,13 +303,13 @@ def test_full_width_params_shapes_and_axes_on_meta(arch_id):
 
 
 def test_registry_names_what_is_not_ported():
-    assert sorted(REG.ASSIGNED) == sorted(RECSYS_ARCHS)
+    assert sorted(REG.ASSIGNED) == sorted(RECSYS_ARCHS + ["nequip"])
     with pytest.raises(KeyError, match="yi-6b"):
         REG.get("yi-6b")
     with pytest.raises(KeyError, match="no-such-arch"):
         REG.get("no-such-arch")
     cells = REG.all_cells()
-    assert len(cells) == 16 and all(kind != "skip" for _, _, kind, _ in cells)
+    assert len(cells) == 16 + 4 and all(kind != "skip" for _, _, kind, _ in cells)
 
 
 @pytest.mark.parametrize("arch_id", RECSYS_ARCHS)
