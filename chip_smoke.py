@@ -31,7 +31,7 @@ Phases (each one raises on a failed check; nothing is caught):
    ``neg_dot``, k = 10, batches 8..1024 (the two-tower serving defaults):
    8,192 queries through ``QueryEngine``, ragged flushes, then churn (upsert,
    delete 1% of main, compact), each step held against brute force; then a
-   steady window of 50 batches of 1024 queries.  A batch of 1024 there
+   steady window of 25 batches of 1024 queries.  A batch of 1024 there
    splits the database axis, so the fused kernel's partial sets and the
    merge kernel are each timed and held against their plain versions (the
    merge's and ``torch.topk``'s device time also by a CUDA graph); and
@@ -40,7 +40,7 @@ Phases (each one raises on a failed check; nothing is caught):
 5. Two-stage quantized serving at the same shape: ``random_vectors(seed=0)``
    rows, ``RetrievalIndex(scan_dtype=...)`` for int8 and for bf16 (overfetch
    4): 8,192 queries, churn (the replica must be kept at a delete and rebuilt
-   at compact), a steady window of 50 batches; recall@10 against brute force
+   at compact), a steady window of 25 batches; recall@10 against brute force
    (floor 0.9).  A float32 replica through ``two_stage_query`` must equal
    brute force.  At a batch of 1024 the fp32, bf16 and int8 fused scans, the
    merge and the rescore kernel are timed and held against their plain
@@ -61,7 +61,7 @@ Phases (each one raises on a failed check; nothing is caught):
    the probe shortlist (k 8 over the centroids) and a k-means assignment
    pass (k 1).  Full-probe IVF must equal brute force before and after
    churn; recall@10 at nprobe = 8, served and on 256 queries through the
-   kernel path and the plain path, at least 0.9; a steady window of 50
+   kernel path and the plain path, at least 0.9; a steady window of 25
    batches; the ``ivf_scan`` kernel held against its plain version at both
    batch sizes, its bound counted from the rows of the cells it scans.
    The kernel that builds the scan's tile table on the card
@@ -81,7 +81,7 @@ Phases (each one raises on a failed check; nothing is caught):
    reference's floor and setting, ``tests/test_pq.py``), reported at
    overfetch 4; after churn (upsert, delete 1% of main, compact) no deleted
    id is served and the retrained replica meets the floor; a steady window
-   of 50 batches; the ``pq_scan`` kernel held against its plain version at
+   of 25 batches; the ``pq_scan`` kernel held against its plain version at
    batches of 1024 and 8, its partial sets and the merge timed apart, its
    bound counted from the live rows of each tile's cells and its
    shared-memory lookup floor beside it, its mode, QB, code ring, CTAs per
@@ -102,7 +102,7 @@ Phases (each one raises on a failed check; nothing is caught):
    the allowed, live, not excluded rows, before churn, after an upsert with
    tags and a delete of 1% of main, and after the compact.  An all-True
    bitmap through ``knn_query`` must equal no bitmap bit for bit.  Steady
-   windows of 50 batches for the tenant filter and the allow-list; at 1024 x
+   windows of 25 batches for the tenant filter and the allow-list; at 1024 x
    1,048,576 the masked partial sets beside the unmasked ones, the bitmap
    build, the K = 512 call and its merge, each timed and held against its
    plain version.  Phase 6's fp32 IVF index carries tags of the same kind,
@@ -168,11 +168,11 @@ Phases (each one raises on a failed check; nothing is caught):
    of 2 replicas; the free disk printed first, the root removed at the
    end).  11a: the in-process fleet, recall@10 at least 0.85 against brute
    force on a fixed batch of 1024, coverage all ones, bit for bit the
-   (1, 4)-mesh scorer over the same cells, codes and live slots; 50 warm
+   (1, 4)-mesh scorer over the same cells, codes and live slots; 25 warm
    batches through ``QueryEngine``.  11b: 4 x 2 worker processes on the
    card (spawn and HELLO seconds, the card's memory), bit for bit the
    in-process fleet on the fp32 and the bf16 wire, one batch's frame
-   bytes beside ``rpc_bytes_per_batch``, 50 warm batches.  11c: a SIGKILL
+   bytes beside ``rpc_bytes_per_batch``, 25 warm batches.  11c: a SIGKILL
    mid-batch and one replica of every shard killed between batches (bit
    for bit the healthy result), their respawn into probation and back to
    healthy, both replicas of shard 1 dead under ``"partial"`` (coverage
@@ -232,6 +232,23 @@ Phases (each one raises on a failed check; nothing is caught):
    against their plain version.  Then ``coalesce_rows`` against the
    ``torch.unique`` + ``argsort`` form, in turns.  Phase 14 must launch
    ``fused_knn`` (14d), and each entry carries ``launches_phase14``.
+15. The language models (``models.attention``, ``models.moe``,
+   ``models.transformer``, the LM steps, the LM launcher; ``phase_lm``).
+   15a: qwen3-moe-30b-a3b at ``full_config()`` (61.1 GB of weights drawn on
+   the card) serves 2 prompts of 4,096 tokens: prefill, 32 greedy decode
+   steps, the same steps sequence-parallel on a (1, 4) mesh of the card
+   (logits held against the plain decode); at capacity factor 8, prefill
+   and decode held against ``forward``; layer 0 held against the CPU; every
+   router launch of the first prefill and decode step held against the
+   plain version.  15b: h2o-danube-3-4b at ``full_config()`` decodes past
+   its window of 4,096 (a prompt of 6,144), held against ``forward`` and
+   the sequence-parallel decode against the plain one.  15c: the five LMs
+   at ``smoke_config()`` on the card and the CPU (serving and 3 train
+   steps), then ``launch.train --preset lm100m`` on the card.  Prefill and
+   decode times beside the decode bound (the weights' bytes over 3.35
+   TB/s), peak memory, the router's ``stream_topk`` beside ``torch.topk``.
+   Phase 15 must launch ``stream_topk`` (the MoE router), and each entry
+   carries ``launches_phase15``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -276,7 +293,10 @@ IVF_CELLS = 4096  # 4 * sqrt(n), the low end of faiss's IVF guideline for ~1M ro
 N_TENANTS = 8  # phase 8's tenant tags, drawn with shares proportional to 1 / (t + 1)
 MESH_QUERIES = 8192  # phase 10c: the query_1m cell's m (src/repro/configs/base.py:489)
 SERVICE_ITEMS = 1_000_000  # phase 12: the two-tower retrieval_cand cell (configs/base.py:354-356)
-SERVICE_STEADY = 50  # phase 12b: batches of 1024 users in the steady window
+# Batches of 1024 in a steady window (phases 4-8, 11), after one cold batch:
+# 25 (50 once), to keep the script near 900 s of its own clock.
+STEADY_BATCHES = 25
+SERVICE_STEADY = 25  # phase 12b: batches of 1024 users in the steady window
 SERVICE_CONFIG = None  # phase 12's towers: None is configs/two_tower.py::full_config()
 TRAIN_ROWS = None  # phase 13's rows a step: None is the train_batch cell's 65536 (configs/base.py:350)
 TRAIN_STEPS = {"two-tower-retrieval": 10, "dlrm-rm2": 5, "xdeepfm": 5, "bst": 5}
@@ -870,7 +890,7 @@ def phase_two_stage(torch, dev, run_path):
             ids_t = torch.from_numpy(ids).to(dev)
             rec2 = recall_at(torch, got2.ids, ids_t[true_ids(torch, q2, vt, k)])
             steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
-            for b in range(51):  # the first batch is tagged cold
+            for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
                 steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024])
             return rec, rec2, engine.meter.summary(), steady.meter
 
@@ -1093,7 +1113,7 @@ def phase_ivf(torch, dev, run_path, x):
             if sd == "float32":
                 full_probe_gate("compacted", queries[4096:5120])
             steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
-            for b in range(51):  # the first batch is tagged cold
+            for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
                 steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024])
             return rec, first_s, engine.meter.summary(), steady.meter
 
@@ -1392,7 +1412,7 @@ def phase_ivfpq(torch, dev, run_path, x):
         no_dead(got2, "after the compact")
         rec8_churn = recall_at(torch, got2.ids, live_truth(queries[2048:4096]))
         steady = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
-        for b in range(51):  # the first batch is tagged cold
+        for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
             no_dead(steady.search(queries[(b % 8) * 1024 : (b % 8 + 1) * 1024]), "steady")
         return rec8, rec4, rec8_churn, first_s, engine.meter.summary(), steady.meter
 
@@ -1684,7 +1704,7 @@ def phase_filtered(torch, dev, run_path, db):
         steady = {}
         for name in ("tenant", "allow", "allow_fresh", "tenant_exclude"):
             eng = QueryEngine(index, EngineConfig(k=k, min_batch=8, max_batch=1024))
-            for b in range(51):  # the first batch is tagged cold
+            for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
                 q, qt = batch(b % 6)
                 eng.search(q, filter=window_filter(name, b, qt))
             steady[name] = {**eng.meter.summary(), "p90_ms": eng.meter.latency_ms(90)}
@@ -2326,11 +2346,11 @@ def phase_fleet(torch, dev, run_path, cells, pq, xc, compare):
     4 shard images of 1,024 cells under ``build/phase11`` with a fleet
     manifest of 2 replicas.  11a: the in-process fleet (R = 1): recall@10
     against brute force, full coverage, and bit for bit the (1, 4)-mesh
-    scorer over the same cells, codes and live slots; 50 warm batches
+    scorer over the same cells, codes and live slots; 25 warm batches
     through ``QueryEngine``.  11b: 4 x 2 worker processes, each its own
     CUDA context on the card: spawn and HELLO seconds, the card's memory,
     bit for bit the in-process fleet on the fp32 and the bf16 wire, the
-    frames' bytes beside ``rpc_bytes_per_batch``, 50 warm batches.  11c: a
+    frames' bytes beside ``rpc_bytes_per_batch``, 25 warm batches.  11c: a
     SIGKILL mid-batch and one replica of every shard killed between batches
     (results bit for bit healthy), the respawn into probation and back to
     healthy, both replicas of one shard dead under ``"partial"`` (coverage
@@ -2422,7 +2442,7 @@ def phase_fleet(torch, dev, run_path, cells, pq, xc, compare):
     engine = QueryEngine(inproc, EngineConfig(k=k, min_batch=8, max_batch=1024))
 
     def window(eng):
-        for b in range(51):  # the first batch is tagged cold
+        for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
             eng.search(batches[b % len(batches)])
         return eng.meter
 
@@ -3699,6 +3719,463 @@ def phase_loop(torch, dev, run_path):
     return out
 
 
+LM_PROMPT = 4096  # 15a: two prompts of this many tokens (the train_4k cell's seq_len)
+LM_DECODE = 32  # 15a-b: greedy decode steps
+LM_HOLD = (512, 8, 768)  # 15a.3: prompt, decode steps, forward length (2 x 768: 3 routing groups)
+LM_LAYER_ROWS = 256  # 15a.4: tokens a row of layer 0's input, two rows
+LM_SWA_PROMPT = 6144  # 15b: one prompt past h2o-danube-3-4b's window of 4096
+LM_TRAIN = dict(peak_lr=1e-3, warmup_steps=1, total_steps=20)  # 15c's 3 steps
+LM_FLOOR_STEPS = 4  # 15a-b: steps of the noise floor's decode
+# The holds of phase 15 on decoded logits, each step's error relative to its
+# largest |logit| (bf16 logits: an ulp is 2^-8 of a value): (the most any
+# step may be off, the most the median step may be).  The sequence-parallel
+# decode sums the same terms in another order, and prefill + decode against
+# ``forward`` runs other shapes, so other summation orders.  At full width
+# the random model is chaotic in bf16: any such order moves the logits by
+# 2-5% of the largest (on an H100 80GB HBM3 at 700 W), and a token whose
+# router scores sit at a tie takes another expert.  So the exact check of
+# each path is made before the bf16 rounding (``LM_MERGE_TOL``: the merged
+# accumulators of the sequence-parallel attention against one
+# ``flash_mlo`` over the whole cache, in fp32), and the logits are held to
+# the noise floor, which each run also measures (the plain decode with the
+# whole cache as one chunk against chunks of ``kv_chunk``).  A wrong slot,
+# position or mask is off at every step, by far more.
+LM_TOL = (0.15, 0.08)
+LM_MERGE_TOL = 1e-5
+
+
+class RouterLaunches:
+    """While active, record every call of ``stream_topk``'s wrapper (its
+    input, K and result): the MoE router's launches, held against the plain
+    version afterwards."""
+
+    def __init__(self):
+        from repro_torch.kernels import stream_topk as ST
+
+        self.mod, self.records = ST, []
+
+    def __enter__(self):
+        self.orig = self.mod.stream_topk
+
+        def wrap(x, k, **kw):
+            got = self.orig(x, k, **kw)
+            self.records.append((x, k, got))
+            return got
+
+        self.mod.stream_topk = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stream_topk = self.orig
+
+    def hold(self, torch):
+        """Each record's ids and values equal to ``stream_topk_plain``'s."""
+        for x, k, (v, i) in self.records:
+            pv, pi = self.mod.stream_topk_plain(x, k)
+            check(torch.equal(i, pi) and torch.equal(v, pv),
+                  f"router stream_topk {tuple(x.shape)} k {k}: kernel and plain differ")
+        return len(self.records)
+
+
+def phase_lm(torch, dev, run_path):
+    """15. The language models (``models.attention``, ``models.moe``,
+    ``models.transformer``, the LM steps of ``distributed.steps``,
+    ``launch.train --preset lm100m``).
+
+    15a: qwen3-moe-30b-a3b at ``full_config()`` (48 layers, d_model 2048,
+    32 heads over 4 KV heads, QK-norm, 128 experts top-8, vocab 151,936),
+    drawn from seed 0 on the card (30.5e9 parameters, 61.1 GB).  (1) 2
+    prompts of ``LM_PROMPT`` tokens (``lm_batch(2, 4096, vocab, seed=0)``)
+    prefilled twice into one cache (the first run's router launches
+    recorded), then ``LM_DECODE`` greedy decode steps, each fed the argmax
+    of the step before (the first step's router launches recorded).  (2) The
+    same steps, fed the same tokens, through ``make_lm_decode_step(
+    seq_parallel=True)`` on a (1, 4) mesh of the card, from a clone of the
+    prefilled cache: first its attention of layer 0 in fp32 against one
+    ``flash_mlo`` over the whole cache (``LM_MERGE_TOL``), then the logits
+    held against the plain decode's by ``LM_TOL`` (each step's error over
+    its largest |logit|: the worst step, the median step), beside the
+    noise floor (the plain decode with the whole cache as one chunk,
+    ``LM_FLOOR_STEPS`` steps), the greedy tokens compared and any that
+    differ reported.  (3) At ``capacity_factor`` E / K = 16 (a group's capacity is
+    the group: no token drops in either mode): a prefill of 2 x 512 tokens
+    and 8 decode steps against ``forward`` over 2 x 768 tokens at the
+    decoded positions, by ``LM_TOL``.  (4) Layer 0's drawn weights
+    copied to the host: ``layer_forward`` on the same 2 x 256 bf16 hidden
+    states on the card and on the CPU, allclose (rtol 2^-6, atol 2^-6 of
+    the largest |y|) on every token whose kept experts are the same on
+    both; the tokens that keep other experts (a router tie broken apart by
+    the last bits, or a capacity overflow it moved) reported, at most 2 in
+    100.  (5) Every recorded router launch held against
+    ``stream_topk_plain`` on the same scores: ids and values equal.
+    (6) Prefill ms and tokens/s, decode ms a step (first, median) plain and
+    sequence-parallel, beside the bound: every weight's bytes over 3.35
+    TB/s (the GShard dispatch touches every expert each step); the peak
+    memory; the router's ``stream_topk`` at the prefill's [8192, 128], k 8,
+    beside ``torch.topk`` and its plain version.
+    15b: h2o-danube-3-4b at ``full_config()`` (7.92 GB), one prompt of
+    ``LM_SWA_PROMPT`` tokens (the ring of 4,096 keeps the last 4,096,
+    rolled), ``LM_DECODE`` greedy steps held against ``forward`` over the
+    whole sequence at the decoded positions, and the sequence-parallel
+    decode on the (1, 4) mesh against the plain one, as in 15a; the same
+    times, bound and peak.
+    15c: each of the five LMs at ``smoke_config()`` drawn once on the CPU:
+    a prefill of 2 x 16 tokens, 8 decode steps and 3 train steps
+    (``lm_loss``, ``make_train_step``, ``LM_TRAIN``) on the card and on the
+    CPU: logits within 1e-4 (dense) or 5e-3 (the MoE's bf16 expert path),
+    losses within rtol 1e-4, params within 2e-5 (dense) or 6 lr with 99 in
+    100 of each leaf within lr / 16 (the MoE, as the CPU tests hold it);
+    then ``launch.train --preset lm100m --steps 20 --batch 4 --seq-len 128
+    --device cuda`` in process: losses finite, the last below the first.
+    Phase 15 must launch ``stream_topk`` (the MoE router of 15a and 15c).
+    A rehearsal on the CPU shrinks it by replacing the archs'
+    ``full_config`` and the ``LM_*`` sizes."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import stream_topk as ST
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import split_params, tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    sp_rules = make_rules(make_mesh((1, 4), ("data", "model"), devices=[dev] * 4))
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def tokens(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def weights(cfg):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = synced()
+        values = split_params(Tr.init_params(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))[0]
+        draw_s = synced() - t0
+        leaves = tree_leaves(values)
+        qk_norms = 2 * cfg.head_dim * cfg.n_layers if cfg.use_qk_norm else 0  # not in n_params
+        check(sum(t.numel() for t in leaves) == cfg.n_params + qk_norms,
+              f"drawn {sum(t.numel() for t in leaves)} parameters, n_params {cfg.n_params}")
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        return values, {"draw_s": draw_s, "n_params": cfg.n_params, "param_bytes": nbytes,
+                        "decode_bound_ms": nbytes / PEAK_HBM * 1e3}
+
+    def decode(step, values, cache, first, n, feed=None, record=None):
+        """``n`` decode steps from ``first`` [B]: greedy, or fed ``feed[i]``
+        at step i; returns (the logits of each step on the host, the tokens
+        fed, each step's ms)."""
+        logits, fed, ms = [], [], []
+        tok = first
+        for i in range(n):
+            tok = feed[i] if feed is not None else tok
+            fed.append(tok)
+            t0 = synced()
+            if record is not None and i == 0:
+                with record:
+                    lg, cache = step(values, cache, tok)
+            else:
+                lg, cache = step(values, cache, tok)
+            ms.append((synced() - t0) * 1e3)
+            logits.append(lg.float().cpu())
+            tok = lg.argmax(-1).to(torch.int32)
+        return logits, fed, ms
+
+    def held(got, want, what):
+        """Each step's max |got - want| over its largest |want|, held to LM_TOL."""
+        errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+        check(max(errs) <= LM_TOL[0] and statistics.median(errs) <= LM_TOL[1],
+              f"{what}: steps off by {errs} of their largest |logit|, past {LM_TOL}")
+        return {"max": max(errs), "median": statistics.median(errs), "per_step": errs}
+
+    def serving(values, cfg, prompt, label, record=None):
+        """Prefill (twice) and ``LM_DECODE`` greedy steps, then the same
+        steps sequence-parallel from a clone of the prefilled cache."""
+        B, S = prompt.shape
+        abstract = Tr.abstract_params(cfg)
+        cache = Tr.init_cache(cfg, B, S + LM_DECODE, device=dev)
+        prefill = STP.make_lm_prefill_step(cfg, rules, abstract)[1](prompt, cache)
+        res = {"prompt": [B, S], "cache_bytes": 2 * cache.k.numel() * cache.k.element_size(),
+               "cache_slots": cache.k.shape[2]}
+        ms = []
+        for rep in range(2):
+            t0 = synced()
+            if rep == 0 and record is not None:
+                with record:
+                    lg, cache = prefill(values, prompt, cache)
+            else:
+                lg, cache = prefill(values, prompt, cache)
+            ms.append((synced() - t0) * 1e3)
+        check(bool(torch.isfinite(lg.float()).all()) and lg.shape == (B, cfg.vocab),
+              f"{label}: prefill logits")
+        check(cache.pos.tolist() == [S] * B, f"{label}: the cache's positions")
+        res.update(prefill_ms=ms, prefill_tokens_per_s=B * S / (ms[1] / 1e3))
+        sp_cache, floor_cache = cache.clone(), cache.clone()
+        first = lg.argmax(-1).to(torch.int32)
+        sp_step = STP.make_lm_decode_step(cfg, sp_rules, abstract, seq_parallel=True)[1](
+            sp_cache, first)
+        # The sequence-parallel attention of layer 0, in fp32, against one
+        # flash_mlo over the whole prefilled cache.
+        with torch.no_grad():
+            lp = Tr.layer_params(values["layers"], 0)
+            h = Tr._rms(Tr._embed_tokens(values, first[:, None], cfg), lp["ln1"], cfg.norm_eps)
+            q = Tr._qkv(lp, h, cfg, cache.pos[:, None])[0].float()
+            want = A.decode_attention_layer(q, cache.k[0], cache.v[0], cache.pos,
+                                            window=cfg.sliding_window, kv_chunk=cfg.kv_chunk,
+                                            logits_soft_cap=cfg.logits_soft_cap)
+            got = sp_step.attn_fn(q, cache.k[0], cache.v[0], cache.pos)
+        merge_err = float((got - want).abs().max()) / float(want.abs().max())
+        check(merge_err <= LM_MERGE_TOL, f"{label}: the sequence-parallel attention of layer 0 "
+              f"off one flash_mlo by {merge_err} of its largest value")
+        res["sp_attention_fp32_rel_err"] = merge_err
+        step = STP.make_lm_decode_step(cfg, rules, abstract)[1](cache, first)
+        plain, fed, ms = decode(step, values, cache, first, LM_DECODE, record=record)
+        check(all(bool(torch.isfinite(x).all()) for x in plain), f"{label}: decode logits")
+        res.update(decode_ms_first=ms[0], decode_ms_median=statistics.median(ms[1:]),
+                   decode_ms=ms)
+        # The noise floor: the plain decode with the whole cache as one chunk.
+        one = dataclasses.replace(cfg, kv_chunk=floor_cache.k.shape[2])
+        floor_step = STP.make_lm_decode_step(one, rules, abstract)[1](floor_cache, first)
+        floor, _, _ = decode(floor_step, values, floor_cache, first, LM_FLOOR_STEPS, feed=fed)
+        errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(floor, plain)]
+        res["noise_floor_one_chunk"] = {"max": max(errs), "median": statistics.median(errs),
+                                        "per_step": errs}
+        del floor_cache
+        sp, _, sp_ms = decode(sp_step, values, sp_cache, first, LM_DECODE, feed=fed)
+        differ = [(i, b) for i in range(LM_DECODE) for b in range(B)
+                  if int(sp[i][b].argmax()) != int(plain[i][b].argmax())]
+        res.update(sp_decode_ms_first=sp_ms[0], sp_decode_ms_median=statistics.median(sp_ms[1:]),
+                   sp_vs_plain=held(sp, plain, f"{label}: the sequence-parallel decode"),
+                   sp_greedy_tokens_differ=differ)
+        seq = torch.cat([prompt] + [t[:, None] for t in fed], dim=1)  # the tokens fed, in order
+        return res, seq, plain
+
+    # 15a. qwen3-moe-30b-a3b at full width.
+    cfg = REG.get("qwen3-moe-30b-a3b").full_config()
+    values, qa = weights(cfg)
+    say("lm_qwen3_weights", qa)
+    record = RouterLaunches()
+    prompt = tokens(lm_batch(2, LM_PROMPT, cfg.vocab, seed=0)["tokens"])
+    (res, _, _) = counted("lm_qwen3_serving", lambda: serving(values, cfg, prompt, "15a",
+                                                               record=record))
+    qa.update(res)
+    say("lm_qwen3_serving", res)
+    check(len(record.records) == 2 * cfg.n_layers,
+          f"15a: {len(record.records)} router launches recorded, not 2 x {cfg.n_layers}")
+    qa["router_launches_held"] = record.hold(torch)
+    x_router = next(x for x, _, _ in record.records if x.shape[0] > 2)
+    router = {"shape": f"{x_router.shape[0]} x {x_router.shape[1]}, k {cfg.moe.top_k} "
+                       f"(the router at the prefill: -probs of {x_router.shape[0]} tokens)"}
+    router["ms"] = time_ms(torch, lambda: ST.stream_topk(x_router, cfg.moe.top_k), reps=20)
+    router["graph_ms"] = graph_ms(torch, lambda: ST.stream_topk(x_router, cfg.moe.top_k))
+    router["plain_ms"] = time_ms(torch, lambda: ST.stream_topk_plain(x_router, cfg.moe.top_k),
+                                 reps=20)
+    router["library_ms"] = time_ms(torch, lambda: torch.topk(x_router, cfg.moe.top_k, dim=1,
+                                                             largest=False), reps=20)
+    router["library_graph_ms"] = graph_ms(torch, lambda: torch.topk(
+        x_router, cfg.moe.top_k, dim=1, largest=False))
+    m_r, n_r = x_router.shape
+    router["bound_ms"], router["bound_by"] = bound_ms(1.0 * m_r * n_r,
+                                                      m_r * n_r * 4 + m_r * cfg.moe.top_k * 8)
+    kv, ki = ST.stream_topk(x_router, cfg.moe.top_k)
+    pv, pi = ST.stream_topk_plain(x_router, cfg.moe.top_k)
+    check(torch.equal(ki, pi), "the router's stream_topk: ids differ from the plain version")
+    router["max_abs_err"] = float((kv - pv).abs().max())
+    out["router"] = router
+    del record, x_router, kv, ki, pv, pi
+    say("lm_router_stream_topk", router)
+
+    # 15a.3: prefill + decode against forward.  At capacity factor E / K
+    # (16) a routing group's capacity is the group, so no token drops in
+    # either mode; at the reference test's 8 (where its smoke config's
+    # capacity is the group) the full config's is half the group, and the
+    # random router sends most tokens to a few experts (a rehearsal dropped
+    # 10-25% of the choices).
+    cap = cfg.moe.n_experts / cfg.moe.top_k
+    cfg_all = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    n_pre, n_dec, n_fwd = LM_HOLD
+
+    def hold_forward():
+        seq = tokens(lm_batch(2, n_fwd, cfg.vocab, seed=1)["tokens"])
+        cache = Tr.init_cache(cfg_all, 2, n_pre + n_dec, device=dev)
+        Tr.prefill(values, seq[:, :n_pre], cfg_all, cache)
+        got = []
+        for t in range(n_pre, n_pre + n_dec):
+            got.append(Tr.decode_step(values, cache, seq[:, t], cfg_all)[0].float().cpu())
+        with torch.no_grad():
+            full, _ = Tr.forward(values, seq, cfg_all)
+        want = [full[:, t].float().cpu() for t in range(n_pre, n_pre + n_dec)]
+        return {"capacity_factor": cap, **held(got, want, "15a: prefill + decode against forward")}
+
+    qa["decode_vs_forward"] = counted("lm_qwen3_vs_forward", hold_forward)
+    say("lm_qwen3_vs_forward", qa["decode_vs_forward"])
+
+    # 15a.4: layer 0 at full width on the card and on the CPU.  A token
+    # whose router scores sit at a tie that the two devices' last bits
+    # break apart takes another expert on one of them, and so can change
+    # which later choice overflows an expert's capacity (token order, then
+    # choice order): a token whose kept experts differ is reported, not
+    # held; every other token is held.
+    def hold_layer():
+        lp = Tr.layer_params(values["layers"], 0)
+        lp_host = tree_map(lambda t: t.to(cpu), lp)
+        g = np.random.default_rng(2)
+        x = torch.from_numpy(g.standard_normal((2, LM_LAYER_ROWS, cfg.d_model), np.float32))
+        x = x.to(torch.bfloat16)
+        pos = torch.arange(LM_LAYER_ROWS, dtype=torch.int32)[None].expand(2, -1)
+        with torch.no_grad(), RouterLaunches() as on_dev:
+            got = Tr.layer_forward(lp, x.to(dev), pos.to(dev), cfg)[0].float().cpu()
+        with torch.no_grad(), RouterLaunches() as on_cpu:
+            t0 = time.perf_counter()
+            want = Tr.layer_forward(lp_host, x, pos, cfg)[0].float()
+            cpu_s = time.perf_counter() - t0
+        C = M.capacity(cfg.moe, 2 * LM_LAYER_ROWS)  # one routing group of the 512 tokens
+        kept = []
+        for r in (on_dev, on_cpu):
+            ids = r.records[0][2][1].cpu().long()[None]  # [1, tokens, 8], in choice order
+            _, keep = M.expert_slots(ids, cfg.moe.n_experts, C)
+            kept.append(torch.where(keep, ids, -1)[0].sort(-1).values)
+        same = (kept[0] == kept[1]).all(-1).reshape(2, LM_LAYER_ROWS)
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        err = float(diff[same].max())
+        check(bool((diff[same] <= 2 ** -6 * (want[same].abs() + scale)).all()),
+              f"15a: layer 0 on the card off the CPU's by {err} (largest |y| {scale})")
+        flips = int((~same).sum())
+        check(flips <= 0.02 * same.numel(), f"15a: {flips} of {same.numel()} tokens kept "
+              "other experts on the card than on the CPU")
+        return {"max_abs_err": err, "largest_abs_y": scale, "cpu_s": cpu_s,
+                "tokens_keeping_other_experts": flips,
+                "their_max_abs_err": float(diff[~same].max()) if flips else None,
+                "host_copy_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(lp))}
+
+    qa["layer0_vs_cpu"] = counted("lm_qwen3_layer0", hold_layer)
+    qa["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["qwen3"] = qa
+    say("lm_qwen3", qa)
+    del values
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15b. h2o-danube-3-4b at full width: decode past the window.
+    cfg = REG.get("h2o-danube-3-4b").full_config()
+    values, hb = weights(cfg)
+    prompt = tokens(lm_batch(1, LM_SWA_PROMPT, cfg.vocab, seed=0)["tokens"])
+    res, seq, plain = counted("lm_h2o_serving", lambda: serving(values, cfg, prompt, "15b"))
+    hb.update(res)
+    say("lm_h2o_serving", res)
+    check(hb["cache_slots"] == min(cfg.sliding_window, LM_SWA_PROMPT + LM_DECODE),
+          "15b: the ring's capacity")
+
+    def hold_forward_swa():
+        with torch.no_grad():
+            full, _ = Tr.forward(values, seq, cfg)
+        want = [full[:, S].float().cpu() for S in range(LM_SWA_PROMPT, seq.shape[1])]
+        return held(plain, want, "15b: the decode past the window against forward")
+
+    hb["decode_vs_forward"] = counted("lm_h2o_vs_forward", hold_forward_swa)
+    hb["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["h2o"] = hb
+    say("lm_h2o", hb)
+    del values, seq, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15c. The five LMs at smoke_config(): the card against the CPU; the launcher.
+    def smoke(aid):
+        arch = REG.get(aid)
+        scfg = arch.smoke_config()
+        start = split_params(arch.init_params(scfg, generator=torch.Generator().manual_seed(0),
+                                              device="cpu"))[0]
+        toks = lm_batch(2, 24, scfg.vocab, seed=4)["tokens"]
+        batches = [lm_batch(4, 32, scfg.vocab, seed=5, step=i) for i in range(3)]
+
+        def run(d):
+            v = tree_map(lambda t: t.to(d, copy=True), start)
+            cache = Tr.init_cache(scfg, 2, 24, device=d)
+            t = torch.from_numpy(toks).to(d)
+            lg = [Tr.prefill(v, t[:, :16], scfg, cache)[0].float().cpu()]
+            for i in range(16, 24):
+                lg.append(Tr.decode_step(v, cache, t[:, i], scfg)[0].float().cpu())
+            r = make_rules(make_mesh((1, 1), ("data", "model"), devices=[d]))
+            loss, baxes = STP.lm_loss(scfg)
+            step, _, _, opt = STP.make_train_step(loss, arch.abstract_params(scfg), r, baxes,
+                                                  STP.StepConfig(**LM_TRAIN))
+            state = STP.init_state(opt, v)
+            losses = []
+            for b in batches:
+                state, m = step(state, {k: torch.from_numpy(x.copy()).to(d) for k, x in b.items()})
+                losses.append(float(m["loss"]))
+            return lg, losses, [x.float().cpu() for x in tree_leaves(state.params)]
+
+        want, got = run(cpu), run(dev)
+        moe = scfg.moe is not None
+        lerr = max(float((a - b).abs().max()) for a, b in zip(got[0], want[0]))
+        check(lerr <= (5e-3 if moe else 1e-4), f"15c {aid}: logits off the CPU's by {lerr}")
+        check(np.allclose(got[1], want[1], rtol=1e-4, atol=0), f"15c {aid}: losses {got[1]} "
+              f"against the CPU's {want[1]}")
+        perr, lr = 0.0, LM_TRAIN["peak_lr"]
+        for a, b in zip(got[2], want[2]):
+            d = (a - b).abs()
+            perr = max(perr, float(d.max()))
+            if moe:
+                check(float(d.max()) <= 6 * lr and float(d.flatten().quantile(0.99)) < lr / 16,
+                      f"15c {aid}: params off the CPU's by {float(d.max())}")
+            else:
+                check(bool((d <= 2e-5 + 1e-5 * b.abs()).all()),
+                      f"15c {aid}: params off the CPU's by {float(d.max())}")
+        return {"max_abs_logit_err": lerr, "losses": got[1], "cpu_losses": want[1],
+                "max_abs_param_err": perr}
+
+    out["smoke"] = {aid: counted(f"lm_smoke_{aid}", lambda aid=aid: smoke(aid))
+                    for aid in ("h2o-danube-3-4b", "yi-6b", "gemma-2b", "mixtral-8x22b",
+                                "qwen3-moe-30b-a3b")}
+    say("lm_smoke", out["smoke"])
+
+    def launcher():
+        path = os.path.join(HERE, "build", "phase15_lm100m.jsonl")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        rc = LT.main(["--preset", "lm100m", "--steps", "20", "--batch", "4", "--seq-len", "128",
+                      "--device", str(dev.type), "--metrics", path])
+        wall = time.perf_counter() - t0
+        losses = [r["loss"] for r in map(json.loads, open(path)) if "loss" in r]
+        os.remove(path)
+        check(rc == 0 and losses and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"15c: the lm100m launcher's losses {losses}")
+        return {"seconds": wall, "first_loss": losses[0], "last_loss": losses[-1],
+                "logged": len(losses)}
+
+    out["launcher"] = counted("lm_launcher", launcher)
+    say("lm_launcher", out["launcher"])
+    check(out["launches"].get("stream_topk", 0) > 0,
+          f"phase 15 never launched stream_topk: {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("lm_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3725,6 +4202,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The language models' bf16 products accumulate in fp32 (phase 15).
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3932,10 +4411,10 @@ def main() -> int:
         engine.search(queries[o + 2048 : o + 3072])
         engine.search(queries[o + 3072 : o + 4096])
         brute_check("compact", queries[o + 2048 : o + 2112])
-        # A steady window after the churn: 50 full batches on one engine of
+        # A steady window after the churn: 25 full batches on one engine of
         # its own, so the percentiles rest on more than a handful of samples.
         steady = QueryEngine(index, EngineConfig(k=k4, min_batch=8, max_batch=1024))
-        for b in range(51):  # the first batch is tagged cold
+        for b in range(STEADY_BATCHES + 1):  # the first batch is tagged cold
             steady.search(random_vectors(1024, d, seed=100 + b))
         return engine.meter.summary(), steady.meter
 
@@ -4058,6 +4537,14 @@ def main() -> int:
     loop = phase_loop(torch, dev, run_path)
     loop_launches = loop["launches"]
 
+    # 15. The language models: qwen3-moe-30b-a3b and h2o-danube-3-4b at full
+    # width, the five at smoke size, the LM launcher; the MoE router on
+    # stream_topk.
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm(torch, dev, run_path)
+    lm_launches = lm["launches"]
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -4125,7 +4612,8 @@ def main() -> int:
          "kernel_shape": st_shape, "variants": {**wide["stream_topk"], "k100_1024_rows": {
              key: cum["sqeuclidean"]["stream_topk"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
-                 "shape")}}},
+                 "shape")},
+             "moe_router": {**lm["router"], "launches": lm_launches.get("stream_topk", 0)}}},
         {"name": "rescore_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rescore.cu",
          "replaces": "src/repro/kernels/rescore.py:65", "launches": launches["rescore_topk"],
@@ -4191,6 +4679,7 @@ def main() -> int:
         entry["launches_phase12"] = service_launches.get(entry["name"], 0)
         entry["launches_phase13"] = train_launches.get(entry["name"], 0)
         entry["launches_phase14"] = loop_launches.get(entry["name"], 0)
+        entry["launches_phase15"] = lm_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -1,7 +1,7 @@
-"""Architecture/shape registry plumbing (the recsys and GNN families).
+"""Architecture/shape registry plumbing.
 
-Port of the recsys and GNN parts of ``repro/configs/base.py``.  Each architecture is
-an arch object with:
+Port of ``repro/configs/base.py``: the LM, GNN, recsys and kNN families.
+Each architecture is an arch object with:
 
   * ``full_config()``  -- the published hyper-parameters;
   * ``smoke_config()`` -- a reduced config of the same family, small enough
@@ -12,10 +12,13 @@ an arch object with:
     (shapes, dtypes and logical axes, nothing allocated);
   * ``init_params(cfg, generator=..., device=...)`` -- a drawn ``Param`` tree;
   * ``build(rules, shape, smoke=False)`` -- ``(fn, args)``: the step of the
-    cell and its arguments as meta tensors (the train state, the batch);
+    cell and its arguments as meta tensors (the train state, the batch,
+    the KV cache);
   * ``smoke_batch(shape)`` -- real (small) data for integration tests.
 
-The language-model and kNN arch families wait for their models' port.
+The kNN family (``KNNArch``) has configs as dicts and no params; its
+``build`` returns the multi-device solver of ``core.distributed`` for the
+cell and its arguments.
 """
 from __future__ import annotations
 
@@ -56,6 +59,131 @@ def _spec(shape, dtype) -> torch.Tensor:
 
 def _cells(arch) -> dict:
     return {c.name: c for c in arch.shapes}
+
+
+# ---------------------------------------------------------------------------
+# LM family.
+# ---------------------------------------------------------------------------
+
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+class LMArch:
+    family = "lm"
+
+    def __init__(self, arch_id: str, full_cfg: Callable, smoke_cfg: Callable,
+                 *, subquadratic: bool, step_overrides: dict | None = None):
+        self.id = arch_id
+        self.full_config = full_cfg
+        self.smoke_config = smoke_cfg
+        self.subquadratic = subquadratic
+        self.step_overrides = step_overrides or {}
+
+    @property
+    def shapes(self):
+        cells = [
+            Cell("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+            Cell("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+            Cell("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+        ]
+        if self.subquadratic:
+            cells.append(Cell("long_500k", "decode", dict(seq_len=524288, global_batch=1)))
+        else:
+            cells.append(Skip(
+                "long_500k",
+                "pure full attention: a 524288-token dense KV cache per "
+                "sequence is the quadratic regime this shape excludes "
+                "(DESIGN.md §Shape-cell notes); SWA archs run it instead",
+            ))
+        return cells
+
+    def abstract_params(self, cfg):
+        from repro_torch.models import transformer as Tr
+
+        return Tr.abstract_params(cfg)
+
+    def init_params(self, cfg, *, generator: torch.Generator | None = None, device="cuda"):
+        """The ``Param`` tree drawn on ``device`` from ``generator`` (default:
+        a fresh one seeded 0), each leaf in its dtype."""
+        from repro_torch.models import transformer as Tr
+
+        return Tr.init_params(cfg, generator=generator, device=device)
+
+    def _cache_sds(self, cfg, batch: int, seq_len: int):
+        from repro_torch.models import attention as A
+        from repro_torch.models import transformer as Tr
+
+        C = Tr.cache_capacity(cfg, seq_len)
+        shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.head_dim)
+        return A.KVCache(k=_spec(shape, torch.bfloat16), v=_spec(shape, torch.bfloat16),
+                         pos=_spec((batch,), torch.int32))
+
+    def input_specs(self, shape_name: str, cfg=None) -> dict:
+        cfg = cfg or self.full_config()
+        cell = _cells(self)[shape_name]
+        if not isinstance(cell, Cell):
+            raise KeyError(f"{self.id}/{shape_name} is skipped: {cell.reason}")
+        p = cell.params
+        B, S = p["global_batch"], p["seq_len"]
+        if cell.kind == "train":
+            return {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
+        if cell.kind == "prefill":
+            return {"tokens": _spec((B, S), torch.int32), "cache": self._cache_sds(cfg, B, S)}
+        if cell.kind == "decode":
+            return {"tokens": _spec((B,), torch.int32), "cache": self._cache_sds(cfg, B, S)}
+        raise KeyError(cell.kind)
+
+    def build(self, rules: AxisRules, shape_name: str, *, smoke: bool = False,
+              step_config=None, variant: str | None = None):
+        """``(fn, args)`` for one cell, ``args`` as meta tensors.  ``variant``:
+        decode cells take ``"sp"`` (the sequence-parallel cache, the
+        flash-decoding merge) or None (the cache's sequence whole)."""
+        from repro_torch.distributed import steps as ST
+        from repro_torch.models.nn import split_params
+
+        cfg = self.smoke_config() if smoke else self.full_config()
+        cell = _cells(self)[shape_name]
+        if not isinstance(cell, Cell):
+            raise KeyError(f"{self.id}/{shape_name} is skipped: {cell.reason}")
+        specs = self._smoke_specs(cell, cfg) if smoke else self.input_specs(shape_name, cfg)
+        abstract = self.abstract_params(cfg)
+        values, _ = split_params(abstract)
+
+        if cell.kind == "train":
+            loss, baxes = ST.lm_loss(cfg)
+            sc = step_config or ST.StepConfig(**self.step_overrides)
+            _, jitted, _, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
+            batch = {"tokens": specs["tokens"], "labels": specs["labels"]}
+            return jitted(batch), (ST.init_state(optimizer, values), batch)
+        if cell.kind == "prefill":
+            _, shard_for, _ = ST.make_lm_prefill_step(cfg, rules, abstract)
+            return (shard_for(specs["tokens"], specs["cache"]),
+                    (values, specs["tokens"], specs["cache"]))
+        if cell.kind == "decode":
+            _, shard_for, _ = ST.make_lm_decode_step(cfg, rules, abstract,
+                                                     seq_parallel=(variant == "sp"))
+            return (shard_for(specs["cache"], specs["tokens"]),
+                    (values, specs["cache"], specs["tokens"]))
+        raise KeyError(cell.kind)
+
+    def _smoke_specs(self, cell: Cell, cfg) -> dict:
+        b, s = 4, 64
+        if cell.kind == "train":
+            return {"tokens": _spec((b, s), torch.int32), "labels": _spec((b, s), torch.int32)}
+        if cell.kind == "prefill":
+            return {"tokens": _spec((b, s), torch.int32), "cache": self._cache_sds(cfg, b, s)}
+        return {"tokens": _spec((b,), torch.int32), "cache": self._cache_sds(cfg, b, s)}
+
+    def smoke_batch(self, shape_name: str, seed: int = 0, *, device="cuda") -> dict:
+        """``lm_batch(4, 64, vocab, seed)`` of the smoke config, as tensors on
+        ``device``."""
+        from repro_torch.data.synthetic import lm_batch
+        from repro_torch.kernels._backend import resolve_device
+
+        dev = resolve_device(device)
+        cfg = self.smoke_config()
+        return {k: torch.from_numpy(v.copy()).to(dev)
+                for k, v in lm_batch(4, 64, cfg.vocab, seed, 0).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +434,79 @@ class RecsysArch:
         if self._cell(shape_name).kind != "train":
             b.pop("labels", None)
         return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+# ---------------------------------------------------------------------------
+# The paper's own workload (kNN all-pairs / retrieval service).
+# ---------------------------------------------------------------------------
+
+
+class KNNArch:
+    """The paper's k-nearest-vector problem as a first-class config."""
+
+    family = "knn"
+
+    def __init__(self, arch_id: str = "knn-paper"):
+        self.id = arch_id
+
+    def full_config(self):
+        return dict(d=256, k=100, distance="sqeuclidean")
+
+    def smoke_config(self):
+        return dict(d=32, k=8, distance="sqeuclidean")
+
+    @property
+    def shapes(self):
+        return [
+            Cell("allpairs_160k", "allpairs", dict(n=160_000)),  # paper Table 1 max
+            Cell("allpairs_2m", "allpairs", dict(n=2_097_152)),  # beyond-paper scale
+            Cell("query_1m", "query", dict(m=8192, n=1_048_576)),
+        ]
+
+    def build(self, rules: AxisRules, shape_name: str, *, smoke: bool = False,
+              step_config=None, variant: str | None = None):
+        """``(fn, args)``: the cell's solver over ``rules.mesh`` and its
+        arguments, the vectors as meta tensors.  ``allpairs``: the ring
+        (``variant`` None, or ``"bf16wire"`` for its bf16 payload) or the
+        paper's zigzag triangle (``"triangle"``), ``fn(x, n)``; ``query``:
+        queries over the DP axes, the database over "model", on the port's
+        ``"fused"`` scan (the reference's plain ``"jnp"`` is the port's
+        ``"torch"``), ``fn(q, db, n)``."""
+        from repro_torch.core import distributed as KD
+
+        cfg = self.smoke_config() if smoke else self.full_config()
+        cell = _cells(self)[shape_name]
+        mesh = rules.mesh
+        P = int(np.prod(list(mesh.shape.values())))
+        if cell.kind == "allpairs":
+            n = 256 if smoke else cell.params["n"]
+            n_pad = pad_to(n, P)
+            if variant == "triangle":
+                # The paper's layout: the dataset all-gathered, the zigzag
+                # triangle schedule, the log-P butterfly heap merge; n
+                # re-padded to gsize * nGrids with nGrids = 2P.
+                gsize = max(128, pad_to(-(-n // (2 * P)), 128))
+                n_pad = gsize * 2 * P
+                fn = KD.make_triangle_allpairs(mesh, k=cfg["k"], gsize=gsize,
+                                               distance=cfg["distance"])
+            else:
+                fn = KD.make_ring_allpairs(
+                    mesh, k=cfg["k"], distance=cfg["distance"],
+                    wire_dtype=torch.bfloat16 if variant == "bf16wire" else None)
+            return fn, (_spec((n_pad, cfg["d"]), torch.float32), n)
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        m = 64 if smoke else cell.params["m"]
+        n = 1024 if smoke else cell.params["n"]
+        fn = KD.make_query_sharded(mesh, query_axis=dp if len(dp) > 1 else dp[0],
+                                   db_axis="model", k=cfg["k"], distance=cfg["distance"],
+                                   impl="fused")
+        return fn, (_spec((m, cfg["d"]), torch.float32), _spec((n, cfg["d"]), torch.float32), n)
+
+    def smoke_batch(self, shape_name: str, seed: int = 0, *, device="cuda") -> torch.Tensor:
+        """256 clustered vectors of the smoke config's width, on ``device``."""
+        from repro_torch.data.synthetic import clustered_vectors
+        from repro_torch.kernels._backend import resolve_device
+
+        cfg = self.smoke_config()
+        return torch.from_numpy(clustered_vectors(256, cfg["d"], seed=seed)).to(
+            resolve_device(device))

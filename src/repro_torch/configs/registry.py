@@ -1,35 +1,30 @@
-"""``--arch <id>`` lookup over the architectures the port has.
+"""``--arch <id>`` lookup over the assigned architectures (+ the paper's).
 
-Port of ``repro/configs/registry.py`` for the recsys and GNN families.  The
-reference's other architectures wait for their models' port: asking for one
-raises a ``KeyError`` that names it.
+Port of ``repro/configs/registry.py``: the same ids, the same
+``ASSIGNED`` and ``all_cells``.
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "nequip": "repro_torch.configs.nequip",
     "xdeepfm": "repro_torch.configs.xdeepfm",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "bst": "repro_torch.configs.bst",
     "two-tower-retrieval": "repro_torch.configs.two_tower",
+    "knn-paper": "repro_torch.configs.knn_paper",
 }
 
-# The reference's language models: their port is item 2d of ROADMAP.md.
-LM_ARCHS = ("h2o-danube-3-4b", "yi-6b", "gemma-2b", "mixtral-8x22b", "qwen3-moe-30b-a3b")
-# The reference's other architectures, not ported yet.
-NOT_PORTED = LM_ARCHS + ("knn-paper",)
-
-ASSIGNED = list(_MODULES)
+ASSIGNED = [a for a in _MODULES if a != "knn-paper"]
 
 
 def get(arch_id: str):
-    if arch_id in LM_ARCHS:
-        raise KeyError(f"arch {arch_id!r} is a language model, not ported yet (ROADMAP.md, "
-                       f"item 2d); the port has {sorted(_MODULES)}")
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; the port has {sorted(_MODULES)}")
     try:
         mod = importlib.import_module(_MODULES[arch_id])
     except KeyError:
@@ -37,7 +32,8 @@ def get(arch_id: str):
     return mod.ARCH
 
 
-def all_cells():
-    """Every (arch_id, shape_name, kind, skip reason) of the ported archs."""
+def all_cells(include_knn: bool = False):
+    """Every (arch_id, shape_name, kind, skip reason); a skip has kind 'skip'."""
+    ids = list(_MODULES) if include_knn else ASSIGNED
     return [(aid, cell.name, cell.kind, getattr(cell, "reason", None))
-            for aid in ASSIGNED for cell in get(aid).shapes]
+            for aid in ids for cell in get(aid).shapes]

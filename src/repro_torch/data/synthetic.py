@@ -1,7 +1,9 @@
-"""Deterministic synthetic data (numpy only): kNN vectors and click logs.
+"""Deterministic synthetic data (numpy only): kNN vectors, LM token streams
+and click logs.
 
-The port's own copy of the vector generators, ``host_slice`` and
-``recsys_batch`` of ``repro/data/synthetic.py``: the same seeds give the same arrays in both
+The port's own copy of the vector generators, ``host_slice``,
+``token_stream``/``lm_batch`` and ``recsys_batch`` of
+``repro/data/synthetic.py``: the same seeds give the same arrays in both
 packages, bit for bit, so the parity tests and ``chip_smoke.py`` can feed
 one dataset to either.
 """
@@ -40,6 +42,28 @@ def distribution_vectors(n: int, d: int, seed: int = 0) -> np.ndarray:
     g = _rng(seed)
     x = g.gamma(1.0, 1.0, (n, d)).astype(np.float32) + 1e-6
     return x / x.sum(axis=1, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
+# LM token streams.
+# ---------------------------------------------------------------------------
+
+
+def token_stream(batch: int, seq_len: int, vocab: int, seed: int, step: int) -> dict:
+    """One [B, S+1] window of a synthetic Zipf-ish token stream.
+
+    Returns dict(tokens [B, S], labels [B, S]) int32, the next-token shift
+    applied.  Zipf exponent 1.1 approximates natural-text unigram
+    statistics, so the embedding rows read are as hot as real text's.
+    """
+    g = _rng(seed, step)
+    raw = g.zipf(1.1, size=(batch, seq_len + 1)).astype(np.int64)
+    toks = np.minimum(raw - 1, vocab - 1).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_batch(batch: int, seq_len: int, vocab: int, seed: int = 0, step: int = 0) -> dict:
+    return token_stream(batch, seq_len, vocab, seed, step)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
-"""Train and serve step factories for the recommender models.
+"""Train and serve step factories, one family of losses and steps each.
 
-Port of the recsys and GNN parts of ``repro/distributed/steps.py``:
-``TrainState``, ``StepConfig`` (field for field), the optimizer choice,
-``init_state``, gradient accumulation over micro-batches,
-``make_train_step``, ``recsys_loss``, ``gnn_potential_loss``,
-``gnn_classifier_loss``, ``make_recsys_serve_step`` and
-``make_retrieval_step``.  The language-model steps wait for their model's
-port.
+Port of ``repro/distributed/steps.py``: ``TrainState``, ``StepConfig``
+(field for field), the optimizer choice, ``init_state``, gradient
+accumulation over micro-batches, ``make_train_step``, ``lm_loss``,
+``recsys_loss``, ``gnn_potential_loss``, ``gnn_classifier_loss``,
+``make_lm_decode_step`` (with its sequence-parallel variant),
+``make_lm_prefill_step``, ``make_recsys_serve_step`` and
+``make_retrieval_step``.
 
 The reference jits each step with shardings derived from the logical axes.
 Here a step is a Python function over the params' tensors on their device,
@@ -34,6 +34,7 @@ softmax within each slice.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -220,6 +221,18 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 
 
+def lm_loss(cfg):
+    """Next-token cross entropy of the transformer (``models.transformer.loss_fn``)."""
+    from repro_torch.models import transformer as Tr
+
+    def loss(values, batch):
+        return Tr.loss_fn(values, batch, cfg)
+
+    axes = {"tokens": ("batch", None), "labels": ("batch", None),
+            "loss_mask": ("batch", None)}
+    return loss, axes
+
+
 def gnn_potential_loss(cfg, n_graphs: int = 1):
     """NequIP's energy + force loss (``models.gnn.loss_fn``) over ``n_graphs``
     packed graphs; the GNN has no tables, so every leaf is dense."""
@@ -272,6 +285,108 @@ def recsys_loss(arch: str, cfg):
 # ---------------------------------------------------------------------------
 # Serve steps.
 # ---------------------------------------------------------------------------
+
+
+def make_lm_decode_step(cfg, rules: AxisRules, abstract_params, seq_parallel: bool = False):
+    """One-token decode against a (ring) KV cache: the decode_* cells.
+
+    Returns ``(step, shardings_for, param_shardings)``;
+    ``step(values, cache, tokens) -> (logits [B, V], cache)`` writes the
+    cache in place (``models.transformer.decode_step``), and
+    ``shardings_for(cache, tokens)`` returns the step for that cache: with
+    ``seq_parallel`` the flash-decoding one, else ``step`` itself.
+
+    ``seq_parallel=True``: each "model" position of ``rules.mesh`` takes a
+    range of the cache's slots (C / model of them; C must divide), the
+    batch rows split over the DP axes ("pod", "data") where the batch
+    divides, as the reference's ``bspec``.  Each position runs
+    ``flash_mlo`` over its slots (``cache_positions_range`` with its
+    offset), and the partial (m, l, o) merge exactly as the reference's
+    ``pmax`` then two ``psum``s: copied (``Mesh.copy``) to the group's
+    first position, there the max of ``m``, ``l`` and ``o`` rescaled and
+    summed (``attention.mlo_merge``), then normalized.
+    """
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as Tr
+
+    p_shard, _ = param_shardings(rules, abstract_params)
+    mesh = rules.mesh
+
+    def make_sp_attn(batch: int, capacity: int):
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        n_dp = math.prod(mesh.shape[a] for a in dp)
+        split = bool(dp) and batch % n_dp == 0
+        n_model = mesh.shape["model"]
+        if capacity % n_model:
+            raise ValueError(f"a cache of {capacity} slots does not split over {n_model} "
+                             "'model' positions")
+        c_loc = capacity // n_model
+        groups = mesh.groups("model")
+        blocks = [mesh.index_along(g[0], dp) if split else 0 for g in groups]
+        first = [blocks.index(b) == j for j, b in enumerate(blocks)]
+        nb = batch // n_dp if split else batch
+
+        def body(q, ck, cv, pos):
+            outs = {}
+            with mesh.scope():
+                for group, b, keep in zip(groups, blocks, first):
+                    if not keep:  # the same block's copy on another DP setting
+                        continue
+                    rows = slice(b * nb, (b + 1) * nb)
+                    parts = []
+                    for r, p in enumerate(group):
+                        slots = slice(r * c_loc, (r + 1) * c_loc)
+                        with mesh.on(p):
+                            q_l, pos_l = mesh.put(q[rows], p), mesh.put(pos[rows], p)
+                            ck_l = mesh.put(ck[rows, slots], p)
+                            cv_l = mesh.put(cv[rows, slots], p)
+                            k_pos, k_valid = A.cache_positions_range(pos_l + 1, capacity,
+                                                                     r * c_loc, c_loc)
+                            parts.append(A.flash_mlo(
+                                q_l, ck_l, cv_l, q_pos=pos_l[:, None], k_pos=k_pos,
+                                window=cfg.sliding_window, k_valid=k_valid,
+                                kv_chunk=min(cfg.kv_chunk, c_loc),
+                                logits_soft_cap=cfg.logits_soft_cap))
+                    dst = group[0]
+                    moved = [parts[0]] + [tuple(mesh.copy(t, p, dst) for t in part)
+                                          for p, part in zip(group[1:], parts[1:])]
+                    with mesh.on(dst):
+                        outs[b] = A.mlo_normalize(*A.mlo_merge(moved), q.dtype)
+            return torch.cat([outs[b].to(q.device) for b in sorted(outs)])
+
+        return body
+
+    def step_with(attn_fn):
+        def step(values, cache, tokens):
+            with axis_rules(rules):
+                return Tr.decode_step(values, cache, tokens, cfg, attn_fn=attn_fn)
+        step.attn_fn = attn_fn  # the step's attention override (None: the plain step)
+        return step
+
+    def shardings_for(cache_example, tokens_example):
+        if not seq_parallel:
+            return step_with(None)
+        return step_with(make_sp_attn(cache_example.k.shape[1], cache_example.k.shape[2]))
+
+    return step_with(None), shardings_for, p_shard
+
+
+def make_lm_prefill_step(cfg, rules: AxisRules, abstract_params):
+    """Full-prompt prefill: the prefill_* cells.  ``step(values, tokens,
+    cache) -> (last-token logits, cache)``, the cache filled in place;
+    ``shardings_for(tokens, cache)`` returns it."""
+    from repro_torch.models import transformer as Tr
+
+    p_shard, _ = param_shardings(rules, abstract_params)
+
+    def step(values, tokens, cache):
+        with axis_rules(rules):
+            return Tr.prefill(values, tokens, cfg, cache)
+
+    def shardings_for(tokens_example, cache_example):
+        return step
+
+    return step, shardings_for, p_shard
 
 
 def make_recsys_serve_step(arch: str, cfg, rules: AxisRules, abstract_params):

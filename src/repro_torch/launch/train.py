@@ -2,18 +2,17 @@
 
 Port of ``repro/launch/train.py``, every flag, plus ``--device`` (default
 ``cuda``, the card; ``cpu`` runs the same steps on the host).  It trains any
-registered architecture of the port at ``smoke_config()`` on synthetic but
-learnable data (a pure function of ``--seed`` and the step) through
+registered architecture of the port at ``smoke_config()``, or the ~100M
+parameter LM preset (``--preset lm100m``), on synthetic but learnable data
+(a pure function of ``--seed`` and the step) through
 ``train.loop.TrainLoop``: kill it, rerun it with the same
 ``--checkpoint-dir``, and it resumes from the newest valid checkpoint.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch nequip --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch bst --steps 300 \\
       --checkpoint-dir build/ckpt --metrics build/ckpt.jsonl [--device cpu]
-
-The recsys and GNN families are ported; the language models
-(``--preset lm100m`` and the LM ``--arch`` ids) are item 2d of ROADMAP.md
-and raise a ``KeyError`` that says so.
+  PYTHONPATH=src python -m repro_torch.launch.train --preset lm100m --steps 300 \\
+      --batch 4 --seq-len 128 --checkpoint-dir build/lm_ckpt [--device cpu]
 """
 from __future__ import annotations
 
@@ -21,6 +20,48 @@ import argparse
 import time
 
 import torch
+
+
+def lm100m_config():
+    """~100M-param llama-style config (the train launcher's LM preset)."""
+    from repro_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        n_layers=12, d_model=768, n_heads=12, n_kv_heads=4, head_dim=64,
+        d_ff=2048, vocab=32000, act="silu", dtype=torch.float32,
+        remat_policy="none",
+    )
+
+
+def _lm_batch_fn(batch: int, seq_len: int, vocab: int, seed: int, device):
+    from repro_torch.data.synthetic import lm_batch
+
+    def batch_fn(step):
+        return {k: torch.from_numpy(v.copy()).to(device)
+                for k, v in lm_batch(batch, seq_len, vocab, seed, step).items()}
+
+    return batch_fn
+
+
+def build_lm(cfg, rules, args, device):
+    """(step, initial state, batch_fn, state shardings) of the transformer
+    ``cfg`` on ``--batch`` x ``--seq-len`` token batches, its params drawn
+    from ``--seed`` on ``device``."""
+    from repro_torch.distributed import steps as ST
+    from repro_torch.models import transformer as Tr
+
+    params = Tr.init_params(cfg, generator=torch.Generator(device).manual_seed(args.seed),
+                            device=device)
+    loss, baxes = ST.lm_loss(cfg)
+    sc = ST.StepConfig(peak_lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps,
+                       micro_batches=args.micro_batches)
+    _, jitted, st_shard, optimizer = ST.make_train_step(loss, Tr.abstract_params(cfg), rules,
+                                                        baxes, sc)
+    state = ST.init_state(optimizer, params)
+    batch_fn = _lm_batch_fn(args.batch, args.seq_len, cfg.vocab, args.seed, device)
+    print(f"[train] LM params: {cfg.n_params / 1e6:.1f}M  "
+          f"tokens/step: {args.batch * args.seq_len}")
+    return jitted(batch_fn(0)), state, batch_fn, st_shard
 
 
 def build_arch(arch_id: str, rules, args, device):
@@ -33,7 +74,12 @@ def build_arch(arch_id: str, rules, args, device):
     cfg = arch.smoke_config()
     sc = ST.StepConfig(peak_lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
     gen = torch.Generator(device).manual_seed(args.seed)
-    if arch.family == "gnn":
+    if arch.family == "lm":
+        params = arch.init_params(cfg, generator=gen, device=device)
+        loss, baxes = ST.lm_loss(cfg)
+        abstract = arch.abstract_params(cfg)
+        batch_fn = _lm_batch_fn(8, 64, cfg.vocab, args.seed, device)
+    elif arch.family == "gnn":
         from repro_torch.data.graphs import molecule_batch
 
         cell = {c.name: c for c in arch.shapes}["molecule"]
@@ -86,16 +132,16 @@ def main(argv=None):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 
-    if args.preset == "lm100m":
-        raise KeyError("--preset lm100m is a language model, not ported yet (ROADMAP.md, "
-                       "item 2d)")
-    if not args.arch:
+    if not args.arch and args.preset != "lm100m":
         ap.error("--arch or --preset required")
     dev = resolve_device(args.device)
     mesh = make_host_mesh(args.model_parallel, devices=[dev])
     rules = make_rules(mesh)
     print(f"[train] mesh: {dict(mesh.shape)} on {dev}")
-    fn, state, batch_fn, st_shard = build_arch(args.arch, rules, args, dev)
+    if args.preset == "lm100m":
+        fn, state, batch_fn, st_shard = build_lm(lm100m_config(), rules, args, dev)
+    else:
+        fn, state, batch_fn, st_shard = build_arch(args.arch, rules, args, dev)
 
     loop = TrainLoop(fn, batch_fn, TrainLoopConfig(
         total_steps=args.steps, checkpoint_dir=args.checkpoint_dir,

@@ -126,6 +126,25 @@ def require_fp32_products(x: Tensor) -> None:
                            "torch.set_float32_matmul_precision('highest')")
 
 
+def require_bf16_products(x: Tensor) -> None:
+    """The models' bf16 products accumulate in fp32, as the reference's do:
+    on the card this raises while the process lets cuBLAS reduce a bf16
+    product in reduced precision
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+    on by default), rather than switch it for the whole process."""
+    if (x.is_cuda and x.dtype == torch.bfloat16
+            and torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction):
+        raise RuntimeError("the models' bf16 products accumulate in fp32, but reduced-precision "
+                           "reductions are on: set torch.backends.cuda.matmul."
+                           "allow_bf16_reduced_precision_reduction = False")
+
+
+def require_exact_products(x: Tensor) -> None:
+    """``require_fp32_products`` and ``require_bf16_products`` of ``x``."""
+    require_fp32_products(x)
+    require_bf16_products(x)
+
+
 def apply_dense(p, x: Tensor, *, compute_dtype=None) -> Tensor:
     k = _v(p["kernel"])
     if compute_dtype is not None:
@@ -188,6 +207,28 @@ def apply_layernorm(p, x: Tensor, *, eps=1e-6) -> Tensor:
     return (y * _v(p["scale"]) + _v(p["bias"])).to(x.dtype)
 
 
+def rounded_to(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python number (an op with a Python
+    number computes in fp32 and rounds once, as the reference's op with
+    the rounded constant does; and it copies nothing to the card)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+def silu(x: Tensor) -> Tensor:
+    """``jax.nn.silu``: x * (1 / (1 + exp(-x))), each op rounded to x's
+    dtype as the reference's (in bf16 ``F.silu``'s one rounding differs in
+    about 4 of 10 elements)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """``jax.nn.gelu(approximate=True)``, op by op in x's dtype, its two
+    constants rounded to that dtype first, x ** 3 as two products."""
+    inner = x + rounded_to(0.044715, x.dtype) * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(rounded_to(math.sqrt(2 / math.pi), x.dtype) * inner)))
+
+
+# The recommenders' activations (one rounding each; fp32 models).
 ACTS = {
     "relu": torch.relu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default

@@ -1,0 +1,461 @@
+"""Decoder-only transformer LM (dense + MoE), layers stacked on a leading
+[L] axis.
+
+Port of ``repro/models/transformer.py``.  Covers the five LM
+architectures of the registry: llama-style GQA (yi), GQA+SWA
+(h2o-danube3), MQA/GeGLU/huge-vocab (gemma), SWA+MoE 8e top-2 (mixtral
+8x22b), GQA+QK-norm+MoE 128e top-8 (qwen3-30b-a3b).
+
+  * Each weight is one tensor with a leading [L] axis, drawn whole on its
+    device in its dtype (``init_params``); a layer is a view of it
+    (``layer_params``).  The reference's ``lax.scan`` over layers is a
+    loop here.
+  * ``_maybe_remat``: with any policy but ``"none"``, the layer body runs
+    under ``torch.utils.checkpoint`` when gradients are on (activations
+    recomputed in the backward pass: memory, never values).
+  * Attention is the chunked online softmax of ``models.attention``; the
+    MoE is the GShard dispatch/combine of ``models.moe``, its router on
+    the ``stream_topk`` kernel.
+  * Serving: ``prefill`` and ``decode_step`` write the KV cache in place,
+    layer by layer (the reference's pure steps stack a new cache, which at
+    full width would double it); ``KVCache.clone`` copies one for a second
+    decode path.  The cache is bf16 in every config; decode reads bf16
+    keys and values and casts each chunk to fp32, as the reference's.
+
+Weights and activations take ``cfg.dtype``; the products are IEEE fp32 or
+bf16 with fp32 accumulation (``models.nn.require_exact_products``).
+``params_from_reference`` carries the reference's numpy values across,
+each leaf in its own dtype (a bf16 leaf as its 16-bit words).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models.nn import (
+    Param,
+    apply_rmsnorm,
+    gelu_tanh,
+    is_param,
+    lecun_init,
+    normal_init,
+    require_exact_products,
+    rounded_to,
+    silu,
+    tree_map,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int  # dense FFN hidden (ignored when moe is set)
+    vocab: int
+    act: str = "silu"  # silu (llama) | gelu (gemma GeGLU)
+    moe: M.MoEConfig | None = None
+    sliding_window: int | None = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    use_qk_norm: bool = False
+    tied_embeddings: bool = False
+    embed_scale: bool = False  # gemma: scale embeddings by sqrt(d_model)
+    logits_soft_cap: float | None = None
+    dtype: Any = torch.bfloat16  # weight/activation dtype (master fp32 in optim)
+    kv_chunk: int = 1024
+    remat_policy: str = "nothing_saveable"  # none|dots|nothing_saveable
+
+    @property
+    def n_params(self) -> int:
+        D, Hq, Hkv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        attn = D * (Hq + 2 * Hkv) * hd + Hq * hd * D
+        if self.moe is not None:
+            ffn = self.moe.n_experts * 3 * D * self.moe.d_ff + D * self.moe.n_experts
+        else:
+            ffn = 3 * D * self.d_ff
+        per_layer = attn + ffn + 2 * D
+        embed = self.vocab * D * (1 if self.tied_embeddings else 2)
+        return self.n_layers * per_layer + embed + D
+
+    @property
+    def n_active_params(self) -> int:
+        """Per-token active parameters (MoE counts only top_k experts)."""
+        if self.moe is None:
+            return self.n_params
+        D = self.d_model
+        dense = self.n_params - self.n_layers * self.moe.n_experts * 3 * D * self.moe.d_ff
+        return dense + self.n_layers * self.moe.top_k * 3 * D * self.moe.d_ff
+
+
+ACTS = {"silu": silu, "gelu": gelu_tanh}
+
+
+# ---------------------------------------------------------------------------
+# Init.
+# ---------------------------------------------------------------------------
+
+
+def init_layer(generator, cfg: TransformerConfig, *, device="cuda", layers: int | None = None):
+    """One layer's ``Param`` tree; with ``layers``, every leaf carries a
+    leading [layers] axis (the stacked layers), each slice drawn alike."""
+    D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lead, la = ((layers,), (None,)) if layers is not None else ((), ())
+
+    def zeros(shape, axes):
+        return Param(torch.zeros(lead + shape, dtype=torch.float32, device=device), la + axes)
+
+    def w(shape, fan_in, axes):
+        return Param(lecun_init(generator, lead + shape, fan_in, device=device, dtype=cfg.dtype),
+                     la + axes)
+
+    p = {
+        "ln1": zeros((D,), ("fsdp",)),
+        "ln2": zeros((D,), ("fsdp",)),
+        "wq": w((D, Hq, hd), D, ("fsdp", "tensor", None)),
+        "wk": w((D, Hkv, hd), D, ("fsdp", "kv_heads", None)),
+        "wv": w((D, Hkv, hd), D, ("fsdp", "kv_heads", None)),
+        "wo": w((Hq, hd, D), Hq * hd, ("tensor", None, "fsdp")),
+    }
+    if cfg.use_qk_norm:
+        p["q_norm"] = zeros((hd,), (None,))
+        p["k_norm"] = zeros((hd,), (None,))
+    if cfg.moe is not None:
+        p["moe"] = M.init_moe(generator, D, cfg.moe, cfg.dtype, device=device, layers=layers)
+    else:
+        Fd = cfg.d_ff
+        p["wi_gate"] = w((D, Fd), D, ("fsdp", "tensor"))
+        p["wi_up"] = w((D, Fd), D, ("fsdp", "tensor"))
+        p["wff_o"] = w((Fd, D), Fd, ("tensor", "fsdp"))
+    return p
+
+
+def init_params(cfg: TransformerConfig, *, generator: torch.Generator | None = None,
+                device="cuda"):
+    """The ``Param`` tree drawn on ``device`` in each leaf's dtype from
+    ``generator`` (default: a fresh one seeded 0); ``device="meta"`` gives
+    the shapes, nothing allocated.  torch cannot replay ``jax.random``, so
+    the values are the reference's distributions, not its numbers
+    (``params_from_reference`` carries those)."""
+    dev = torch.device(device)
+    if dev.type != "meta" and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    p = {
+        "embed": Param(normal_init(generator, (cfg.vocab, cfg.d_model), 0.02, device=dev,
+                                   dtype=cfg.dtype), ("vocab", "fsdp")),
+        "layers": init_layer(generator, cfg, device=dev, layers=cfg.n_layers),
+        "final_norm": Param(torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+                            ("fsdp",)),
+    }
+    if not cfg.tied_embeddings:
+        p["unembed"] = Param(normal_init(generator, (cfg.d_model, cfg.vocab), 0.02, device=dev,
+                                         dtype=cfg.dtype), ("fsdp", "vocab"))
+    return p
+
+
+def abstract_params(cfg: TransformerConfig):
+    """The ``Param`` tree on the meta device: shapes, dtypes and logical
+    axes, no allocation (the reference's ``ShapeDtypeStruct`` tree)."""
+    return init_params(cfg, device="meta")
+
+
+def params_from_reference(values, *, device="cuda"):
+    """A reference value tree (``split_params(init_params(...))[0]``, numpy
+    leaves) as the port's values on ``device``, each leaf keeping its
+    dtype.  A bf16 leaf crosses as its 16-bit words: the caller passes
+    ``np.asarray(a).view(np.uint16)``, and its bits become ``torch.bfloat16``."""
+    from repro_torch.kernels._backend import resolve_device
+
+    dev = resolve_device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype == np.uint16:
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return tree_map(one, values)
+
+
+def _values(params):
+    return tree_map(lambda p: p.value if is_param(p) else p, params, is_leaf=is_param)
+
+
+def layer_params(layers, i: int):
+    """Layer ``i``'s leaves: views of the stacked [L, ...] tensors."""
+    return tree_map(lambda t: t[i], layers)
+
+
+# ---------------------------------------------------------------------------
+# Layer body (shared by train forward / prefill / decode).
+# ---------------------------------------------------------------------------
+
+
+def _rms(x, scale, eps):
+    return apply_rmsnorm({"scale": scale}, x, eps=eps)
+
+
+def _proj(x: Tensor, w: Tensor, n_in_dims: int = 1) -> Tensor:
+    """x [..., *w.shape[:n_in_dims]] contracted with w: one product in x's
+    dtype (the reference's einsum over the same axes)."""
+    w = w.to(x.dtype)
+    require_exact_products(x)
+    if w.dim() == 2 and n_in_dims == 1:
+        return x @ w  # a transposed (tied) unembedding stays a view
+    k = math.prod(w.shape[:n_in_dims])
+    y = x.reshape(*x.shape[: x.dim() - n_in_dims], k) @ w.reshape(k, -1)
+    return y.reshape(*x.shape[: x.dim() - n_in_dims], *w.shape[n_in_dims:])
+
+
+def _qkv(lp, x, cfg: TransformerConfig, positions):
+    q = _proj(x, lp["wq"])
+    k = _proj(x, lp["wk"])
+    v = _proj(x, lp["wv"])
+    if cfg.use_qk_norm:
+        q = apply_rmsnorm({"scale": lp["q_norm"]}, q, eps=cfg.norm_eps)
+        k = apply_rmsnorm({"scale": lp["k_norm"]}, k, eps=cfg.norm_eps)
+    q = A.apply_rope(q, positions, cfg.rope_theta)
+    k = A.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _ffn(lp, h, cfg: TransformerConfig):
+    """(y, aux) of the layer's FFN: the MoE or the dense gated MLP."""
+    act = ACTS[cfg.act]
+    if cfg.moe is not None:
+        y, metrics = M.apply_moe(lp["moe"], h, cfg.moe, act=act)
+        return y, metrics["aux_loss"]
+    ff = act(_proj(h, lp["wi_gate"])) * _proj(h, lp["wi_up"])
+    y = _proj(ff, lp["wff_o"])
+    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def layer_forward(lp, x, positions, cfg: TransformerConfig):
+    """Full-sequence layer (training / prefill).  Returns (y, aux_loss, k, v)."""
+    h = _rms(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(lp, h, cfg, positions)
+    attn = A.gqa_attention(q, k, v, q_pos=positions, k_pos=positions, window=cfg.sliding_window,
+                           kv_chunk=cfg.kv_chunk, logits_soft_cap=cfg.logits_soft_cap)
+    x = x + _proj(attn, lp["wo"], 2)
+    h = _rms(x, lp["ln2"], cfg.norm_eps)
+    y, aux = _ffn(lp, h, cfg)
+    return x + y, aux, k, v
+
+
+REMAT_POLICIES = ("none", "dots", "nothing_saveable", "everything_saveable")
+
+
+def _maybe_remat(fn, cfg: TransformerConfig):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when the
+    policy is not ``"none"`` and gradients are on.  The reference's
+    policies differ in which products they keep; the port recomputes the
+    whole layer for each, which changes memory, never values."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise KeyError(f"unknown remat policy {cfg.remat_policy!r}")
+    if cfg.remat_policy == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Training forward + loss.
+# ---------------------------------------------------------------------------
+
+
+def _embed_tokens(values, tokens, cfg: TransformerConfig):
+    emb = values["embed"]
+    tokens = torch.as_tensor(tokens, device=emb.device).long()
+    x = emb[tokens].to(cfg.dtype)
+    if cfg.embed_scale:  # sqrt(d_model) in fp32, then in the model's dtype
+        x = x * rounded_to(float(torch.sqrt(torch.tensor(float(cfg.d_model)))), cfg.dtype)
+    return x
+
+
+def _unembed_weight(values, cfg: TransformerConfig):
+    if cfg.tied_embeddings:
+        return values["embed"].T
+    return values["unembed"]
+
+
+def _unembed(values, x, cfg: TransformerConfig):
+    logits = _proj(x, _unembed_weight(values, cfg))
+    if cfg.logits_soft_cap is not None:
+        logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
+    return logits
+
+
+def _positions(B: int, S: int, device) -> Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def backbone(values, tokens, cfg: TransformerConfig):
+    """tokens [B, S] -> (final hidden [B, S, D] post-norm, total_aux_loss)."""
+    x = _embed_tokens(values, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+
+    def body(x, lp):
+        y, a, _, _ = layer_forward(lp, x, positions, cfg)
+        return y, a
+
+    body = _maybe_remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = body(x, layer_params(values["layers"], i))
+        aux = aux + a
+    return _rms(x, values["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params, tokens, cfg: TransformerConfig) -> tuple[Tensor, Tensor]:
+    """tokens [B, S] -> (logits [B, S, V], total_aux_loss)."""
+    values = _values(params)
+    x, aux = backbone(values, tokens, cfg)
+    return _unembed(values, x, cfg), aux
+
+
+def chunked_softmax_xent(
+    x: Tensor,  # [B, S, D] final hidden
+    w: Tensor,  # [D, V] unembed
+    labels,  # [B, S]
+    loss_mask,
+    cfg: TransformerConfig,
+    chunk: int = 512,
+) -> tuple[Tensor, Tensor]:
+    """Sum of per-token NLL + token count, computed in sequence chunks.
+
+    The [B, S, V] logits tensor is never made whole: each chunk's logits
+    are produced, reduced to NLL, and (under gradients) recomputed in the
+    backward pass.
+    """
+    B, S, D = x.shape
+    labels = torch.as_tensor(labels, device=x.device).long()
+    if loss_mask is None:
+        loss_mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    loss_mask = torch.as_tensor(loss_mask, device=x.device).to(torch.float32)
+    chunk = min(chunk, S)
+
+    def chunk_nll(xi, li, mi):
+        logits = _proj(xi, w)
+        if cfg.logits_soft_cap is not None:
+            logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, li[..., None])[..., 0]
+        return torch.sum((logz - gold) * mi)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        args = (x[:, s0 : s0 + chunk], labels[:, s0 : s0 + chunk], loss_mask[:, s0 : s0 + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_nll, *args, use_reentrant=False)
+        else:
+            total = total + chunk_nll(*args)
+    return total, loss_mask.sum()
+
+
+def loss_fn(params, batch: dict, cfg: TransformerConfig) -> tuple[Tensor, dict]:
+    """Next-token cross entropy (fp32 logsumexp, chunked), + MoE aux."""
+    values = _values(params)
+    x, aux = backbone(values, batch["tokens"], cfg)
+    total, count = chunked_softmax_xent(x, _unembed_weight(values, cfg), batch["labels"],
+                                        batch.get("loss_mask"), cfg)
+    loss = total / torch.clamp_min(count, 1.0)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "denom": count}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with KV cache.
+# ---------------------------------------------------------------------------
+
+
+def cache_capacity(cfg: TransformerConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: TransformerConfig, batch: int, seq_len: int, *, device="cuda") -> A.KVCache:
+    """A zero bf16 cache for ``batch`` sequences of up to ``seq_len``
+    tokens (the window's capacity for SWA), on ``device``."""
+    return A.init_cache(cfg.n_layers, batch, cache_capacity(cfg, seq_len), cfg.n_kv_heads,
+                        cfg.head_dim, dtype=torch.bfloat16, device=device)
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg: TransformerConfig, cache: A.KVCache):
+    """Run the prompt and fill ``cache`` in place; returns (last-token
+    logits [B, V], cache)."""
+    values = _values(params)
+    x = _embed_tokens(values, tokens, cfg)
+    B, S = x.shape[:2]
+    C = cache.k.shape[2]
+    positions = _positions(B, S, x.device)
+    for i in range(cfg.n_layers):
+        x, _, k, v = layer_forward(layer_params(values["layers"], i), x, positions, cfg)
+        # Keep the last C positions in the (ring) cache, ring-aligned so that
+        # slot s holds absolute position p with p % C == s.
+        if S >= C:
+            start = S - C
+            shift = start % C
+            cache.k[i].copy_(torch.roll(k[:, start:], shift, dims=1))
+            cache.v[i].copy_(torch.roll(v[:, start:], shift, dims=1))
+        else:
+            cache.k[i, :, :S].copy_(k)
+            cache.v[i, :, :S].copy_(v)
+            cache.k[i, :, S:].zero_()
+            cache.v[i, :, S:].zero_()
+    x = _rms(x[:, -1:], values["final_norm"], cfg.norm_eps)
+    logits = _unembed(values, x, cfg)[:, 0]
+    cache.pos.fill_(S)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(params, cache: A.KVCache, tokens, cfg: TransformerConfig, attn_fn=None):
+    """One decode step, the cache written in place.  tokens: [B] int.
+    Returns (logits [B, V], cache).
+
+    ``attn_fn(q, ck, cv, pos)``: optional attention override: the
+    sequence-parallel (flash-decoding) path installs one here
+    (``distributed.steps.make_lm_decode_step(seq_parallel=True)``).
+    """
+    values = _values(params)
+    pos = cache.pos.clone()  # [B] position being written
+    x = _embed_tokens(values, torch.as_tensor(tokens)[:, None], cfg)
+    positions = pos[:, None]
+    for i in range(cfg.n_layers):
+        lp = layer_params(values["layers"], i)
+        h = _rms(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, positions)
+        ck, cv = A.cache_update_layer(cache.k[i], cache.v[i], k, v, pos)
+        if attn_fn is not None:
+            attn = attn_fn(q, ck, cv, pos)
+        else:
+            attn = A.decode_attention_layer(q, ck, cv, pos, window=cfg.sliding_window,
+                                            kv_chunk=cfg.kv_chunk,
+                                            logits_soft_cap=cfg.logits_soft_cap)
+        x = x + _proj(attn, lp["wo"], 2)
+        h = _rms(x, lp["ln2"], cfg.norm_eps)
+        y, _ = _ffn(lp, h, cfg)
+        x = x + y
+    x = _rms(x, values["final_norm"], cfg.norm_eps)
+    logits = _unembed(values, x, cfg)[:, 0]
+    cache.pos.add_(1)
+    return logits, cache

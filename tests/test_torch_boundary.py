@@ -1,7 +1,8 @@
 """The port's boundaries: no JAX inside it, and no silent fall back to the CPU.
 
-* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports ``jax``
-  or the JAX package ``repro`` (an AST scan of every import).
+* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports ``jax``,
+  the JAX package ``repro`` or ``ml_dtypes`` (an AST scan of every import;
+  the machine with the card has no ``ml_dtypes``).
 * ``import repro_torch`` works with ``jax`` blocked.
 * Asking for the card where there is none raises; it never runs on the CPU.
 * ``chip_smoke.py`` fails, and prints no result, without a card or without
@@ -33,14 +34,14 @@ def _imported_roots(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_the_reference(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def test_import_works_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None  # any import of them now raises\n"
         "import repro_torch, repro_torch.kernels.ops, repro_torch.serving.engine\n"
         "import repro_torch.data.synthetic, repro_torch.kernels.ref\n"
@@ -54,6 +55,8 @@ def test_import_works_with_jax_blocked():
         "import repro_torch.configs.registry, repro_torch.configs.base\n"
         "import repro_torch.models.gnn, repro_torch.data.graphs, repro_torch.launch.train\n"
         "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
+        "import repro_torch.models.attention, repro_torch.models.moe\n"
+        "import repro_torch.models.transformer, repro_torch.configs.knn_paper\n"
         "from repro_torch.configs import registry\n"
         "for arch_id in registry.ASSIGNED:\n"
         "    registry.get(arch_id).abstract_params(registry.get(arch_id).full_config())\n"

@@ -2,8 +2,8 @@
 package's, on the CPU.
 
 * The port's copies of the 8 cases of ``tests/test_checkpoint.py``: the mesh
-  case on the port's CPU mesh, the train-state case on DLRM (the transformer
-  is not ported).
+  case on the port's CPU mesh, the train-state case on DLRM (the reference's
+  is on its transformer).
 * The leaf order: ``flatten`` equal to ``jax.tree.flatten`` on trees of
   dicts, lists, NamedTuples, ``None`` and ``Param``.
 * Across the packages, both ways: a DLRM train state after 3 steps saved by

@@ -2015,3 +2015,128 @@ def test_async_save_on_the_card_holds_the_bytes_of_its_step(cuda, tmp_path):
         out, _, _ = C.restore(str(tmp_path), like, step=i + 1, device=cuda)
         for a, b in zip(C.flatten(out), want):
             assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+
+
+# -- the language models (phase 15) -----------------------------------------------
+
+
+@pytest.fixture
+def lm_cuda(cuda):
+    """The card with bf16 products reduced in fp32, as the models require;
+    the process' setting is restored after."""
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 128, 8), (8192, 128, 8), (64, 8, 2), (16, 4, 1)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_stream_topk_at_the_router_shapes(cuda, m, n, k, ties):
+    """The MoE router's selections (qwen3's 128 experts top-8 at decode and
+    at a prefill of 8,192 tokens, mixtral's top-2, a top-1): ids and values
+    equal to the plain version, ties included (values from {0, .., 3})."""
+    g = torch.Generator().manual_seed(m + n + k)
+    x = (torch.randint(0, 4, (m, n), generator=g).float() if ties
+         else -torch.softmax(torch.randn(m, n, generator=g), dim=-1))
+    before = ST.LAUNCHES
+    got_v, got_i = ops.stream_topk(x.to(cuda), k)
+    assert ST.LAUNCHES > before
+    want_v, want_i = ST.stream_topk_plain(x, k)
+    assert torch.equal(got_i.cpu(), want_i[:, :k]) and torch.equal(got_v.cpu(), want_v[:, :k])
+
+
+LM_ARCHS = ["h2o-danube-3-4b", "yi-6b", "gemma-2b", "mixtral-8x22b", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_smoke_lms_serve_on_the_card_as_on_the_cpu(lm_cuda, arch_id):
+    """``smoke_config()`` drawn once on the CPU: a prefill of 2 x 16 tokens
+    and 8 decode steps on the card and on the CPU, the logits within 1e-4
+    (dense, fp32) or 5e-3 (the MoE's bf16 expert path), the MoE's router on
+    the ``stream_topk`` kernel."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import split_params, tree_map
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    values = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                           device="cpu"))[0]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 24)))
+    tol = dict(rtol=0, atol=5e-3 if cfg.moe is not None else 1e-4)
+
+    def serve(dev):
+        v = tree_map(lambda t: t.to(dev, copy=True), values)
+        cache = Tr.init_cache(cfg, 2, 24, device=dev)
+        out = [Tr.prefill(v, toks[:, :16].to(dev), cfg, cache)[0].cpu()]
+        for t in range(16, 24):
+            out.append(Tr.decode_step(v, cache, toks[:, t].to(dev), cfg)[0].cpu())
+        return out
+
+    want = serve(torch.device("cpu"))
+    before = ST.LAUNCHES
+    got = serve(lm_cuda)
+    assert (ST.LAUNCHES > before) == (cfg.moe is not None)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+
+
+def test_sp_decode_on_four_positions_of_one_card(lm_cuda):
+    """The sequence-parallel decode on a (1, 4) mesh of one card against the
+    plain decode from one prefilled cache, cloned: logits within 2e-3 (the
+    reference test's bound), full attention and the SWA ring."""
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import split_params
+
+    rules = make_rules(make_mesh((1, 4), ("data", "model"), devices=[lm_cuda] * 4))
+    for window in (None, 8):
+        cfg = Tr.TransformerConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                                   head_dim=16, d_ff=128, vocab=256, sliding_window=window,
+                                   dtype=torch.float32)
+        values = split_params(Tr.init_params(cfg, generator=torch.Generator(lm_cuda)
+                                             .manual_seed(0), device=lm_cuda))[0]
+        toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 32))).to(lm_cuda)
+        cache = Tr.init_cache(cfg, 4, 32, device=lm_cuda)
+        Tr.prefill(values, toks[:, :16], cfg, cache)
+        _, mk, _ = STP.make_lm_decode_step(cfg, rules, Tr.abstract_params(cfg))
+        _, mk_sp, _ = STP.make_lm_decode_step(cfg, rules, Tr.abstract_params(cfg),
+                                              seq_parallel=True)
+        fb, fs = mk(cache, toks[:, 0]), mk_sp(cache, toks[:, 0])
+        cb, cs = cache.clone(), cache.clone()
+        for t in range(16, 22):
+            lb, cb = fb(values, cb, toks[:, t])
+            ls, cs = fs(values, cs, toks[:, t])
+        assert float((lb - ls).abs().max()) < 2e-3
+
+
+def test_lm_products_refuse_tf32_and_reduced_bf16_sums(cuda):
+    """Attention's fp32 scores refuse while TF32 is on, and a bf16 product
+    refuses while cuBLAS may reduce it in bf16; neither switch is flipped."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as Tr
+
+    q = torch.randn(1, 4, 2, 8, device=cuda)
+    pos = torch.arange(4, device=cuda)[None]
+    prev_bf16 = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32 is on"):
+            A.gqa_attention(q, q, q, q_pos=pos, k_pos=pos)
+        assert torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        A.gqa_attention(q, q, q, q_pos=pos, k_pos=pos)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        x = torch.randn(2, 3, 16, device=cuda, dtype=torch.bfloat16)
+        w = torch.randn(16, 4, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="reduced-precision"):
+            Tr._proj(x, w)
+        assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        Tr._proj(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev_bf16

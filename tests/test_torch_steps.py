@@ -5,7 +5,9 @@ the CPU.
 * The port's copies of ``tests/test_steps.py``'s ``test_rowwise_table_optimizer``,
   ``test_grad_clip_reported``, ``test_lr_schedule_in_metrics``,
   ``test_microbatch_equivalence`` and ``test_opt_state_mirrors_param_shardings``,
-  on DLRM (the transformer is not ported), with the reference's bounds.
+  on DLRM, with the reference's bounds; and the three LM cases
+  (``microbatch_equivalence``, ``grad_clip_reported``,
+  ``lr_schedule_in_metrics``) over ``lm_loss`` on the reference's config.
 * Micro-batches on the two-tower model, where each slice takes its own
   in-batch softmax: two steps at ``micro_batches=4`` within rtol and atol
   1e-5 of the reference's (loss and every param).
@@ -15,6 +17,10 @@ the CPU.
 * The serve step's probabilities within 1e-6 of the reference's; the
   retrieval step's ids equal to a brute force and to the reference's step,
   on one CPU position and on four; every cell of ``RecsysArch.build``.
+* Every cell of ``LMArch.build`` (the decode cells with and without the
+  sequence-parallel variant) and of ``KNNArch.build`` at smoke size, and
+  each run: the LM train, prefill and decode cells on real batches, the
+  kNN solvers on four CPU positions against a one-device solve.
 * ``examples/recommender_torch.py --device cpu`` end to end.
 """
 import os
@@ -39,6 +45,7 @@ from repro_torch.distributed import sharding as S
 from repro_torch.distributed import steps as ST
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import recsys as P
+from repro_torch.models import transformer as Tr
 from repro_torch.models.nn import split_params, tree_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,6 +129,53 @@ def test_opt_state_mirrors_param_shardings():
     p = tree_leaves(st_shard.params)
     m = tree_leaves(st_shard.opt.m)
     assert len(p) == len(m) and all(a.spec == b.spec for a, b in zip(p, m))
+
+
+def _lm(sc: ST.StepConfig, seed=0):
+    cfg = Tr.TransformerConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                               d_ff=128, vocab=256, dtype=torch.float32)
+    loss, baxes = ST.lm_loss(cfg)
+    _, jitted, st_shard, opt = ST.make_train_step(loss, Tr.abstract_params(cfg), _rules(),
+                                                  baxes, sc)
+    params = Tr.init_params(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    return cfg, ST.init_state(opt, params), jitted
+
+
+def test_lm_microbatch_equivalence():
+    g = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(g.integers(0, 256, (8, 32))),
+             "labels": torch.from_numpy(g.integers(0, 256, (8, 32)))}
+    outs = {}
+    for n_micro in (1, 2, 4):
+        _, state, jitted = _lm(ST.StepConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10,
+                                             micro_batches=n_micro))
+        state, m = jitted(batch)(state, batch)
+        outs[n_micro] = (float(m["loss"]), tree_leaves(state.params)[0].clone())
+    for n in (2, 4):
+        assert abs(outs[n][0] - outs[1][0]) < 2e-2, (n, outs[n][0], outs[1][0])
+        np.testing.assert_allclose(outs[n][1].numpy(), outs[1][1].numpy(), atol=1e-3)
+
+
+def test_lm_grad_clip_reported():
+    _, state, jitted = _lm(ST.StepConfig(grad_clip=1e-6))  # absurdly tight: update ~ frozen
+    batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32),
+             "labels": torch.zeros((2, 16), dtype=torch.int32)}
+    before = tree_leaves(state.params)[0].clone()
+    state, m = jitted(batch)(state, batch)
+    assert "grad_norm" in m and float(m["grad_norm"]) > 0
+    assert float((tree_leaves(state.params)[0] - before).abs().max()) < 1e-2
+
+
+def test_lm_lr_schedule_in_metrics():
+    _, state, jitted = _lm(ST.StepConfig(peak_lr=1.0, warmup_steps=10, total_steps=100))
+    batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32),
+             "labels": torch.zeros((2, 16), dtype=torch.int32)}
+    fn = jitted(batch)
+    lrs = []
+    for _ in range(3):
+        state, m = fn(state, batch)
+        lrs.append(float(m["lr"]))
+    np.testing.assert_allclose(lrs, [0.0, 0.1, 0.2], atol=1e-6)  # linear warmup
 
 
 def test_two_tower_micro_batches_match_the_reference(rules):
@@ -266,6 +320,78 @@ def test_every_cell_builds_and_the_train_cell_runs(arch_id):
         {k: tuple(v.shape) for k, v in specs.items()}
     state, m = fn(state, batch)
     assert np.isfinite(float(m["loss"])) and state.opt.step == 1
+
+
+@pytest.mark.parametrize("arch_id", ["h2o-danube-3-4b", "yi-6b", "gemma-2b", "mixtral-8x22b",
+                                     "qwen3-moe-30b-a3b"])
+def test_every_lm_cell_builds_and_the_cells_run(arch_id):
+    arch = REG.get(arch_id)
+    rules = _rules()
+    for cell in arch.shapes:
+        if cell.kind == "skip":
+            with pytest.raises(KeyError, match="skipped"):
+                arch.build(rules, cell.name, smoke=True)
+            continue
+        for variant in ((None, "sp") if cell.kind == "decode" else (None,)):
+            fn, args = arch.build(rules, cell.name, smoke=True, variant=variant)
+            tensors = [t for a in tree_leaves(args) for t in (a if isinstance(a, tuple) else (a,))
+                       if isinstance(t, torch.Tensor)]  # a KVCache's k, v and pos
+            assert callable(fn) and tensors and all(t.device.type == "meta" for t in tensors)
+    assert set(arch.input_specs("decode_32k")) == {"tokens", "cache"}
+    cfg = arch.smoke_config()
+    params = arch.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    values = split_params(params)[0]
+    batch = arch.smoke_batch("train_4k", device="cpu")
+    fn, (state_spec, specs) = arch.build(rules, "train_4k", smoke=True)
+    assert {k: tuple(v.shape) for k, v in batch.items()} == \
+        {k: tuple(v.shape) for k, v in specs.items()}
+    _, _, _, opt = ST.make_train_step(ST.lm_loss(cfg)[0], arch.abstract_params(cfg), rules, {},
+                                      ST.StepConfig())
+    state = ST.init_state(opt, params)
+    assert [t.shape for t in tree_leaves(state.opt.m)] == \
+        [t.shape for t in tree_leaves(state_spec.opt.m)]
+    state, m = fn(state, batch)
+    assert np.isfinite(float(m["loss"])) and state.opt.step == 1
+    fn, (_, tok_spec, cache_spec) = arch.build(rules, "prefill_32k", smoke=True)
+    cache = Tr.init_cache(cfg, *tok_spec.shape, device="cpu")
+    assert [(t.shape, t.dtype) for t in cache] == [(t.shape, t.dtype) for t in cache_spec]
+    logits, cache = fn(values, batch["tokens"], cache)
+    assert logits.shape == (4, cfg.vocab) and cache.pos.tolist() == [64] * 4
+    cache.pos.fill_(32)  # decode over a half-full cache
+    base, _ = arch.build(rules, "decode_32k", smoke=True)
+    sp, _ = arch.build(rules, "decode_32k", smoke=True, variant="sp")
+    lb, _ = base(values, cache.clone(), batch["tokens"][:, 32])
+    ls, _ = sp(values, cache.clone(), batch["tokens"][:, 32])
+    np.testing.assert_allclose(ls.numpy(), lb.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cell,variant", [("allpairs_160k", None), ("allpairs_160k", "triangle"),
+                                          ("allpairs_2m", "bf16wire"), ("query_1m", None)])
+def test_knn_arch_cells_build_and_run(cell, variant):
+    from repro_torch.core.knn import knn_allpairs, knn_query
+
+    arch = REG.get("knn-paper")
+    assert arch.family == "knn" and arch.full_config() == dict(d=256, k=100,
+                                                               distance="sqeuclidean")
+    rules = _rules((2, 2))
+    fn, args = arch.build(rules, cell, smoke=True, variant=variant)
+    k = arch.smoke_config()["k"]
+    if cell == "query_1m":
+        q_spec, db_spec, n = args
+        assert q_spec.shape == (64, 32) and db_spec.shape == (1024, 32) and n == 1024
+        g = np.random.default_rng(0)
+        q = torch.from_numpy(g.standard_normal(q_spec.shape, np.float32))
+        db = torch.from_numpy(g.standard_normal(db_spec.shape, np.float32))
+        got, want = fn(q, db, n), knn_query(q, db, k)
+    else:
+        x_spec, n = args
+        assert n == 256 and x_spec.device.type == "meta"
+        x = torch.zeros(x_spec.shape)
+        x[:n] = arch.smoke_batch(cell, device="cpu")
+        got, want = fn(x, n), knn_allpairs(x[:n], k)
+    assert got.indices.shape == want.indices.shape
+    tol = dict(rtol=2e-2, atol=2e-2) if variant == "bf16wire" else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.distances.numpy(), want.distances.numpy(), **tol)
 
 
 def test_recommender_example_runs_on_the_cpu():

@@ -12,8 +12,9 @@
   byte-equal to one run straight through.
 * ``python -m repro_torch.launch.train --device cpu`` in a subprocess,
   SIGKILLed after its first checkpoint and run again: the resumed losses in
-  ``--metrics`` bit-equal to an uninterrupted run's at the same steps; and
-  the language-model ids and preset refused with ROADMAP.md's item 2d named.
+  ``--metrics`` bit-equal to an uninterrupted run's at the same steps; the
+  same for the LM preset (``--preset lm100m``, shrunk as
+  ``examples/train_lm_torch.py`` shrinks it), and an LM ``--arch``.
 """
 import json
 import os
@@ -217,12 +218,59 @@ def test_launcher_resumes_after_a_kill(tmp_path):
     assert latest_step(str(ck)) == 200
 
 
-def test_launcher_refuses_the_language_models():
-    with pytest.raises(KeyError, match="2d"):
-        REG.get("gemma-2b")
+_TINY_LM = (
+    "import sys, torch\n"
+    "from repro_torch.launch import train as LT\n"
+    "from repro_torch.models.transformer import TransformerConfig\n"
+    "LT.lm100m_config = lambda: TransformerConfig(n_layers=2, d_model=64, n_heads=4, "
+    "n_kv_heads=2, head_dim=16, d_ff=128, vocab=512, dtype=torch.float32, remat_policy='none')\n"
+    "sys.exit(LT.main(sys.argv[1:]))\n")
+
+
+def _train_lm(args, wait=True):
+    """The launcher's ``--preset lm100m`` with the preset shrunk, as
+    ``examples/train_lm_torch.py`` shrinks it, in a subprocess."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-c", _TINY_LM, "--preset", "lm100m", "--device", "cpu",
+           "--batch", "4", "--seq-len", "32", *args]
+    if not wait:
+        return subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+    return subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_launcher_refuses_the_language_models(tmp_path):
+    """(Named when the launcher refused the LMs.)  Now it trains them:
+    ``--preset lm100m`` (shrunk) is SIGKILLed after its first checkpoint and
+    resumes, its losses bit-equal to an uninterrupted run's; ``--arch
+    yi-6b`` trains at ``smoke_config()``; an unknown id still raises."""
+    common = ["--steps", "200", "--checkpoint-every", "10", "--lr", "3e-3"]
+    full = _train_lm(common + ["--metrics", str(tmp_path / "full.jsonl")])
+    assert full.returncode == 0, full.stderr[-2000:]
+    assert "LM params" in full.stdout
+    want = _losses(tmp_path / "full.jsonl")
+    assert want[max(want)] < want[min(want)]
+
+    ck = tmp_path / "ck"
+    proc = _train_lm(common + ["--checkpoint-dir", str(ck), "--metrics",
+                               str(tmp_path / "a.jsonl")], wait=False)
+    deadline = time.time() + 120
+    while latest_step(str(ck)) is None and proc.poll() is None and time.time() < deadline:
+        time.sleep(0.005)
+    proc.send_signal(signal.SIGKILL)
+    assert proc.wait() == -signal.SIGKILL, "the run ended before its first checkpoint was seen"
+    first = latest_step(str(ck))
+    assert first is not None and first < 200
+    again = _train_lm(common + ["--checkpoint-dir", str(ck), "--metrics",
+                                str(tmp_path / "b.jsonl")])
+    assert again.returncode == 0, again.stderr[-2000:]
+    resumed = _losses(tmp_path / "b.jsonl")
+    assert resumed and min(resumed) > first
+    assert all(resumed[s] == want[s] for s in resumed), (first, resumed, want)
+
     from repro_torch.launch import train as LT
 
-    with pytest.raises(KeyError, match="2d"):
-        LT.main(["--preset", "lm100m", "--device", "cpu"])
-    with pytest.raises(KeyError, match="2d"):
-        LT.main(["--arch", "yi-6b", "--device", "cpu"])
+    assert REG.get("gemma-2b").family == "lm"
+    assert LT.main(["--arch", "yi-6b", "--device", "cpu", "--steps", "3"]) == 0
+    with pytest.raises(KeyError, match="no-such-arch"):
+        LT.main(["--arch", "no-such-arch", "--device", "cpu"])
