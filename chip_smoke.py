@@ -249,6 +249,19 @@ Phases (each one raises on a failed check; nothing is caught):
    TB/s), peak memory, the router's ``stream_topk`` beside ``torch.topk``.
    Phase 15 must launch ``stream_topk`` (the MoE router), and each entry
    carries ``launches_phase15``.
+16. The dry run (``launch/dryrun.py``, ``launch/hlo_stats.py``,
+   ``train/compression.py``; ``phase_dryrun``).  16a: each kernel wrapper
+   of the ``kernels`` line at a shape the script launches, on the card and
+   on meta tensors: the meta outputs' shapes and dtypes must be the card's
+   and the meta call must record one shape call and launch nothing.  16b:
+   the dry run's counters over qwen3-moe-30b-a3b's prefill of 2 x 4,096
+   tokens (15a's) and over the two-tower train step at 8 micro-batches
+   (13a's), printed beside the peaks and times those phases measured (not
+   a gate).  16c: ``compressed_psum_tree`` on a (4,) mesh of the card over
+   DLRM-RM2's ``full_config()`` dense leaves, drawn per position from
+   seeds 0-3: every leaf within 0.05 of the fp32 sum, sums and residuals
+   equal to the CPU's on the same draws; its median ms a call and its
+   wire bytes beside an fp32 ring's.  Its launches are outside every path.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -4176,6 +4189,208 @@ def phase_lm(torch, dev, run_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. The dry run's shape paths against the kernels, the dry run against the
+# card, and the int8 error-feedback all-reduce on a mesh of the card.
+# ---------------------------------------------------------------------------
+
+DRY_TOWER_MICRO = 8  # 16b: phase 13's two-tower micro-batches
+COMPRESS_MESH = 4  # 16c: positions of the (4,) mesh on the card
+COMPRESS_REPS = 10  # 16c: timed calls
+COMPRESS_GATE = 0.05  # 16c: the reference's gate (tests/test_distributed_knn.py:149)
+
+
+def shape_cases(torch, dev):
+    """name -> (wrapper call, its operands on ``dev``): each kernel of the
+    ``kernels`` line at a shape the script launches (phase 4's serving
+    batch and its merge, the symmetric path's 512-row tile, phase 3b's
+    Hellinger block, the router at 15a's prefill, phase 5's rescore, phases
+    6-7's 1024 queries in union tiles of 256 over ``IVF_CELLS`` cells of 512
+    slots, nprobe 8).
+    The probe lists are drawn (distinct ascending cells, each whole): only
+    the shapes matter here."""
+    from repro_torch.kernels import fused_knn as FK
+    from repro_torch.kernels import ivf_scan as IVS
+    from repro_torch.kernels import merge_partials as MP
+    from repro_torch.kernels import pairwise_distance as PD
+    from repro_torch.kernels import pq_scan as PQS
+    from repro_torch.kernels import rescore as RS
+    from repro_torch.kernels import stream_topk as ST
+
+    g = torch.Generator(dev).manual_seed(16)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    n, d, m = QUERY_ROWS, 256, 1024
+    ncells, cap, tile_m = IVF_CELLS, 512, 256
+    S = ncells * cap
+    nt, W = m // tile_m, min(tile_m * 8, ncells)
+    # Union lists as the index builds them: distinct cells in ascending order.
+    probes = torch.stack([torch.sort(torch.randperm(ncells, generator=g, device=dev)[:W]).values
+                          for _ in range(nt)]).int()
+    extent = torch.full((ncells,), cap, dtype=torch.int32, device=dev)
+    part = torch.sort(r(16, m, 16), dim=-1).values
+    return {
+        "fused_knn": (lambda a: FK.fused_knn(*a, 10, distance_finalize="identity", alpha=-1.0,
+                                             n_real=n),
+                      (r(m, d), r(n, d), r(m, 1), r(1, n))),
+        "merge_partials": (lambda a: MP.merge_partials(*a),
+                           (part, torch.randint(0, n, part.shape, generator=g, device=dev,
+                                                dtype=torch.int32))),
+        "pairwise_distance": (lambda a: PD.pairwise_distance(*a, alpha=-2.0,
+                                                             finalize="identity"),
+                              (r(512, d), r(512, d), r(512, 1), r(1, 512))),
+        "pairwise_cumulative": (lambda a: PD.pairwise_distance_cumulative(
+            *a, accumulate="hellinger", finalize="half_sqrt"),
+            (r(1024, d).abs(), r(16384, d).abs())),
+        "stream_topk": (lambda a: ST.stream_topk(*a, 8), (r(8192, 128),)),
+        "rescore_topk": (lambda a: RS.rescore_topk(*a, 10, alpha=-2.0, finalize="identity"),
+                         (r(m, d), r(m, 64, d), r(m, 1), r(m, 64))),
+        "ivf_scan_table": (lambda a: IVS.build_table(*a, cap, 8), (probes, extent)),
+        "ivf_scan": (lambda a: IVS.ivf_scan(a[0], *a[1:5], 64, cell_cap=cap, tile_m=tile_m,
+                                            cell_extent=a[5], distance_finalize="identity",
+                                            alpha=-2.0),
+                     (probes, r(m, d), r(S, d), r(m, 1), r(1, S), extent)),
+        "pq_scan": (lambda a: PQS.pq_scan(a[0], *a[1:5], 128, cell_cap=cap, ncodes=256,
+                                          tile_m=tile_m, cell_extent=a[5],
+                                          distance_finalize="identity"),
+                    (probes, r(m, PQ_M * 256),
+                     torch.randint(0, 256, (S, PQ_M), generator=g, device=dev,
+                                   dtype=torch.uint8), r(m, 1), r(1, S), extent)),
+    }
+
+
+def phase_dryrun(torch, dev, measured):
+    """16. ``launch/dryrun.py``, ``launch/hlo_stats.py`` and
+    ``train/compression.py`` on the card's machine.
+
+    16a (a gate): each wrapper of the ``kernels`` line at a shape the
+    script launches (``shape_cases``), on the card and on meta tensors:
+    the meta outputs' shapes and dtypes are the card's, and the meta call
+    launches nothing.  16b (printed, not a gate): the dry run's counters
+    (``dryrun.trace_step``) over qwen3-moe-30b-a3b's prefill of 2 x
+    ``LM_PROMPT`` tokens into 15a's cache, and over the two-tower train step
+    at ``train_batch`` and ``DRY_TOWER_MICRO`` micro-batches, on one meta
+    position, beside ``measured``: 15a's and 13a's peaks and times.  16c (a
+    gate): ``compressed_psum_tree`` on a (``COMPRESS_MESH``,) mesh of the
+    card over DLRM-RM2's ``full_config()`` dense leaves (every leaf but the
+    tables), drawn per position from seeds 0-3 on the host: every leaf
+    within ``COMPRESS_GATE`` of the fp32 sum, sums and residuals equal to
+    the CPU's on the same draws; the median ms a call of
+    ``COMPRESS_REPS`` and the wire bytes beside an fp32 ring's."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import _backend as B
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import split_params, tree_leaves
+    from repro_torch.train.compression import compressed_psum_tree
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # 16a. The shape paths against the kernels.
+    shapes = {}
+    for name, (call, args) in shape_cases(torch, dev).items():
+        got = call(args)
+        torch.cuda.synchronize()
+        want = [(list(t.shape), str(t.dtype)) for t in (got if isinstance(got, tuple) else (got,))]
+        del got
+        with B.shape_calls() as calls:
+            meta = call(tuple(torch.empty_like(t, device="meta") for t in args))
+        have = [(list(t.shape), str(t.dtype)) for t in (meta if isinstance(meta, tuple) else (meta,))]
+        check(have == want, f"16a: {name} on meta gives {have}, on the card {want}")
+        check([c[0] for c in calls] == [name], f"16a: {name}'s meta call recorded {calls}")
+        shapes[name] = {"card": want, "meta": have, "flops": calls[0][1], "bytes": calls[0][2]}
+        del args
+    out["shape_paths"] = shapes
+    say("dryrun_shape_paths", shapes)
+    torch.cuda.empty_cache()
+
+    # 16b. The dry run's counters over two steps the script ran on the card.
+    one = Mesh((1, 1), ("data", "model"), [torch.device("meta")], streams=False)
+    rules = make_rules(one)
+    arch = REG.get("qwen3-moe-30b-a3b")
+    cfg = arch.full_config()
+    abstract = arch.abstract_params(cfg)
+    values, _ = split_params(abstract)
+    tokens = torch.empty((2, LM_PROMPT), dtype=torch.int32, device="meta")
+    cache = Tr.init_cache(cfg, 2, LM_PROMPT + LM_DECODE, device="meta")
+    step = STP.make_lm_prefill_step(cfg, rules, abstract)[1](tokens, cache)
+    traced = {"qwen3_prefill": trace_step(step, (values, tokens, cache), rules, None)}
+    tower = REG.get("two-tower-retrieval")
+    sc = STP.StepConfig(**TRAIN_STEP, micro_batches=DRY_TOWER_MICRO)
+    fn, args = tower.build(rules, "train_batch", step_config=sc)
+    traced["two_tower_train"] = trace_step(fn, args, rules, None)
+    del values, cache, args
+    for key, card in (("qwen3_prefill", measured["qwen3_prefill"]),
+                      ("two_tower_train", measured["two_tower_train"])):
+        rec = traced[key]
+        row = {k: rec[k] for k in ("trace_s", "flops", "bytes_accessed", "transcendentals",
+                                   "peak_memory_in_bytes_unsharded", "kernel_calls")}
+        row["ops"] = sum(rec["op_counts"].values())
+        row["card"] = card
+        if card.get("ms"):
+            row["card_tflop_s"] = rec["flops"] / (card["ms"] / 1e3) / 1e12
+        out[key] = row
+        say(f"dryrun_{key}", row)
+
+    # 16c. The int8 error-feedback all-reduce on a mesh of the card.
+    dlrm = REG.get("dlrm-rm2")
+    d_abs = dlrm.abstract_params(dlrm.full_config())
+    d_vals, _ = split_params(d_abs)
+    dense = [v for v, tab in zip(tree_leaves(d_vals), tree_leaves(STP.table_mask(d_abs)))
+             if not tab]
+    P = COMPRESS_MESH
+    draws = []
+    for p in range(P):
+        g = torch.Generator().manual_seed(p)
+        draws.append([torch.randn(tuple(v.shape), generator=g) for v in dense])
+    zeros = [[torch.zeros(tuple(v.shape)) for v in dense] for _ in range(P)]
+    cpu_mesh = make_mesh((P,), ("dp",), devices=[torch.device("cpu")] * P)
+    want_s, want_e = compressed_psum_tree(cpu_mesh, list(range(P)), draws, zeros)
+    card_mesh = make_mesh((P,), ("dp",), devices=[dev] * P)
+    g_dev = [[t.to(dev) for t in gp] for gp in draws]
+    e_dev = [[t.to(dev) for t in ep] for ep in zeros]
+    with hlo_stats.recording() as events:
+        got_s, got_e = compressed_psum_tree(card_mesh, list(range(P)), g_dev, e_dev)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for j, v in enumerate(dense):
+        true = sum(draws[p][j].double() for p in range(P))
+        scale = float(true.abs().max())
+        for p in range(P):
+            s, e = got_s[p][j].cpu(), got_e[p][j].cpu()
+            check(torch.equal(s, want_s[p][j]) and torch.equal(e, want_e[p][j]),
+                  f"16c: leaf {j} {tuple(v.shape)} at position {p}: the card's sum or "
+                  "residual differs from the CPU's")
+            worst = max(worst, float((s.double() - true).abs().max()) / (scale + 1e-9))
+    check(worst < COMPRESS_GATE, f"16c: a leaf is {worst} off the fp32 sum, past {COMPRESS_GATE}")
+    times = []
+    for _ in range(COMPRESS_REPS + 1):
+        t0 = time.perf_counter()
+        compressed_psum_tree(card_mesh, list(range(P)), g_dev, e_dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    st = hlo_stats.collect_stats(events, P)
+    n_el = sum(v.numel() for v in dense)
+    out["compression"] = {
+        "leaves": len(dense), "elements": n_el, "positions": P,
+        "max_rel_err_vs_fp32_sum": worst, "equal_to_cpu": True,
+        "ms_first": times[0], "ms_median": statistics.median(times[1:]),
+        "collective_counts": st.counts,
+        "wire_bytes_per_device": st.wire_bytes_per_device,
+        "fp32_ring_wire_bytes_per_device": 2 * (P - 1) / P * n_el * 4}
+    say("dryrun_compression", out["compression"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("dryrun_phase", {"seconds": out["phase_s"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4526,7 +4741,8 @@ def main() -> int:
     # trained towers, on what phase 12 freed.
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(torch, dev, run_path)["launches"]
+    train = phase_train(torch, dev, run_path)
+    train_launches = train["launches"]
     for name in ("fused_knn", "merge_partials"):
         check(train_launches.get(name, 0) > 0, f"phase 13 never launched {name}: {train_launches}")
 
@@ -4544,6 +4760,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = phase_lm(torch, dev, run_path)
     lm_launches = lm["launches"]
+
+    # 16. The dry run: the kernels' shape paths against the kernels, two
+    # traced steps beside what 15a and 13a measured, and the int8
+    # error-feedback all-reduce on a mesh of the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tt = train["two_tower"]["train"]
+    phase_dryrun(torch, dev, {
+        "qwen3_prefill": {"ms": lm["qwen3"]["prefill_ms"][1],
+                          "peak_bytes_15a": lm["qwen3"]["peak_bytes"]},
+        "two_tower_train": {"ms": tt["step_ms_median"], "peak_bytes_13a": tt["peak_bytes"]}})
 
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]

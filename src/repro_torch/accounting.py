@@ -7,6 +7,13 @@ counters, and their summary), ``scan_bytes_per_query`` for the flat,
 quantized, IVF and IVF-PQ scans, and the fleet's models:
 ``shard_bytes_per_query``, ``rpc_bytes_per_batch`` and
 ``replicated_fleet_model``.
+
+The accounting-mode flag (``set_unroll`` / ``unrolled``): the reference
+compiles its loops unrolled under it, because XLA's cost analysis counts a
+loop body once.  The port's loops (``models.nn.model_scan``, the ring of
+``core.distributed``) are Python loops, and the dry run
+(``launch/dryrun.py``) counts every trip of them either way; the flag only
+records ``"unrolled"`` in a dry run's record.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import time
 import torch
 
 from repro_torch.core.topk import next_pow2
+
+_UNROLL = [False]
 
 # itemsize of the database stream per scan dtype (core.distances.SCAN_DTYPES).
 _SCAN_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
@@ -148,6 +157,14 @@ def replicated_fleet_model(n_shards: int, replicas: int, *, shards_dispatched: f
             "expected_coverage": 1.0 - p_lost,
             "storage_factor": float(replicas),
             "dispatch_factor": 1.0 / (1.0 - f)}
+
+def set_unroll(value: bool) -> None:
+    _UNROLL[0] = bool(value)
+
+
+def unrolled() -> bool:
+    return _UNROLL[0]
+
 
 def stream_clock(device: torch.device) -> float:
     """Host seconds, read after the calling thread's current stream on

@@ -317,6 +317,8 @@ class GNNArch:
 # RecSys family.
 # ---------------------------------------------------------------------------
 
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+
 
 class RecsysArch:
     family = "recsys"

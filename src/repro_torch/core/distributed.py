@@ -14,7 +14,8 @@ The reference runs each shard body under ``jax.shard_map``; here a
 body is a loop over the positions of the axis it runs on, each position's
 work enqueued on its own device and stream (``Mesh.on``) from the one
 calling thread.  The collectives are copies between the positions'
-tensors (``permute``, ``rotate``, ``all_gather``).
+tensors (``permute``, ``rotate``, ``all_gather``); each notes itself in
+``launch.hlo_stats``'s open recordings, for the dry run's accounting.
 
 * ``make_ring_allpairs``: rows sharded; a half ring of hops rotates
   visiting blocks so each unordered pair of blocks meets once, the
@@ -73,6 +74,7 @@ from repro_torch.core.knn import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import stream_topk as _st
+from repro_torch.launch import hlo_stats
 
 Tensor = torch.Tensor
 
@@ -92,6 +94,7 @@ def permute(mesh, pos: Sequence[int], parts: list, perm) -> list:
         out[d] = mesh.copy(parts[s], pos[s], pos[d])
     if any(o is None for o in out):
         raise ValueError(f"perm {list(perm)} is not a permutation of {len(parts)} positions")
+    hlo_stats.note("collective-permute", out[:1], pos)
     return out
 
 
@@ -110,6 +113,7 @@ def all_gather(mesh, pos: Sequence[int], parts: list) -> list:
                for s in range(len(parts))]
         with mesh.on(pos[d]):
             out.append(torch.cat(got))
+    hlo_stats.note("all-gather", out[:1], pos)
     return out
 
 

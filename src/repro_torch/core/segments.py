@@ -27,11 +27,20 @@ Tensor = torch.Tensor
 _PIECE = 64  # rows a thread sums in the first pass of ``segment_sums`` on the card
 
 
+def counts(idx: Tensor, n: int) -> Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ``idx`` in ``[0, n)``: int64
+    [n].  On the meta device (a dry run's trace) the length is that static
+    n, as every id is below it; ``bincount`` itself has no meta kernel."""
+    if idx.device.type == "meta":
+        return torch.empty((n,), dtype=torch.int64, device="meta")
+    return torch.bincount(idx, minlength=n)
+
+
 def group_sums(g: Tensor, a: Tensor, k: int) -> tuple[Tensor, Tensor]:
     """(sums [k, d], counts [k] int64) of the rows ``g`` [n, d] per group
     ``a`` [n] in ``[0, k)``: the rows sorted stably by group, then
     ``segment_sums``.  An empty group sums to 0."""
-    cnt = torch.bincount(a, minlength=k)
+    cnt = counts(a, k)
     return segment_sums(g[torch.argsort(a, stable=True)], cnt), cnt
 
 
@@ -78,7 +87,7 @@ class Segments:
         self.idx = torch.as_tensor(idx).long()
         self.n = int(n)
         self.order = torch.argsort(self.idx, stable=True)
-        self.counts = torch.bincount(self.idx, minlength=self.n)
+        self.counts = counts(self.idx, self.n)
 
 
 def _sum_rows(seg: Segments, rows: Tensor) -> Tensor:

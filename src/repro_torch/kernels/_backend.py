@@ -28,6 +28,13 @@ past the limit the other thread set: ``invalid argument`` (seen on the
 card, PERF.md).  A call only enqueues, so the other thread waits
 microseconds.
 
+Meta tensors: a wrapper given tensors on the meta device (the dry run,
+``launch/dryrun.py``) runs neither its plain version nor a launch.  It
+makes the same refusals as on the card, returns empty meta tensors of its
+kernel's result contract (the counterpart of a ``pallas_call``'s
+``out_shape``) and records the call, with the work a launch would do, in
+the calling thread's open ``shape_calls`` blocks.
+
 Launch counts: each wrapper counts its launches (``count_launch``) in its
 module's counters (``LAUNCHES`` and its variants), which the serving
 thread's callers zero and read.  A thread that launches beside it (the
@@ -64,6 +71,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _CALLS: dict[str, threading.Lock] = {}  # one a library: its calls, one at a time
 _LOCK = threading.Lock()
 _TALLY = threading.local()
+_SHAPES = threading.local()
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +108,51 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev}")
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True if the tensors lie on the meta device (module docstring), False
+    if none does; mixed devices raise, as in ``on_cuda``."""
+    if all(t.device.type != "meta" for t in tensors):
+        return False
+    if any(t.device.type != "meta" for t in tensors):
+        devs = {str(t.device) for t in tensors}
+        raise ValueError(f"operands lie on several devices: {sorted(devs)}")
+    return True
+
+
+def nbytes(*tensors: torch.Tensor | None) -> int:
+    """The bytes of the tensors given (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def meta_topk(lead: tuple, K: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Empty meta (values fp32, ids int32) of shape ``(*lead, K)``: a
+    selection kernel's result contract."""
+    shape = (*lead, K)
+    return (torch.empty(shape, dtype=torch.float32, device="meta"),
+            torch.empty(shape, dtype=torch.int32, device="meta"))
+
+
+@contextlib.contextmanager
+def shape_calls():
+    """Collect the calling thread's ``shape_call`` records while the block
+    runs; yields their list, ``(kernel, flops, bytes)`` a call."""
+    log: list = []
+    outer = getattr(_SHAPES, "logs", ())
+    _SHAPES.logs = (*outer, log)
+    try:
+        yield log
+    finally:
+        _SHAPES.logs = outer
+
+
+def shape_call(kernel: str, *, flops: float, nbytes: float) -> None:
+    """Record one call of ``kernel`` on meta tensors: the operations and the
+    bytes (each operand read once, each result written once) that its
+    launch would take, in every ``shape_calls`` block open on this thread."""
+    for log in getattr(_SHAPES, "logs", ()):
+        log.append((kernel, float(flops), float(nbytes)))
 
 
 def require(cond: bool, msg) -> None:

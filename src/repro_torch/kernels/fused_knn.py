@@ -183,6 +183,13 @@ def fused_knn_partials(fx, gy, hx, hy, k: int, *, distance_finalize: str, alpha:
     extra = [t for t in (gy_scale, q_mask) if t is not None]
     if q_mask is not None:
         check_mask(q_mask, m, n)
+    if B.on_meta(fx, gy, hx, hy, *extra):
+        require_card_k(K, "fused_knn")
+        B.require_vec4(d, fx, gy)
+        v, i = B.meta_topk((1, m), K)
+        B.shape_call("fused_knn", flops=2.0 * m * n * d,
+                     nbytes=B.nbytes(fx, gy, hx, hy, *extra, v, i))
+        return v, i
     if not B.on_cuda(fx, gy, hx, hy, *extra):
         v, i = fused_knn_plain(fx, gy, hx, hy, k, alpha=alpha, finalize=distance_finalize,
                                n_real=n_real, exclude_self=exclude_self, gy_scale=gy_scale,

@@ -136,12 +136,18 @@ def build_table(probes, cell_extent, cell_cap: int,
     ceil(cell_cap / 128) (the entries past each row's count are not
     written, and no split reaches them); CPU tensors run the plain
     versions."""
-    if not B.on_cuda(probes, cell_extent):
-        table, counts = tile_table(probes, cell_extent, cell_cap)
-        return table, split_bounds(counts, splits)
     nt, W = probes.shape
     ncells = cell_extent.shape[0]
     width = max(1, min(W, ncells) * -(-cell_cap // TILE_COLS))
+    if B.on_meta(probes, cell_extent):
+        table = torch.empty((nt, width, 2), dtype=torch.int32, device="meta")
+        bounds = torch.empty((nt, splits + 1), dtype=torch.int32, device="meta")
+        B.shape_call("ivf_scan_table", flops=0.0,
+                     nbytes=B.nbytes(probes, cell_extent, table, bounds))
+        return table, bounds
+    if not B.on_cuda(probes, cell_extent):
+        table, counts = tile_table(probes, cell_extent, cell_cap)
+        return table, split_bounds(counts, splits)
     table = torch.empty((nt, width, 2), dtype=torch.int32, device=probes.device)
     bounds = torch.empty((nt, splits + 1), dtype=torch.int32, device=probes.device)
     B.launch("ivf_scan", "ivf_scan_table", TABLE_ARGTYPES, probes.device, B.ptr(probes),
@@ -203,8 +209,19 @@ def ivf_scan_partials(probes, fx, gy, hx, hy, k: int, *, cell_cap: int, tile_m: 
               == (S // cell_cap,) and cell_extent.is_contiguous(),
               lambda: f"cell_extent: want contiguous int32 [{S // cell_cap}], got "
               f"{cell_extent.dtype} {tuple(cell_extent.shape)}")
-    if not B.on_cuda(probes, fx, gy, hx, hy, cell_extent,
-                     *([] if gy_scale is None else [gy_scale])):
+    extra = [] if gy_scale is None else [gy_scale]
+    if B.on_meta(probes, fx, gy, hx, hy, cell_extent, *extra):
+        require_card_k(K, "ivf_scan")
+        B.require_vec4(d, fx, gy)
+        v, i = B.meta_topk((1, m), K)
+        # A ceiling: each union tile's list probes min(W, ncells) whole cells.
+        cols = min(probes.shape[1], S // cell_cap) * cell_cap
+        nt = probes.shape[0]
+        B.shape_call("ivf_scan", flops=2.0 * m * cols * d,
+                     nbytes=B.nbytes(probes, fx, hx, cell_extent, v, i)
+                     + nt * cols * (d * gy.element_size() + 4 * (1 + len(extra))))
+        return v, i
+    if not B.on_cuda(probes, fx, gy, hx, hy, cell_extent, *extra):
         v, i = ivf_scan_plain(probes, fx, gy, hx, hy, k, cell_cap=cell_cap, tile_m=tile_m,
                               cell_extent=cell_extent, alpha=alpha, finalize=distance_finalize,
                               gy_scale=gy_scale)

@@ -69,6 +69,11 @@ def merge_partials(part_v: torch.Tensor, part_i: torch.Tensor):
     B.require_f32("part_v", part_v, (S, m, K))
     B.require(part_i.dtype == torch.int32 and part_i.shape == part_v.shape
               and part_i.is_contiguous(), "part_i: want contiguous int32 of part_v's shape")
+    if B.on_meta(part_v, part_i):
+        require_card_k(K, "merge_partials")
+        v, i = B.meta_topk((m,), K)
+        B.shape_call("merge_partials", flops=0.0, nbytes=B.nbytes(part_v, part_i, v, i))
+        return v, i
     if not B.on_cuda(part_v, part_i):
         return merge_partials_plain(part_v, part_i)
     require_card_k(K, "merge_partials")

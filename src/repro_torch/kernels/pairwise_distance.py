@@ -58,6 +58,12 @@ def pairwise_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
     for name, t, shape in (("fx", fx, (m, d)), ("gy", gy, (n, d)),
                            ("hx", hx, (m, 1)), ("hy", hy, (1, n))):
         B.require_f32(name, t, shape)
+    if B.on_meta(fx, gy, hx, hy):
+        B.require_vec4(d, fx, gy)
+        out = torch.empty((m, n), dtype=torch.float32, device="meta")
+        B.shape_call("pairwise_distance", flops=2.0 * m * n * d,
+                     nbytes=B.nbytes(fx, gy, hx, hy, out))
+        return out
     if not B.on_cuda(fx, gy, hx, hy):
         return pairwise_distance_plain(fx, gy, hx, hy, alpha=alpha, finalize=finalize)
     B.require_vec4(d, fx, gy)
@@ -73,6 +79,10 @@ def pairwise_distance(fx, gy, hx, hy, *, alpha: float, finalize: str):
 # entry point takes.
 ACCUMULATE_CODES = {"sqeuclidean": 0, "neg_dot": 1, "hellinger": 2, "kl": 3}
 CUMULATIVE_FINALIZE_CODES = {"identity": 0, "sqrt": 1, "half_sqrt": 2}
+# fp32 operations per (pair, coordinate), counted by the fp32 pipe's instruction
+# slots: an FSUB and an FFMA (four) for each accumulator but neg_dot's one
+# FFMA (two); roots and logarithms are per element.
+CUMULATIVE_OPS = {"sqeuclidean": 4, "neg_dot": 2, "hellinger": 4, "kl": 4}
 # pairwise_cumulative(x, y, out, m, n, d, acc, fin, init, stream)
 CUMULATIVE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -126,6 +136,12 @@ def pairwise_distance_cumulative(x, y, *, accumulate: str, finalize: str, init: 
     B.require(finalize in CUMULATIVE_FINALIZE_CODES, lambda: f"unknown finalizer {finalize!r}")
     B.require_f32("x", x, (m, d))
     B.require_f32("y", y, (n, d))
+    if B.on_meta(x, y):
+        B.require_vec4(d, x, y)
+        out = torch.empty((m, n), dtype=torch.float32, device="meta")
+        B.shape_call("pairwise_cumulative", flops=1.0 * m * n * d * CUMULATIVE_OPS[accumulate],
+                     nbytes=B.nbytes(x, y, out))
+        return out
     if not B.on_cuda(x, y):
         return pairwise_cumulative_plain(x, y, accumulate=accumulate, finalize=finalize,
                                          init=init)

@@ -260,7 +260,17 @@ def pq_scan_partials(probes, luts, codes, hx, hy, k: int, *, cell_cap: int, ncod
               and cell_extent.is_contiguous(),
               lambda: f"cell_extent: want contiguous int32 [{ncells}], got "
               f"{cell_extent.dtype} {tuple(cell_extent.shape)}")
-    if not B.on_cuda(probes, luts, codes, hx, hy, cell_extent, *([] if qc is None else [qc])):
+    extra = [] if qc is None else [qc]
+    if B.on_meta(probes, luts, codes, hx, hy, cell_extent, *extra):
+        require_card_k(K, "pq_scan")
+        v, i = B.meta_topk((1, m), K)
+        # A ceiling: each tile's list probes min(W, ncells) whole cells.
+        cols = min(probes.shape[1], ncells) * cell_cap
+        B.shape_call("pq_scan", flops=1.0 * m * cols * pq_m,
+                     nbytes=B.nbytes(probes, luts, hx, cell_extent, *extra, v, i)
+                     + probes.shape[0] * cols * (pq_m + 4))
+        return v, i
+    if not B.on_cuda(probes, luts, codes, hx, hy, cell_extent, *extra):
         v, i = pq_scan_plain(probes, luts, codes, hx, hy, k, cell_cap=cell_cap, ncodes=ncodes,
                              tile_m=tile_m, cell_extent=cell_extent,
                              finalize=distance_finalize, qc=qc)

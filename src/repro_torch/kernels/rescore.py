@@ -83,6 +83,13 @@ def rescore_topk(fx, cand, hx, hy_cand, k: int, *, alpha: float, finalize: str):
     for name, t, shape in (("fx", fx, (m, d)), ("cand", cand, (m, Kp, d)),
                            ("hx", hx, (m, 1)), ("hy_cand", hy_cand, (m, Kp))):
         B.require_f32(name, t, shape)
+    if B.on_meta(fx, cand, hx, hy_cand):
+        require_card_k(K, "rescore_topk")
+        B.require_vec4(d, fx, cand)
+        v, i = B.meta_topk((m,), K)
+        B.shape_call("rescore_topk", flops=2.0 * m * Kp * d,
+                     nbytes=B.nbytes(fx, cand, hx, hy_cand, v, i))
+        return v, i
     if not B.on_cuda(fx, cand, hx, hy_cand):
         return rescore_topk_plain(fx, cand, hx, hy_cand, k, alpha=alpha, finalize=finalize)
     require_card_k(K, "rescore_topk")

@@ -121,6 +121,11 @@ def stream_topk(x: torch.Tensor, k: int, *, threshold_skip: bool | None = None):
     m, n = x.shape
     K = T.next_pow2(k)
     B.require_f32("x", x, (m, n))
+    if B.on_meta(x):
+        require_card_k(K, "stream_topk")
+        v, i = B.meta_topk((m,), K)
+        B.shape_call("stream_topk", flops=1.0 * m * n, nbytes=B.nbytes(x, v, i))
+        return v, i
     if not B.on_cuda(x):
         return stream_topk_plain(x, k)
     require_card_k(K, "stream_topk")

@@ -20,9 +20,11 @@ stream (``Mesh.on``); a copy from position a to position b makes b's stream
 wait for a's (``Mesh.copy``); a collective program (``Mesh.scope``) starts
 after the caller's queued work and ends before the caller's next.
 
-``make_production_mesh`` (the reference's 256-chip TPU pod) is not ported:
-only the reference's dry run calls it, and it waits for that dry run's
-port.  ``make_host_mesh`` is what ``launch/serve.py --mesh`` uses.
+``make_production_mesh`` is the reference's pod layout, (16, 16) or
+(2, 16, 16), with every position on the meta device: the dry run
+(``launch/dryrun.py``) traces a cell over it, copies between positions
+included, and allocates nothing.  ``make_host_mesh`` is what
+``launch/serve.py --mesh`` uses.
 """
 from __future__ import annotations
 
@@ -190,6 +192,15 @@ def make_mesh(shape, axis_names, *, devices=None, streams: bool = True) -> Mesh:
             raise ValueError(f"a {tuple(shape)} mesh over this machine's {len(devices)} CUDA "
                              f"devices; pass devices= to place positions")
     return Mesh(shape, axis_names, devices, streams=streams)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layout: a 16 x 16 ("data", "model") pod,
+    or two of them on a leading "pod" axis, every position on the meta
+    device (no streams)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, [torch.device("meta")] * math.prod(shape), streams=False)
 
 
 def make_host_mesh(model_parallel: int | None = None, *, devices=None) -> Mesh:

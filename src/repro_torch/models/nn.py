@@ -237,6 +237,14 @@ ACTS = {
 }
 
 
+def set_unroll_scans(value: bool):
+    """The reference's switch to unrolled scans; ``model_scan`` is a loop
+    here, so this only sets the accounting flag (``repro_torch.accounting``)."""
+    from repro_torch import accounting
+
+    accounting.set_unroll(value)
+
+
 def model_scan(body, init, xs, length=None):
     """``lax.scan`` as a loop: ``body(carry, x) -> (carry, y)`` over the
     leading axis of ``xs`` (a tree of tensors, or None with ``length``);

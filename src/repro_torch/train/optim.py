@@ -59,7 +59,13 @@ def coalesce_rows(ids: Tensor, rows: Tensor) -> RowGrad:
     """Per-lookup gradients (``ids`` [N], ``rows`` [N, D]) as a ``RowGrad``:
     each id's rows summed, in an order fixed by the ids (module docstring)."""
     sorted_ids, order = torch.sort(ids.long(), stable=True)
-    uniq, cnt = torch.unique_consecutive(sorted_ids, return_counts=True)
+    if ids.device.type == "meta":
+        # A dry run's trace: the unique ids' count depends on their values,
+        # so take its static ceiling, every lookup an id of its own (the
+        # most rows a step can touch).
+        uniq, cnt = sorted_ids, torch.ones_like(sorted_ids)
+    else:
+        uniq, cnt = torch.unique_consecutive(sorted_ids, return_counts=True)
     return RowGrad(uniq, segment_sums(rows[order], cnt))
 
 

@@ -57,6 +57,8 @@ def test_import_works_with_jax_blocked():
         "import repro_torch.train.checkpoint, repro_torch.train.loop\n"
         "import repro_torch.models.attention, repro_torch.models.moe\n"
         "import repro_torch.models.transformer, repro_torch.configs.knn_paper\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_stats\n"
+        "import repro_torch.train.compression\n"
         "from repro_torch.configs import registry\n"
         "for arch_id in registry.ASSIGNED:\n"
         "    registry.get(arch_id).abstract_params(registry.get(arch_id).full_config())\n"

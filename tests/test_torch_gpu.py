@@ -2140,3 +2140,23 @@ def test_lm_products_refuse_tf32_and_reduced_bf16_sums(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev_bf16
+
+
+def test_meta_outputs_match_the_card_for_every_wrapper(cuda):
+    """The dry run's shape path: each wrapper's outputs on meta tensors have
+    the shapes and dtypes of its kernel's outputs on the card (the cases of
+    ``tests/test_torch_dryrun.py``), and a dry run in a fresh process on
+    this machine initialises no CUDA."""
+    import subprocess
+    import sys
+
+    from test_torch_dryrun import REPO, _layout, _on, wrapper_cases
+
+    for name, (call, args, _) in wrapper_cases().items():
+        assert _layout(call(_on(args, "meta"))) == _layout(call(_on(args, cuda))), name
+    code = ("import torch\nfrom repro_torch.launch import dryrun\n"
+            "dryrun.run_cell('qwen3-moe-30b-a3b', 'decode_32k', False)\n"
+            "print(torch.cuda.is_initialized())\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(REPO / "src")), timeout=300)
+    assert proc.stdout.split() == ["False"], proc.stderr[-2000:]
