@@ -262,6 +262,31 @@ Phases (each one raises on a failed check; nothing is caught):
    seeds 0-3: every leaf within 0.05 of the fp32 sum, sums and residuals
    equal to the CPU's on the same draws; its median ms a call and its
    wire bytes beside an fp32 ring's.  Its launches are outside every path.
+17. The recommender sharded over a (data, model) mesh
+   (``distributed.spmd``, ``distributed.steps``' sharded steps,
+   ``train.optim``'s replica sums; ``phase_sharded``), a (2, 2) mesh whose
+   positions cycle over the visible cards (all four on the one card).
+   17a: DLRM-RM2 at ``full_config()`` drawn from seed 0 as in 13b, cut one
+   leaf at a time (each table's row halves replicated over "data": 55.3
+   GB), the first batch's looked-up rows of all 26 tables bit-equal to the
+   whole lookup on every position, then 13b's 5 steps at 65,536 rows, held
+   within rtol 1e-4 / atol 1e-5 (13c's tolerance) of 13b's whole run: the
+   5 losses, and after step 2 (the first at a nonzero learning rate) the
+   dense leaves and 2,048 touched rows of each of the three largest tables;
+   every replica of every block byte-equal after every step.  After step 5
+   the same params are reported against 13b beside a floor, the sharded run
+   at 2 micro-batches against itself at 1 (the same gradients summed in
+   another order): AdamW and row-wise Adagrad turn a last-bit difference in
+   a near-zero gradient into a step of about the learning rate, so no two
+   summation orders agree to 1e-4 there.  Step ms and peak memory.  17b: the four archs at ``smoke_config()``, 5
+   steps on the card's mesh against the same on four CPU positions
+   (13c's tolerance), replicas byte-equal, then ``make_recsys_serve_step``
+   over both meshes.  17c: the two-tower model trained in 17b serves
+   ``make_retrieval_step`` over the card's mesh at ``retrieval_cand`` (1 x
+   10^6 candidates, k 100), the user tower on its shards, the candidates
+   on "model": ids equal to a brute force.  Phase 17 must launch
+   ``fused_knn`` and ``merge_partials`` (17c), and each entry carries
+   ``launches_phase17``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -2939,6 +2964,48 @@ LARGEST_TABLE = {
 }
 
 
+HOLD_AFTER = (1, 4)  # 17a: steps after which 13b's DLRM is kept (the first with lr > 0; the last)
+
+
+def dlrm_watch(cfg) -> dict:
+    """For each step of ``HOLD_AFTER``: per table of the three largest, 2,048
+    drawn ids among those the batches up to it touched, and the largest 16."""
+    from repro_torch.data.synthetic import recsys_batch
+
+    rows = TRAIN_ROWS or 65536
+    sizes = cfg.sizes()
+    big = sorted(range(len(sizes)), key=lambda i: -sizes[i])[:3]
+    seen = [recsys_batch("dlrm-rm2", rows, cfg, step=i)["sparse"]
+            for i in range(max(HOLD_AFTER) + 1)]
+    g = np.random.default_rng(17)
+    out = {}
+    for step in HOLD_AFTER:
+        out[step] = {}
+        for i in big:
+            ids = np.unique(np.concatenate([b[:, i] for b in seen[: step + 1]]))
+            out[step][i] = np.unique(np.concatenate([
+                g.choice(ids, min(2048, len(ids)), replace=False), ids[-16:]]))
+    return out
+
+
+def dlrm_sample(torch, params, watch: dict) -> dict:
+    """The dense leaves and the watched rows of ``params`` (whole tensors or
+    ``Sharded`` leaves), on the host."""
+    from repro_torch.distributed.sharding import Sharded
+
+    def host(t):  # a copy: the state is updated in place after this
+        return t.whole().cpu() if isinstance(t, Sharded) else t.detach().cpu().clone()
+
+    rows = {}
+    for i, ids in watch.items():
+        t = params["tables"][i]
+        rows[i] = (sharded_table_rows(torch, t, ids) if isinstance(t, Sharded) else
+                   t.index_select(0, torch.from_numpy(ids).to(t.device)).cpu().numpy())
+    return {"dense": {f"{k}.{j}.{n}": host(v).numpy() for k in ("bot", "top")
+                      for j, layer in enumerate(params[k]) for n, v in layer.items()},
+            "rows": rows}
+
+
 def phase_train(torch, dev, run_path):
     """13. The recommender's trainer (``distributed.steps``, ``train.optim``)
     at the full width of each recsys arch's ``full_config()`` on the card,
@@ -3195,7 +3262,19 @@ def phase_train(torch, dev, run_path):
     # 13b. The three ranking models.
     for aid in ("dlrm-rm2", "xdeepfm", "bst"):
         def ranking(aid=aid):
-            _, state, cfg, rec = train(aid, TRAIN_STEPS[aid])
+            hook = None
+            if aid == "dlrm-rm2":  # what 17a's sharded run must reproduce
+                watch = dlrm_watch(REG.get(aid).full_config())
+                kept = {}
+
+                def hook(when, i, state, grads, metrics, _=None):
+                    if when == "after" and i in watch:
+                        kept[i] = dlrm_sample(torch, state.params, watch[i])
+
+            _, state, cfg, rec = train(aid, TRAIN_STEPS[aid], hook)
+            if aid == "dlrm-rm2":
+                out["dlrm_hold"] = {"losses": list(rec["losses"]), "watch": watch,
+                                    "after": kept, "step_ms_median": rec["step_ms_median"]}
             fn, _ = REG.get(aid).build(rules, "serve_p99")
             batch = recsys_batch(aid, 512, cfg, step=99)
             batch.pop("labels")
@@ -3252,6 +3331,271 @@ def phase_train(torch, dev, run_path):
     say("train_card_vs_cpu", out["card_vs_cpu"])
     out["phase_s"] = time.perf_counter() - t_phase
     say("train_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    return out
+
+
+SHARD_MESH = (2, 2)  # 17: the ("data", "model") mesh, its positions cycling over the cards
+SHARD_STEPS = 5  # 17a-b: 13b's DLRM steps; 13c's smoke steps
+SHARD_ITEMS = 1_000_000  # 17c: the two-tower retrieval_cand cell (configs/base.py:354-356)
+SHARD_TOL = dict(rtol=1e-4, atol=1e-5)  # 13c's
+
+
+def bytes_equal(torch, a, b, chunk=1 << 28) -> bool:
+    """``a`` and ``b`` hold the same bytes, compared in chunks of words (no
+    temporary as large as a table)."""
+    wa, wb = a.reshape(-1), b.reshape(-1)
+    if a.element_size() == 4:
+        wa, wb = wa.view(torch.int32), wb.view(torch.int32)
+    else:
+        wa, wb = wa.view(torch.uint8), wb.view(torch.uint8)
+    return wa.shape == wb.shape and all(
+        torch.equal(wa[i : i + chunk], wb[i : i + chunk]) for i in range(0, len(wa), chunk))
+
+
+def replicas_equal(torch, tree) -> bool:
+    """Every replica of every ``Sharded`` block of ``tree`` byte-equal."""
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.models.nn import tree_leaves
+
+    return all(bytes_equal(torch, s.parts[g[0]], s.parts[q])
+               for s in tree_leaves(tree) if isinstance(s, Sharded)
+               for g in s.replica_groups() for q in g[1:])
+
+
+def sharded_table_rows(torch, sh, ids: np.ndarray) -> np.ndarray:
+    """Rows ``ids`` (global numbering) of a table placed as ``sh``, each read
+    from its block's first replica, on the host."""
+    s, mesh = sh.sharding, sh.mesh
+    axes, R = s.dim_axes(0), sh.parts[0].shape[0]
+    holders = mesh.groups(axes)[0] if axes else [0]
+    out = np.empty((len(ids), sh.shape[1]), np.float32)
+    for b, p in enumerate(holders):
+        sel = np.nonzero(ids // R == b)[0] if axes else np.arange(len(ids))
+        if len(sel):
+            local = torch.from_numpy(ids[sel] - b * R if axes else ids[sel])
+            out[sel] = sh.parts[p].index_select(0, local.to(sh.parts[p].device)).cpu().numpy()
+    return out
+
+
+def phase_sharded(torch, dev, run_path, hold):
+    """17. The recommender's steps sharded over a (2, 2) mesh of the card
+    (module docstring).  ``hold`` is 13b's DLRM on the host: its losses,
+    ``dlrm_watch``'s ids and its ``dlrm_sample`` after each step of
+    ``HOLD_AFTER``.  A CPU rehearsal shrinks it through ``TRAIN_ROWS``,
+    ``SHARD_ITEMS`` and the archs' ``full_config``."""
+    import gc
+
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.sharding import make_rules, shard_tree, unshard_tree
+    from repro_torch.kernels.ref import check_topk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys as P
+    from repro_torch.models.nn import split_params, tree_map
+
+    t_phase = time.perf_counter()
+    n_cards = max(torch.cuda.device_count(), 1)
+    devices = [dev if dev.type == "cpu" else torch.device("cuda", i % n_cards)
+               for i in range(4)]
+    rules = make_rules(make_mesh(SHARD_MESH, ("data", "model"), devices=devices))
+    mesh = rules.mesh
+    out = {"launches": {}, "mesh": {"shape": list(SHARD_MESH),
+                                    "devices": [str(d) for d in devices]}}
+
+    def counted(label, fn):
+        res, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+        return res
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def train_step(aid, cfg, where_rules, micro):
+        arch = REG.get(aid)
+        loss, baxes = ST.recsys_loss(aid, cfg)
+        sc = ST.StepConfig(**TRAIN_STEP, micro_batches=micro)
+        step, _, st_shard, opt = ST.make_train_step(loss, arch.abstract_params(cfg), where_rules,
+                                                    baxes, sc)
+        return step, st_shard, opt
+
+    # 17a. DLRM-RM2 at full width.
+    def sharded_dlrm(micro, check_lookups):
+        """13b's 5 steps on the mesh at ``micro`` micro-batches: (losses, step
+        ms, replicas equal, the held samples after ``HOLD_AFTER``'s steps,
+        the draw and cut seconds, the bytes after the cut, the peak)."""
+        aid = "dlrm-rm2"
+        arch = REG.get(aid)
+        cfg = arch.full_config()
+        rows = TRAIN_ROWS or 65536
+        step, st_shard, opt = train_step(aid, cfg, rules, micro)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = synced()
+        values, _ = split_params(arch.init_params(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
+        draw_s = synced() - t0
+        batch0 = recsys_batch(aid, rows, cfg, step=0)
+        ids0 = torch.from_numpy(batch0["sparse"]).to(dev).long()
+        whole_rows = ([t[ids0[:, i]] for i, t in enumerate(values["tables"])]
+                      if check_lookups else None)
+        state = ST.init_state(opt, values)
+        del values
+        t0 = synced()
+        state = shard_tree(state, st_shard)
+        shard_s = synced() - t0
+        after_cut = torch.cuda.memory_allocated()
+        if check_lookups:
+            misses = 0
+            with torch.no_grad(), spmd.body(mesh):
+                for i, sh in enumerate(state.params["tables"]):
+                    got = P.embedding_lookup(spmd.Local(sh.parts, sh.sharding), ids0[:, i])
+                    misses += sum(not bytes_equal(torch, g, whole_rows[i]) for g in got.parts)
+            check(misses == 0, f"17a: {misses} looked-up blocks differ from the whole lookup")
+            del whole_rows, got
+        losses, ms, equal, kept = [], [], True, {}
+        for i in range(SHARD_STEPS):
+            batch = batch0 if i == 0 else recsys_batch(aid, rows, cfg, step=i)
+            t0 = synced()
+            state, m = step(state, batch)
+            ms.append((synced() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            equal = equal and replicas_equal(torch, (state.params, state.opt.m, state.opt.v))
+            if i in hold["watch"]:
+                kept[i] = dlrm_sample(torch, state.params, hold["watch"][i])
+        peak = torch.cuda.max_memory_allocated()
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, ms, equal, kept, draw_s, shard_s, after_cut, peak
+
+    def err(a, b) -> dict:
+        """Max |a - b| over the held samples, and the largest ratio of
+        |a - b| to the tolerance (atol + rtol |b|): at most 1 where held."""
+        out_ = {"abs": 0.0, "tol_ratio": 0.0}
+        pairs = [(a["dense"][k], b["dense"][k]) for k in b["dense"]] + \
+            [(a["rows"][i], b["rows"][i]) for i in b["rows"]]
+        for x, y in pairs:
+            d = np.abs(x - y)
+            out_["abs"] = max(out_["abs"], float(d.max()))
+            out_["tol_ratio"] = max(out_["tol_ratio"], float(
+                (d / (SHARD_TOL["atol"] + SHARD_TOL["rtol"] * np.abs(y))).max()))
+        return out_
+
+    def dlrm():
+        first, last = HOLD_AFTER
+        losses, ms, equal, kept, draw_s, shard_s, after_cut, peak = sharded_dlrm(
+            TRAIN_MICRO["dlrm-rm2"], True)
+        check(equal, "17a: the replicas of a block differ")
+        np.testing.assert_allclose(losses, hold["losses"], **SHARD_TOL)
+        vs_whole = {i: err(kept[i], hold["after"][i]) for i in HOLD_AFTER}
+        check(vs_whole[first]["tol_ratio"] <= 1.0,
+              f"17a: the params after step {first} leave the tolerance: {vs_whole[first]}")
+        # The floor of step 5: the same run at 2 micro-batches (the same
+        # gradients, summed in another order) against this one.
+        _, _, equal2, kept2, _, _, _, _ = sharded_dlrm(2, False)
+        check(equal2, "17a: the replicas of a block differ at 2 micro-batches")
+        return {"draw_s": draw_s, "shard_s": shard_s, "bytes_after_cut": after_cut,
+                "losses": losses, "losses_13b": hold["losses"],
+                "max_abs_loss_err": float(np.abs(np.subtract(losses, hold["losses"])).max()),
+                "step_ms": ms, "step_ms_first": ms[0],
+                "step_ms_median": statistics.median(ms[1:]) if len(ms) > 1 else ms[0],
+                "step_ms_13b_median": hold["step_ms_median"], "peak_bytes": peak,
+                "params_vs_13b": {f"after_step_{i + 1}": vs_whole[i] for i in HOLD_AFTER},
+                "params_micro2_vs_micro1": {f"after_step_{i + 1}": err(kept2[i], kept[i])
+                                            for i in HOLD_AFTER},
+                "held_rows": sum(len(v) for v in hold["watch"][last].values()),
+                "replicas_byte_equal": True, "first_lookups_bit_equal": True}
+
+    out["dlrm"] = counted("sharded_dlrm", dlrm)
+    say("sharded_dlrm", out["dlrm"])
+
+    # 17b. The four archs at smoke size on the card's mesh and four CPU positions.
+    cpu = torch.device("cpu")
+    cpu_rules = make_rules(make_mesh(SHARD_MESH, ("data", "model"), devices=[cpu] * 4))
+    trained = {}
+
+    def smoke():
+        res = {}
+        for aid in ("dlrm-rm2", "xdeepfm", "bst", "two-tower-retrieval"):
+            arch = REG.get(aid)
+            cfg = arch.smoke_config()
+            values, _ = split_params(arch.init_params(
+                cfg, generator=torch.Generator().manual_seed(0), device=cpu))
+            runs = {}
+            for where, r in ((cpu, cpu_rules), (dev, rules)):
+                step, st_shard, opt = train_step(aid, cfg, r, 2 if aid == "two-tower-retrieval"
+                                                 else 1)
+                state = shard_tree(ST.init_state(
+                    opt, tree_map(lambda t: t.to(where, copy=True), values)), st_shard)
+                losses, equal = [], True
+                for i in range(SHARD_STEPS):
+                    state, m = step(state, recsys_batch(aid, 64, cfg, step=i))
+                    losses.append(float(m["loss"]))
+                    equal = equal and replicas_equal(torch, (state.params, state.opt.m,
+                                                             state.opt.v))
+                check(equal, f"17b: {aid}'s replicas differ on {where}")
+                serve = None
+                if aid != "two-tower-retrieval":
+                    fn, _, _ = ST.make_recsys_serve_step(aid, cfg, r, arch.abstract_params(cfg))
+                    batch = recsys_batch(aid, 64, cfg, step=99)
+                    batch.pop("labels")
+                    serve = fn(state.params, batch).cpu()
+                runs[where.type] = (losses, [t.cpu() for t in
+                                             P.param_leaves(unshard_tree(state.params))], serve)
+                if where == dev:
+                    trained[aid] = (state, cfg)
+            (lc, pc, sc_), (lg, pg, sg) = runs["cpu"], runs[dev.type]
+            np.testing.assert_allclose(lg, lc, **SHARD_TOL)
+            for a, b in zip(pg, pc):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), **SHARD_TOL)
+            if sg is not None:
+                np.testing.assert_allclose(sg.numpy(), sc_.numpy(), **SHARD_TOL)
+            res[aid] = {"max_abs_loss_err": float(np.abs(np.subtract(lg, lc)).max()),
+                        "max_abs_param_err": max(float((a - b).abs().max())
+                                                 for a, b in zip(pg, pc)),
+                        "max_abs_serve_err": None if sg is None else
+                        float((sg - sc_).abs().max()), "losses_card": lg}
+        return res
+
+    out["smoke"] = counted("sharded_smoke", smoke)
+    say("sharded_smoke", out["smoke"])
+
+    # 17c. Retrieval over the trained two-tower model's shards.
+    def retrieval():
+        aid = "two-tower-retrieval"
+        state, cfg = trained.pop(aid)
+        trained.clear()
+        values = unshard_tree(state.params)
+        rng = np.random.default_rng(0)
+        fields = rng.integers(0, min(cfg.i_sizes()),
+                              size=(SHARD_ITEMS, cfg.n_item_fields)).astype(np.int32)
+        users = rng.integers(0, min(cfg.u_sizes()), size=(1, cfg.n_user_fields)).astype(np.int32)
+        with torch.no_grad():
+            db = torch.cat([P.item_embedding(values, fields[r : r + 65536])
+                            for r in range(0, SHARD_ITEMS, 65536)])
+            q = P.user_embedding(values, users)
+        fn, _, _ = ST.make_retrieval_step(cfg, rules, REG.get(aid).abstract_params(cfg),
+                                          k=min(100, SHARD_ITEMS))
+        ms = []
+        for _ in range(3):
+            t0 = synced()
+            s1, i1 = fn(state.params, users, db)
+            ms.append((synced() - t0) * 1e3)
+        bv, bi = torch.topk(-(q @ db.T), s1.shape[1], dim=1, largest=False)
+        held = check_topk(-s1, i1.long(), bv, bi, n=SHARD_ITEMS, rtol=1e-5, atol=1e-5,
+                          dist=lambda rows, ext: -(q[rows] * db[ext]).sum(1))
+        check(bool(torch.equal(torch.sort(i1.long(), 1).values, torch.sort(bi, 1).values)),
+              "17c: the retrieved ids differ from the brute force's")
+        return {"items": SHARD_ITEMS, "k": int(s1.shape[1]), "ms_first": ms[0],
+                "ms_median": statistics.median(ms[1:]), "vs_brute": held, "ids_equal": True}
+
+    out["retrieval"] = counted("sharded_retrieval", retrieval)
+    say("sharded_retrieval", out["retrieval"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("sharded_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
     return out
 
 
@@ -4772,6 +5116,17 @@ def main() -> int:
                           "peak_bytes_15a": lm["qwen3"]["peak_bytes"]},
         "two_tower_train": {"ms": tt["step_ms_median"], "peak_bytes_13a": tt["peak_bytes"]}})
 
+    # 17. The recommender sharded over a (2, 2) mesh of the card: DLRM-RM2 at
+    # full width against 13b, the four at smoke size against four CPU
+    # positions, retrieval over the trained towers' shards.
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(torch, dev, run_path, train.pop("dlrm_hold"))
+    sharded_launches = sharded["launches"]
+    for name in ("fused_knn", "merge_partials"):
+        check(sharded_launches.get(name, 0) > 0,
+              f"phase 17 never launched {name}: {sharded_launches}")
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -4907,6 +5262,7 @@ def main() -> int:
         entry["launches_phase13"] = train_launches.get(entry["name"], 0)
         entry["launches_phase14"] = loop_launches.get(entry["name"], 0)
         entry["launches_phase15"] = lm_launches.get(entry["name"], 0)
+        entry["launches_phase17"] = sharded_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

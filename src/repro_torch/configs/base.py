@@ -388,10 +388,14 @@ class RecsysArch:
     def build(self, rules: AxisRules, shape_name: str, *, smoke: bool = False,
               step_config=None, variant: str | None = None):
         """``(fn, args)`` for one cell: ``fn`` the cell's step
-        (``distributed.steps``), ``args`` its arguments as meta tensors.  A
-        caller that runs the step builds its own state and batch of those
-        shapes (``init_params``, ``steps.init_state``, ``smoke_batch``)."""
+        (``distributed.steps``), ``args`` its arguments as meta tensors, the
+        state (or the values) cut over ``rules``' mesh by its rule table
+        (``sharding.shard_tree``) where the mesh has more than one position,
+        so ``fn`` runs sharded.  A caller that runs the step builds its own
+        state and batch of those shapes (``init_params``,
+        ``steps.init_state``, ``smoke_batch``)."""
         from repro_torch.distributed import steps as ST
+        from repro_torch.distributed.sharding import shard_tree
         from repro_torch.models.nn import split_params
 
         cfg = self.smoke_config() if smoke else self.full_config()
@@ -399,30 +403,42 @@ class RecsysArch:
         abstract = self.abstract_params(cfg)
         specs = self.input_specs(shape_name, cfg, smoke=smoke)
         values, _ = split_params(abstract)
+        sharded = len(rules.mesh.devices) > 1
+        p_shard, _ = ST.param_shardings(rules, abstract)
+
+        def placed(tree, shardings):
+            return shard_tree(tree, shardings) if sharded else tree
 
         if cell.kind == "train":
             loss, baxes = ST.recsys_loss(self.id, cfg)
             sc = step_config or ST.StepConfig()
-            _, jitted, _, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
-            return jitted(specs), (ST.init_state(optimizer, values), specs)
+            _, jitted, st_shard, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
+            return jitted(specs), (placed(ST.init_state(optimizer, values), st_shard), specs)
         if cell.kind == "serve":
             if self.id == "two-tower-retrieval":
                 from repro_torch.distributed.sharding import axis_rules
                 from repro_torch.models import recsys as R
 
-                def score(values, batch):  # bulk/online scoring: the two towers' dot
-                    with torch.no_grad(), axis_rules(rules):
-                        u = R.user_embedding(values, batch["user"])
-                        v = R.item_embedding(values, batch["item"])
-                        return torch.sum(u * v, dim=-1)
+                def dot(values, batch):  # bulk/online scoring: the two towers' dot
+                    u = R.user_embedding(values, batch["user"])
+                    v = R.item_embedding(values, batch["item"])
+                    return torch.sum(u * v, dim=-1)
 
-                return score, (values, specs)
+                def score(values, batch):
+                    if ST.is_sharded_tree(values):
+                        return ST.sharded_rows(dot, values, batch, rules,
+                                               ST.recsys_loss(self.id, cfg)[1])
+                    with torch.no_grad(), axis_rules(rules):
+                        return dot(values, batch)
+
+                return score, (placed(values, p_shard), specs)
             _, shard_for, _ = ST.make_recsys_serve_step(self.id, cfg, rules, abstract)
-            return shard_for(specs), (values, specs)
+            return shard_for(specs), (placed(values, p_shard), specs)
         if cell.kind == "retrieval":
             _, shard_for, _ = ST.make_retrieval_step(cfg, rules, abstract,
                                                      k=min(100, specs["db"].shape[0]))
-            return shard_for(specs["user"], specs["db"]), (values, specs["user"], specs["db"])
+            return (shard_for(specs["user"], specs["db"]),
+                    (placed(values, p_shard), specs["user"], specs["db"]))
         raise KeyError(cell.kind)
 
     def smoke_batch(self, shape_name: str, seed: int = 0, *, device="cuda") -> dict:

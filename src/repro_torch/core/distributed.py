@@ -14,8 +14,11 @@ The reference runs each shard body under ``jax.shard_map``; here a
 body is a loop over the positions of the axis it runs on, each position's
 work enqueued on its own device and stream (``Mesh.on``) from the one
 calling thread.  The collectives are copies between the positions'
-tensors (``permute``, ``rotate``, ``all_gather``); each notes itself in
-``launch.hlo_stats``'s open recordings, for the dry run's accounting.
+tensors (``permute``, ``rotate``, ``all_gather``, and for the sharded
+train steps ``all_reduce`` and ``reduce_scatter``: autograd functions over
+a group of positions whose backward is the collective's transpose); each
+notes itself in ``launch.hlo_stats``'s open recordings, for the dry run's
+accounting.
 
 * ``make_ring_allpairs``: rows sharded; a half ring of hops rotates
   visiting blocks so each unordered pair of blocks meets once, the
@@ -104,17 +107,114 @@ def rotate(mesh, pos: Sequence[int], parts: list, shift: int) -> list:
     return permute(mesh, pos, parts, [(i, (i + shift) % P) for i in range(P)])
 
 
-def all_gather(mesh, pos: Sequence[int], parts: list) -> list:
-    """``all_gather(tiled=True)``: every position gets the concatenation of
-    all positions' parts, in position order."""
-    out = []
-    for d in range(len(parts)):
-        got = [parts[s] if s == d else mesh.copy(parts[s], pos[s], pos[d])
-               for s in range(len(parts))]
-        with mesh.on(pos[d]):
-            out.append(torch.cat(got))
+def _cat_parts(mesh, pos, parts, dim: int) -> list:
+    """The parts concatenated along ``dim`` on ``pos[0]``, copied to the others."""
+    got = [parts[0]] + [mesh.copy(parts[s], pos[s], pos[0]) for s in range(1, len(parts))]
+    with mesh.on(pos[0]):
+        whole = torch.cat(got, dim)
+    out = [whole] + [mesh.copy(whole, pos[0], d) for d in pos[1:]]
     hlo_stats.note("all-gather", out[:1], pos)
     return out
+
+
+def _sum_parts(mesh, pos, parts) -> torch.Tensor:
+    """The parts' sum on ``pos[0]``, added in position order."""
+    acc = parts[0]
+    for s in range(1, len(parts)):
+        other = mesh.copy(parts[s], pos[s], pos[0])
+        with mesh.on(pos[0]):
+            acc = acc + other
+    return acc
+
+
+def _reduce_parts(mesh, pos, parts) -> list:
+    acc = _sum_parts(mesh, pos, parts)
+    out = [acc] + [mesh.copy(acc, pos[0], d) for d in pos[1:]]
+    hlo_stats.note("all-reduce", out[:1], pos)
+    return out
+
+
+def _scatter_parts(mesh, pos, parts, dim: int) -> list:
+    acc = _sum_parts(mesh, pos, parts)
+    size = acc.shape[dim] // len(pos)
+    out = []
+    for i, d in enumerate(pos):
+        with mesh.on(pos[0]):
+            block = acc.narrow(dim, i * size, size).contiguous()
+        out.append(block if d == pos[0] else mesh.copy(block, pos[0], d))
+    hlo_stats.note("reduce-scatter", out[:1], pos)
+    return out
+
+
+# Autograd materializes an unused output's gradient as zeros
+# (``ctx.set_materialize_grads``' default), so a backward sees every part.
+# Each runs as a collective program (``Mesh.scope``): autograd hands a
+# backward its gradients on the stream the forward was called from (the
+# caller's), where it may have summed two of them.
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, pos, *parts):
+        ctx.mesh, ctx.pos = mesh, pos
+        with mesh.scope():
+            return tuple(_reduce_parts(mesh, pos, list(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.mesh.scope():
+            return (None, None, *_reduce_parts(ctx.mesh, ctx.pos, list(grads)))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, pos, dim, *parts):
+        ctx.mesh, ctx.pos, ctx.dim = mesh, pos, dim
+        with mesh.scope():
+            return tuple(_cat_parts(mesh, pos, list(parts), dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.mesh.scope():
+            return (None, None, None, *_scatter_parts(ctx.mesh, ctx.pos, list(grads), ctx.dim))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, pos, dim, *parts):
+        ctx.mesh, ctx.pos, ctx.dim = mesh, pos, dim
+        with mesh.scope():
+            return tuple(_scatter_parts(mesh, pos, list(parts), dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.mesh.scope():
+            return (None, None, None, *_cat_parts(ctx.mesh, ctx.pos, list(grads), ctx.dim))
+
+
+def all_gather(mesh, pos: Sequence[int], parts: list, dim: int = 0) -> list:
+    """``all_gather(tiled=True)``: every position gets the concatenation of
+    all positions' parts along ``dim``, in position order.  Its gradient is
+    ``reduce_scatter``'s."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_AllGather.apply(mesh, tuple(pos), dim, *parts))
+
+
+def all_reduce(mesh, pos: Sequence[int], parts: list) -> list:
+    """``psum``: the parts' sum, added in position order on ``pos[0]`` and
+    copied to every other position, so every position holds the same bits.
+    Its gradient is the all-reduce of the cotangents (its transpose)."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_AllReduce.apply(mesh, tuple(pos), *parts))
+
+
+def reduce_scatter(mesh, pos: Sequence[int], parts: list, dim: int = 0) -> list:
+    """``psum_scatter(tiled=True)``: the parts' sum (``all_reduce``'s order),
+    cut along ``dim`` into one block a position.  Its gradient is
+    ``all_gather``'s."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_ReduceScatter.apply(mesh, tuple(pos), dim, *parts))
 
 
 def tree_merge_topk(mesh, pos: Sequence[int], run_v: list, run_i: list,

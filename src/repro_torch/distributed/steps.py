@@ -9,16 +9,21 @@ accumulation over micro-batches, ``make_train_step``, ``lm_loss``,
 ``make_retrieval_step``.
 
 The reference jits each step with shardings derived from the logical axes.
-Here a step is a Python function over the params' tensors on their device,
-eager, updating them in place.  The factories keep the reference's return
-shape, so its callers read the same: ``_, jitted, _, opt =
-make_train_step(...)``, ``fn = jitted(batch)``, ``state, metrics =
-fn(state, batch)``.  What stands in those places is descriptive only:
-``jitted(batch_example)`` and ``shardings_for(...)`` return the step
-itself, and the returned shardings (``sharding.Sharding`` tuples, computed
-from the logical axes as the reference computes its own) place no tensor;
-every tensor of a step stays on its device, whole.  ``make_train_step``'s
-``batch_axes`` is taken for the same signature and read by nothing.
+Here a step is a Python function over the params' tensors, eager, updating
+them in place, and the factories keep the reference's return shape, so its
+callers read the same: ``_, jitted, _, opt = make_train_step(...)``, ``fn =
+jitted(batch)``, ``state, metrics = fn(state, batch)``.
+
+A step runs whole or sharded, by its state.  A state of tensors (on one
+device) runs whole, as a step of the port always has: the same ops, the
+same bits.  A state of ``sharding.Sharded`` leaves (``sharding.shard_tree``
+by ``state_shardings``: every leaf cut by the rule table's specs of its
+logical axes, one at a time) runs sharded over the rules' mesh, a body a position
+(``distributed.spmd``): the batch is cut over the mesh axes of its
+``"batch"`` dimension (``recsys_loss``'s batch axes, ``batch_axes`` here),
+each position computes on its own blocks, and the model moves data between
+positions where a split dimension meets a whole one (``models.recsys``).
+The serve steps take sharded values alike and return whole results.
 
 Gradients.  Every leaf whose logical axes hold ``"table"`` is an embedding
 table; the forward sees it as a ``models.recsys.RowTap``, so its gradient
@@ -29,7 +34,14 @@ gradient is ever made.  The dense leaves are differentiated by
 leading axis is cut into that many slices (an array whose leading axis does
 not divide is passed whole, as the reference does); the loss, metrics and
 gradients are the slices' means, so the two-tower loss takes an in-batch
-softmax within each slice.
+softmax within each slice.  Sharded, micro-batch i is the global batch's
+rows i B/n ... (i+1) B/n (the reference's ``dynamic_slice_in_dim`` on the
+global batch), then cut over the positions; each position's backward is
+seeded with 1/P (``spmd``'s docstring), a dense leaf's shares are summed
+over its replicas (``optim.sum_replicas``) and a table block's looked-up
+rows merged over its replicas (``optim.merge_row_grads``); the clip counts
+each block once (``optim.clip_sharded``), and every position applies the
+update to its parts, so the replicas stay byte-equal.
 """
 from __future__ import annotations
 
@@ -40,7 +52,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.segments import one_thread_backward
-from repro_torch.distributed.sharding import AxisRules, Sharding, axis_rules
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import AxisRules, Sharded, Sharding, axis_rules
 from repro_torch.models.nn import is_param, split_params, tree_leaves, tree_map
 from repro_torch.train import optim as O
 
@@ -95,10 +108,18 @@ def state_shardings(rules: AxisRules, abstract_params) -> TrainState:
 
 
 def init_state(optimizer: O.Optimizer, params) -> TrainState:
-    """The train state of ``params`` (a ``Param`` tree or its values)."""
+    """The train state of ``params`` (a ``Param`` tree, its values, or its
+    values as ``Sharded`` leaves: the moments then sharded alike)."""
     if any(is_param(leaf) for leaf in tree_leaves(params, is_leaf=is_param)):
         params, _ = split_params(params)
+    if is_sharded_tree(params):
+        return TrainState(params=params, opt=O.init_sharded(optimizer, params))
     return TrainState(params=params, opt=optimizer.init(params))
+
+
+def is_sharded_tree(tree) -> bool:
+    leaves = tree_leaves(tree)
+    return bool(leaves) and isinstance(leaves[0], Sharded)
 
 
 def _slice_batch(batch: dict, i: int, n: int) -> dict:
@@ -110,6 +131,195 @@ def _slice_batch(batch: dict, i: int, n: int) -> dict:
         return x
 
     return {k: cut(v) for k, v in batch.items()}
+
+
+def _batch_shardings(batch: dict, rules: AxisRules, batch_axes: dict) -> dict:
+    """Each batch array's ``Sharding`` by its logical axes (the reference's
+    ``batch_sharding_of``); a key without axes, or a scalar, whole."""
+    out = {}
+    for k, x in batch.items():
+        shape = tuple(getattr(x, "shape", ()))
+        ax = tuple(batch_axes.get(k) or ())[: len(shape)]
+        out[k] = rules.sharding(ax + (None,) * (len(shape) - len(ax)), shape)
+    return out
+
+
+def _rows_axes(shardings: dict, batch_axes: dict) -> tuple[str, ...]:
+    """The mesh axes the batch's rows are split over (() whole)."""
+    for k, s in shardings.items():
+        if (batch_axes.get(k) or (None,))[0] == "batch" and s.spec:
+            return s.dim_axes(0)
+    return ()
+
+
+def _local_batch(batch: dict, shardings: dict, mesh) -> dict:
+    """Each array's block on each position, as a body's ``Local`` (copied
+    on the position's stream)."""
+    out = {}
+    for k, x in batch.items():
+        if x is None:
+            out[k] = None
+            continue
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        s = shardings[k]
+        parts = []
+        for p in range(len(mesh.devices)):
+            with mesh.on(p):
+                parts.append(spmd.plain(t[s.index(p, t.shape)] if t.ndim else t, p, mesh))
+        out[k] = spmd.Local(parts)
+    return out
+
+
+def _first_blocks(x: spmd.Local, axes, mesh) -> list:
+    """The first replica of each block along ``axes`` of a body's value, in
+    order, copied to position 0."""
+    group = mesh.groups(axes)[0] if axes else [0]
+    return [x.parts[group[0]]] + [mesh.copy(x.parts[q], q, 0) for q in group[1:]]
+
+
+def _gather_rows(x: spmd.Local, axes, mesh) -> torch.Tensor:
+    """A body's per-position result rows as the whole, on position 0."""
+    got = _first_blocks(x, axes, mesh)
+    if len(got) == 1:
+        return got[0]
+    with mesh.on(0):
+        return torch.cat(got)
+
+
+def _global_mean(x: spmd.Local, axes, mesh) -> torch.Tensor:
+    """The mean over the batch's blocks of a value each block computes
+    (a loss share, a metric), added in order on position 0."""
+    got = _first_blocks(x, axes, mesh)
+    if len(got) == 1:
+        return got[0]
+    with mesh.on(0):
+        acc = got[0]
+        for t in got[1:]:
+            acc = acc + t
+        return acc * (1.0 / len(got))
+
+
+def _body_values(params):
+    """The params as a body sees them: each ``Sharded`` leaf a ``Local`` of
+    its parts (its ``Sharding`` beside them)."""
+    return tree_map(lambda v: spmd.Local(v.parts, v.sharding), params)
+
+
+def sharded_rows(fn, values, batch: dict, rules: AxisRules, batch_axes: dict) -> torch.Tensor:
+    """``fn(values, batch)`` (one result row a batch row, no gradient) run
+    as a body over the rules' mesh on ``Sharded`` values: the rows cut by
+    ``batch_axes``, each position on its block and its shards, the whole
+    result on position 0."""
+    mesh = rules.mesh
+    shardings = _batch_shardings(batch, rules, batch_axes)
+    axes = _rows_axes(shardings, batch_axes)
+    with torch.no_grad(), spmd.body(mesh, axes), axis_rules(rules):
+        out = fn(_body_values(values), _local_batch(batch, shardings, mesh))
+        return _gather_rows(out, axes, mesh)
+
+
+def sharded_loss_and_grads(loss_fn, params, batch: dict, is_table, rules: AxisRules,
+                           batch_axes: dict, n_micro: int = 1):
+    """``loss_and_grads`` of a ``Sharded`` value tree over the rules' mesh
+    (module docstring): ((loss, metrics) on position 0, grads), the grads a
+    tree of ``Sharded`` leaves, a table's parts ``RowGrad`` values in its
+    blocks' numbering."""
+    from repro_torch.models.recsys import RowTap
+
+    mesh = rules.mesh
+    P = len(mesh.devices)
+    live = []  # the dense leaves, as Locals of parts that require grad
+
+    def wrap(v, tab):
+        if tab:
+            return None
+        d = spmd.Local([t.detach().requires_grad_() for t in v.parts], v.sharding)
+        live.append((v, d))
+        return d
+
+    live_tree = tree_map(wrap, params, is_table)
+    acc = [[None] * P for _ in live]
+    lookups = None  # per table: per position (ids, gradient rows) of every slice
+    loss_sum, metrics_sum, axes = None, {}, ()
+    for i in range(n_micro):
+        mb = _slice_batch(batch, i, n_micro) if n_micro > 1 else batch
+        shardings = _batch_shardings(mb, rules, batch_axes)
+        axes = _rows_axes(shardings, batch_axes)
+        taps = []
+
+        def tap(v, tab, d):
+            if not tab:
+                return d
+            taps.append(RowTap(spmd.Local(v.parts, v.sharding)))
+            return taps[-1]
+
+        values = tree_map(tap, params, is_table, live_tree)
+        with spmd.body(mesh, axes), axis_rules(rules):
+            loss, metrics = loss_fn(values, _local_batch(mb, shardings, mesh))
+        rows = [r.parts[p] for t in taps for r in t.rows for p in range(P)]
+        dense = [d.parts[p] for _, d in live for p in range(P)]
+        seeds = [torch.full_like(x, 1.0 / P) for x in loss.parts]
+        with one_thread_backward():
+            gs = torch.autograd.grad(loss.parts, dense + rows, grad_outputs=seeds,
+                                     allow_unused=True)
+        with mesh.scope():
+            for j, (_, d) in enumerate(live):
+                for p in range(P):
+                    with mesh.on(p):
+                        g = gs[j * P + p]
+                        g = torch.zeros_like(d.parts[p]) if g is None else g
+                        acc[j][p] = g if acc[j][p] is None else acc[j][p] + g
+            if lookups is None:
+                lookups = [[([], []) for _ in range(P)] for _ in taps]
+            g_rows = iter(gs[len(dense):])
+            for per_pos, t in zip(lookups, taps):
+                for k, r in enumerate(t.rows):
+                    for p in range(P):
+                        with mesh.on(p):
+                            ids, g = t.ids[k].parts[p], next(g_rows)
+                            g = (torch.zeros_like(r.parts[p]) if g is None else g
+                                 ).reshape(len(ids), -1)
+                            hit = None if t.hits[k] is None else t.hits[k].parts[p]
+                            if hit is not None and ids.device.type != "meta":
+                                ids, g = ids[hit], g[hit]  # its own rows only
+                            per_pos[p][0].append(ids)
+                            per_pos[p][1].append(g)
+        loss_sum = ([x.detach() for x in loss.parts] if loss_sum is None else
+                    [a + x.detach() for a, x in zip(loss_sum, loss.parts)])
+        for k, m in metrics.items():
+            m = [x.detach() for x in m.parts]
+            metrics_sum[k] = m if k not in metrics_sum else [a + b for a, b in
+                                                            zip(metrics_sum[k], m)]
+    inv = 1.0 / n_micro
+    scale = (lambda x: x) if n_micro == 1 else (lambda x: x * inv)
+    with mesh.scope():
+        dense_g = []
+        for (v, _), parts in zip(live, acc):
+            scaled = []
+            for p, g in enumerate(parts):
+                with mesh.on(p):
+                    scaled.append(scale(g))
+            dense_g.append(O.sum_replicas(Sharded(v.sharding, v.shape, scaled)))
+        table_leaves = [v for v, tab in zip(tree_leaves(params), tree_leaves(is_table)) if tab]
+        tables = []
+        for v, per_pos in zip(table_leaves, lookups or []):
+            cat = []
+            for p, (ids, grads) in enumerate(per_pos):
+                with mesh.on(p):
+                    cat.append((torch.cat(ids), torch.cat(grads)))
+            rg = O.merge_row_grads(v, [c[0] for c in cat], [c[1] for c in cat])
+            parts = []
+            for p, g in enumerate(rg.parts):
+                with mesh.on(p):
+                    parts.append(O.RowGrad(g.ids, scale(g.rows)))
+            tables.append(Sharded(v.sharding, v.shape, parts))
+        loss = _global_mean(spmd.Local(loss_sum), axes, mesh)
+        metrics = {k: _global_mean(spmd.Local(m), axes, mesh) for k, m in metrics_sum.items()}
+        with mesh.on(0):
+            loss, metrics = scale(loss), {k: scale(m) for k, m in metrics.items()}
+    it_t, it_d = iter(tables), iter(dense_g)
+    grads = tree_map(lambda v, tab: next(it_t) if tab else next(it_d), params, is_table)
+    return (loss, metrics), grads
 
 
 def loss_and_grads(loss_fn, values, batch: dict, is_table, n_micro: int = 1):
@@ -180,12 +390,14 @@ def make_train_step(
 
     Returns ``(step, jitted, state_shardings, optimizer)``;
     ``step(state, batch) -> (state, metrics)`` updates the params and the
-    optimizer state in place.  Its two halves are ``step.grads(state,
-    batch) -> ((loss, metrics), grads)`` (forward and backward) and
-    ``step.update(state, grads, metrics) -> (state, metrics)`` (the clip,
-    the schedule and the optimizer); ``step`` is the one then the other.
-    ``jitted``, the shardings and ``batch_axes`` keep the reference's
-    signature and are descriptive only (module docstring).
+    optimizer state in place, whole or sharded by the state (module
+    docstring; ``sharding.shard_tree(state, state_shardings)`` cuts a
+    whole one).
+    Its two halves are ``step.grads(state, batch) -> ((loss, metrics),
+    grads)`` (forward and backward) and ``step.update(state, grads,
+    metrics) -> (state, metrics)`` (the clip, the schedule and the
+    optimizer); ``step`` is the one then the other.  ``jitted(batch)``
+    returns ``step``.
     """
     optimizer = _make_optimizer(sc, abstract_params)
     schedule = O.warmup_cosine(sc.peak_lr, sc.warmup_steps, sc.total_steps)
@@ -193,15 +405,27 @@ def make_train_step(
     is_table = table_mask(abstract_params)
 
     def grads_of(state: TrainState, batch):
+        if is_sharded_tree(state.params):
+            return sharded_loss_and_grads(loss_fn, state.params, batch, is_table, rules,
+                                          batch_axes, sc.micro_batches)
         with axis_rules(rules):
             return loss_and_grads(loss_fn, state.params, batch, is_table, sc.micro_batches)
 
     def update(state: TrainState, grads, metrics: dict):
+        sharded = is_sharded_tree(state.params)
         if sc.grad_clip > 0:
-            grads, gnorm = O.clip_by_global_norm(grads, sc.grad_clip)
+            if sharded:
+                with rules.mesh.scope():
+                    grads, gnorm = O.clip_sharded(grads, sc.grad_clip)
+            else:
+                grads, gnorm = O.clip_by_global_norm(grads, sc.grad_clip)
             metrics = dict(metrics, grad_norm=gnorm)
         lr = schedule(state.opt.step)
-        new_p, new_opt = optimizer.update(grads, state.opt, state.params, lr)
+        if sharded:
+            with rules.mesh.scope():
+                new_p, new_opt = O.update_sharded(optimizer, grads, state.opt, state.params, lr)
+        else:
+            new_p, new_opt = optimizer.update(grads, state.opt, state.params, lr)
         return TrainState(new_p, new_opt), dict(metrics, lr=lr)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -391,17 +615,26 @@ def make_lm_prefill_step(cfg, rules: AxisRules, abstract_params):
 
 def make_recsys_serve_step(arch: str, cfg, rules: AxisRules, abstract_params):
     """``(step, shardings_for, param_shardings)``; ``step(values, batch)`` is
-    the click probability of each row, ``shardings_for(batch)`` returns it."""
+    the click probability of each row, ``shardings_for(batch)`` returns it.
+    ``values`` whole, or ``Sharded`` (``param_shardings``): then the rows
+    are cut over the batch's mesh axes, each position scores its block on
+    its shards, and the whole [B] comes back on position 0."""
     from repro_torch.models import recsys as R
 
     p_shard, _ = param_shardings(rules, abstract_params)
     if arch == "two-tower-retrieval":
         raise ValueError("use make_retrieval_step for two-tower serving")
     logit_fn = R.LOGIT_FNS[arch]
+    _, batch_axes = recsys_loss(arch, cfg)
+
+    def probs(values, batch):
+        return torch.sigmoid(logit_fn(values, batch, cfg))
 
     def step(values, batch):
+        if is_sharded_tree(values):
+            return sharded_rows(probs, values, batch, rules, batch_axes)
         with torch.no_grad(), axis_rules(rules):
-            return torch.sigmoid(logit_fn(values, batch, cfg))
+            return probs(values, batch)
 
     def shardings_for(batch_example):
         return step
@@ -419,7 +652,9 @@ def make_retrieval_step(cfg, rules: AxisRules, abstract_params, *, k: int = 100,
 
     ``step(values, user_ids [Q, n_user_fields], db [n, E])`` returns
     (scores [Q, k], candidate rows [Q, k]), scores the dot products (the
-    engine's negated distances).  ``impl`` defaults to the port's
+    engine's negated distances).  ``values`` may be the trained towers'
+    ``Sharded`` leaves: the users are embedded over the mesh, each position
+    on its shards, before the scan.  ``impl`` defaults to the port's
     ``"fused"`` (the ``fused_knn`` kernel on the card), where the
     reference's defaults to its plain ``"jnp"``.
     """
@@ -434,8 +669,13 @@ def make_retrieval_step(cfg, rules: AxisRules, abstract_params, *, k: int = 100,
 
     def step(values, user_ids, db):
         with torch.no_grad():
-            with axis_rules(rules):
-                u = R.user_embedding(values, user_ids)  # [Q, E]
+            if is_sharded_tree(values):  # the query tower on the towers' shards,
+                # the users replicated, as the reference's
+                u = sharded_rows(lambda v, b: R.user_embedding(v, b["user"]), values,
+                                 {"user": user_ids}, rules, {})
+            else:
+                with axis_rules(rules):
+                    u = R.user_embedding(values, user_ids)  # [Q, E]
             n_db = db.shape[0]
             db = KD.pad_rows_to(db.to(u.device), rules.mesh.shape[db_axis])
             res = knn(u, db, n_db)

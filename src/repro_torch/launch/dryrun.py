@@ -17,7 +17,8 @@ For each cell this shows, without a card:
   * its work: FLOPs, bytes, transcendentals, kernel calls, ops;
   * its memory: the arguments per device, the live bytes of the whole
     step; and the collective bytes of the cells that move data between
-    positions.
+    positions (the kNN cells, and the recommender's cells, whose steps run
+    sharded over the mesh: ``distributed.steps``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
@@ -31,7 +32,8 @@ A record keeps the reference's keys where the meaning is the same:
 (``ok``, ``skip`` with ``reason``, ``fail`` with ``error`` and ``trace``),
 ``argument_size_in_bytes`` and ``output_size_in_bytes`` (per device: each
 leaf sharded by the rule table's spec of its logical axes over the mesh,
-a leaf with none whole on every device; an output that is an argument
+a leaf with none whole on every device, a leaf already placed over the
+mesh (``sharding.Sharded``) its part; an output that is an argument
 updated in place as that argument), ``transcendentals`` and the
 ``collective_*`` keys (``launch.hlo_stats``, one device's share).  Where the
 port's meaning differs, the key is its own:
@@ -45,15 +47,17 @@ port's meaning differs, the key is its own:
   * ``peak_memory_in_bytes_unsharded``: the most bytes live at once while
     the step ran, the arguments included, each storage counted once across
     its views and released when freed (an in-place write allocates
-    nothing).  The port runs an LM, recsys or GNN step whole on one device
-    (``distributed/sharding.py``: ``constrain`` is the identity), so this is
-    not the reference's per-device ``peak_memory_in_bytes``;
+    nothing), over every position of the mesh.  The port runs an LM or GNN
+    step whole on one device, so there it is not the reference's per-device
+    ``peak_memory_in_bytes``; a recommender's cell runs sharded, and its
+    record adds ``peak_memory_in_bytes``, that peak over the positions (the
+    positions run one program, so it is each one's mean);
   * ``trace_s``, ``kernel_calls`` (calls by kernel) and ``op_counts``
     (calls by ATen op) are the port's alone.
 
-Only the kNN cells and ``retrieval_cand`` move data between positions
-(``core.distributed``); the other cells' records say ``"collectives": "not
-modelled: ..."``.  The port's loops are Python loops, so every trip is
+The kNN and recommender cells move data between positions
+(``core.distributed``'s collectives); the LM and GNN cells' records say
+``"collectives": "not modelled: ..."``.  The port's loops are Python loops, so every trip is
 counted with or without ``--unroll``, which only sets ``unrolled``.
 """
 from __future__ import annotations
@@ -71,6 +75,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.distributed.sharding import Sharded
 from repro_torch.kernels._backend import nbytes, shape_calls
 from repro_torch.launch import hlo_stats
 
@@ -87,11 +92,19 @@ TRANSCENDENTAL = frozenset({
 ALLOCATORS = frozenset({"aten.empty", "aten.empty_like", "aten.empty_strided",
                         "aten.new_empty", "aten.new_empty_strided"})
 NOT_MODELLED = ("not modelled: the port runs this step whole on one device "
-                "(distributed/sharding.py: constrain is the identity)")
+                "(only the recommender's steps run sharded: distributed/steps.py)")
 
 
-def _tensors(tree) -> list:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+def _tensors(tree, every_part: bool = False) -> list:
+    """The tensors of ``tree``; a ``Sharded`` leaf its first part (one
+    device's), or every part with ``every_part``."""
+    out = []
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, Sharded):
+            out.extend(t.parts if every_part else t.parts[:1])
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    return out
 
 
 def _signature(x):
@@ -114,6 +127,13 @@ def _functional(func) -> bool:
         r.alias_info is None for r in schema.returns)
 
 
+def _in_place(func) -> bool:
+    """An op that writes an operand and returns it (``add_``, ``index_copy_``)."""
+    rets = func._schema.returns
+    return func._schema.is_mutable and bool(rets) and all(
+        r.alias_info is not None and r.alias_info.is_write for r in rets)
+
+
 def _aliases(out, operands) -> bool:
     """True if a result shares its storage with an operand."""
     ins = {id(t.untyped_storage()) for t in _tensors(operands)}
@@ -130,7 +150,9 @@ class Tracer(TorchDispatchMode):
     ops on every position: the first call of each (op, signature) runs the
     op's meta kernel and keeps its results' layout and its counts, and
     every later one makes empty results of that layout, as many times
-    faster as the meta kernels are slow (they run in Python)."""
+    faster as the meta kernels are slow (they run in Python).  Likewise an
+    op that writes an operand in place returns that operand again, and a
+    view op (one result) the same view of its input (``as_strided``)."""
 
     def __init__(self):
         super().__init__()
@@ -166,19 +188,50 @@ class Tracer(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         key = None
-        functional = self._functional.get(func)
-        if functional is None:
-            functional = self._functional[func] = _functional(func)
-        if functional:
+        kind = self._functional.get(func)
+        if kind is None:
+            kind = self._functional[func] = (
+                "functional" if _functional(func) else "in_place" if _in_place(func) else
+                # detach's alias outlives an as_strided one (a live-bytes peak moved)
+                "view" if func.is_view and func.overloadpacket is not torch.ops.aten.detach
+                else False)
+        if kind:
             try:
                 key = (func, _signature(args), _signature(kwargs) if kwargs else None)
             except TypeError:  # an unhashable argument: run the op
                 key = None
         hit = None if key is None else self._memo.get(key)
+        if hit is not None and kind != "functional":
+            how, counts = hit
+            if kind == "in_place":
+                out = args[how]
+            else:
+                shape, stride, delta = how
+                out = torch.as_strided(args[0], shape, stride, args[0].storage_offset() + delta)
+            self.track(out)
+            self._note(counts)
+            return out
         if hit is None:
+            before = [(a.shape, a.stride(), a.untyped_storage().nbytes())
+                      if isinstance(a, torch.Tensor) else None for a in args]
             out = func(*args, **kwargs)
             counts = self._count(func, args, kwargs, out)
-            if key is not None and _aliases(out, (args, kwargs)):
+            if key is not None and kind == "in_place":
+                where = [j for j, a in enumerate(args) if a is out]
+                # Only a write that leaves its operand's layout and storage as
+                # they were (not ``resize_``, ``t_``, an ``out=`` that grows).
+                if where and before[where[0]] == (out.shape, out.stride(),
+                                                  out.untyped_storage().nbytes()):
+                    self._memo[key] = (where[0], counts)
+                else:
+                    self._functional[func] = False
+            elif key is not None and kind == "view":
+                if (isinstance(out, torch.Tensor) and args and isinstance(args[0], torch.Tensor)
+                        and out.dtype == args[0].dtype
+                        and out.untyped_storage()._cdata == args[0].untyped_storage()._cdata):
+                    self._memo[key] = ((out.shape, out.stride(),
+                                        out.storage_offset() - args[0].storage_offset()), counts)
+            elif key is not None and _aliases(out, (args, kwargs)):
                 # A view its schema does not declare (``_unsafe_view``):
                 # never made anew.
                 self._functional[func] = False
@@ -192,15 +245,18 @@ class Tracer(TorchDispatchMode):
             made = [v if shape is None else torch.empty_strided(shape, v, dtype=dt, device="meta")
                     for shape, v, dt in layout]
             out = made[0] if spec.is_leaf() else tree_unflatten(made, spec)
+        self._note(counts)
+        for t in (made if hit is not None else _tensors(out)):
+            if isinstance(t, torch.Tensor):
+                self.track(t)
+        return out
+
+    def _note(self, counts) -> None:
         name, flops, moved, trans = counts
         self.op_counts[name] = self.op_counts.get(name, 0) + 1
         self.flops += flops
         self.bytes_accessed += moved
         self.transcendentals += trans
-        for t in (made if hit is not None else _tensors(out)):
-            if isinstance(t, torch.Tensor):
-                self.track(t)
-        return out
 
     def _count(self, func, args, kwargs, out) -> tuple:
         """(op name, FLOPs, bytes, transcendentals) of one call."""
@@ -230,7 +286,11 @@ def _leaves_with_axes(val, ax):
     """(tensor, logical axes or None) for each tensor of ``val``, with
     ``ax`` the matching tree of axes (a dict, a sequence, an axes tuple
     that applies to every tensor under it, or None)."""
-    if isinstance(val, torch.Tensor):
+    from repro_torch.distributed.sharding import Sharded
+
+    if isinstance(val, Sharded):  # placed already: its part is one device's
+        yield val.parts[0], None
+    elif isinstance(val, torch.Tensor):
         yield val, ax if _is_axes(ax) else None
     elif isinstance(val, dict):
         for key, v in val.items():
@@ -308,7 +368,7 @@ def trace_step(fn, args, rules, axes) -> dict:
         per_device[id(t.untyped_storage())] = share
         arg_bytes += share
     tracer = Tracer()
-    for t in _tensors(args):
+    for t in _tensors(args, every_part=True):
         tracer.track(t)
     t0 = time.perf_counter()
     prev = torch.autograd.is_multithreading_enabled()
@@ -324,7 +384,7 @@ def trace_step(fn, args, rules, axes) -> dict:
     for name, _, _ in calls:
         kernel_calls[name] = kernel_calls.get(name, 0) + 1
     st = hlo_stats.collect_stats(events, n_dev)
-    return {
+    rec = {
         "trace_s": round(trace_s, 3),
         "argument_size_in_bytes": int(arg_bytes),
         "output_size_in_bytes": int(out_bytes),
@@ -338,6 +398,9 @@ def trace_step(fn, args, rules, axes) -> dict:
         "collective_result_bytes": st.result_bytes,
         "collective_wire_bytes_per_device": st.wire_bytes_per_device,
     }
+    if len(_tensors(args, every_part=True)) > len(_tensors(args)):  # a sharded step
+        rec["peak_memory_in_bytes"] = int(tracer.peak // n_dev)
+    return rec
 
 
 def run_cell(arch_id: str, shape: str, multi_pod: bool, *, variant: str | None = None,
@@ -373,7 +436,7 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool, *, variant: str | None =
         rec.update(trace_step(fn, args, rules, _arg_axes(arch, cell, cfg, shape, smoke, variant)))
     finally:
         accounting.set_unroll(prev)
-    if arch.family != "knn" and cell.kind != "retrieval":
+    if arch.family not in ("knn", "recsys"):
         rec["collectives"] = NOT_MODELLED
     rec["status"] = "ok"
     return rec
@@ -435,9 +498,12 @@ def main(argv=None) -> int:
                        "trace": traceback.format_exc()[-2000:]}
             records.append(rec)
             if rec["status"] == "ok":
-                gb = rec["peak_memory_in_bytes_unsharded"] / 2**30
+                sharded = "peak_memory_in_bytes" in rec
+                gb = rec["peak_memory_in_bytes" if sharded else
+                         "peak_memory_in_bytes_unsharded"] / 2**30
                 print(f"[dryrun] {tag:55s} OK  trace={rec['trace_s']:7.1f}s "
-                      f"peak={gb:8.2f} GiB unsharded  flops={rec['flops']:.3e}", flush=True)
+                      f"peak={gb:8.2f} GiB {'a device' if sharded else 'unsharded'}  "
+                      f"flops={rec['flops']:.3e}", flush=True)
             elif rec["status"] == "skip":
                 print(f"[dryrun] {tag:55s} SKIP ({rec['reason'][:60]}...)", flush=True)
             else:

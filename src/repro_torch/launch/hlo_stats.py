@@ -4,7 +4,9 @@ Port of ``repro/launch/hlo_stats.py``.  The reference recovers collective
 bytes by scanning compiled HLO for collective ops; the port has no HLO.
 Its collectives are ``core.distributed``'s ``permute`` and ``all_gather``
 (the ring's hops, the butterfly's hops and the triangle's gather go
-through them) and ``train.compression``'s scale all-reduce: each notes one
+through them), its ``all_reduce`` and ``reduce_scatter`` (the sharded
+train steps' collectives, ``train.optim``'s replica sums among them) and
+``train.compression``'s scale all-reduce: each notes one
 ``Collective`` event (kind, one participant's result, group size, the
 positions that took part) in every ``recording()`` block open on the
 calling thread, and ``collect_stats`` sums the events as the reference

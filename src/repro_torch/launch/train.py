@@ -8,6 +8,12 @@ parameter LM preset (``--preset lm100m``), on synthetic but learnable data
 ``train.loop.TrainLoop``: kill it, rerun it with the same
 ``--checkpoint-dir``, and it resumes from the newest valid checkpoint.
 
+The mesh is ``make_host_mesh(--model-parallel)`` over every visible card,
+as the reference's is over ``jax.devices()`` (``--device cpu``: one CPU
+position).  On a mesh of more than one position a recommender trains
+sharded (``distributed.steps``: its state cut by the rule table, saved and
+resumed as such); the other families' steps run whole on the first card.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch nequip --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch bst --steps 300 \\
       --checkpoint-dir build/ckpt --metrics build/ckpt.jsonl [--device cpu]
@@ -66,7 +72,9 @@ def build_lm(cfg, rules, args, device):
 
 def build_arch(arch_id: str, rules, args, device):
     """(step, initial state, batch_fn, state shardings) of ``arch_id`` at
-    ``smoke_config()``, its params drawn from ``--seed`` on ``device``."""
+    ``smoke_config()``, its params drawn from ``--seed`` on ``device``; a
+    recommender's state cut over ``rules``' mesh where it has more than one
+    position (the shardings None where the state is whole)."""
     from repro_torch.configs import registry as REG
     from repro_torch.distributed import steps as ST
 
@@ -106,7 +114,12 @@ def build_arch(arch_id: str, rules, args, device):
         raise KeyError(arch.family)
     _, jitted, st_shard, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
     state = ST.init_state(optimizer, params)
-    return jitted(batch_fn(0)), state, batch_fn, st_shard
+    del params
+    if arch.family == "recsys" and len(rules.mesh.devices) > 1:
+        from repro_torch.distributed.sharding import shard_tree
+
+        return jitted(batch_fn(0)), shard_tree(state, st_shard), batch_fn, st_shard
+    return jitted(batch_fn(0)), state, batch_fn, None
 
 
 def main(argv=None):
@@ -135,18 +148,20 @@ def main(argv=None):
     if not args.arch and args.preset != "lm100m":
         ap.error("--arch or --preset required")
     dev = resolve_device(args.device)
-    mesh = make_host_mesh(args.model_parallel, devices=[dev])
+    mesh = make_host_mesh(args.model_parallel, devices=[dev] if dev.type == "cpu" else None)
+    dev = mesh.devices[0]
     rules = make_rules(mesh)
-    print(f"[train] mesh: {dict(mesh.shape)} on {dev}")
+    print(f"[train] mesh: {dict(mesh.shape)} on {sorted({str(d) for d in mesh.devices})}")
     if args.preset == "lm100m":
-        fn, state, batch_fn, st_shard = build_lm(lm100m_config(), rules, args, dev)
+        fn, state, batch_fn, _ = build_lm(lm100m_config(), rules, args, dev)
+        st_shard = None
     else:
         fn, state, batch_fn, st_shard = build_arch(args.arch, rules, args, dev)
 
     loop = TrainLoop(fn, batch_fn, TrainLoopConfig(
         total_steps=args.steps, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, log_every=max(args.steps // 20, 1),
-        metrics_path=args.metrics))
+        metrics_path=args.metrics), state_shardings=st_shard)
     t0 = time.time()
     state, end = loop.run(state)
     dt = time.time() - t0

@@ -31,6 +31,20 @@ pass yields one gradient row per lookup, which the step sums per id
 (``train.optim.coalesce_rows``).  The table never enters the autograd
 graph and no table-sized gradient exists.
 
+Sharded steps.  Inside a body (``distributed.spmd``) the values are
+``Local`` values, one part a position, and the parameters' parts are their
+blocks by the rule table (``distributed.sharding``).  Where a split
+dimension meets a whole one the model moves data between positions, in the
+reference's plan (its docstring): a row-sharded table is looked up by a
+masked local gather and an all-reduce over its axes (``embedding_lookup``);
+a column-split layer's output is gathered before the next layer
+(``apply_mlp``, the CIN's maps in ``xdeepfm_logits``); BST's attention runs
+on each position's heads and its row-split output projection and second
+feed-forward layer are summed (``_bst_block``); the two-tower loss gathers
+the item embeddings over the batch's axes before its [B, B] logits
+(``two_tower_loss``).  Outside a body none of this runs: the same ops as a
+whole step.
+
 The products are IEEE fp32: on the card ``apply_mlp`` raises while the
 process lets cuBLAS use TF32 rather than switch it (every model runs an
 MLP).  The CIN's contraction is written out as one product of the
@@ -50,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.segments import group_sums
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels._backend import resolve_device
 from repro_torch.models.nn import (
@@ -71,6 +86,11 @@ Tensor = torch.Tensor
 
 def _val(p):
     return p.value if is_param(p) else p
+
+
+def _tensor(x):
+    """``torch.as_tensor(x)``; a tensor or a body's ``Local`` as it is."""
+    return x if isinstance(x, (torch.Tensor, spmd.Local)) else torch.as_tensor(x)
 
 
 def default_table_sizes(n: int, lo: int = 10_000, hi: int = 40_000_000) -> list[int]:
@@ -104,12 +124,17 @@ def _generator(generator, dev):
 class RowTap:
     """A table inside a train step's forward (module docstring): each lookup
     gathers its rows into a new leaf that requires grad and records the ids
-    beside it; ``table`` stays out of the autograd graph."""
+    beside it; ``table`` stays out of the autograd graph.  In a body
+    (``table`` a ``Local``) each lookup records, a position each, the ids in
+    the position's own row numbering, the gathered rows, and which of them
+    are its own (``hits``, None where the table is whole): a position's
+    gradient rows are its own rows' (``_sharded_lookup``)."""
 
-    def __init__(self, table: Tensor):
+    def __init__(self, table):
         self.table = table
-        self.ids: list[Tensor] = []
-        self.rows: list[Tensor] = []
+        self.ids: list = []
+        self.rows: list = []
+        self.hits: list = []
 
     def lookup(self, ids: Tensor) -> Tensor:
         rows = self.table[ids].requires_grad_()
@@ -126,11 +151,56 @@ def init_table(n_rows: int, dim: int, *, generator=None, device="cuda") -> Param
 
 def embedding_lookup(table, ids) -> Tensor:
     """Single-valued lookup: ids ``[...]`` -> ``[..., D]`` (int64 offsets, so
-    a table past 2^31 elements is read whole)."""
+    a table past 2^31 elements is read whole).  In a body, the row-sharded
+    lookup (``_sharded_lookup``)."""
     t = _val(table)
     base = t.table if isinstance(t, RowTap) else t
+    if isinstance(base, spmd.Local):
+        return _sharded_lookup(base, ids, t if isinstance(t, RowTap) else None)
     ids = torch.as_tensor(ids).to(device=base.device, dtype=torch.long)
     return t.lookup(ids) if isinstance(t, RowTap) else base[ids]
+
+
+def _sharded_lookup(table: spmd.Local, ids, tap: RowTap | None):
+    """The reference's model-parallel lookup (its docstring): each position
+    gathers the ids that fall in its block of rows, in its own numbering,
+    zeroes the rest, and the blocks' rows are summed over the table's row
+    axes (``spmd.all_reduce``).  Each looked-up row is one position's row
+    plus zeros: bit-equal to the whole lookup.  A whole (replicated) table
+    is gathered on every position."""
+    mesh = spmd.current().mesh
+    axes = spmd.split_axes(table, 0)
+    R = table.parts[0].shape[0]
+    outs = []
+    ids_l, rows_l, hits_l = [], [], []
+    for p, part in enumerate(table.parts):
+        with mesh.on(p):
+            idp = _pick_part(ids, p, mesh).to(device=part.device, dtype=torch.long)
+            hit = None
+            if axes:
+                idp = idp - mesh.index_along(p, axes) * R
+                idx = idp.clamp(0, R - 1)
+                hit = idx == idp
+                rows = part[idx]
+            else:
+                rows = part[idp]
+            if tap is not None:
+                rows.requires_grad_()
+                ids_l.append(idp.reshape(-1))
+                rows_l.append(rows)
+                hits_l.append(None if hit is None else hit.reshape(-1))
+            outs.append(rows if hit is None else torch.where(hit[..., None], rows, 0.0))
+    if tap is not None:
+        tap.ids.append(spmd.Local(ids_l))
+        tap.rows.append(spmd.Local(rows_l))
+        tap.hits.append(None if not axes else spmd.Local(hits_l))
+    return spmd.all_reduce(spmd.Local(outs), axes)
+
+
+def _pick_part(x, p: int, mesh):
+    if isinstance(x, spmd.Local):
+        return x.parts[p]
+    return spmd.plain(torch.as_tensor(x), p, mesh)
 
 
 def embedding_bag(table, ids, bag_ids, n_bags: int, weights=None, mode: str = "sum") -> Tensor:
@@ -139,9 +209,9 @@ def embedding_bag(table, ids, bag_ids, n_bags: int, weights=None, mode: str = "s
     [n_bags, D].  ``mode``: sum | mean.  The bags are summed in an order set
     by ``bag_ids`` (``core.segments.group_sums``), never by atomics."""
     rows = embedding_lookup(table, ids)
-    bag_ids = torch.as_tensor(bag_ids).to(device=rows.device, dtype=torch.long)
+    bag_ids = _tensor(bag_ids).to(device=rows.device, dtype=torch.long)
     if weights is not None:
-        rows = rows * torch.as_tensor(weights).to(rows.device, rows.dtype)[:, None]
+        rows = rows * _tensor(weights).to(rows.device, rows.dtype)[:, None]
     out, cnt = group_sums(rows, bag_ids, n_bags)
     if mode == "mean":
         out = out / torch.clamp_min(cnt.to(out.dtype), 1.0)[:, None]
@@ -169,7 +239,8 @@ def init_mlp(sizes: Sequence[int], *, generator=None, device="cuda", hidden_axis
 
 def apply_mlp(layers, x: Tensor, act=torch.relu, final_act=None) -> Tensor:
     """``x @ w + b`` per layer, ``act`` between layers, ``final_act`` after
-    the last.
+    the last.  In a body, a column-split layer's output is gathered whole
+    before the next layer (``spmd.gather_split``).
 
     On the card the products must be IEEE fp32: this raises while the
     process lets cuBLAS use TF32 (``nn.require_fp32_products``).
@@ -181,11 +252,12 @@ def apply_mlp(layers, x: Tensor, act=torch.relu, final_act=None) -> Tensor:
             x = act(x)
         elif final_act is not None:
             x = final_act(x)
+        x = spmd.gather_split(x, _val(layer["w"]), 1, -1)
     return x
 
 
 def _dense_input(x, like: Tensor) -> Tensor:
-    return torch.as_tensor(x).to(device=like.device, dtype=torch.float32)
+    return _tensor(x).to(device=like.device, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +298,7 @@ def dlrm_logits(params, batch, cfg: DLRMConfig) -> Tensor:
     """batch: dense [B, 13] float, sparse [B, 26] int (one id per field)."""
     w0 = _val(params["bot"][0]["w"])
     x_bot = apply_mlp(params["bot"], _dense_input(batch["dense"], w0))  # [B, D]
-    sparse = torch.as_tensor(batch["sparse"]).to(device=w0.device, dtype=torch.long)
+    sparse = _tensor(batch["sparse"]).to(device=w0.device, dtype=torch.long)
     embs = [embedding_lookup(t, sparse[:, i]) for i, t in enumerate(params["tables"])]
     feats = constrain(torch.stack([x_bot] + embs, dim=1), ("batch", None, None))  # [B, F, D]
     inter = torch.bmm(feats, feats.transpose(1, 2))  # the dot interaction
@@ -293,7 +365,7 @@ def cin_layer(xs: Tensor, x0: Tensor, w: Tensor) -> Tensor:
 def xdeepfm_logits(params, batch, cfg: XDeepFMConfig) -> Tensor:
     """batch: sparse [B, 39] int.  logit = linear + CIN + DNN + bias."""
     bias = _val(params["bias"])
-    sparse = torch.as_tensor(batch["sparse"]).to(device=bias.device, dtype=torch.long)
+    sparse = _tensor(batch["sparse"]).to(device=bias.device, dtype=torch.long)
     x0 = torch.stack([embedding_lookup(t, sparse[:, i])
                       for i, t in enumerate(params["tables"])], dim=1)  # [B, F, D]
     x0 = constrain(x0, ("batch", None, None))
@@ -302,6 +374,7 @@ def xdeepfm_logits(params, batch, cfg: XDeepFMConfig) -> Tensor:
     xs, pooled = x0, []
     for wk in params["cin"]:
         xs = constrain(cin_layer(xs, x0, _val(wk)), ("batch", "tensor", None))
+        xs = spmd.gather_split(xs, _val(wk), 0, 1)  # a body's maps, split on "tensor"
         pooled.append(xs.sum(-1))  # [B, H]
     cin_out = torch.cat(pooled, dim=-1) @ _val(params["out_cin"])  # [B, 1]
     dnn = apply_mlp(params["mlp"], x0.reshape(x0.shape[0], -1))  # [B, 1]
@@ -359,24 +432,36 @@ def init_bst(cfg: BSTConfig, *, generator=None, device="cuda"):
 
 
 def _bst_block(bp, x: Tensor, n_heads: int) -> Tensor:
-    """Post-LN encoder block over [B, S, D] (no causal mask: session attention)."""
+    """Post-LN encoder block over [B, S, D] (no causal mask: session
+    attention).  In a body, ``wq``/``wk``/``wv``/``ff1`` may be column-split
+    and ``wo``/``ff2`` row-split: each position attends over its own heads
+    (gathered first where a column block would cut a head in two) and the
+    row-split products are summed (``spmd.row_split_matmul``)."""
     B, S, D = x.shape
     hd = D // n_heads
-    q = (x @ _val(bp["wq"])).reshape(B, S, n_heads, hd)
-    k = (x @ _val(bp["wk"])).reshape(B, S, n_heads, hd)
-    v = (x @ _val(bp["wv"])).reshape(B, S, n_heads, hd)
+    wq, wk, wv = _val(bp["wq"]), _val(bp["wk"]), _val(bp["wv"])
+    q, k, v = x @ wq, x @ wk, x @ wv
+    if q.shape[-1] % hd:
+        q, k, v = (spmd.gather_split(t, w, 1, -1) for t, w in ((q, wq), (k, wk), (v, wv)))
+    Dl = q.shape[-1]
+    h = Dl // hd
+    q, k, v = (t.reshape(B, S, h, hd) for t in (q, k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     a = torch.softmax(s.float(), dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D)
-    x = apply_layernorm(bp["ln1"], x + o @ _val(bp["wo"]))
-    ff = torch.relu(x @ _val(bp["ff1"])) @ _val(bp["ff2"])
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, Dl)
+    x = apply_layernorm(bp["ln1"], x + spmd.row_split_matmul(o, _val(bp["wo"])))
+    ff1 = _val(bp["ff1"])
+    hidden = torch.relu(x @ ff1)
+    if spmd.split_axes(ff1, 1) != spmd.split_axes(_val(bp["ff2"]), 0):
+        hidden = spmd.gather_split(hidden, ff1, 1, -1)
+    ff = spmd.row_split_matmul(hidden, _val(bp["ff2"]))
     return apply_layernorm(bp["ln2"], x + ff)
 
 
 def bst_logits(params, batch, cfg: BSTConfig) -> Tensor:
     """batch: hist [B, S-1] item ids, target [B], others [B, n_other]."""
     pos = _val(params["pos"])
-    ids = lambda key: torch.as_tensor(batch[key]).to(device=pos.device, dtype=torch.long)  # noqa: E731
+    ids = lambda key: _tensor(batch[key]).to(device=pos.device, dtype=torch.long)  # noqa: E731
     seq_ids = torch.cat([ids("hist"), ids("target")[:, None]], dim=1)  # [B, S]
     x = constrain(embedding_lookup(params["items"], seq_ids) + pos[None], ("batch", None, None))
     for bp in params["blocks"]:
@@ -444,7 +529,7 @@ def init_two_tower(cfg: TwoTowerConfig, *, generator: torch.Generator | None = N
 
 
 def _tower(tables, mlp, ids) -> Tensor:
-    ids = torch.as_tensor(ids).to(device=_val(mlp[0]["w"]).device, dtype=torch.long)
+    ids = _tensor(ids).to(device=_val(mlp[0]["w"]).device, dtype=torch.long)
     x = torch.cat([embedding_lookup(t, ids[:, i]) for i, t in enumerate(tables)], dim=-1)
     x = apply_mlp(mlp, x)
     return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -465,16 +550,31 @@ def two_tower_loss(params, batch, cfg: TwoTowerConfig):
 
     batch: user [B, n_user_fields], item [B, n_item_fields], optional logq
     [B] (the sampling log-probability of each in-batch item).
+
+    In a body whose batch rows are split, each position's rows score every
+    item of the global batch: the item embeddings (and ``logq``) are
+    gathered over the batch's axes, and a row's label is its global row.
     """
     u = constrain(user_embedding(params, batch["user"]), ("batch", None))  # [B, E]
     v = item_embedding(params, batch["item"])  # [B, E]
-    logits = (u @ v.T) / cfg.temperature  # [B, B]
-    if batch.get("logq") is not None:
-        logits = logits - _dense_input(batch["logq"], u)[None, :]
+    logq = batch.get("logq")
+    axes = spmd.batch_axes()
+    if axes:
+        v = spmd.all_gather(v, 0, axes)
+        if logq is not None:
+            logq = spmd.all_gather(_dense_input(logq, u), 0, axes)
+    logits = (u @ v.T) / cfg.temperature  # [B, B] ([B / n, B] on a position)
+    if logq is not None:
+        logits = logits - _dense_input(logq, u)[None, :]
     labels = torch.arange(u.shape[0], device=u.device)
+    cols = labels
+    if axes:
+        mesh, b = spmd.current().mesh, u.shape[0]
+        cols = spmd.per_position(lambda p: torch.arange(
+            b, device=mesh.devices[p]) + b * mesh.index_along(p, axes))
     logp = torch.log_softmax(logits.float(), dim=-1)
-    loss = torch.mean(-logp[labels, labels])
-    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    loss = torch.mean(-logp[labels, cols])
+    acc = torch.mean((torch.argmax(logits, -1) == cols).float())
     return loss, {"loss": loss, "in_batch_acc": acc}
 
 

@@ -36,10 +36,18 @@ What the port adds:
   the state in place; only the disk write runs on the thread.
   ``block=True`` streams from the card on the calling thread instead.
 
-Restore is elastic as far as the port's meshes go: ``shardings``, a tree
-of ``distributed.sharding.Sharding`` matching ``like``, places each leaf
-whole on its mesh's first device (a step of the port keeps every tensor
-whole on its device).
+Sharded state (``distributed.sharding.Sharded`` leaves, a sharded train
+step's) is saved as the reference saves its sharded arrays: each leaf the
+global array, in the reference's layout, so checkpoints cross the packages
+both ways whatever the meshes.  A leaf split along its first dimension only
+(a row-sharded table, its accumulators) streams its blocks in order, the
+first replica of each, never whole anywhere; any other split is put
+together on its first position's device first.  Restore is elastic:
+``shardings``, a tree of ``Sharding`` matching ``like`` (or ``like``'s own
+``Sharded`` leaves), places each leaf's blocks on its mesh's positions, from
+a checkpoint of any mesh: a first-dimension split is read block by block
+straight into the parts (into ``like``'s own parts where they match), then
+copied to the replicas.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Sharded, Sharding
 from repro_torch.models.nn import Param, is_param
 
 _BF16 = "bfloat16"
@@ -146,22 +155,32 @@ def describe(tree) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _row_blocks(s: Sharding, ndim: int):
+    """The positions holding a leaf's blocks in the global layout's order
+    (the first replica of each), if ``s`` splits its first dimension only;
+    else None."""
+    if any(s.dim_axes(d) for d in range(1, ndim)):
+        return None
+    axes = s.dim_axes(0) if ndim else ()
+    return s.mesh.groups(axes)[0] if axes else [0]
+
+
 class _Leaf:
     """One leaf to write: its stored dtype and shape, the manifest's dtype
-    name, and its bytes (a tensor's, or a numpy array's)."""
+    name, and its bytes (tensors' in order, or a numpy array's)."""
 
-    __slots__ = ("np_dtype", "shape", "name", "tensor", "array")
+    __slots__ = ("np_dtype", "shape", "name", "tensors", "array")
 
     def __init__(self, leaf):
-        self.tensor = self.array = None
+        self.tensors, self.array = None, None
+        if isinstance(leaf, Sharded):
+            holders = _row_blocks(leaf.sharding, len(leaf.shape))
+            ts = ([leaf.parts[p].detach() for p in holders] if holders is not None
+                  else [leaf.whole().detach()])
+            self._tensors(ts, leaf.shape)
+            return
         if isinstance(leaf, torch.Tensor):
-            t = leaf.detach()
-            if t.dtype not in _TORCH_TO_NP:
-                raise TypeError(f"cannot checkpoint a {t.dtype} tensor")
-            self.np_dtype = np.dtype(_TORCH_TO_NP[t.dtype])
-            self.name = _BF16 if t.dtype == torch.bfloat16 else self.np_dtype.name
-            self.shape = tuple(t.shape)
-            self.tensor = t if t.is_contiguous() else t.contiguous()
+            self._tensors([leaf.detach()], tuple(leaf.shape))
             return
         if isinstance(leaf, bool):
             a = np.asarray(leaf)
@@ -172,15 +191,24 @@ class _Leaf:
         self.array, self.np_dtype, self.shape = a, a.dtype, a.shape
         self.name = str(a.dtype)
 
+    def _tensors(self, ts: list, shape) -> None:
+        dtype = ts[0].dtype
+        if dtype not in _TORCH_TO_NP:
+            raise TypeError(f"cannot checkpoint a {dtype} tensor")
+        self.np_dtype = np.dtype(_TORCH_TO_NP[dtype])
+        self.name = _BF16 if dtype == torch.bfloat16 else self.np_dtype.name
+        self.shape = tuple(shape)
+        self.tensors = [t if t.is_contiguous() else t.contiguous() for t in ts]
+
     @property
     def nbytes(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) * self.np_dtype.itemsize
 
     def host_copy(self) -> "_Leaf":
         """This leaf with its bytes copied to host memory."""
-        if self.tensor is not None:
-            t = self.tensor
-            self.tensor = t.to("cpu", copy=True) if t.device.type != "cpu" else t.clone()
+        if self.tensors is not None:
+            self.tensors = [t.to("cpu", copy=True) if t.device.type != "cpu" else t.clone()
+                            for t in self.tensors]
         else:
             self.array = self.array.copy()
         return self
@@ -188,13 +216,23 @@ class _Leaf:
     def blocks(self, pinned):
         """Yield this leaf's bytes as memoryviews of at most ``BLOCK_BYTES``;
         a block is valid until the next one is asked for."""
-        if self.tensor is None or self.tensor.device.type == "cpu":
-            raw = (self.array if self.tensor is None else
-                   self.tensor.reshape(-1).view(torch.uint8).numpy()).reshape(-1).view(np.uint8)
-            for off in range(0, raw.nbytes, BLOCK_BYTES):
-                yield memoryview(raw[off : off + BLOCK_BYTES])
+        if self.tensors is None:
+            yield from self._host_blocks(self.array.reshape(-1).view(np.uint8))
             return
-        flat = self.tensor.reshape(-1).view(torch.uint8)
+        for t in self.tensors:
+            if t.device.type == "cpu":
+                yield from self._host_blocks(t.reshape(-1).view(torch.uint8).numpy())
+            else:
+                yield from self._device_blocks(t, pinned)
+
+    @staticmethod
+    def _host_blocks(raw):
+        for off in range(0, raw.nbytes, BLOCK_BYTES):
+            yield memoryview(raw[off : off + BLOCK_BYTES])
+
+    @staticmethod
+    def _device_blocks(t, pinned):
+        flat = t.reshape(-1).view(torch.uint8)
         stream = torch.cuda.Stream(device=flat.device)
         stream.wait_stream(torch.cuda.current_stream(flat.device))
         for off in range(0, flat.numel(), BLOCK_BYTES):
@@ -459,6 +497,40 @@ def _fill(f, dst: torch.Tensor, nbytes: int, crc: _Crc, pinned: _Pinned) -> None
     torch.cuda.current_stream(dst.device).wait_stream(stream)
 
 
+def _fill_sharded(f, s: Sharding, shape, dtype, nbytes: int, crc: _Crc, pinned: _Pinned,
+                  into: Sharded | None) -> Sharded:
+    """A ``Sharded`` of the member's global array of ``shape``, by ``s``
+    (module docstring); ``into``'s parts are filled in place where given."""
+    mesh = s.mesh
+    local = s.shard_shape(shape)
+
+    def part(p):
+        if into is not None and into.parts[p].dtype == dtype and into.parts[p].is_contiguous():
+            return into.parts[p].detach()
+        return torch.empty(local, dtype=dtype, device=mesh.devices[p])
+
+    holders = _row_blocks(s, len(shape))
+    if holders is None:
+        whole = torch.empty(shape, dtype=dtype, device=mesh.devices[0])
+        _fill(f, whole, nbytes, crc, pinned)
+        parts = s.shard(whole)
+        if into is not None:
+            parts = [part(p).copy_(t) for p, t in enumerate(parts)]
+        return Sharded(s, shape, parts)
+    parts = [None] * len(mesh.devices)
+    for p in holders:
+        parts[p] = part(p)
+        _fill(f, parts[p], nbytes // len(holders), crc, pinned)
+    axes = s.dim_axes(0) if shape else ()
+    owner = {mesh.index_along(p, axes) if axes else 0: p for p in holders}
+    for p in range(len(parts)):  # the replicas, on the current stream, as _fill
+        if parts[p] is None:
+            src = parts[owner[mesh.index_along(p, axes) if axes else 0]]
+            parts[p] = (part(p).copy_(src) if into is not None
+                        else src.to(mesh.devices[p], copy=True))
+    return Sharded(s, shape, parts)
+
+
 def restore(path: str, like, step: int | None = None, shardings=None, *, device="cpu",
             stats: dict | None = None):
     """Restore into the structure of ``like``: ``(tree, step, extra)``.
@@ -467,10 +539,9 @@ def restore(path: str, like, step: int | None = None, shardings=None, *, device=
     filled in place (and returned); a meta tensor, or one of another dtype,
     gets a new tensor on its device (``device`` for meta); a Python int or
     float leaf comes back as one.  ``shardings`` (a tree of ``Sharding``
-    matching ``like``) moves each leaf whole onto its mesh's first device.
+    matching ``like``), or a ``Sharded`` leaf of ``like``, places the leaf's
+    blocks on the mesh's positions as a ``Sharded`` (module docstring).
     """
-    from repro_torch.distributed.sharding import Sharding
-
     t0 = time.perf_counter()
     stats = {} if stats is None else stats
     if step is None:
@@ -485,8 +556,9 @@ def restore(path: str, like, step: int | None = None, shardings=None, *, device=
     n = manifest["meta"]["n_leaves"]
     assert n == len(leaves_like), f"checkpoint has {n} leaves, model {len(leaves_like)}"
     places = ([None] * n if shardings is None else
-              [s.mesh.devices[0] for s in flatten(shardings,
-                                                  is_leaf=lambda x: isinstance(x, Sharding))])
+              flatten(shardings, is_leaf=lambda x: isinstance(x, Sharding)))
+    places = [t.sharding if p is None and isinstance(t, Sharded) else p
+              for t, p in zip(leaves_like, places)]
     out, total, pinned = [], 0, _Pinned()
     with open(os.path.join(d, "leaves.npz"), "rb") as f, \
             cf.ThreadPoolExecutor(1) as pool:
@@ -496,7 +568,11 @@ def restore(path: str, like, step: int | None = None, shardings=None, *, device=
             shape, np_dtype, nbytes, crc, want = _read_header(f, pool, members[key + ".npy"],
                                                               key, tmpl)
             tdtype = torch.bfloat16 if dtypes[key] == _BF16 else _NP_TO_TORCH.get(np_dtype)
-            if isinstance(tmpl, torch.Tensor) and tdtype is not None:
+            if place is not None and tdtype is not None and isinstance(
+                    tmpl, (torch.Tensor, Sharded)):
+                into = tmpl if isinstance(tmpl, Sharded) and tmpl.sharding == place else None
+                leaf = _fill_sharded(f, place, tuple(shape), tdtype, nbytes, crc, pinned, into)
+            elif isinstance(tmpl, torch.Tensor) and tdtype is not None:
                 dev = torch.device(device) if tmpl.device.type == "meta" else tmpl.device
                 if (tmpl.device.type != "meta" and tmpl.dtype == tdtype
                         and tmpl.is_contiguous()):
@@ -504,7 +580,7 @@ def restore(path: str, like, step: int | None = None, shardings=None, *, device=
                 else:
                     dst = torch.empty(shape, dtype=tdtype, device=dev)
                 _fill(f, dst, nbytes, crc, pinned)
-                leaf = dst if place is None else dst.to(place)
+                leaf = dst
             else:
                 a = np.empty(shape, np_dtype)
                 if nbytes:

@@ -27,6 +27,17 @@ result from it:
 ``coalesce_rows`` sums a row's duplicates in an order fixed by the ids
 alone (one stable sort, then ``core.segments.segment_sums``), never by
 atomics, so two runs on the card give the same bytes.
+
+Sharded steps (``distributed.steps`` over a mesh; ``distributed.spmd``).
+A position's gradient of a block is its share, and the block's is the sum
+of the shares over the positions that hold it: ``sum_replicas`` adds a
+dense leaf's over its replicas (the data all-reduce of a replicated
+weight), ``merge_row_grads`` a table block's ``RowGrad`` values (an all-gather
+of ids and rows, then ``coalesce_rows``: never densified), each summed
+once and copied, so every replica holds the same bytes.
+``clip_sharded`` counts each distinct block once in the global norm, and an
+optimizer updates each position's parts (``update_sharded``), every
+replica alike.
 """
 from __future__ import annotations
 
@@ -36,7 +47,10 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as KD
 from repro_torch.core.segments import segment_sums
+from repro_torch.distributed.sharding import Sharded, part_tree, zip_parts
+from repro_torch.launch import hlo_stats
 from repro_torch.models.nn import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -249,3 +263,105 @@ def clip_by_global_norm(grads, max_norm: float):
         return (g.float() * scale).to(g.dtype)
 
     return tree_map(one, grads), norm
+
+
+# ---------------------------------------------------------------------------
+# Sharded gradients (module docstring).
+# ---------------------------------------------------------------------------
+
+
+def sum_replicas(g: Sharded) -> Sharded:
+    """A dense leaf's shares (one a position) summed over each block's
+    replicas, in position order, the sum on every replica."""
+    parts = list(g.parts)
+    for group in g.replica_groups():
+        for q, t in zip(group, KD.all_reduce(g.mesh, group, [parts[q] for q in group])):
+            parts[q] = t
+    return Sharded(g.sharding, g.shape, parts)
+
+
+def merge_row_grads(like: Sharded, ids: list, rows: list) -> Sharded:
+    """A table block's gradient from each position's lookups (``ids`` and
+    ``rows`` one a position, in the block's own numbering): for each block,
+    its replicas' lookups gathered in position order and coalesced on the
+    first replica, the ``RowGrad`` copied to the others."""
+    mesh = like.mesh
+    parts = [None] * len(ids)
+    for group in like.replica_groups():
+        head = group[0]
+        with mesh.on(head):
+            got_i = [ids[head]] + [mesh.copy(ids[q], q, head) for q in group[1:]]
+            got_r = [rows[head]] + [mesh.copy(rows[q], q, head) for q in group[1:]]
+            all_i, all_r = torch.cat(got_i), torch.cat(got_r)
+            rg = coalesce_rows(all_i, all_r)
+        parts[head] = rg
+        for q in group[1:]:
+            parts[q] = RowGrad(mesh.copy(rg.ids, head, q), mesh.copy(rg.rows, head, q))
+        if len(group) > 1:
+            hlo_stats.note("all-gather", [all_i, all_r], group)
+    return Sharded(like.sharding, like.shape, parts)
+
+
+def clip_sharded(grads, max_norm: float):
+    """``clip_by_global_norm`` of a tree of ``Sharded`` gradients: each
+    distinct block's squares counted once (its first replica's), the norm
+    and the scale computed on position 0 and the scale copied to every
+    position.  Returns (grads, the norm on position 0)."""
+    leaves = tree_leaves(grads)
+    mesh = leaves[0].mesh
+    sq = []
+    for g in leaves:
+        named = g.sharding.named_axes()
+        holders = mesh.groups(named)[0] if named else [0]
+        shares = []
+        for q in holders:
+            with mesh.on(q):
+                shares.append(_sum_sq(g.parts[q]))
+        shares = [shares[0]] + [mesh.copy(t, q, 0) for q, t in zip(holders[1:], shares[1:])]
+        with mesh.on(0):
+            sq.append(shares[0] if len(shares) == 1 else torch.sum(torch.stack(shares)))
+    with mesh.on(0):
+        norm = torch.sqrt(torch.sum(torch.stack(sq)))
+        scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    scales = [scale] + [mesh.copy(scale, 0, p) for p in range(1, len(mesh.devices))]
+
+    def one(g):
+        parts = []
+        for p, t in enumerate(g.parts):
+            with mesh.on(p):
+                if isinstance(t, RowGrad):
+                    parts.append(RowGrad(t.ids, (t.rows.float() * scales[p]).to(t.rows.dtype)))
+                else:
+                    parts.append((t.float() * scales[p]).to(t.dtype))
+        return Sharded(g.sharding, g.shape, parts)
+
+    return tree_map(one, grads), norm
+
+
+def init_sharded(optimizer: Optimizer, params) -> OptState:
+    """``optimizer.init`` of a tree of ``Sharded`` params: each position's
+    state from its parts, the moments sharded as their params (ZeRO)."""
+    first = tree_leaves(params)[0]
+    mesh = first.mesh
+    states = []
+    for p in range(len(mesh.devices)):
+        with mesh.on(p):
+            states.append(optimizer.init(part_tree(params, p)))
+    m = zip_parts(params, [s.m for s in states])
+    v = None if states[0].v is None else zip_parts(params, [s.v for s in states])
+    return OptState(states[0].step, m, v)
+
+
+def update_sharded(optimizer: Optimizer, grads, state: OptState, params, lr):
+    """``optimizer.update`` on every position's parts, in place."""
+    mesh = tree_leaves(params)[0].mesh
+    step = state.step
+    for p in range(len(mesh.devices)):
+        with mesh.on(p):
+            _, st = optimizer.update(
+                part_tree(grads, p),
+                OptState(state.step, part_tree(state.m, p),
+                         None if state.v is None else part_tree(state.v, p)),
+                part_tree(params, p), lr)
+            step = st.step
+    return params, OptState(step, state.m, state.v)

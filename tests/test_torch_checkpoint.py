@@ -8,7 +8,11 @@ package's, on the CPU.
   dicts, lists, NamedTuples, ``None`` and ``Param``.
 * Across the packages, both ways: a DLRM train state after 3 steps saved by
   one package restores in the other, and 5 more steps there give losses
-  within rtol 1e-5 of the saving package's own 5 more steps.
+  within rtol 1e-5 of the saving package's own 5 more steps; a sharded
+  DLRM state on a (4, 2) mesh (the reference's on 8 forced devices, the
+  port's on 8 CPU positions) restores onto the other's mesh byte for byte.
+* Elastic restore: a checkpoint of an 8-position sharded state onto 2 and
+  4 positions, each leaf's blocks on its positions.
 * A leaf larger than one streamed block (``BLOCK_BYTES`` made small): its
   bytes, the archive's CRCs (``zipfile.testzip``), ``np.load`` and an
   in-place restore; a corrupted byte fails its CRC.
@@ -33,7 +37,7 @@ from repro.train import checkpoint as RC
 from repro_torch.configs import registry as REG
 from repro_torch.data.synthetic import recsys_batch
 from repro_torch.distributed import steps as ST
-from repro_torch.distributed.sharding import Sharding, make_rules
+from repro_torch.distributed.sharding import Sharded, Sharding, make_rules, shard_tree
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.nn import Param
 from repro_torch.train import checkpoint as C
@@ -110,18 +114,28 @@ def test_leaf_count_mismatch_rejected(tmp_path):
 
 
 def test_elastic_restore_across_meshes(tmp_path):
-    """A checkpoint written from an 8-position mesh restores onto 2- and
-    4-position meshes, each leaf whole on the mesh's device."""
+    """A checkpoint written from an 8-position sharded state restores onto
+    2- and 4-position meshes, each leaf's blocks on its positions: rows
+    split, columns split, and whole (replicated on every position)."""
     mesh8 = make_mesh((8,), ("data",), devices=[CPU] * 8)
     w = torch.arange(64.0).reshape(8, 8)
-    save(str(tmp_path), {"w": w}, 11)
+    v = torch.arange(32.0).reshape(2, 16)
+    src = {"w": Sharding(mesh8, ("data", None)), "v": Sharding(mesh8, (None, "data"))}
+    state = shard_tree({"w": w.clone(), "v": v.clone()}, src)
+    assert [tuple(t.shape) for t in state["w"].parts] == [(1, 8)] * 8
+    save(str(tmp_path), state, 11)
     for n in (2, 4):
         mesh = make_mesh((n,), ("data",), devices=[CPU] * n)
-        shd = {"w": Sharding(mesh, ("data",))}
-        out, step, _ = restore(str(tmp_path), {"w": torch.empty((8, 8), device="meta")},
-                               shardings=shd)
+        shd = {"w": Sharding(mesh, ("data", None)), "v": Sharding(mesh, (None, None))}
+        like = {"w": torch.empty((8, 8), device="meta"), "v": torch.empty((2, 16), device="meta")}
+        out, step, _ = restore(str(tmp_path), like, shardings=shd)
         assert step == 11
-        assert torch.equal(out["w"], w) and out["w"].device == mesh.devices[0]
+        assert isinstance(out["w"], Sharded) and len(out["w"].parts) == n
+        for p, part in enumerate(out["w"].parts):
+            assert part.device == mesh.devices[p]
+            assert torch.equal(part, w[p * 8 // n : (p + 1) * 8 // n])
+        assert all(torch.equal(part, v) for part in out["v"].parts)
+        assert torch.equal(out["w"].whole(), w)
     assert mesh8.shape == {"data": 8}
 
 
@@ -234,6 +248,89 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path, rules):
 
 
 # -- streaming ---------------------------------------------------------------
+
+
+SHARDED_REFERENCE = """
+import sys
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import registry as RREG
+from repro.data.synthetic import recsys_batch
+from repro.distributed import steps as RST
+from repro.distributed.sharding import make_rules
+from repro.launch.mesh import make_host_mesh
+from repro.train import checkpoint as RC
+
+port_dir, ref_dir, out_path = sys.argv[1:4]
+mesh = make_host_mesh()
+rules = make_rules(mesh)
+arch = RREG.get("dlrm-rm2")
+cfg = arch.smoke_config()
+loss, baxes = RST.recsys_loss("dlrm-rm2", cfg)
+_, jitted, st_shard, opt = RST.make_train_step(loss, arch.abstract_params(cfg), rules, baxes,
+                                               RST.StepConfig(peak_lr=5e-3, warmup_steps=2))
+state = RST.init_state(opt, arch.init_params(jax.random.PRNGKey(0), cfg))
+# The port's sharded checkpoint, restored onto this (4, 2) mesh.
+like = jax.eval_shape(lambda: state)
+got, step, _ = RC.restore(port_dir, like, shardings=st_shard)
+out = {f"port.{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(got))}
+out["port.shards"] = np.asarray([len(x.addressable_shards) for x in jax.tree.leaves(got)])
+out["port.step"] = np.asarray(step)
+# Two sharded steps of the reference's own, saved.
+for i in range(2):
+    b = {k: jnp.asarray(v) for k, v in recsys_batch("dlrm-rm2", 32, cfg, step=i).items()}
+    state, _ = jitted(b)(state, b)
+RC.save(ref_dir, state, 2)
+np.savez(out_path, **out)
+"""
+
+
+def test_sharded_checkpoints_cross_the_packages(tmp_path):
+    """The port's (4, 2)-sharded DLRM state restores onto the reference's
+    (4, 2) mesh of 8 forced devices, and the reference's sharded state onto
+    the port's (4, 2) mesh of CPU positions, each leaf byte for byte."""
+    from conftest import run_with_devices
+    from repro_torch.models.nn import tree_leaves
+
+    arch = REG.get("dlrm-rm2")
+    cfg = arch.smoke_config()
+    mesh = make_mesh((4, 2), ("data", "model"), devices=[CPU] * 8)
+    rules = make_rules(mesh)
+    loss, baxes = ST.recsys_loss("dlrm-rm2", cfg)
+    _, jitted, st_shard, opt = ST.make_train_step(loss, arch.abstract_params(cfg), rules, baxes,
+                                                  ST.StepConfig(peak_lr=5e-3, warmup_steps=2))
+    params = arch.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    state = shard_tree(ST.init_state(opt, params), st_shard)
+    for i in range(2):
+        state, _ = jitted(None)(state, recsys_batch("dlrm-rm2", 32, cfg, step=i))
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    save(str(port_dir), state, 2)
+    out = tmp_path / "out.npz"
+    run_with_devices(f"import sys\nsys.argv = ['', {str(port_dir)!r}, {str(ref_dir)!r}, "
+                     f"{str(out)!r}]\n" + SHARDED_REFERENCE)
+    leaves = C.flatten(state)  # the optimizer's step (an int) among them
+    with np.load(out) as z:
+        assert int(z["port.step"]) == 2
+        assert all(n == 8 for n in z["port.shards"])
+        arrays = [z[f"port.{i}"] for i in range(len(leaves))]
+    for a, x in zip(arrays, leaves):
+        assert a.tobytes() == (np.asarray(x, np.int32) if isinstance(x, int)
+                               else x.whole().numpy()).tobytes()
+    # The reference's sharded state onto the port's mesh.
+    like = shard_tree(ST.init_state(opt, arch.init_params(cfg, device="cpu")), st_shard)
+    got, step, _ = restore(str(ref_dir), like, shardings=st_shard)
+    assert step == 2 and got.opt.step == 2
+    with np.load(ref_dir / "step_00000002" / "leaves.npz") as z:
+        want = [z[k] for k in sorted(z.files)]
+    got_leaves = C.flatten(got)
+    assert len(got_leaves) == len(want)
+    for g, w in zip(got_leaves, want):
+        if isinstance(g, int):
+            assert g == int(w)
+            continue
+        assert g.whole().numpy().tobytes() == w.tobytes()
+        for group in g.replica_groups():
+            assert all(torch.equal(g.parts[group[0]], g.parts[q]) for q in group)
+    assert all(isinstance(x, Sharded) for x in tree_leaves(got.params))
 
 
 def test_leaf_larger_than_a_block_streams_and_checks_its_crc(tmp_path, monkeypatch):

@@ -4,9 +4,10 @@ Port of ``tests/test_configs.py``: the same registry checks, input specs
 and full configs.  In place of the reference's smoke lowering, every
 non-skip cell runs the dry run's trace (``launch.dryrun.run_cell``) at
 smoke size on a 2 x 2 mesh of meta positions: the step runs through, every
-kernel wrapper on its shape path, nothing allocated.  Three cells run at
-full width on the production mesh, as ``python -m
-repro_torch.launch.dryrun`` runs every cell.
+kernel wrapper on its shape path, nothing allocated; the kNN cells and
+the recommender's (whose steps run sharded over the mesh) record their
+collectives.  Three cells run at full width on the production mesh, as
+``python -m repro_torch.launch.dryrun`` runs every cell.
 """
 import math
 
@@ -150,8 +151,8 @@ def test_cell_traces_smoke(arch_id, shape):
     assert 0 < rec["argument_size_in_bytes"] <= rec["peak_memory_in_bytes_unsharded"]
     want = KERNELS.get(f"{arch_id}/{shape}", KERNELS.get(arch_id, set()))
     assert set(rec["kernel_calls"]) == want
-    moves = REG.get(arch_id).family == "knn" or shape == "retrieval_cand" and \
-        arch_id == "two-tower-retrieval"
+    # the kNN cells and the recommender's (sharded steps) move data between positions
+    moves = REG.get(arch_id).family in ("knn", "recsys")
     assert bool(rec["collective_counts"]) == moves
     assert ("collectives" in rec) != moves
 
@@ -174,5 +175,9 @@ def test_cell_at_full_width_on_the_production_mesh(arch_id, shape):
     assert rec["devices"] == 256 and rec["mesh"] == "single" and rec["unrolled"] is False
     assert math.isfinite(rec["flops"]) and rec["flops"] > 0
     assert rec["output_size_in_bytes"] > 0 and rec["transcendentals"] > 0
-    assert rec["collective_counts"] == {} and rec["collectives"].startswith("not modelled")
+    if REG.get(arch_id).family == "recsys":  # the sharded step: collectives, a per-device peak
+        assert rec["collective_counts"] and "collectives" not in rec
+        assert rec["argument_size_in_bytes"] < rec["peak_memory_in_bytes"]
+    else:
+        assert rec["collective_counts"] == {} and rec["collectives"].startswith("not modelled")
     assert rec["argument_size_in_bytes"] < rec["peak_memory_in_bytes_unsharded"]

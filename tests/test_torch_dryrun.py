@@ -7,7 +7,8 @@
   neither its plain version nor a launch run, one shape call recorded with
   the FLOPs of ``PERF.md``'s bound column, the card's refusals kept.
 * The counts against sums written out here: ``knn-paper/query_1m`` and
-  ``dlrm-rm2/serve_p99`` at smoke size.
+  ``dlrm-rm2/serve_p99`` at smoke size (the latter sharded over 2 x 2
+  positions).
 * ``run_cell`` initialises no CUDA and leaves the environment as it was.
 """
 import json
@@ -130,17 +131,22 @@ def test_flops_of_query_1m_are_the_fused_products():
 
 
 def test_flops_of_dlrm_serve_are_its_products():
-    """The smoke DLRM on 32 rows: the bottom MLP 13-32-16, the dot
-    interaction of 27 features of 16 (one bmm), the top MLP 367-32-16-1
-    (367 = 27 * 26 / 2 pairs + 16)."""
+    """The smoke DLRM on 32 rows, sharded over 2 x 2 positions: each
+    position scores its 16 rows of the batch ("data"); the bottom MLP
+    13-32-16 (the hidden layer's columns split over "model", the last layer
+    whole), the dot interaction of 27 features of 16 (one bmm a position),
+    the top MLP 367-32-16-1 (367 = 27 * 26 / 2 pairs + 16; both hidden
+    layers split).  Whatever is whole is recomputed on each "model"
+    position."""
     B_, F_, D_ = 32, 27, 16
-    bottom = 2 * B_ * (13 * 32 + 32 * 16)
-    interaction = 2 * B_ * F_ * F_ * D_
-    top = 2 * B_ * (367 * 32 + 32 * 16 + 16 * 1)
+    b = B_ // 2
+    bottom = 2 * b * (13 * 16 + 32 * 16)
+    interaction = 2 * b * F_ * F_ * D_
+    top = 2 * b * (367 * 16 + 32 * 8 + 16 * 1)
     rec = DR.run_cell("dlrm-rm2", "serve_p99", False, smoke=True, mesh=MESH22)
-    assert rec["flops"] == bottom + interaction + top
-    assert rec["op_counts"]["aten.bmm"] == 1 and rec["kernel_calls"] == {}
-    assert rec["transcendentals"] == B_  # the click probability's sigmoid
+    assert rec["flops"] == 4 * (bottom + interaction + top)
+    assert rec["op_counts"]["aten.bmm"] == 4 and rec["kernel_calls"] == {}
+    assert rec["transcendentals"] == 2 * B_  # each position's rows' sigmoid
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain versions,
-and the recommender's trainer on the card held against the CPU.
+and the recommender's trainer on the card held against the CPU (whole,
+and sharded over a (2, 2) mesh of the card against four CPU positions).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports torch and the port only, so it runs where JAX is absent:
@@ -1854,6 +1855,59 @@ def test_train_steps_of_each_arch_on_the_card_match_the_cpu(cuda, arch_id):
     for a, b in zip(got_p, want_p):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert got_l == again_l and all(torch.equal(a, b) for a, b in zip(got_p, again_p))
+
+
+@pytest.mark.parametrize("arch_id", ["dlrm-rm2", "xdeepfm", "bst", "two-tower-retrieval"])
+def test_sharded_steps_on_a_2x2_mesh_of_the_card_match_four_cpu_positions(cuda, arch_id):
+    """Three sharded steps at ``smoke_config()`` on a (2, 2) mesh whose four
+    positions share the card (each its own stream), against the same on four
+    CPU positions: losses and params within rtol 1e-4 and atol 1e-5; after
+    every step on the card, every replica of every block byte-equal."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import Sharded, make_rules, shard_tree, unshard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys as P
+    from repro_torch.models.nn import split_params, tree_leaves, tree_map
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    sc = STP.StepConfig(peak_lr=5e-3, warmup_steps=1, total_steps=100,
+                        micro_batches=2 if arch_id == "two-tower-retrieval" else 1)
+    values, _ = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                              device="cpu"))
+
+    def replicas_equal(state):
+        for s in tree_leaves((state.params, state.opt.m, state.opt.v)):
+            if isinstance(s, Sharded):
+                for group in s.replica_groups():
+                    a = s.parts[group[0]].reshape(-1).view(torch.uint8)
+                    if not all(torch.equal(a, s.parts[q].reshape(-1).view(torch.uint8))
+                               for q in group[1:]):
+                        return False
+        return True
+
+    def run(dev):
+        rules = make_rules(make_mesh((2, 2), ("data", "model"), devices=[dev] * 4))
+        loss, baxes = STP.recsys_loss(arch_id, cfg)
+        step, _, st_shard, opt = STP.make_train_step(loss, arch.abstract_params(cfg), rules,
+                                                     baxes, sc)
+        state = shard_tree(STP.init_state(opt, tree_map(lambda t: t.to(dev, copy=True),
+                                                        values)), st_shard)
+        losses, equal = [], True
+        for i in range(3):
+            state, m = step(state, recsys_batch(arch_id, 64, cfg, step=i))
+            losses.append(float(m["loss"]))
+            equal &= replicas_equal(state)
+        return losses, [t.cpu() for t in P.param_leaves(unshard_tree(state.params))], equal
+
+    want_l, want_p, _ = run(torch.device("cpu"))
+    got_l, got_p, equal = run(cuda)
+    assert equal
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got_p, want_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_an_update_reaches_the_last_row_of_a_table_past_2_31_elements(cuda):
