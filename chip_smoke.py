@@ -235,7 +235,7 @@ Phases (each one raises on a failed check; nothing is caught):
 15. The language models (``models.attention``, ``models.moe``,
    ``models.transformer``, the LM steps, the LM launcher; ``phase_lm``).
    15a: qwen3-moe-30b-a3b at ``full_config()`` (61.1 GB of weights drawn on
-   the card) serves 2 prompts of 4,096 tokens: prefill, 32 greedy decode
+   the card) serves 2 prompts of 4,096 tokens: prefill, 8 greedy decode
    steps, the same steps sequence-parallel on a (1, 4) mesh of the card
    (logits held against the plain decode); at capacity factor 8, prefill
    and decode held against ``forward``; layer 0 held against the CPU; every
@@ -284,9 +284,29 @@ Phases (each one raises on a failed check; nothing is caught):
    over both meshes.  17c: the two-tower model trained in 17b serves
    ``make_retrieval_step`` over the card's mesh at ``retrieval_cand`` (1 x
    10^6 candidates, k 100), the user tower on its shards, the candidates
-   on "model": ids equal to a brute force.  Phase 17 must launch
+   on "model": ids equal to a brute force.  17a.sgdm: 13b's 5 steps with
+   ``StepConfig(optimizer="sgdm")`` on a DLRM-RM2 whose tables are cut to
+   2^20 rows, whole and on the (2, 2) mesh, the params after steps 2 and
+   5 reported (step 2 held within 13c's tolerance).  Phase 17 must launch
    ``fused_knn`` and ``merge_partials`` (17c), and each entry carries
    ``launches_phase17``.
+18. The language models' prefill and decode sharded over a (data, model)
+   mesh of the card (``distributed.steps``' LM serve steps over
+   ``sharding.shard_tree`` values and ``cache_shardings`` caches).  18a,
+   inside phase 15 right after 15a: qwen3-moe-30b-a3b's 61.1 GB cut in
+   place onto a (1, 4) mesh (each position a quarter of the experts, heads
+   and vocabulary: 15.31 GB), 15a's prompts prefilled into a cache cut over
+   the KV heads and 8 decode steps fed 15a's tokens, then the
+   sequence-parallel decode over a cache cut over its slots, each held
+   against 15a's logits by ``LM_TOL``; every router launch at every
+   position held against ``stream_topk_plain``; every cache part the same
+   storage from step to step.  18b, inside phase 15 after 15b:
+   h2o-danube-3-4b on a (2, 2) mesh (FSDP over "data"), 2 prompts of
+   6,144 tokens against the whole step on the card.  18c: the five LMs at
+   ``smoke_config()`` on a (2, 2) mesh against their whole steps.  Prefill
+   tokens/s, decode ms a step, peaks and each position's bytes beside
+   15a-b's whole figures.  Phase 18 must launch ``stream_topk`` (the
+   routers of 18a and 18c), and each entry carries ``launches_phase18``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a background worker's launches (phase 9) go to its own
@@ -313,6 +333,7 @@ before printing any result.  Everything it prints also goes, in full, to
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3338,6 +3359,7 @@ SHARD_MESH = (2, 2)  # 17: the ("data", "model") mesh, its positions cycling ove
 SHARD_STEPS = 5  # 17a-b: 13b's DLRM steps; 13c's smoke steps
 SHARD_ITEMS = 1_000_000  # 17c: the two-tower retrieval_cand cell (configs/base.py:354-356)
 SHARD_TOL = dict(rtol=1e-4, atol=1e-5)  # 13c's
+SGDM_TABLE_ROWS = 1 << 20  # 17a.sgdm: DLRM-RM2's tables cut to this many rows
 
 
 def bytes_equal(torch, a, b, chunk=1 << 28) -> bool:
@@ -3511,6 +3533,64 @@ def phase_sharded(torch, dev, run_path, hold):
 
     out["dlrm"] = counted("sharded_dlrm", dlrm)
     say("sharded_dlrm", out["dlrm"])
+
+    # 17a.sgdm: the same steps with momentum SGD, sharded against whole.
+    def dlrm_sgdm():
+        """13b's 5 steps of a DLRM-RM2 whose tables are cut to
+        ``SGDM_TABLE_ROWS`` rows (so that the whole and the sharded state
+        with their momentum fit in turn), ``StepConfig(optimizer="sgdm")``,
+        whole on the card and on the (2, 2) mesh: the gap after each step of
+        ``HOLD_AFTER``.  SGD with momentum carries a last-bit difference in
+        a gradient forward at last-bit size, where AdamW and row-wise
+        Adagrad can turn it into a step of about the learning rate: a gap
+        near 1e-5 is summation order, a gap near 17a's 4e-4 a fault."""
+        import dataclasses
+
+        aid = "dlrm-rm2"
+        arch = REG.get(aid)
+        full = arch.full_config()
+        cfg = dataclasses.replace(full, table_sizes=tuple(min(n, SGDM_TABLE_ROWS)
+                                                          for n in full.sizes()))
+        rows = TRAIN_ROWS or 65536
+        watch = dlrm_watch(cfg)
+        one = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+        runs = {}
+        for sharded in (False, True):
+            loss, baxes = ST.recsys_loss(aid, cfg)
+            sc = ST.StepConfig(**TRAIN_STEP, optimizer="sgdm")
+            step, _, st_shard, opt = ST.make_train_step(loss, arch.abstract_params(cfg),
+                                                        rules if sharded else one, baxes, sc)
+            values, _ = split_params(arch.init_params(
+                cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
+            state = ST.init_state(opt, values)
+            del values
+            if sharded:
+                state = shard_tree(state, st_shard)
+            losses, kept, ms = [], {}, []
+            for i in range(SHARD_STEPS):
+                batch = recsys_batch(aid, rows, cfg, step=i)
+                t0 = synced()
+                state, m = step(state, batch)
+                ms.append((synced() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                if i in watch:
+                    kept[i] = dlrm_sample(torch, state.params, watch[i])
+            runs[sharded] = (losses, kept, ms)
+            del state, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        np.testing.assert_allclose(runs[True][0], runs[False][0], **SHARD_TOL)
+        gap = {f"after_step_{i + 1}": err(runs[True][1][i], runs[False][1][i])
+               for i in HOLD_AFTER}
+        check(gap[f"after_step_{HOLD_AFTER[0] + 1}"]["tol_ratio"] <= 1.0,
+              f"17a sgdm: the params after step {HOLD_AFTER[0] + 1} leave the tolerance: {gap}")
+        return {"table_rows": list(cfg.sizes()), "losses_sharded": runs[True][0],
+                "losses_whole": runs[False][0], "step_ms_sharded": runs[True][2],
+                "step_ms_whole": runs[False][2], "params_sharded_vs_whole": gap,
+                "held_rows": sum(len(v) for v in watch[HOLD_AFTER[1]].values())}
+
+    out["dlrm_sgdm"] = counted("sharded_dlrm_sgdm", dlrm_sgdm)
+    say("sharded_dlrm_sgdm", out["dlrm_sgdm"])
 
     # 17b. The four archs at smoke size on the card's mesh and four CPU positions.
     cpu = torch.device("cpu")
@@ -4077,7 +4157,7 @@ def phase_loop(torch, dev, run_path):
 
 
 LM_PROMPT = 4096  # 15a: two prompts of this many tokens (the train_4k cell's seq_len)
-LM_DECODE = 32  # 15a-b: greedy decode steps
+LM_DECODE = 8  # 15a-b: greedy decode steps
 LM_HOLD = (512, 8, 768)  # 15a.3: prompt, decode steps, forward length (2 x 768: 3 routing groups)
 LM_LAYER_ROWS = 256  # 15a.4: tokens a row of layer 0's input, two rows
 LM_SWA_PROMPT = 6144  # 15b: one prompt past h2o-danube-3-4b's window of 4096
@@ -4126,12 +4206,14 @@ class RouterLaunches:
         self.mod.stream_topk = self.orig
 
     def hold(self, torch):
-        """Each record's ids and values equal to ``stream_topk_plain``'s."""
+        """Each record's ids and values equal to ``stream_topk_plain``'s; the
+        records are dropped once held.  Returns how many were held."""
         for x, k, (v, i) in self.records:
             pv, pi = self.mod.stream_topk_plain(x, k)
             check(torch.equal(i, pi) and torch.equal(v, pv),
                   f"router stream_topk {tuple(x.shape)} k {k}: kernel and plain differ")
-        return len(self.records)
+        n, self.records = len(self.records), []
+        return n
 
 
 def phase_lm(torch, dev, run_path):
@@ -4257,12 +4339,7 @@ def phase_lm(torch, dev, run_path):
             tok = lg.argmax(-1).to(torch.int32)
         return logits, fed, ms
 
-    def held(got, want, what):
-        """Each step's max |got - want| over its largest |want|, held to LM_TOL."""
-        errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
-        check(max(errs) <= LM_TOL[0] and statistics.median(errs) <= LM_TOL[1],
-              f"{what}: steps off by {errs} of their largest |logit|, past {LM_TOL}")
-        return {"max": max(errs), "median": statistics.median(errs), "per_step": errs}
+    held = _lm_held
 
     def serving(values, cfg, prompt, label, record=None):
         """Prefill (twice) and ``LM_DECODE`` greedy steps, then the same
@@ -4284,6 +4361,7 @@ def phase_lm(torch, dev, run_path):
             ms.append((synced() - t0) * 1e3)
         check(bool(torch.isfinite(lg.float()).all()) and lg.shape == (B, cfg.vocab),
               f"{label}: prefill logits")
+        prefill_logits = lg.float().cpu()
         check(cache.pos.tolist() == [S] * B, f"{label}: the cache's positions")
         res.update(prefill_ms=ms, prefill_tokens_per_s=B * S / (ms[1] / 1e3))
         sp_cache, floor_cache = cache.clone(), cache.clone()
@@ -4324,7 +4402,7 @@ def phase_lm(torch, dev, run_path):
                    sp_vs_plain=held(sp, plain, f"{label}: the sequence-parallel decode"),
                    sp_greedy_tokens_differ=differ)
         seq = torch.cat([prompt] + [t[:, None] for t in fed], dim=1)  # the tokens fed, in order
-        return res, seq, plain
+        return res, seq, plain, {"prefill": prefill_logits, "decode": plain, "fed": fed}
 
     # 15a. qwen3-moe-30b-a3b at full width.
     cfg = REG.get("qwen3-moe-30b-a3b").full_config()
@@ -4332,14 +4410,14 @@ def phase_lm(torch, dev, run_path):
     say("lm_qwen3_weights", qa)
     record = RouterLaunches()
     prompt = tokens(lm_batch(2, LM_PROMPT, cfg.vocab, seed=0)["tokens"])
-    (res, _, _) = counted("lm_qwen3_serving", lambda: serving(values, cfg, prompt, "15a",
-                                                               record=record))
+    (res, _, _, whole_15a) = counted("lm_qwen3_serving", lambda: serving(
+        values, cfg, prompt, "15a", record=record))
     qa.update(res)
     say("lm_qwen3_serving", res)
     check(len(record.records) == 2 * cfg.n_layers,
           f"15a: {len(record.records)} router launches recorded, not 2 x {cfg.n_layers}")
-    qa["router_launches_held"] = record.hold(torch)
     x_router = next(x for x, _, _ in record.records if x.shape[0] > 2)
+    qa["router_launches_held"] = record.hold(torch)
     router = {"shape": f"{x_router.shape[0]} x {x_router.shape[1]}, k {cfg.moe.top_k} "
                        f"(the router at the prefill: -probs of {x_router.shape[0]} tokens)"}
     router["ms"] = time_ms(torch, lambda: ST.stream_topk(x_router, cfg.moe.top_k), reps=20)
@@ -4429,6 +4507,24 @@ def phase_lm(torch, dev, run_path):
     qa["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["qwen3"] = qa
     say("lm_qwen3", qa)
+
+    # 18a. The same model on a (1, 4) mesh of the card: 15a's params cut in
+    # place, its prompts, its tokens fed, held against its logits.
+    out18 = {"launches": {}}
+
+    def counted18(label, fn):
+        res_, counts = run_path(label, fn)
+        for name, count in counts.items():
+            out18["launches"][name] = out18["launches"].get(name, 0) + count
+        return res_
+
+    out18["qwen3"] = counted18("sharded_lm_qwen3", lambda: sharded_lm_qwen3(
+        torch, dev, values, cfg, prompt, whole_15a,
+        {k: qa[k] for k in ("prefill_tokens_per_s", "decode_ms_first", "decode_ms_median",
+                            "sp_decode_ms_first", "sp_decode_ms_median", "decode_bound_ms",
+                            "noise_floor_one_chunk", "peak_bytes")}))
+    say("sharded_lm_qwen3", out18["qwen3"])
+    del whole_15a
     del values
     gc.collect()
     torch.cuda.empty_cache()
@@ -4437,7 +4533,7 @@ def phase_lm(torch, dev, run_path):
     cfg = REG.get("h2o-danube-3-4b").full_config()
     values, hb = weights(cfg)
     prompt = tokens(lm_batch(1, LM_SWA_PROMPT, cfg.vocab, seed=0)["tokens"])
-    res, seq, plain = counted("lm_h2o_serving", lambda: serving(values, cfg, prompt, "15b"))
+    res, seq, plain, _ = counted("lm_h2o_serving", lambda: serving(values, cfg, prompt, "15b"))
     hb.update(res)
     say("lm_h2o_serving", res)
     check(hb["cache_slots"] == min(cfg.sliding_window, LM_SWA_PROMPT + LM_DECODE),
@@ -4453,6 +4549,10 @@ def phase_lm(torch, dev, run_path):
     hb["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["h2o"] = hb
     say("lm_h2o", hb)
+
+    # 18b. The same model on a (2, 2) mesh of the card: FSDP over "data".
+    out18["h2o"] = counted18("sharded_lm_h2o", lambda: sharded_lm_h2o(torch, dev, values, cfg))
+    say("sharded_lm_h2o", out18["h2o"])
     del values, seq, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -4530,6 +4630,7 @@ def phase_lm(torch, dev, run_path):
           f"phase 15 never launched stream_topk: {out['launches']}")
     out["phase_s"] = time.perf_counter() - t_phase
     say("lm_phase", {"seconds": out["phase_s"], "launches": out["launches"]})
+    out["phase18"] = out18
     return out
 
 
@@ -4732,6 +4833,301 @@ def phase_dryrun(torch, dev, measured):
     say("dryrun_compression", out["compression"])
     out["phase_s"] = time.perf_counter() - t_phase
     say("dryrun_phase", {"seconds": out["phase_s"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 18. The language models' prefill and decode sharded over a (data, model)
+# mesh of the card (18a-b run inside phase 15, on its drawn params).
+# ---------------------------------------------------------------------------
+
+SHARDED_LM_STEPS = 8  # 18a, 18c: decode steps of each sharded decode
+SHARDED_H2O_STEPS = 4  # 18b: decode steps of the whole and each sharded decode
+SHARDED_LM_SMOKE = (4, 16)  # 18c: prompts, prompt tokens
+SHARDED_LM_REL = 1e-4  # 18c: of the largest |logit|, the dense archs
+SHARDED_LM_MOE_ATOL = 5e-3  # 18c: the MoE's bf16 expert path (15c's bound)
+
+
+def _synced(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _lm_held(got, want, what):
+    """Each step's max |got - want| over its largest |want|, held to LM_TOL."""
+    errs = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+    check(max(errs) <= LM_TOL[0] and statistics.median(errs) <= LM_TOL[1],
+          f"{what}: steps off by {errs} of their largest |logit|, past {LM_TOL}")
+    return {"max": max(errs), "median": statistics.median(errs), "per_step": errs}
+
+
+def _position_bytes(torch, values, n: int) -> dict:
+    """Each position's bytes of the ``Sharded`` params, and the bytes of the
+    leaves that are not cut ``n`` ways (a norm, the router)."""
+    from repro_torch.models.nn import tree_leaves
+
+    leaves = tree_leaves(values)
+    per = [sum(x.parts[p].numel() * x.parts[p].element_size() for x in leaves)
+           for p in range(n)]
+    whole = sum(math.prod(x.shape) * x.parts[0].element_size() for x in leaves)
+    small = sum(math.prod(x.shape) * x.parts[0].element_size() for x in leaves
+                if math.prod(x.shape) != n * x.parts[0].numel())
+    return {"per_position": per, "whole": whole, "not_cut": small,
+            "bound": (whole - small) / n + small}
+
+
+def _sharded_serve_run(torch, dev, cfg, rules, values, prompt, fed, sp, record=None,
+                       prefills=1):
+    """A cache cut over ``rules``' mesh (``cache_shardings``), ``prefills``
+    prefills of ``prompt`` into it (the last timed), then one decode step a
+    token of ``fed``: the logits on the host, the ms, every cache part the
+    same storage after every step, and the router launches held."""
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import cache_shardings, shard_tree
+    from repro_torch.models import transformer as Tr
+
+    B, S = prompt.shape
+    abstract = Tr.abstract_params(cfg)
+    cache = Tr.init_cache(cfg, B, S + LM_DECODE, device=dev)
+    cache = shard_tree(cache, cache_shardings(rules, cache, sp))
+    prefill = STP.make_lm_prefill_step(cfg, rules, abstract)[1](prompt, cache)
+    held = 0
+    for _ in range(prefills):
+        t0 = _synced(torch)
+        if record is not None:
+            with record:
+                lg, cache = prefill(values, prompt, cache)
+            held += record.hold(torch)
+        else:
+            lg, cache = prefill(values, prompt, cache)
+        pre_ms = (_synced(torch) - t0) * 1e3
+    check(cache.pos.whole().tolist() == [S] * B, "the sharded cache's positions")
+    out = {"prefill": lg.float().cpu(), "prefill_ms": pre_ms,
+           "prefill_tokens_per_s": B * S / (pre_ms / 1e3), "cache_spec": str(cache.k.sharding.spec),
+           "cache_part_shape": list(cache.k.parts[0].shape)}
+    step = STP.make_lm_decode_step(cfg, rules, abstract, seq_parallel=sp)[1](cache, fed[0])
+    ptrs = [t.untyped_storage().data_ptr() for x in cache for t in x.parts]
+    logits, ms, resident = [], [], True
+    for tok in fed:
+        t0 = _synced(torch)
+        if record is not None:
+            with record:
+                lg, cache = step(values, cache, tok)
+        else:
+            lg, cache = step(values, cache, tok)
+        ms.append((_synced(torch) - t0) * 1e3)
+        logits.append(lg.float().cpu())
+        resident &= [t.untyped_storage().data_ptr() for x in cache for t in x.parts] == ptrs
+    if record is not None:
+        held += record.hold(torch)
+    check(resident, "a decode step moved a part of the sharded cache")
+    check(all(bool(torch.isfinite(x).all()) for x in logits), "sharded decode logits")
+    out.update(decode=logits, decode_ms=ms, decode_ms_first=ms[0],
+               decode_ms_median=statistics.median(ms[1:]), router_launches_held=held,
+               cache_parts_resident=resident)
+    return out
+
+
+def sharded_lm_qwen3(torch, dev, values, cfg, prompt, whole, figures_15a):
+    """18a. qwen3-moe-30b-a3b at ``full_config()`` on a (1, 4) mesh of the
+    card.  ``values`` are 15a's drawn params, cut here in place one leaf at
+    a time (``shard_tree``: each whole leaf dropped once its four parts
+    exist; 61.1 GB whole and cut never both on the card); ``whole`` holds
+    15a's logits and fed tokens on the host.  Each position must hold a
+    quarter of the cut leaves (the experts, the heads, the vocabulary) plus
+    the leaves that are not cut (the norms, the router): no whole expert
+    stack, no whole embedding.  15a's 2 prompts of ``LM_PROMPT`` tokens are
+    prefilled twice into a cache cut over the KV heads (the second timed),
+    then ``SHARDED_LM_STEPS`` decode steps take 15a's fed tokens; the
+    prefill's and each step's logits are held against 15a's by ``LM_TOL``.
+    Then the sequence-parallel decode from a prefill into a cache cut over
+    its slots, held the same way.  Every router launch at every position is
+    held against ``stream_topk_plain`` on the same scores.  Every cache
+    part stays the same storage from step to step."""
+    import gc
+
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as Tr
+
+    t_phase = time.perf_counter()
+    rules = make_rules(make_mesh((1, 4), ("data", "model"), devices=[dev] * 4))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _synced(torch)
+    shard_tree(values, STP.param_shardings(rules, Tr.abstract_params(cfg))[0])
+    out = {"mesh": [1, 4], "cut_s": _synced(torch) - t0,
+           "cut_peak_bytes": torch.cuda.max_memory_allocated()}
+    # The whole leaves' memory, cached for the caller's stream, back to the
+    # card: the positions allocate on their own streams.
+    gc.collect()
+    torch.cuda.empty_cache()
+    nb = _position_bytes(torch, values, 4)
+    out["param_bytes"] = nb
+    check(max(nb["per_position"]) <= nb["bound"] and nb["not_cut"] <= 0.01 * nb["whole"],
+          f"18a: a position holds more than a quarter of the cut leaves: {nb}")
+    E, V = cfg.moe.n_experts, cfg.vocab
+    moe = values["layers"]["moe"]
+    check(all(moe[n].parts[p].shape[1] == E // 4 for n in ("wi_gate", "wi_up", "wo")
+              for p in range(4)), "18a: a position holds a whole expert stack")
+    check(all(values["embed"].parts[p].shape[0] == V // 4
+              and values["unembed"].parts[p].shape[1] == V // 4 for p in range(4)),
+          "18a: a position holds a whole embedding")
+    say("sharded_lm_qwen3_cut", out)
+    record = RouterLaunches()
+    fed = whole["fed"][:SHARDED_LM_STEPS]
+    for sp in (False, True):
+        tag = "sp" if sp else "plain"
+        torch.cuda.reset_peak_memory_stats()
+        run = _sharded_serve_run(torch, dev, cfg, rules, values, prompt, fed, sp, record,
+                                 prefills=1 if sp else 2)
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        run["prefill_vs_15a"] = _lm_held([run.pop("prefill")], [whole["prefill"]],
+                                         f"18a {tag}: the prefill against 15a's")
+        run["decode_vs_15a"] = _lm_held(run.pop("decode"), whole["decode"][:len(fed)],
+                                        f"18a {tag}: the decode against 15a's")
+        out[tag] = run
+    want = 4 * cfg.n_layers * (3 + 2 * len(fed))
+    held = out["plain"]["router_launches_held"] + out["sp"]["router_launches_held"]
+    check(held == want, f"18a: {held} router launches held, not {want}")
+    out["router_launches_held"] = held
+    out["whole_15a"] = figures_15a
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def sharded_lm_h2o(torch, dev, values, cfg):
+    """18b. h2o-danube-3-4b at ``full_config()`` (15b's drawn params) on a
+    (2, 2) mesh of the card: the first language model with "data" > 1, its
+    ``fsdp`` dimensions cut over "data" and gathered a layer at a time.  2
+    prompts of ``LM_SWA_PROMPT`` tokens (the batch splits over "data", the
+    ring of 4,096 wraps): the whole step on the card (prefill, then
+    greedy steps), then the sharded prefill and the
+    same steps fed the same tokens, plain and sequence-parallel, held
+    against it by ``LM_TOL`` (``SHARDED_H2O_STEPS`` steps: four positions
+    decode this model at about a second a step on the one card).  The whole
+    params stay for phase 15's use, so both copies sit on the card (7.92
+    GB each)."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import make_rules, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import tree_map
+
+    t_phase = time.perf_counter()
+    abstract = Tr.abstract_params(cfg)
+    prompt = torch.from_numpy(np.ascontiguousarray(
+        lm_batch(2, LM_SWA_PROMPT, cfg.vocab, seed=0)["tokens"])).to(dev)
+    B, S = prompt.shape
+    one = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    cache = Tr.init_cache(cfg, B, S + LM_DECODE, device=dev)
+    t0 = _synced(torch)
+    lg, cache = STP.make_lm_prefill_step(cfg, one, abstract)[1](prompt, cache)(values, prompt,
+                                                                               cache)
+    whole = {"prefill_ms": (_synced(torch) - t0) * 1e3}
+    want_prefill = lg.float().cpu()
+    step = STP.make_lm_decode_step(cfg, one, abstract)[1](cache, lg.argmax(-1))
+    tok, fed, logits, ms = lg.argmax(-1).to(torch.int32), [], [], []
+    for _ in range(SHARDED_H2O_STEPS):
+        fed.append(tok)
+        t0 = _synced(torch)
+        lg, cache = step(values, cache, tok)
+        ms.append((_synced(torch) - t0) * 1e3)
+        logits.append(lg.float().cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+    whole.update(decode_ms_first=ms[0], decode_ms_median=statistics.median(ms[1:]),
+                 cache_slots=cache.k.shape[2])
+    check(whole["cache_slots"] < S, "18b: the ring does not wrap")
+    del cache
+    rules = make_rules(make_mesh((2, 2), ("data", "model"), devices=[dev] * 4))
+    sharded = shard_tree(tree_map(lambda t: t, values),
+                         STP.param_shardings(rules, abstract)[0])
+    out = {"mesh": [2, 2], "prompt": [B, S], "whole": whole,
+           "param_bytes": _position_bytes(torch, sharded, 4)}
+    nb = out["param_bytes"]
+    check(max(nb["per_position"]) <= nb["bound"] and nb["not_cut"] <= 0.01 * nb["whole"],
+          f"18b: a position holds more than a quarter of the cut leaves: {nb}")
+    for sp in (False, True):
+        tag = "sp" if sp else "plain"
+        torch.cuda.reset_peak_memory_stats()
+        run = _sharded_serve_run(torch, dev, cfg, rules, sharded, prompt, fed, sp)
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        run["prefill_vs_whole"] = _lm_held([run.pop("prefill")], [want_prefill],
+                                           f"18b {tag}: the prefill against the whole step's")
+        run["decode_vs_whole"] = _lm_held(run.pop("decode"), logits,
+                                          f"18b {tag}: the decode against the whole step's")
+        out[tag] = run
+    del sharded
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_sharded_lm_smoke(torch, dev, run_path):
+    """18c. The five language models at ``smoke_config()`` (fp32; the MoE's
+    expert path bf16) on a (2, 2) mesh of the card: drawn on the CPU from
+    seed 0, ``SHARDED_LM_SMOKE`` prompts prefilled and ``SHARDED_LM_STEPS``
+    decode steps, sharded (plain and sequence-parallel) against the whole
+    step on the card, each step within ``SHARDED_LM_REL`` of its largest
+    |logit| (the MoE archs within ``SHARDED_LM_MOE_ATOL``, 15c's bound for
+    that bf16 path)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import cache_shardings, make_rules, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import split_params, tree_map
+
+    t_phase = time.perf_counter()
+    one = make_rules(make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    rules = make_rules(make_mesh((2, 2), ("data", "model"), devices=[dev] * 4))
+    B, S = SHARDED_LM_SMOKE
+    out = {"launches": {}}
+
+    def serve(cfg, values, toks, r, sharded, sp):
+        abstract = Tr.abstract_params(cfg)
+        v = tree_map(lambda t: t.to(dev, copy=True), values)
+        cache = Tr.init_cache(cfg, B, S + SHARDED_LM_STEPS, device=dev)
+        if sharded:
+            v = shard_tree(v, STP.param_shardings(r, abstract)[0])
+            cache = shard_tree(cache, cache_shardings(r, cache, sp))
+        t = toks.to(dev)
+        lg, cache = STP.make_lm_prefill_step(cfg, r, abstract)[1](t[:, :S], cache)(
+            v, t[:, :S], cache)
+        got = [lg.float().cpu()]
+        step = STP.make_lm_decode_step(cfg, r, abstract, seq_parallel=sp)[1](cache, t[:, S])
+        for i in range(S, S + SHARDED_LM_STEPS):
+            lg, cache = step(v, cache, t[:, i])
+            got.append(lg.float().cpu())
+        return got
+
+    def one_arch(aid):
+        arch = REG.get(aid)
+        cfg = arch.smoke_config()
+        values = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                               device="cpu"))[0]
+        toks = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab, (B, S + SHARDED_LM_STEPS)).astype(np.int32))
+        want = serve(cfg, values, toks, one, False, False)
+        scale = max(float(w.abs().max()) for w in want)
+        atol = SHARDED_LM_MOE_ATOL if cfg.moe is not None else SHARDED_LM_REL * scale
+        res = {"largest_abs_logit": scale, "atol": atol}
+        for sp in (False, True):
+            got = serve(cfg, values, toks, rules, True, sp)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(err <= atol, f"18c {aid} {'sp' if sp else 'plain'}: sharded logits off the "
+                  f"whole step's by {err}, past {atol}")
+            res["max_abs_err_sp" if sp else "max_abs_err"] = err
+        return res
+
+    for aid in ("qwen3-moe-30b-a3b", "mixtral-8x22b", "h2o-danube-3-4b", "gemma-2b", "yi-6b"):
+        res, counts = run_path(f"sharded_lm_smoke_{aid}", lambda aid=aid: one_arch(aid))
+        out[aid] = res
+        for name, count in counts.items():
+            out["launches"][name] = out["launches"].get(name, 0) + count
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -5127,6 +5523,22 @@ def main() -> int:
         check(sharded_launches.get(name, 0) > 0,
               f"phase 17 never launched {name}: {sharded_launches}")
 
+    # 18. The language models' serve steps sharded over a mesh of the card:
+    # 18a-b ran inside phase 15 on its drawn params; 18c, the five at smoke
+    # size on a (2, 2) mesh against their whole steps.
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm18 = lm["phase18"]
+    lm18["smoke"] = phase_sharded_lm_smoke(torch, dev, run_path)
+    say("sharded_lm_smoke", lm18["smoke"])
+    lm18_launches = dict(lm18["launches"])
+    for name, count in lm18["smoke"]["launches"].items():
+        lm18_launches[name] = lm18_launches.get(name, 0) + count
+    check(lm18_launches.get("stream_topk", 0) > 0,
+          f"phase 18 never launched stream_topk: {lm18_launches}")
+    say("sharded_lm_phase", {"seconds": lm18["qwen3"]["seconds"] + lm18["h2o"]["seconds"]
+                             + lm18["smoke"]["seconds"], "launches": lm18_launches})
+
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     rs, iv = ts["int8"]["rescore"], ivf["float32"]["ivf_scan_batch_1024"]
     fused_variants = {
@@ -5195,7 +5607,13 @@ def main() -> int:
              key: cum["sqeuclidean"]["stream_topk"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                  "shape")},
-             "moe_router": {**lm["router"], "launches": lm_launches.get("stream_topk", 0)}}},
+             "moe_router": {**lm["router"], "launches": lm_launches.get("stream_topk", 0)},
+             "moe_router_per_position": {
+                 "launches": lm18_launches.get("stream_topk", 0),
+                 "held_against_plain": lm18["qwen3"]["router_launches_held"],
+                 "shape": "18a: qwen3-moe-30b-a3b's router on each of 4 positions of a (1, 4) "
+                          "mesh, [8192, 128] a position at the prefill (the batch whole on "
+                          "each) and [2, 128] at a decode step, k 8"}}},
         {"name": "rescore_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rescore.cu",
          "replaces": "src/repro/kernels/rescore.py:65", "launches": launches["rescore_topk"],
@@ -5263,6 +5681,7 @@ def main() -> int:
         entry["launches_phase14"] = loop_launches.get(entry["name"], 0)
         entry["launches_phase15"] = lm_launches.get(entry["name"], 0)
         entry["launches_phase17"] = sharded_launches.get(entry["name"], 0)
+        entry["launches_phase18"] = lm18_launches.get(entry["name"], 0)
     say("wall", {"seconds": time.perf_counter() - t_start})
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -137,8 +137,12 @@ class LMArch:
               step_config=None, variant: str | None = None):
         """``(fn, args)`` for one cell, ``args`` as meta tensors.  ``variant``:
         decode cells take ``"sp"`` (the sequence-parallel cache, the
-        flash-decoding merge) or None (the cache's sequence whole)."""
+        flash-decoding merge) or None (the cache's sequence whole).  The
+        prefill and decode cells' values and cache are cut over ``rules``'
+        mesh where it has more than one position (``sharding.shard_tree``),
+        so their steps run sharded; a train cell runs whole."""
         from repro_torch.distributed import steps as ST
+        from repro_torch.distributed.sharding import cache_shardings, shard_tree
         from repro_torch.models.nn import split_params
 
         cfg = self.smoke_config() if smoke else self.full_config()
@@ -155,15 +159,21 @@ class LMArch:
             _, jitted, _, optimizer = ST.make_train_step(loss, abstract, rules, baxes, sc)
             batch = {"tokens": specs["tokens"], "labels": specs["labels"]}
             return jitted(batch), (ST.init_state(optimizer, values), batch)
+        # A serve cell's values and cache are cut over the mesh (their rule
+        # table's specs, ``sharding.cache_shardings``) where it has more
+        # than one position, so its step runs sharded.
+        sharded = len(rules.mesh.devices) > 1
+        sp = cell.kind == "decode" and variant == "sp"
+        cache = specs["cache"]
+        if sharded:
+            values = shard_tree(values, ST.param_shardings(rules, abstract)[0])
+            cache = shard_tree(cache, cache_shardings(rules, cache, sp))
         if cell.kind == "prefill":
             _, shard_for, _ = ST.make_lm_prefill_step(cfg, rules, abstract)
-            return (shard_for(specs["tokens"], specs["cache"]),
-                    (values, specs["tokens"], specs["cache"]))
+            return shard_for(specs["tokens"], cache), (values, specs["tokens"], cache)
         if cell.kind == "decode":
-            _, shard_for, _ = ST.make_lm_decode_step(cfg, rules, abstract,
-                                                     seq_parallel=(variant == "sp"))
-            return (shard_for(specs["cache"], specs["tokens"]),
-                    (values, specs["cache"], specs["tokens"]))
+            _, shard_for, _ = ST.make_lm_decode_step(cfg, rules, abstract, seq_parallel=sp)
+            return shard_for(cache, specs["tokens"]), (values, cache, specs["tokens"])
         raise KeyError(cell.kind)
 
     def _smoke_specs(self, cell: Cell, cfg) -> dict:

@@ -21,8 +21,12 @@ recommender's train and serve steps (``distributed.steps``) run one body a
 position over the parts (``distributed.spmd``).
 
 ``constrain`` is the identity, checking the annotation's rank: a body runs
-on each position's own shards, as the reference clears its rules inside
-``shard_map``, and a whole step keeps its tensors whole on their device.
+on each position's own shards, and the models move data between positions
+themselves where a split dimension meets a whole one (``spmd``'s
+collectives at the reference's ``constrain`` points: ``models.recsys``,
+``models.transformer``, ``models.moe``); a whole step keeps its tensors
+whole on their device.  ``cache_shardings`` cuts a language model's KV
+cache as the reference's serve steps do.
 """
 from __future__ import annotations
 
@@ -272,6 +276,20 @@ def spec_tree_for_params(rules: AxisRules, params):
         return rules.sharding(p if isinstance(p, tuple) else (None,))
 
     return tree_map(one, params, is_leaf=lambda x: is_param(x) or isinstance(x, tuple))
+
+
+def cache_shardings(rules: AxisRules, cache, seq_parallel: bool = False):
+    """A KV cache's ``Sharding`` of each leaf, a tree of ``cache``'s type:
+    the reference's ``cache_spec`` (``repro/distributed/steps.py``), ``k``
+    and ``v`` [L, B, C, Hkv, D] by ``(None, "batch", "seq", "kv_heads",
+    None)``, ``"kv_seq"`` in place of ``"seq"`` with ``seq_parallel``, and
+    ``pos`` [B] by ``("batch",)``; an axis that does not divide falls back
+    to whole, and a mesh axis claimed twice to whole for the later claim
+    (``AxisRules.spec``)."""
+    kv = (None, "batch", "kv_seq" if seq_parallel else "seq", "kv_heads", None)
+    return type(cache)(rules.sharding(kv, tuple(cache.k.shape)),
+                       rules.sharding(kv, tuple(cache.v.shape)),
+                       rules.sharding(("batch",), tuple(cache.pos.shape)))
 
 
 def make_rules(mesh) -> AxisRules:

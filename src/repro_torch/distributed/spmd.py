@@ -21,6 +21,18 @@ part on its position).  A ``Local`` answers ``shape``, ``dtype`` and
 of one shape, and code that needs a position's own values (its rows of a
 table, its block of the batch) loops over ``parts`` itself.
 
+Tracing.  On a mesh whose positions are all on the meta device (the dry
+run, ``launch.dryrun``), a body opened with ``symmetric=True`` runs one
+program for all positions: each op, ``per_position`` function and kernel
+call runs on position 0's operands once, its result standing for every
+position's, and each collective runs over the group of position 0 once,
+its results standing for every group's.  ``weight()`` is how many
+positions' (or groups') work the running op stands for; the dry run's
+tracer counts each op and each new storage that many times, so a step
+over 256 positions traces in the time of one.  The positions must run
+one program on parts of one shape, and the body must take no gradient
+(autograd's backward runs outside the ops a body sees).
+
 Gradients.  A body's loss is a ``Local``: each position's share of the
 step's one loss (``distributed.steps``: the mean over its block of the
 batch, which the positions that differ only along the model axes compute
@@ -45,14 +57,21 @@ _LOCAL = threading.local()
 
 
 class _Body:
-    __slots__ = ("mesh", "batch_axes", "caller")
+    __slots__ = ("mesh", "batch_axes", "caller", "symmetric")
 
-    def __init__(self, mesh, batch_axes):
+    def __init__(self, mesh, batch_axes, symmetric=False):
         self.mesh, self.batch_axes = mesh, tuple(batch_axes)
+        self.symmetric = symmetric and all(d.type == "meta" for d in mesh.devices)
         # The caller's stream on each card: a plain tensor made during the
         # body (a factory's result, an index) is queued there.
-        self.caller = {d: torch.cuda.current_stream(d) for d in set(mesh.devices)
+        self.caller = {_card(d): torch.cuda.current_stream(d) for d in set(mesh.devices)
                        if d.type == "cuda"}
+
+
+def _card(d: torch.device) -> torch.device:
+    """A CUDA device with its index (``cuda`` is the current card), as a
+    tensor's ``device`` names it."""
+    return d if d.index is not None else torch.device("cuda", torch.cuda.current_device())
 
 
 def current() -> _Body | None:
@@ -61,16 +80,49 @@ def current() -> _Body | None:
 
 
 @contextlib.contextmanager
-def body(mesh, batch_axes=()):
+def body(mesh, batch_axes=(), *, symmetric: bool = False):
     """Run the block as a body over ``mesh``'s positions; ``batch_axes``
-    are the mesh axes the batch rows are split over (() whole)."""
+    are the mesh axes the batch rows are split over (() whole).
+    ``symmetric``: on a mesh of meta positions, trace one program for all
+    (module docstring)."""
     prev = current()
-    _LOCAL.body = _Body(mesh, batch_axes)
+    _LOCAL.body = _Body(mesh, batch_axes, symmetric)
     try:
         with mesh.scope():
             yield _LOCAL.body
     finally:
         _LOCAL.body = prev
+
+
+def weight() -> int:
+    """How many positions' (or groups') work the running op stands for
+    (module docstring): 1 but inside a symmetric body's op."""
+    return getattr(_LOCAL, "weight", 1)
+
+
+@contextlib.contextmanager
+def _weighted(n: int):
+    prev = weight()
+    _LOCAL.weight = n
+    try:
+        yield
+    finally:
+        _LOCAL.weight = prev
+
+
+def _symmetric(fn, P: int):
+    """``fn()`` once, standing for ``P`` positions: its ops weighted ``P``,
+    its kernels' shape calls (``kernels._backend.shape_call``) recorded
+    ``P`` times."""
+    from repro_torch.kernels import _backend as KB
+
+    logs = getattr(KB._SHAPES, "logs", ())
+    marks = [len(log) for log in logs]
+    with _weighted(P):
+        out = fn()
+    for log, n in zip(logs, marks):
+        log.extend(log[n:] * (P - 1))
+    return out
 
 
 def batch_axes() -> tuple[str, ...]:
@@ -93,7 +145,7 @@ def plain(t: torch.Tensor, p: int, mesh) -> torch.Tensor:
     s = mesh.streams[p]
     if s is not None and t.is_cuda:
         b = current()
-        caller = None if b is None else b.caller.get(t.device)
+        caller = None if b is None else b.caller.get(_card(t.device))
         if caller is not None and caller != s:
             s.wait_stream(caller)
             t.record_stream(s)
@@ -116,6 +168,23 @@ def _pick(x, p: int, mesh):
     return x
 
 
+def _spread(x, mesh, P: int) -> list:
+    """``[_pick(x, p, mesh) for p in range(P)]``, walking ``x`` once."""
+    if type(x) is Local:
+        return x.parts
+    if isinstance(x, torch.Tensor):
+        return [plain(x, p, mesh) for p in range(P)]
+    if isinstance(x, (list, tuple)) and not isinstance(x, torch.Size):
+        cols = [_spread(y, mesh, P) for y in x]
+        return [type(x)(c[p] for c in cols) for p in range(P)]
+    if isinstance(x, dict):
+        cols = {k: _spread(v, mesh, P) for k, v in x.items()}
+        return [{k: c[p] for k, c in cols.items()} for p in range(P)]
+    if isinstance(x, torch.device):
+        return [_pick(x, p, mesh) for p in range(P)]
+    return [x] * P
+
+
 def _wrap(outs: list):
     o = outs[0]
     if isinstance(o, torch.Tensor):
@@ -129,10 +198,16 @@ def _wrap(outs: list):
 
 def _apply(func, args, kwargs):
     mesh = _mesh()
+    P = len(mesh.devices)
+    if current().symmetric:
+        out = _symmetric(lambda: func(*_pick(args, 0, mesh), **_pick(kwargs, 0, mesh)), P)
+        return _wrap([out] * P)
+    cols = [_spread(a, mesh, P) for a in args]
+    kcols = {k: _spread(v, mesh, P) for k, v in kwargs.items()}
     outs = []
-    for p in range(len(mesh.devices)):
+    for p in range(P):
         with mesh.on(p):
-            outs.append(func(*_pick(args, p, mesh), **_pick(kwargs, p, mesh)))
+            outs.append(func(*[c[p] for c in cols], **{k: c[p] for k, c in kcols.items()}))
     return _wrap(outs)
 
 
@@ -190,14 +265,86 @@ for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__
     setattr(Local, _name, _dunder(_name))
 
 
-def per_position(fn) -> Local:
-    """``Local([fn(p) for each position p])``, each under ``Mesh.on(p)``."""
+def per_position(fn):
+    """``Local([fn(p) for each position p])``, each under ``Mesh.on(p)`` (a
+    tuple of results a tuple of ``Local`` values)."""
     mesh = _mesh()
+    if current().symmetric:
+        return _wrap([_symmetric(lambda: fn(0), len(mesh.devices))] * len(mesh.devices))
     outs = []
     for p in range(len(mesh.devices)):
         with mesh.on(p):
             outs.append(fn(p))
-    return Local(outs)
+    return _wrap(outs)
+
+
+def part(x, p: int):
+    """Position ``p``'s tensor of ``x``: a ``Local``'s part, or a plain
+    tensor as the position reads it (``plain``)."""
+    return x.parts[p] if isinstance(x, Local) else plain(x, p, _mesh())
+
+
+def call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` for a function that ``Local.__torch_function__``
+    never sees (a kernel wrapper: a ctypes launch, not a torch op): inside
+    a body, with a ``Local`` among the arguments, once a position, on that
+    position's device and stream (``Mesh.on``), each ``Local`` its part and
+    a plain tensor as the position reads it (``plain``); the results as
+    ``Local`` values.  Elsewhere, ``fn`` itself."""
+    if current() is None or not any(isinstance(a, Local) for a in (*args, *kwargs.values())):
+        return fn(*args, **kwargs)
+    return _apply(fn, args, kwargs)
+
+
+def index_first(x, i: int):
+    """``x[i]`` along dimension 0; a parameter block keeps its ``Sharding``
+    (the spec past its first entry), so a layer of a stacked leaf still
+    answers ``split_axes``."""
+    if isinstance(x, Local):
+        sh = x.sharding
+        return Local([t[i] for t in x.parts],
+                     None if sh is None else sh._replace(spec=tuple(sh.spec[1:])))
+    return x[i]
+
+
+def gather_fsdp(x):
+    """A parameter block whole along each dimension split over the mesh
+    axes of the rule table's ``"fsdp"`` (``sharding.axis_rules``), by
+    ``all_gather`` over that dimension's axes, its ``Sharding`` saying so;
+    a tree of them leaf by leaf, anything else as it is.  The FSDP gather
+    of a layer's leaves: the result is the caller's to drop once used.
+    The identity outside a body."""
+    from repro_torch.distributed.sharding import current_rules
+
+    rules = current_rules()
+    if current() is None or rules is None:
+        return x
+    return _gather_dims(x, tuple(rules.rules.get("fsdp", ())))
+
+
+def _gather_dims(x, axes):
+    if isinstance(x, dict):
+        return {k: _gather_dims(v, axes) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not isinstance(x, torch.Size):
+        return type(x)(_gather_dims(v, axes) for v in x)
+    if not isinstance(x, Local) or x.sharding is None or not axes:
+        return x
+    sh, spec = x.sharding, list(x.sharding.spec)
+    for d in range(len(spec)):
+        dim_axes = sh.dim_axes(d)
+        if dim_axes and set(dim_axes) <= set(axes):
+            x = all_gather(x, d, dim_axes)
+            spec[d] = None
+    return Local(x.parts, sh._replace(spec=tuple(spec)))
+
+
+def narrow_along(x, dim: int, axes, size: int):
+    """Each position's block of ``size`` along ``dim`` of ``x`` (whole along
+    ``dim`` on every position): its index along ``axes`` times ``size``."""
+    if not axes:
+        return x
+    mesh = _mesh()
+    return per_position(lambda p: part(x, p).narrow(dim, mesh.index_along(p, axes) * size, size))
 
 
 def split_axes(w, dim: int) -> tuple[str, ...]:
@@ -211,7 +358,15 @@ def split_axes(w, dim: int) -> tuple[str, ...]:
 def _collective(fn, x: Local, axes, *args) -> Local:
     mesh = _mesh()
     out = [None] * len(x.parts)
-    for group in mesh.groups(axes):
+    groups = mesh.groups(axes)
+    if current().symmetric:  # the first group's, standing for every group's
+        with _weighted(len(groups)):
+            got = fn(mesh, groups[0], [x.parts[q] for q in groups[0]], *args)
+        for group in groups:
+            for p, t in zip(group, got):
+                out[p] = t
+        return Local(out)
+    for group in groups:
         for p, t in zip(group, fn(mesh, group, [x.parts[q] for q in group], *args)):
             out[p] = t
     return Local(out)

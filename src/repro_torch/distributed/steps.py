@@ -23,7 +23,10 @@ logical axes, one at a time) runs sharded over the rules' mesh, a body a positio
 ``"batch"`` dimension (``recsys_loss``'s batch axes, ``batch_axes`` here),
 each position computes on its own blocks, and the model moves data between
 positions where a split dimension meets a whole one (``models.recsys``).
-The serve steps take sharded values alike and return whole results.
+The serve steps take sharded values alike and return whole results: the
+recommender's (``sharded_rows``) and the language models' prefill and
+decode (``sharded_serve``: a ``Sharded`` KV cache, cut by
+``sharding.cache_shardings``, written in place on its positions).
 
 Gradients.  Every leaf whose logical axes hold ``"table"`` is an embedding
 table; the forward sees it as a ``models.recsys.RowTap``, so its gradient
@@ -511,24 +514,63 @@ def recsys_loss(arch: str, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _body_cache(cache):
+    """A ``Sharded`` KV cache as a body sees it: each leaf a ``Local`` of its
+    parts (written in place) with its ``Sharding``."""
+    return type(cache)(*(spmd.Local(s.parts, s.sharding) for s in cache))
+
+
+def sharded_serve(fn, values, cache, tokens, rules: AxisRules):
+    """``fn(values, cache, tokens) -> (logits [B, V], cache)`` (a prefill or
+    a decode step of ``models.transformer``) as a body over the rules'
+    mesh on ``Sharded`` values and a ``Sharded`` cache
+    (``sharding.cache_shardings``): the tokens' rows cut as the cache's
+    batch, each position on its blocks of the params and of the cache,
+    the cache's parts written in place; the whole logits on position 0."""
+    mesh = rules.mesh
+    axes = cache.k.sharding.dim_axes(1)
+    t = tokens if isinstance(tokens, torch.Tensor) else torch.as_tensor(tokens)
+    ts = rules.sharding(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
+    if ts.dim_axes(0) != axes:
+        raise ValueError(f"tokens {tuple(t.shape)} split over {ts.dim_axes(0)}, the cache's "
+                         f"batch over {axes}")
+    with torch.no_grad(), spmd.body(mesh, axes, symmetric=True), axis_rules(rules):
+        local = _local_batch({"tokens": t}, {"tokens": ts}, mesh)["tokens"]
+        logits, _ = fn(_body_values(values), _body_cache(cache), local)
+        return _gather_rows(logits, axes, mesh), cache
+
+
 def make_lm_decode_step(cfg, rules: AxisRules, abstract_params, seq_parallel: bool = False):
     """One-token decode against a (ring) KV cache: the decode_* cells.
 
     Returns ``(step, shardings_for, param_shardings)``;
     ``step(values, cache, tokens) -> (logits [B, V], cache)`` writes the
     cache in place (``models.transformer.decode_step``), and
-    ``shardings_for(cache, tokens)`` returns the step for that cache: with
-    ``seq_parallel`` the flash-decoding one, else ``step`` itself.
+    ``shardings_for(cache, tokens)`` returns the step for that cache.
 
-    ``seq_parallel=True``: each "model" position of ``rules.mesh`` takes a
-    range of the cache's slots (C / model of them; C must divide), the
-    batch rows split over the DP axes ("pod", "data") where the batch
-    divides, as the reference's ``bspec``.  Each position runs
-    ``flash_mlo`` over its slots (``cache_positions_range`` with its
-    offset), and the partial (m, l, o) merge exactly as the reference's
-    ``pmax`` then two ``psum``s: copied (``Mesh.copy``) to the group's
-    first position, there the max of ``m``, ``l`` and ``o`` rescaled and
-    summed (``attention.mlo_merge``), then normalized.
+    Sharded: ``values`` by ``param_shardings`` and ``cache`` by
+    ``sharding.cache_shardings(rules, cache, seq_parallel)`` (``Sharded``
+    leaves, ``sharding.shard_tree``; the cache's cut, not the flag, decides
+    where its slots lie), the step runs as a body over the rules' mesh
+    (``sharded_serve``): each position holds its blocks of the
+    params (heads, KV heads, FFN columns, experts and vocabulary over
+    "model", ``"fsdp"`` dimensions over the data axes, gathered a layer at
+    a time) and of the cache (its batch rows over the data axes, its KV
+    heads over "model"; with ``seq_parallel`` its range of the slots over
+    "model" instead, resident there: each position writes the new token
+    where its slot lies in its range and runs ``flash_mlo`` over its own
+    slots, and the (m, l, o) merge exactly, ``attention.mlo_merge``, as the
+    reference's ``pmax`` and two ``psum``s).  The logits come back whole
+    on the first position.
+
+    Whole (tensors on one device): the step of the port's whole model;
+    with ``seq_parallel`` each "model" position of ``rules.mesh`` takes a
+    range of the caller's cache's slots (C / model of them; C must
+    divide), the batch rows split over the DP axes ("pod", "data") where
+    the batch divides, as the reference's ``bspec``, runs ``flash_mlo``
+    over them (``cache_positions_range`` with its offset), and the partial
+    (m, l, o) are copied (``Mesh.copy``) to the group's first position and
+    merged there (``attention.mlo_merge``), then normalized.
     """
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as Tr
@@ -540,11 +582,7 @@ def make_lm_decode_step(cfg, rules: AxisRules, abstract_params, seq_parallel: bo
         dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
         n_dp = math.prod(mesh.shape[a] for a in dp)
         split = bool(dp) and batch % n_dp == 0
-        n_model = mesh.shape["model"]
-        if capacity % n_model:
-            raise ValueError(f"a cache of {capacity} slots does not split over {n_model} "
-                             "'model' positions")
-        c_loc = capacity // n_model
+        c_loc = capacity // mesh.shape["model"]
         groups = mesh.groups("model")
         blocks = [mesh.index_along(g[0], dp) if split else 0 for g in groups]
         first = [blocks.index(b) == j for j, b in enumerate(blocks)]
@@ -580,15 +618,25 @@ def make_lm_decode_step(cfg, rules: AxisRules, abstract_params, seq_parallel: bo
 
         return body
 
+    def decode(values, cache, tokens):
+        return Tr.decode_step(values, cache, tokens, cfg)
+
     def step_with(attn_fn):
         def step(values, cache, tokens):
+            if isinstance(cache.k, Sharded):
+                return sharded_serve(decode, values, cache, tokens, rules)
             with axis_rules(rules):
                 return Tr.decode_step(values, cache, tokens, cfg, attn_fn=attn_fn)
         step.attn_fn = attn_fn  # the step's attention override (None: the plain step)
         return step
 
     def shardings_for(cache_example, tokens_example):
-        if not seq_parallel:
+        if seq_parallel:
+            n_model = mesh.shape["model"]
+            if cache_example.k.shape[2] % n_model:
+                raise ValueError(f"a cache of {cache_example.k.shape[2]} slots does not split "
+                                 f"over {n_model} 'model' positions")
+        if not seq_parallel or isinstance(cache_example.k, Sharded):
             return step_with(None)
         return step_with(make_sp_attn(cache_example.k.shape[1], cache_example.k.shape[2]))
 
@@ -598,12 +646,20 @@ def make_lm_decode_step(cfg, rules: AxisRules, abstract_params, seq_parallel: bo
 def make_lm_prefill_step(cfg, rules: AxisRules, abstract_params):
     """Full-prompt prefill: the prefill_* cells.  ``step(values, tokens,
     cache) -> (last-token logits, cache)``, the cache filled in place;
-    ``shardings_for(tokens, cache)`` returns it."""
+    ``shardings_for(tokens, cache)`` returns it.  Sharded values and a
+    ``Sharded`` cache run it as a body (``sharded_serve``), the prompts'
+    rows cut as the cache's batch, each position filling its parts of the
+    cache (either of ``make_lm_decode_step``'s cuts)."""
     from repro_torch.models import transformer as Tr
 
     p_shard, _ = param_shardings(rules, abstract_params)
 
+    def prefill(values, cache, tokens):
+        return Tr.prefill(values, tokens, cfg, cache)
+
     def step(values, tokens, cache):
+        if isinstance(cache.k, Sharded):
+            return sharded_serve(prefill, values, cache, tokens, rules)
         with axis_rules(rules):
             return Tr.prefill(values, tokens, cfg, cache)
 

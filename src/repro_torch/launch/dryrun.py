@@ -17,8 +17,9 @@ For each cell this shows, without a card:
   * its work: FLOPs, bytes, transcendentals, kernel calls, ops;
   * its memory: the arguments per device, the live bytes of the whole
     step; and the collective bytes of the cells that move data between
-    positions (the kNN cells, and the recommender's cells, whose steps run
-    sharded over the mesh: ``distributed.steps``).
+    positions (the kNN cells, and the recommender's cells and the language
+    models' prefill and decode cells, whose steps run sharded over the
+    mesh: ``distributed.steps``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
@@ -47,17 +48,21 @@ port's meaning differs, the key is its own:
   * ``peak_memory_in_bytes_unsharded``: the most bytes live at once while
     the step ran, the arguments included, each storage counted once across
     its views and released when freed (an in-place write allocates
-    nothing), over every position of the mesh.  The port runs an LM or GNN
-    step whole on one device, so there it is not the reference's per-device
-    ``peak_memory_in_bytes``; a recommender's cell runs sharded, and its
-    record adds ``peak_memory_in_bytes``, that peak over the positions (the
-    positions run one program, so it is each one's mean);
+    nothing), over every position of the mesh.  The port runs an LM train
+    step or a GNN step whole on one device, so there it is not the
+    reference's per-device ``peak_memory_in_bytes``; a recommender's cell
+    and an LM prefill or decode cell run sharded, and their records add
+    ``peak_memory_in_bytes``, that peak over the positions (the positions
+    run one program, so it is each one's mean).  An LM serve step traces
+    one position's program for all (``spmd``'s symmetric bodies: each op
+    and each new storage counted once for every position it stands for),
+    so its positions' transients count as if they ran at once;
   * ``trace_s``, ``kernel_calls`` (calls by kernel) and ``op_counts``
     (calls by ATen op) are the port's alone.
 
-The kNN and recommender cells move data between positions
-(``core.distributed``'s collectives); the LM and GNN cells' records say
-``"collectives": "not modelled: ..."``.  The port's loops are Python loops, so every trip is
+The kNN, recommender and LM serve cells move data between positions
+(``core.distributed``'s collectives); the LM train and GNN cells' records
+say ``"collectives": "not modelled: ..."``.  The port's loops are Python loops, so every trip is
 counted with or without ``--unroll``, which only sets ``unrolled``.
 """
 from __future__ import annotations
@@ -75,6 +80,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import Sharded
 from repro_torch.kernels._backend import nbytes, shape_calls
 from repro_torch.launch import hlo_stats
@@ -92,7 +98,8 @@ TRANSCENDENTAL = frozenset({
 ALLOCATORS = frozenset({"aten.empty", "aten.empty_like", "aten.empty_strided",
                         "aten.new_empty", "aten.new_empty_strided"})
 NOT_MODELLED = ("not modelled: the port runs this step whole on one device "
-                "(only the recommender's steps run sharded: distributed/steps.py)")
+                "(the recommender's steps and the language models' prefill and decode "
+                "run sharded: distributed/steps.py)")
 
 
 def _tensors(tree, every_part: bool = False) -> list:
@@ -170,12 +177,14 @@ class Tracer(TorchDispatchMode):
         self._functional: dict = {}
 
     def track(self, t: torch.Tensor) -> None:
-        """Count ``t``'s storage as live until it is freed (once across views)."""
+        """Count ``t``'s storage as live until it is freed (once across views;
+        inside a symmetric body's op, once for each position it stands
+        for: ``spmd.weight``)."""
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:
             return
-        n = st.nbytes()
+        n = st.nbytes() * spmd.weight()
         self._storages[key] = (n, weakref.ref(st, lambda _, key=key: self._release(key)))
         self.live += n
         if self.live > self.peak:
@@ -253,10 +262,11 @@ class Tracer(TorchDispatchMode):
 
     def _note(self, counts) -> None:
         name, flops, moved, trans = counts
-        self.op_counts[name] = self.op_counts.get(name, 0) + 1
-        self.flops += flops
-        self.bytes_accessed += moved
-        self.transcendentals += trans
+        w = spmd.weight()
+        self.op_counts[name] = self.op_counts.get(name, 0) + w
+        self.flops += flops * w
+        self.bytes_accessed += moved * w
+        self.transcendentals += trans * w
 
     def _count(self, func, args, kwargs, out) -> tuple:
         """(op name, FLOPs, bytes, transcendentals) of one call."""
@@ -436,7 +446,8 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool, *, variant: str | None =
         rec.update(trace_step(fn, args, rules, _arg_axes(arch, cell, cfg, shape, smoke, variant)))
     finally:
         accounting.set_unroll(prev)
-    if arch.family not in ("knn", "recsys"):
+    if arch.family not in ("knn", "recsys") and not (arch.family == "lm"
+                                                      and cell.kind in ("prefill", "decode")):
         rec["collectives"] = NOT_MODELLED
     rec["status"] = "ok"
     return rec

@@ -24,6 +24,15 @@ key's ``alpha = exp(m_old - m_new) = 0`` wipes out.
 The caches are written in place (``cache_update_layer``): a step of the
 reference returns a new cache and donates the old one, which a PyTorch
 caller cannot do without holding both.  ``KVCache.clone`` copies one.
+
+In a body (``distributed.spmd``) a cache's parts are ``Local`` values
+carrying their ``Sharding`` (``distributed.sharding.cache_shardings``),
+written in place on their positions: ``cache_write_prompt`` and
+``cache_update_slots`` where the slots are split, ``kv_for_queries`` where
+the query heads are split and the KV heads are not (a position reads the
+KV heads of its own groups), and ``decode_attention_body`` for one decode
+step over a position's heads and slots, merged over the slots' positions
+by ``mlo_merge``.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.models.nn import require_exact_products
 
 Tensor = torch.Tensor
@@ -239,6 +249,134 @@ def cache_update_layer(
     cache_k[bidx, idx] = k_new.to(cache_k.dtype)
     cache_v[bidx, idx] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def cache_write_prompt(cache_k, cache_v, k: Tensor, v: Tensor) -> None:
+    """Write a prompt's keys and values [B, S, Hkv, D] into one layer's cache
+    [B, C, Hkv, D] in place: the last C positions, ring-aligned so that slot
+    s holds absolute position p with p % C == s, the slots past a shorter
+    prompt zeroed.  In a body whose cache has its slots split
+    (``cache_shardings``: ``"kv_seq"``, or ``"seq"`` where the batch does
+    not split), each position writes its own range of the ring."""
+    S = k.shape[1]
+    c_loc = cache_k.shape[1]
+    axes = spmd.split_axes(cache_k, 1)
+    C = c_loc * _size(axes)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        if S >= C:
+            ring = torch.roll(new[:, S - C:], (S - C) % C, dims=1)
+        else:
+            ring = torch.nn.functional.pad(new, (0, 0, 0, 0, 0, C - S))
+        cache.copy_(spmd.narrow_along(ring, 1, axes, c_loc))
+
+
+def _size(axes) -> int:
+    """How many positions the mesh axes ``axes`` span (1 for none)."""
+    if not axes:
+        return 1
+    mesh = spmd.current().mesh
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def cache_update_slots(cache_k, cache_v, k_new, v_new, pos) -> None:
+    """``cache_update_layer`` of one new token a row in a body whose cache
+    has its slots split: each position writes ring slot pos % C where it
+    lies in its own range, and leaves its slots as they are elsewhere (a
+    read and a write of the same slot, no host sync)."""
+    axes = spmd.split_axes(cache_k, 1)
+    B, c_loc = cache_k.shape[:2]
+    C = c_loc * _size(axes)
+    mesh = spmd.current().mesh
+
+    def one(p):
+        ck, cv = cache_k.parts[p], cache_v.parts[p]
+        local = spmd.part(pos, p).long() % C - mesh.index_along(p, axes) * c_loc
+        ok = ((local >= 0) & (local < c_loc))[:, None, None]
+        li = local.clamp(0, c_loc - 1)
+        rows = torch.arange(B, device=ck.device)
+        for cache, new in ((ck, spmd.part(k_new, p)), (cv, spmd.part(v_new, p))):
+            cache[rows, li] = torch.where(ok, new[:, 0].to(cache.dtype), cache[rows, li])
+        return ck
+
+    spmd.per_position(one)
+
+
+def kv_for_queries(k, n_q: int, q_axes, kv_axes):
+    """Keys (or values) [B, S, Hkv, D] as a body's own query heads meet
+    them: ``k`` itself where the query and KV heads are split alike (or
+    both whole); where only the query heads are split (the KV heads do not
+    divide: gemma's one), each position's slice of the whole KV heads that
+    its query heads group over.  A query head j of H over G KV heads reads
+    KV head j // (H / G), so a position's heads must cover whole groups or
+    lie in one."""
+    if tuple(q_axes) == tuple(kv_axes):
+        return k
+    if kv_axes:
+        raise ValueError(f"KV heads split over {kv_axes}, query heads over {q_axes}")
+    n_kv = k.shape[2]
+    G = n_q // n_kv
+    hq = n_q // _size(q_axes)
+    if hq % G and G % hq:
+        raise ValueError(f"{hq} query heads a position do not cover whole groups of {G} "
+                         f"over {n_kv} KV heads")
+    mesh = spmd.current().mesh
+    width = max(1, hq // G)
+    return spmd.per_position(lambda p: spmd.part(k, p).narrow(
+        2, mesh.index_along(p, q_axes) * hq // G, width))
+
+
+def decode_attention_body(q, k_new, v_new, cache_k, cache_v, pos, *, n_q: int, q_axes,
+                          kv_axes, window, kv_chunk: int = 2048,
+                          logits_soft_cap: float | None = None):
+    """One decode step's cache write and attention inside a body: ``q``
+    [B, 1, Hq, D] over the position's query heads (split over ``q_axes``),
+    ``k_new``/``v_new`` over its KV heads (``kv_axes``), one layer's cache
+    parts (``Local`` values carrying their ``Sharding``).
+
+    The new keys take the cache's heads (gathered where the cache keeps
+    every head: the sequence-parallel layout) and are written in place
+    (``cache_update_layer``, or ``cache_update_slots`` where the slots are
+    split).  Where the slots are whole this is ``decode_attention_layer``
+    over the position's heads.  Where they are split, each position runs
+    ``flash_mlo`` over its own slots (the queries of every head gathered
+    when the slots are split along the query heads' axes), the (m, l, o)
+    of the positions along the slots' axes are gathered and merged
+    exactly (``mlo_merge``) on each of them, and the position keeps its
+    own heads of the result."""
+    slot_axes = spmd.split_axes(cache_k, 1)
+    head_axes = spmd.split_axes(cache_k, 2)
+    if tuple(head_axes) != tuple(kv_axes):
+        if head_axes:
+            raise ValueError(f"cache heads split over {head_axes}, KV heads over {kv_axes}")
+        k_new = spmd.all_gather(k_new, 2, kv_axes)
+        v_new = spmd.all_gather(v_new, 2, kv_axes)
+    if not slot_axes:
+        ck, cv = cache_update_layer(cache_k, cache_v, k_new, v_new, pos)
+        return decode_attention_layer(q, kv_for_queries(ck, n_q, q_axes, head_axes),
+                                      kv_for_queries(cv, n_q, q_axes, head_axes), pos,
+                                      window=window, kv_chunk=kv_chunk,
+                                      logits_soft_cap=logits_soft_cap)
+    cache_update_slots(cache_k, cache_v, k_new, v_new, pos)
+    hq = q.shape[2]
+    gather_q = bool(set(slot_axes) & set(q_axes))
+    if gather_q:
+        q_c, kc, vc = spmd.all_gather(q, 2, q_axes), cache_k, cache_v
+    else:
+        kc = kv_for_queries(cache_k, n_q, q_axes, head_axes)
+        vc = kv_for_queries(cache_v, n_q, q_axes, head_axes)
+        q_c = q
+    c_loc = cache_k.shape[1]
+    C = c_loc * _size(slot_axes)
+    mesh = spmd.current().mesh
+    k_pos, k_valid = spmd.per_position(lambda p: cache_positions_range(
+        spmd.part(pos, p) + 1, C, mesh.index_along(p, slot_axes) * c_loc, c_loc))
+    m, l, o = flash_mlo(q_c, kc, vc, q_pos=pos[:, None], k_pos=k_pos, window=window,
+                        k_valid=k_valid, kv_chunk=min(kv_chunk, c_loc),
+                        logits_soft_cap=logits_soft_cap)
+    n = _size(slot_axes)
+    ms, ls, os_ = (spmd.all_gather(t[None], 0, slot_axes) for t in (m, l, o))
+    out = mlo_normalize(*mlo_merge([(ms[i], ls[i], os_[i]) for i in range(n)]), q.dtype)
+    return spmd.narrow_along(out, 2, q_axes, hq) if gather_q else out
 
 
 def cache_positions_range(pos: Tensor, capacity: int, offset: int, length: int):

@@ -20,15 +20,37 @@ on the card), and ``y`` returns through bf16 before it takes x's dtype.
 The router's product is fp32.
 
 The reference's sharding regimes (``"ep"``: experts over "expert";
-``"tp"``: per-expert d_ff over "tensor") live on in the params' logical
-axes; the port computes every expert on the params' device.
+``"tp"``: per-expert d_ff over "tensor") live in the params' logical axes.
+A whole step computes every expert on the params' device.  In a body
+(``distributed.spmd``) ``apply_moe`` runs the regime over the mesh:
+
+  * ``"ep"``: the experts are cut over the "expert" axes and the router is
+    whole on every position, so the positions along those axes compute the
+    same routing, dispatch, combine and capacity drops as the whole step;
+    each runs only its own experts, and the partial combines are summed
+    over the expert axes in fp32 (``spmd.all_reduce``) before the bf16
+    rounding of the whole step's one combine (the reference's all-to-all
+    and back, up to the order of the fp32 sum);
+  * ``"tp"``: each expert's d_ff is cut over "tensor": the gate and up
+    products make a position's columns of h, and its rows of ``wo`` a
+    partial expert output, summed likewise in fp32 before the rounding.
+
+The routing groups are the whole step's: where the batch's rows are cut
+(``spmd.batch_axes``) and a position's tokens are whole groups of the
+whole step's, each position routes its own; otherwise (fewer tokens than
+a group a position: decode) the tokens are gathered over the batch's axes,
+every position routes the whole step's groups, and keeps its own rows.
+The router's ``stream_topk`` runs once a position, on its stream
+(``spmd.call``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops as kops
 from repro_torch.models.nn import Param, lecun_init, require_exact_products, silu
 
@@ -88,7 +110,7 @@ def route_topk(scores: Tensor, k: int) -> tuple[Tensor, Tensor]:
     ``jax.lax.top_k``'s)."""
     E = scores.shape[-1]
     with torch.no_grad():
-        _, ids = kops.stream_topk(scores.detach().reshape(-1, E), k)
+        _, ids = spmd.call(kops.stream_topk, scores.detach().reshape(-1, E), k)
     ids = ids.reshape(*scores.shape[:-1], k).long()
     return scores.gather(-1, ids), ids
 
@@ -134,13 +156,21 @@ def apply_moe(params, x: Tensor, cfg: MoEConfig, *, act=silu) -> tuple[Tensor, d
     """x: [B, S, D] -> (y [B, S, D], metrics incl. aux_loss).
 
     Tokens are flattened to routing groups of ``group_size``, so the
-    dispatch tensors stay O(T * E * C / G): the GShard grouping.
+    dispatch tensors stay O(T * E * C / G): the GShard grouping.  In a
+    body, the regimes over the mesh (module docstring); whole, every
+    expert here, the partial sums none.
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    rows_axes = spmd.batch_axes()
+    mesh = spmd.current().mesh if rows_axes else None
+    n_rows = math.prod(mesh.shape[a] for a in rows_axes) if rows_axes else 1
+    Sg = min(cfg.group_size, B * S * n_rows)
+    own = (B * S) % Sg == 0  # a position's tokens are whole groups of the whole step's
+    if not own:
+        x = spmd.all_gather(x, 0, rows_axes)
     tokens = x.reshape(-1, D)
     Tn = tokens.shape[0]
-    Sg = min(cfg.group_size, Tn)
     if Tn % Sg:
         raise ValueError(f"{Tn} tokens do not split into routing groups of {Sg}")
     G = Tn // Sg
@@ -160,24 +190,38 @@ def apply_moe(params, x: Tensor, cfg: MoEConfig, *, act=silu) -> tuple[Tensor, d
 
     gates = torch.where(keep, gates, 0.0)
     bf = torch.bfloat16
-    # Dispatch one-hot [G, Sg, E, C] (bf16: pure permutation weights); a
+    wg, wu, wo = (_v(params[n]) for n in ("wi_gate", "wi_up", "wo"))
+    e_axes, f_axes = spmd.split_axes(wg, 0), spmd.split_axes(wg, 2)
+    e_loc = wg.shape[0]  # the experts here
+    if e_axes:  # each position's experts, numbered from its first
+        mesh = spmd.current().mesh
+        ids = spmd.per_position(lambda p: spmd.part(ids, p) - mesh.index_along(p, e_axes) * e_loc)
+    # Dispatch one-hot [G, Sg, e_loc, C] (bf16: pure permutation weights); a
     # dropped choice's slot is C, past the one-hot's C columns.
     slot = torch.where(keep, pos, C)
-    disp = one_hot(ids, E, bf)[..., None] * one_hot(slot, C, bf)[:, :, :, None, :]
-    dispatch = disp.sum(2)  # [G, Sg, E, C]
+    disp = one_hot(ids, e_loc, bf)[..., None] * one_hot(slot, C, bf)[:, :, :, None, :]
+    dispatch = disp.sum(2)
     combine = (disp * gates[..., None, None].to(bf)).sum(2)
     del disp
 
-    # Expert inputs [E, G, C, D]: which token each slot holds.
+    # Expert inputs [e_loc, G, C, D]: which token each slot holds.
     xb = xg.to(bf)
     require_exact_products(xb)
-    ein = torch.einsum("gsec,gsd->egcd", dispatch, xb)
-    wg, wu, wo = (_v(params[n]).to(bf) for n in ("wi_gate", "wi_up", "wo"))
-    ein2 = ein.reshape(E, G * C, D)
-    h = act(torch.bmm(ein2, wg)) * torch.bmm(ein2, wu)  # [E, G*C, F]
-    eout = torch.bmm(h, wo).reshape(E, G, C, D)
-    y = torch.einsum("gsec,egcd->gsd", combine, eout)  # back to token layout
-    y = y.reshape(B, S, D).to(x.dtype)
+    ein = torch.einsum("gsec,gsd->egcd", dispatch, xb).reshape(e_loc, G * C, D)
+    h = act(torch.bmm(ein, wg.to(bf))) * torch.bmm(ein, wu.to(bf))  # [e_loc, G*C, F here]
+    if f_axes:  # this position's rows of wo: a partial sum, summed in fp32
+        eout = spmd.all_reduce(torch.bmm(h.float(), wo.to(bf).float()), f_axes).to(bf)
+    else:
+        eout = torch.bmm(h, wo.to(bf))
+    eout = eout.reshape(e_loc, G, C, D)
+    if e_axes:  # this position's experts' share of each token: summed in fp32
+        y = spmd.all_reduce(torch.einsum("gsec,egcd->gsd", combine.float(), eout.float()),
+                            e_axes).to(bf)
+    else:
+        y = torch.einsum("gsec,egcd->gsd", combine, eout)  # back to token layout
+    y = y.reshape(x.shape).to(x.dtype)
+    if not own:
+        y = spmd.narrow_along(y, 0, rows_axes, B)
 
     metrics = {
         "aux_loss": cfg.aux_loss_weight * aux,

@@ -21,6 +21,16 @@ architectures of the registry: llama-style GQA (yi), GQA+SWA
     full width would double it); ``KVCache.clone`` copies one for a second
     decode path.  The cache is bf16 in every config; decode reads bf16
     keys and values and casts each chunk to fp32, as the reference's.
+  * Sharded serving: in a body (``distributed.spmd``, the LM serve steps of
+    ``distributed.steps``) each position holds its blocks of the params
+    and of the cache, and the reference's ``constrain`` points are where
+    data moves: the vocabulary-cut embedding is a masked local gather
+    summed over its mesh axes (``_lookup``); ``wq``/``wk``/``wv`` make the
+    position's heads; ``wo`` and ``wff_o`` contract split rows and sum
+    (``_proj``); the logits' vocabulary blocks are gathered (``_unembed``);
+    each layer's ``fsdp`` dimensions are gathered over the data axes
+    before use (``spmd.gather_fsdp``).  Whole, each of these is the
+    identity, so a (1, 1) mesh runs the whole step's ops.
 
 Weights and activations take ``cfg.dtype``; the products are IEEE fp32 or
 bf16 with fp32 accumulation (``models.nn.require_exact_products``).
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.nn import (
@@ -193,8 +204,9 @@ def _values(params):
 
 
 def layer_params(layers, i: int):
-    """Layer ``i``'s leaves: views of the stacked [L, ...] tensors."""
-    return tree_map(lambda t: t[i], layers)
+    """Layer ``i``'s leaves: views of the stacked [L, ...] tensors (in a
+    body, each position's, keeping their ``Sharding``: ``spmd.index_first``)."""
+    return tree_map(lambda t: spmd.index_first(t, i), layers)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +220,17 @@ def _rms(x, scale, eps):
 
 def _proj(x: Tensor, w: Tensor, n_in_dims: int = 1) -> Tensor:
     """x [..., *w.shape[:n_in_dims]] contracted with w: one product in x's
-    dtype (the reference's einsum over the same axes)."""
-    w = w.to(x.dtype)
+    dtype (the reference's einsum over the same axes).  In a body, where
+    the contracted dimensions of ``w`` are split (``wo`` by heads,
+    ``wff_o`` by rows), ``x`` is split alike and the partial products are
+    summed over those mesh axes (``spmd.all_reduce``)."""
+    axes = tuple(a for d in range(n_in_dims) for a in spmd.split_axes(w, d))
+    y = _product(x, w.to(x.dtype), n_in_dims)
+    return spmd.all_reduce(y, axes)
+
+
+def _product(x: Tensor, w: Tensor, n_in_dims: int) -> Tensor:
+    """The contraction of ``_proj``, ``w`` already in x's dtype."""
     require_exact_products(x)
     if w.dim() == 2 and n_in_dims == 1:
         return x @ w  # a transposed (tied) unembedding stays a view
@@ -230,6 +251,12 @@ def _qkv(lp, x, cfg: TransformerConfig, positions):
     return q, k, v
 
 
+def _heads(lp):
+    """(the mesh axes the query heads are split over, the KV heads'): ()
+    each outside a body."""
+    return spmd.split_axes(lp["wq"], 1), spmd.split_axes(lp["wk"], 1)
+
+
 def _ffn(lp, h, cfg: TransformerConfig):
     """(y, aux) of the layer's FFN: the MoE or the dense gated MLP."""
     act = ACTS[cfg.act]
@@ -243,9 +270,13 @@ def _ffn(lp, h, cfg: TransformerConfig):
 
 def layer_forward(lp, x, positions, cfg: TransformerConfig):
     """Full-sequence layer (training / prefill).  Returns (y, aux_loss, k, v)."""
+    lp = spmd.gather_fsdp(lp)
+    q_axes, kv_axes = _heads(lp)
     h = _rms(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(lp, h, cfg, positions)
-    attn = A.gqa_attention(q, k, v, q_pos=positions, k_pos=positions, window=cfg.sliding_window,
+    attn = A.gqa_attention(q, A.kv_for_queries(k, cfg.n_heads, q_axes, kv_axes),
+                           A.kv_for_queries(v, cfg.n_heads, q_axes, kv_axes),
+                           q_pos=positions, k_pos=positions, window=cfg.sliding_window,
                            kv_chunk=cfg.kv_chunk, logits_soft_cap=cfg.logits_soft_cap)
     x = x + _proj(attn, lp["wo"], 2)
     h = _rms(x, lp["ln2"], cfg.norm_eps)
@@ -281,11 +312,38 @@ def _maybe_remat(fn, cfg: TransformerConfig):
 
 def _embed_tokens(values, tokens, cfg: TransformerConfig):
     emb = values["embed"]
-    tokens = torch.as_tensor(tokens, device=emb.device).long()
-    x = emb[tokens].to(cfg.dtype)
+    tokens = _tensor(tokens).to(device=emb.device).long()
+    x = _lookup(spmd.gather_fsdp(emb), tokens).to(cfg.dtype)
     if cfg.embed_scale:  # sqrt(d_model) in fp32, then in the model's dtype
         x = x * rounded_to(float(torch.sqrt(torch.tensor(float(cfg.d_model)))), cfg.dtype)
     return x
+
+
+def _tensor(x):
+    """``x`` as a tensor (a body's ``Local`` as it is: ``torch.as_tensor``
+    does not dispatch on it)."""
+    return x if isinstance(x, (torch.Tensor, spmd.Local)) else torch.as_tensor(x)
+
+
+def _lookup(emb, tokens):
+    """``emb[tokens]``.  In a body whose table is cut by rows (``"vocab"``),
+    the reference's masked local gather: each position gathers the tokens
+    in its block of rows, in its own numbering, zeroes the rest, and the
+    blocks' rows are summed over the rows' mesh axes (``spmd.all_reduce``;
+    one row plus zeros, bit-equal to the whole lookup), the pattern of
+    ``models.recsys._sharded_lookup``."""
+    axes = spmd.split_axes(emb, 0)
+    if not axes:
+        return emb[tokens]
+    rows = emb.shape[0]
+    mesh = spmd.current().mesh
+
+    def one(p):
+        idp = spmd.part(tokens, p) - mesh.index_along(p, axes) * rows
+        idx = idp.clamp(0, rows - 1)
+        return torch.where((idx == idp)[..., None], emb.parts[p][idx], 0.0)
+
+    return spmd.all_reduce(spmd.per_position(one), axes)
 
 
 def _unembed_weight(values, cfg: TransformerConfig):
@@ -295,10 +353,16 @@ def _unembed_weight(values, cfg: TransformerConfig):
 
 
 def _unembed(values, x, cfg: TransformerConfig):
-    logits = _proj(x, _unembed_weight(values, cfg))
+    """Logits [..., V].  In a body each position computes the logits of its
+    block of the vocabulary (``unembed``'s columns, or the tied ``embed``'s
+    rows), gathered whole over the vocabulary's mesh axes."""
+    tied = cfg.tied_embeddings
+    w = spmd.gather_fsdp(values["embed"] if tied else values["unembed"])
+    axes = spmd.split_axes(w, 0 if tied else 1)
+    logits = _proj(x, w.T if tied else w)
     if cfg.logits_soft_cap is not None:
         logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
-    return logits
+    return spmd.all_gather(logits, logits.dim() - 1, axes)
 
 
 def _positions(B: int, S: int, device) -> Tensor:
@@ -405,23 +469,16 @@ def prefill(params, tokens, cfg: TransformerConfig, cache: A.KVCache):
     values = _values(params)
     x = _embed_tokens(values, tokens, cfg)
     B, S = x.shape[:2]
-    C = cache.k.shape[2]
     positions = _positions(B, S, x.device)
     for i in range(cfg.n_layers):
-        x, _, k, v = layer_forward(layer_params(values["layers"], i), x, positions, cfg)
-        # Keep the last C positions in the (ring) cache, ring-aligned so that
-        # slot s holds absolute position p with p % C == s.
-        if S >= C:
-            start = S - C
-            shift = start % C
-            cache.k[i].copy_(torch.roll(k[:, start:], shift, dims=1))
-            cache.v[i].copy_(torch.roll(v[:, start:], shift, dims=1))
-        else:
-            cache.k[i, :, :S].copy_(k)
-            cache.v[i, :, :S].copy_(v)
-            cache.k[i, :, S:].zero_()
-            cache.v[i, :, S:].zero_()
-    x = _rms(x[:, -1:], values["final_norm"], cfg.norm_eps)
+        lp = layer_params(values["layers"], i)
+        x, _, k, v = layer_forward(lp, x, positions, cfg)
+        ck, cv = spmd.index_first(cache.k, i), spmd.index_first(cache.v, i)
+        kv_axes, head_axes = spmd.split_axes(lp["wk"], 1), spmd.split_axes(ck, 2)
+        if tuple(head_axes) != tuple(kv_axes):  # a cache that keeps every KV head
+            k, v = spmd.all_gather(k, 2, kv_axes), spmd.all_gather(v, 2, kv_axes)
+        A.cache_write_prompt(ck, cv, k, v)
+    x = _rms(x[:, -1:], spmd.gather_fsdp(values["final_norm"]), cfg.norm_eps)
     logits = _unembed(values, x, cfg)[:, 0]
     cache.pos.fill_(S)
     return logits, cache
@@ -438,24 +495,32 @@ def decode_step(params, cache: A.KVCache, tokens, cfg: TransformerConfig, attn_f
     """
     values = _values(params)
     pos = cache.pos.clone()  # [B] position being written
-    x = _embed_tokens(values, torch.as_tensor(tokens)[:, None], cfg)
+    x = _embed_tokens(values, _tensor(tokens)[:, None], cfg)
     positions = pos[:, None]
+    body = spmd.current() is not None
     for i in range(cfg.n_layers):
-        lp = layer_params(values["layers"], i)
+        lp = spmd.gather_fsdp(layer_params(values["layers"], i))
         h = _rms(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(lp, h, cfg, positions)
-        ck, cv = A.cache_update_layer(cache.k[i], cache.v[i], k, v, pos)
-        if attn_fn is not None:
-            attn = attn_fn(q, ck, cv, pos)
+        if body:
+            q_axes, kv_axes = _heads(lp)
+            attn = A.decode_attention_body(
+                q, k, v, spmd.index_first(cache.k, i), spmd.index_first(cache.v, i), pos,
+                n_q=cfg.n_heads, q_axes=q_axes, kv_axes=kv_axes, window=cfg.sliding_window,
+                kv_chunk=cfg.kv_chunk, logits_soft_cap=cfg.logits_soft_cap)
         else:
-            attn = A.decode_attention_layer(q, ck, cv, pos, window=cfg.sliding_window,
-                                            kv_chunk=cfg.kv_chunk,
-                                            logits_soft_cap=cfg.logits_soft_cap)
+            ck, cv = A.cache_update_layer(cache.k[i], cache.v[i], k, v, pos)
+            if attn_fn is not None:
+                attn = attn_fn(q, ck, cv, pos)
+            else:
+                attn = A.decode_attention_layer(q, ck, cv, pos, window=cfg.sliding_window,
+                                                kv_chunk=cfg.kv_chunk,
+                                                logits_soft_cap=cfg.logits_soft_cap)
         x = x + _proj(attn, lp["wo"], 2)
         h = _rms(x, lp["ln2"], cfg.norm_eps)
         y, _ = _ffn(lp, h, cfg)
         x = x + y
-    x = _rms(x, values["final_norm"], cfg.norm_eps)
+    x = _rms(x, spmd.gather_fsdp(values["final_norm"]), cfg.norm_eps)
     logits = _unembed(values, x, cfg)[:, 0]
     cache.pos.add_(1)
     return logits, cache

@@ -151,10 +151,20 @@ def test_cell_traces_smoke(arch_id, shape):
     assert 0 < rec["argument_size_in_bytes"] <= rec["peak_memory_in_bytes_unsharded"]
     want = KERNELS.get(f"{arch_id}/{shape}", KERNELS.get(arch_id, set()))
     assert set(rec["kernel_calls"]) == want
-    # the kNN cells and the recommender's (sharded steps) move data between positions
-    moves = REG.get(arch_id).family in ("knn", "recsys")
+    # the kNN cells, the recommender's and the language models' serve cells
+    # (sharded steps) move data between positions
+    moves = _sharded(arch_id, shape)
     assert bool(rec["collective_counts"]) == moves
     assert ("collectives" in rec) != moves
+
+
+def _sharded(arch_id, shape) -> bool:
+    """The cells whose steps run over the mesh: the kNN solvers, the
+    recommender's steps, the language models' prefill and decode."""
+    arch = REG.get(arch_id)
+    kind = {c.name: c.kind for c in arch.shapes}[shape]
+    return arch.family in ("knn", "recsys") or (arch.family == "lm"
+                                                and kind in ("prefill", "decode"))
 
 
 @pytest.mark.parametrize("arch_id,shape,reason", SKIPPED)
@@ -175,7 +185,7 @@ def test_cell_at_full_width_on_the_production_mesh(arch_id, shape):
     assert rec["devices"] == 256 and rec["mesh"] == "single" and rec["unrolled"] is False
     assert math.isfinite(rec["flops"]) and rec["flops"] > 0
     assert rec["output_size_in_bytes"] > 0 and rec["transcendentals"] > 0
-    if REG.get(arch_id).family == "recsys":  # the sharded step: collectives, a per-device peak
+    if _sharded(arch_id, shape):  # the sharded step: collectives, a per-device peak
         assert rec["collective_counts"] and "collectives" not in rec
         assert rec["argument_size_in_bytes"] < rec["peak_memory_in_bytes"]
     else:

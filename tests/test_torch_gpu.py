@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain versions,
-and the recommender's trainer on the card held against the CPU (whole,
-and sharded over a (2, 2) mesh of the card against four CPU positions).
+the recommender's trainer on the card held against the CPU (whole, and
+sharded over a (2, 2) mesh of the card against four CPU positions), and
+the language models' serve steps sharded over a (2, 2) mesh of the card
+against their whole steps.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports torch and the port only, so it runs where JAX is absent:
@@ -2165,6 +2167,100 @@ def test_sp_decode_on_four_positions_of_one_card(lm_cuda):
             lb, cb = fb(values, cb, toks[:, t])
             ls, cs = fs(values, cs, toks[:, t])
         assert float((lb - ls).abs().max()) < 2e-3
+
+
+LM_ARCHS = ["qwen3-moe-30b-a3b", "mixtral-8x22b", "h2o-danube-3-4b", "gemma-2b", "yi-6b"]
+
+
+def _sharded_serve(cfg, values, toks, rules, sharded, sp, dev):
+    """Prefill 16 tokens of ``toks`` and decode the next 4, on ``rules``' mesh
+    (``values`` and the cache cut over it) or whole; the logits on the host."""
+    from repro_torch.distributed import steps as STP
+    from repro_torch.distributed.sharding import cache_shardings, shard_tree
+    from repro_torch.models import transformer as Tr
+    from repro_torch.models.nn import tree_map
+
+    abstract = Tr.abstract_params(cfg)
+    v = tree_map(lambda t: t.to(dev, copy=True), values)
+    cache = Tr.init_cache(cfg, toks.shape[0], 20, device=dev)
+    prefill_for = STP.make_lm_prefill_step(cfg, rules, abstract)[1]
+    if sharded:
+        v = shard_tree(v, STP.param_shardings(rules, abstract)[0])
+        cache = shard_tree(cache, cache_shardings(rules, cache, sp))
+    t = toks.to(dev)
+    lg, cache = prefill_for(t[:, :16], cache)(v, t[:, :16], cache)
+    out = [lg.float().cpu()]
+    step = STP.make_lm_decode_step(cfg, rules, abstract, seq_parallel=sp)[1](cache, t[:, 16])
+    for i in range(16, 20):
+        lg, cache = step(v, cache, t[:, i])
+        out.append(lg.float().cpu())
+    return out
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_sharded_serve_steps_on_a_2x2_mesh_of_the_card(lm_cuda, arch_id):
+    """Each LM at smoke size on a (2, 2) mesh of the card (its params and
+    cache cut: heads, experts and vocabulary over "model", FSDP over "data",
+    the batch over "data"): the prefill and 4 decode steps, plain and
+    sequence-parallel, against the whole steps on the card, within 1e-4 of
+    the largest |logit| (the MoE's bf16 expert path within 5e-3, as
+    ``test_smoke_lms_serve_on_the_card_as_on_the_cpu`` holds it)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.nn import split_params
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    values = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                           device="cpu"))[0]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (4, 20)))
+    whole_rules = make_rules(make_mesh((1, 1), ("data", "model"), devices=[lm_cuda]))
+    rules = make_rules(make_mesh((2, 2), ("data", "model"), devices=[lm_cuda] * 4))
+    want = _sharded_serve(cfg, values, toks, whole_rules, False, False, lm_cuda)
+    scale = max(float(w.abs().max()) for w in want)
+    atol = 5e-3 if cfg.moe is not None else 1e-4 * scale
+    for sp in (False, True):
+        got = _sharded_serve(cfg, values, toks, rules, True, sp, lm_cuda)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "mixtral-8x22b"])
+def test_each_position_launches_the_router_on_its_stream(lm_cuda, arch_id, monkeypatch):
+    """The sharded prefill and decode on a (2, 2) mesh of the card launch
+    ``stream_topk`` once a position and a layer, each on that position's
+    stream, and every selection equals ``stream_topk_plain`` on the same
+    scores."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.nn import split_params
+
+    arch = REG.get(arch_id)
+    cfg = arch.smoke_config()
+    values = split_params(arch.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                           device="cpu"))[0]
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (4, 20)))
+    rules = make_rules(make_mesh((2, 2), ("data", "model"), devices=[lm_cuda] * 4))
+    streams = {s.cuda_stream for s in rules.mesh.streams}
+    records = []
+    orig = ST.stream_topk
+
+    def wrap(x, k, **kw):
+        got = orig(x, k, **kw)
+        records.append((x, k, got, torch.cuda.current_stream(x.device).cuda_stream))
+        return got
+
+    monkeypatch.setattr(ST, "stream_topk", wrap)
+    before = ST.LAUNCHES
+    _sharded_serve(cfg, values, toks, rules, True, False, lm_cuda)
+    torch.cuda.synchronize()
+    assert len(records) == 4 * cfg.n_layers * 5 and ST.LAUNCHES - before >= len(records)
+    assert {r[3] for r in records} == streams
+    for x, k, (v, i), _ in records:
+        pv, pi = ST.stream_topk_plain(x, k)
+        assert torch.equal(i, pi) and torch.equal(v, pv)
 
 
 def test_lm_products_refuse_tf32_and_reduced_bf16_sums(cuda):
